@@ -1,0 +1,475 @@
+"""Continuous batching over the paged-KV pool (port of the core of
+paddle_tpu/inference/continuous.py).
+
+Requests enqueue; a scheduler thread admits them FIFO whenever a running
+slot and enough pool pages are free.  Admission reserves each sequence's
+worst-case pages (prompt + max_new_tokens, plus the pad-row headroom),
+so a step can never run out of pages mid-flight, and maps any cached
+prompt prefix read-only.  Each iteration then
+
+  * prefills — whole prompts through the length-bucketed prefill (or,
+    on a prefix hit, the prefix) step when ``prefill_chunk_tokens`` is
+    None; otherwise the planned prompt chunks ride the ragged step;
+  * runs ONE ragged step for every active row (and the planned chunks),
+    through ``PagedDecoder.ragged_step``;
+  * retires finished sequences (pages freed, waiter woken).
+
+With one class and one tenant the JAX engine's weighted deficit
+round-robin admission is exactly this FIFO order.  A failed step fails
+the requests it carried — loudly: every waiter gets the error, the pages
+are reclaimed and the engine keeps serving.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..ops.paged_attention import PagedKVCache
+from .paged import PagedDecoder
+
+
+class _Request:
+    """One sequence's life in the engine."""
+
+    def __init__(self, prompt, max_new_tokens, eos_token_id, do_sample,
+                 temperature, seed):
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = eos_token_id
+        self.do_sample = bool(do_sample)
+        self.temperature = float(temperature)
+        self.seed = int(seed) & 0xFFFFFFFF
+        self.prefix_tokens = 0       # prompt tokens shared at admission
+        self.prefill_pos = 0         # prompt tokens resident in the cache
+        self._admit_plan = None      # (need, shared_tok) fit-check stash
+        self.generated: List[int] = []
+        self.next_token: Optional[int] = None   # sampled, not yet decoded
+        self.seq_id: Optional[int] = None
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.submitted_at = time.perf_counter()
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+
+    @property
+    def output_ids(self) -> np.ndarray:
+        return np.concatenate(
+            [self.prompt, np.asarray(self.generated, np.int32)])
+
+    def result(self, timeout=None) -> np.ndarray:
+        """Wait for the generation; returns prompt + generated ids, or
+        raises the error the request failed with."""
+        if not self.done.wait(timeout):
+            raise TimeoutError("generation still running")
+        if self.error is not None:
+            raise self.error
+        return self.output_ids
+
+
+class ContinuousBatchingEngine:
+    """Scheduler + ragged step loop over one shared PagedKVCache.
+
+    ``submit`` is thread-safe and non-blocking; ``generate`` is the
+    blocking batch facade.  ``sample_on_device`` keeps the sampling tail
+    on the model's device (only (batch,) ids reach the host);
+    ``prefix_cache`` keeps retired prompts' page-aligned prefix KV
+    resident (refcounted, LRU-evicted under pool pressure);
+    ``prefill_chunk_tokens`` caps the prompt tokens one iteration
+    ingests, so long prompts interleave with decode.  ``device`` is where
+    the model lives; the engine's steps run on PyTorch's current stream
+    there, from the scheduler thread."""
+
+    def __init__(self, model, total_pages: int = 512, page_size: int = 16,
+                 max_batch: int = 8, sample_on_device: bool = True,
+                 prefix_cache: bool = True,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        weight = model.model.embed_tokens.weight
+        if weight.device != self.device:
+            raise ValueError(f"the model lives on {weight.device}, the "
+                             f"engine was asked for {self.device}")
+        if prefill_chunk_tokens is not None \
+                and int(prefill_chunk_tokens) < 1:
+            raise ValueError("prefill_chunk_tokens must be >= 1 or None")
+        self.model = model
+        self.max_batch = int(max_batch)
+        self.max_position = int(model.config.max_position_embeddings)
+        self.sample_on_device = bool(sample_on_device)
+        self.prefix_cache = bool(prefix_cache)
+        self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
+                                     else int(prefill_chunk_tokens))
+        self.cache = PagedKVCache.from_model(model, total_pages=total_pages,
+                                             page_size=page_size)
+        self._decoder = PagedDecoder(model)
+        # the ragged step's pad rows write nowhere, but admission keeps
+        # the JAX engine's pad-row page headroom so the two admit alike
+        self._pad_pages = 1
+        self._reserved_pages = self._pad_pages
+        self._queue: "deque[_Request]" = deque()
+        self._active: List[_Request] = []
+        self._prefilling: List[_Request] = []
+        self._cond = threading.Condition()
+        self._stop = False
+        self._next_seq = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------- public
+    def submit(self, prompt, max_new_tokens: int = 32,
+               eos_token_id: Optional[int] = None, do_sample: bool = False,
+               temperature: float = 1.0, seed: int = 0) -> _Request:
+        """Queue one request; returns its handle (``result()`` waits)."""
+        req = _Request(prompt, max_new_tokens, eos_token_id, do_sample,
+                       temperature, seed)
+        if len(req.prompt) < 1:
+            raise ValueError("the prompt needs at least one token")
+        total = len(req.prompt) + req.max_new_tokens
+        if total > self.max_position:
+            raise ValueError(
+                f"prompt + max_new_tokens = {total} exceeds the model's "
+                f"max_position_embeddings ({self.max_position})")
+        need = self._pages_for(req)
+        if need > self.cache.total_pages - self._pad_pages:
+            raise RuntimeError(
+                f"request needs {need} pages but the pool holds "
+                f"{self.cache.total_pages} total; grow total_pages")
+        with self._cond:
+            if self._stop:
+                raise RuntimeError("engine stopped")
+            self._queue.append(req)
+            self._cond.notify_all()
+        return req
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 eos_token_id: Optional[int] = None,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 seed: int = 0):
+        """Blocking batch API: one sequence per row (row i seeded
+        ``seed + i``), outputs eos-padded to a common length."""
+        ids = np.asarray(input_ids, np.int32)
+        reqs = [self.submit(row, max_new_tokens, eos_token_id, do_sample,
+                            temperature, seed + i)
+                for i, row in enumerate(ids)]
+        rows = [r.result() for r in reqs]
+        width = max(len(r) for r in rows)
+        out = np.full((len(rows), width),
+                      0 if eos_token_id is None else eos_token_id, np.int32)
+        for i, r in enumerate(rows):
+            out[i, :len(r)] = r
+        return out
+
+    def stop(self):
+        """Hard stop: errors whatever is still queued or running."""
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join(timeout=60)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    # ---------------------------------------------------------- scheduler
+    def _pages_for(self, req) -> int:
+        total = len(req.prompt) + req.max_new_tokens
+        return -(-total // self.cache.page_size)
+
+    def _admission_cost_locked(self, req) -> Optional[int]:
+        """Caller holds ``self._cond``.  Pages this admission would newly
+        reserve, or None when it does not fit now.  A cached prefix
+        reserves only the un-shared pages plus the shared pages no other
+        live sharer pins yet."""
+        shared_tok, newly_pinned = (
+            self.cache.probe_prefix(req.prompt) if self.prefix_cache
+            else (0, 0))
+        need = (self._pages_for(req)
+                - shared_tok // self.cache.page_size + newly_pinned)
+        if self._reserved_pages + need > self.cache.total_pages:
+            return None
+        req._admit_plan = (need, shared_tok)
+        return need
+
+    def _finalize_admission_locked(self, req) -> None:
+        """Caller holds ``self._cond``.  Reserve the worst-case pages,
+        assign the sequence id and acquire any cached prefix."""
+        need, shared_tok = req._admit_plan
+        req._admit_plan = None
+        self._reserved_pages += need
+        req.seq_id = self._next_seq
+        self._next_seq += 1
+        if shared_tok:
+            got = self.cache.acquire_prefix(req.seq_id, req.prompt)
+            if got != shared_tok:
+                raise RuntimeError(
+                    f"prefix probe found {shared_tok} tokens but acquire "
+                    f"mapped {got}")
+            req.prefix_tokens = got
+        req.prefill_pos = req.prefix_tokens
+
+    def _admit_locked(self) -> None:
+        """Caller holds ``self._cond``.  Admit from the queue head while a
+        slot is free and the head's pages fit (FIFO: a head that does not
+        fit waits, and so does everyone behind it)."""
+        while self._queue and (len(self._active) + len(self._prefilling)
+                               < self.max_batch):
+            req = self._queue[0]
+            if self._admission_cost_locked(req) is None:
+                break
+            self._queue.popleft()
+            self._finalize_admission_locked(req)
+            self._prefilling.append(req)
+
+    def _plan_chunks_locked(self) -> List:
+        """Caller holds ``self._cond``.  (request, n_tokens) prefill work
+        for this iteration, in admission order: whole remaining prompts
+        without a chunk budget, else at most ``prefill_chunk_tokens``
+        tokens, each request's chunk full-size or its prompt's tail."""
+        chunk = self.prefill_chunk_tokens
+        plan: List = []
+        budget = chunk
+        for req in self._prefilling:
+            remaining = len(req.prompt) - req.prefill_pos
+            if remaining <= 0:
+                continue
+            if budget is None:
+                plan.append((req, remaining))
+                continue
+            if budget <= 0:
+                break
+            n = min(remaining, chunk)
+            plan.append((req, n))
+            budget -= n
+        return plan
+
+    @staticmethod
+    def _row_sampling(reqs):
+        """(seeds, temps, flags) for the sampling tail; a None entry is a
+        row that draws nothing."""
+        n = len(reqs)
+        seeds = np.zeros(n, np.uint32)
+        temps = np.ones(n, np.float32)
+        flags = np.zeros(n, bool)
+        for i, r in enumerate(reqs):
+            if r is None:
+                continue
+            seeds[i] = r.seed
+            temps[i] = max(r.temperature, 1e-6)
+            flags[i] = r.do_sample
+        return seeds, temps, flags
+
+    def _sampling_for(self, reqs, ctrs):
+        """(seeds, ctrs, temps, flags): ``ctrs`` is each row's absolute
+        token position, the counter of its draw."""
+        seeds, temps, flags = self._row_sampling(reqs)
+        return seeds, np.asarray(ctrs, np.int32), temps, flags
+
+    def _pick(self, req, logits_row) -> int:
+        """Host-side sampling (``sample_on_device=False``)."""
+        logits = torch.as_tensor(logits_row, dtype=torch.float32)[None]
+        seeds, ctrs, temps, flags = self._sampling_for(
+            [req], [len(req.prompt) + len(req.generated)])
+        from .paged import fused_sample
+        return int(fused_sample(logits, seeds, ctrs, temps, flags)[0])
+
+    def _ingest(self, req, k: int, n: int, sampling):
+        """One bucketed prompt-ingest dispatch of prompt[k:k+n]: fresh
+        prefill at k == 0, the context-prefill continuation otherwise."""
+        ids = req.prompt[None, k:k + n]
+        if k:
+            return self._decoder.chunk_prefill(
+                self.cache, [req.seq_id], ids, context_tokens=k,
+                sampling=sampling)
+        return self._decoder.prefill(self.cache, [req.seq_id], ids,
+                                     sampling=sampling)
+
+    def _prefill_chunk(self, req, n: int) -> bool:
+        """Ingest the next ``n`` prompt tokens of ``req`` in one step;
+        True once the prompt is resident (only then is the first token
+        sampled, at its absolute position)."""
+        k = req.prefill_pos
+        total = len(req.prompt)
+        n = min(n, total - k)
+        last = k + n == total
+        if not self.sample_on_device:
+            sampling = None
+        else:
+            sampling = self._sampling_for([req if last else None], [total])
+        out = self._ingest(req, k, n, sampling)
+        req.prefill_pos = k + n
+        if last:
+            self._finish_prefill(req, out[0], sampling is not None)
+        return last
+
+    def _finish_prefill(self, req, out_row, sampled: bool) -> None:
+        """The prompt is resident: register its prefixes, latch the first
+        token and stamp the time to first token."""
+        if self.prefix_cache:
+            self.cache.register_prefix(req.seq_id, req.prompt)
+        req.next_token = (int(out_row) if sampled
+                          else self._pick(req, out_row))
+        req.first_token_at = time.perf_counter()
+
+    def _run_chunks(self, plan) -> None:
+        """Whole-prompt prefills, one dispatch each (device work, called
+        without the lock).  A failing prefill fails its own request."""
+        completed, failed = [], []
+        for req, n in plan:
+            try:
+                if self._prefill_chunk(req, n):
+                    completed.append(req)
+            except Exception as e:  # noqa: BLE001 — fail this request
+                req.error = e
+                failed.append(req)
+        if not completed and not failed:
+            return
+        with self._cond:
+            for r in failed:
+                self._prefilling.remove(r)
+                self._retire_locked(r)
+            for r in completed:
+                self._prefilling.remove(r)
+                self._active.append(r)
+        for r in failed:
+            r.done.set()
+
+    def _unified_step(self, plan) -> None:
+        """ONE ragged step for the iteration: the planned prompt chunks
+        plus every active row's decode token.  Chunk bookkeeping, prefill
+        completion, and retirement follow."""
+        chunks = []
+        for req, n in plan:
+            k = req.prefill_pos
+            n = min(n, len(req.prompt) - k)
+            chunks.append((req, k, n, k + n == len(req.prompt)))
+        active = list(self._active)
+        if not chunks and not active:
+            return
+        for r in active:
+            r.generated.append(r.next_token)
+        seq_ids, rows, ctxs = [], [], []
+        for req, k, n, _last in chunks:
+            seq_ids.append(req.seq_id)
+            rows.append(req.prompt[k:k + n])
+            ctxs.append(k)
+        for r in active:
+            seq_ids.append(r.seq_id)
+            rows.append(np.asarray([r.generated[-1]], np.int32))
+            ctxs.append(self.cache.length(r.seq_id))
+        if self.sample_on_device:
+            # intermediate chunk rows draw nothing; the counter of every
+            # draw is computed in the step from the row's position
+            sampling = self._row_sampling(
+                [req if last else None for req, _k, _n, last in chunks]
+                + active)
+        else:
+            sampling = None
+        try:
+            out, _accept = self._decoder.ragged_step(
+                self.cache, seq_ids, rows, ctxs, sampling=sampling)
+        except BaseException:
+            for r in active:
+                r.generated.pop()
+            raise
+        nchunks = len(chunks)
+        completed = []
+        for i, (req, k, n, last) in enumerate(chunks):
+            req.prefill_pos = k + n
+            if last:
+                completed.append(req)
+                self._finish_prefill(req, out[i], sampling is not None)
+        still, retired = [], []
+        for r, row in zip(active, out[nchunks:]):
+            eos_hit = (r.eos_token_id is not None
+                       and r.generated[-1] == r.eos_token_id)
+            if eos_hit or len(r.generated) >= r.max_new_tokens:
+                retired.append(r)
+                continue
+            r.next_token = (int(row) if sampling is not None
+                            else self._pick(r, row))
+            still.append(r)
+        with self._cond:
+            if active:
+                for r in retired:
+                    self._retire_locked(r)
+                self._active = still
+            for r in completed:
+                self._prefilling.remove(r)
+                self._active.append(r)
+            self._cond.notify_all()
+        for r in retired:
+            r.done.set()
+
+    def _retire_locked(self, req) -> None:
+        """Caller holds ``self._cond``.  Free the request's pages and
+        exactly the reservation its retirement uncovers: the worst-case
+        pages it never allocated plus each held page that stopped being
+        pinned (a page another sharer still maps keeps its
+        reservation)."""
+        slack = (self._pages_for(req)
+                 - len(self.cache._seq_pages.get(req.seq_id, ())))
+        released = self.cache.free(req.seq_id)
+        self._reserved_pages -= slack + released
+        req.finished_at = time.perf_counter()
+
+    def _fail_all(self, exc) -> None:
+        """A step failed: error every queued and in-flight request, free
+        their pages and reservations, and keep serving."""
+        with self._cond:
+            holders = self._active + self._prefilling
+            for r in holders + list(self._queue):
+                if r.done.is_set():
+                    continue
+                if r.finished_at is None:
+                    r.error = exc
+                r.done.set()
+            for r in holders:
+                if r.seq_id is not None:
+                    self.cache.free(r.seq_id)
+            self._reserved_pages = self._pad_pages
+            self._queue.clear()
+            self._active = []
+            self._prefilling = []
+            self._cond.notify_all()
+
+    def _loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            with self._cond:
+                while not self._stop and not self._queue \
+                        and not self._active and not self._prefilling:
+                    self._cond.wait(timeout=0.5)
+                if self._stop:
+                    stopped = (list(self._queue) + self._prefilling
+                               + self._active)
+                    self._queue.clear()
+                    self._prefilling = []
+                    self._active = []
+                    for r in stopped:
+                        r.error = RuntimeError("engine stopped")
+                        r.done.set()
+                    return
+            try:
+                with self._cond:
+                    self._admit_locked()
+                    plan = self._plan_chunks_locked()
+                if self.prefill_chunk_tokens is None and plan:
+                    # unchunked: whole prompts prefill through the
+                    # length-bucketed prefill/prefix steps, and only the
+                    # active rows (span 1) ride the ragged step
+                    self._run_chunks(plan)
+                    plan = ()
+                self._unified_step(plan)
+            except BaseException as e:  # noqa: BLE001 — fail loudly
+                # every waiter gets the error; the thread keeps serving
+                self._fail_all(e)

@@ -1,0 +1,43 @@
+"""Carry a JAX-package LLaMA's weights into the port."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..nn import Linear
+from .llama import LlamaConfig, LlamaForCausalLM
+
+
+def params_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
+                      device="cuda", dtype=None) -> LlamaForCausalLM:
+    """Build a port model computing the same function as a
+    ``paddle_tpu`` LLaMA whose parameters are ``arrays``, keyed by their
+    ``paddle_tpu`` names (``model.layers.0.self_attn.q_proj.weight``,
+    ...).  The port's module tree uses the same names; every Linear
+    weight is transposed, because the JAX package stores [in, out] and
+    the port [out, in].  Missing or unexpected names raise."""
+    model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=None)
+    linear = {f"{name}.weight" for name, m in model.named_modules()
+              if isinstance(m, Linear)}
+    state = {}
+    for name, param in model.state_dict().items():
+        if name not in arrays:
+            raise KeyError(f"no array for parameter {name!r}")
+        a = np.asarray(arrays[name])
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)   # numpy's bf16 has no torch twin
+        if name in linear:
+            a = a.T
+        if a.shape != tuple(param.shape):
+            raise ValueError(f"{name}: array shape {a.shape} does not fit "
+                             f"parameter shape {tuple(param.shape)}")
+        state[name] = torch.from_numpy(np.array(a, copy=True)).to(
+            device=param.device, dtype=param.dtype)
+    extra = set(arrays) - set(state)
+    if extra:
+        raise KeyError(f"arrays name no parameter of the port: "
+                       f"{sorted(extra)}")
+    model.load_state_dict(state)
+    return model

@@ -1,0 +1,214 @@
+"""LLaMA decoder LM (port of paddle_tpu/models/llama.py).
+
+The serving path hands a paged context down through ``paged_ctx``
+exactly as the JAX model does; without one, attention is causal flash
+attention over the sequence.  RMSNorm, RoPE and attention run their
+hand-written kernels on the card; the projections stay ``F.linear``, as
+the JAX package leaves them to XLA.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import resolve_device
+from ..nn import Embedding, Linear, RMSNorm
+from ..ops.flash_attention import flash_attention_bshd
+from ..ops import fused_norm_rope
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+
+
+def llama_7b():
+    return LlamaConfig()
+
+
+def llama_small(vocab=32000):
+    """~110M-param config."""
+    return LlamaConfig(vocab_size=vocab, hidden_size=768,
+                       intermediate_size=2048, num_hidden_layers=12,
+                       num_attention_heads=12, num_key_value_heads=12,
+                       max_position_embeddings=2048)
+
+
+def _rope_tables(head_dim, max_pos, theta):
+    """cos/sin (max_pos, head_dim/2): built in float64, stored in f32."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                           / head_dim))
+    freqs = np.outer(np.arange(max_pos, dtype=np.float64), inv)
+    return (torch.from_numpy(np.cos(freqs).astype(np.float32)),
+            torch.from_numpy(np.sin(freqs).astype(np.float32)))
+
+
+def apply_rope(q, k, cos, sin, position_offset=0):
+    """Rotate-half RoPE on q (b, s, h, d) and k (b, s, kvh, d).
+
+    ``position_offset`` is one int shared by every row, or a (b,) tensor
+    of per-row offsets (continuous batching: each row sits at its own
+    length).  A shared offset past the table raises; per-row offsets are
+    device values the caller bounds (the engine does at submit), and an
+    index past the table clamps, as JAX's gather does."""
+    b, s = q.shape[0], q.shape[1]
+    if isinstance(position_offset, torch.Tensor):
+        positions = position_offset
+    else:
+        off = int(position_offset)
+        if off + s > cos.shape[0]:
+            raise ValueError(
+                f"rope position {off + s} exceeds the table "
+                f"({cos.shape[0]} = max_position_embeddings)")
+        positions = torch.full((b,), off, dtype=torch.int32,
+                               device=q.device)
+    return fused_norm_rope.apply_rope(q, k, cos, sin, positions)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        c = config
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.hidden_size // c.num_attention_heads
+        kw = dict(device=device, dtype=dtype)
+        self.q_proj = Linear(c.hidden_size, self.num_heads * self.head_dim,
+                             **kw)
+        self.k_proj = Linear(c.hidden_size,
+                             self.num_kv_heads * self.head_dim, **kw)
+        self.v_proj = Linear(c.hidden_size,
+                             self.num_kv_heads * self.head_dim, **kw)
+        self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
+                             **kw)
+
+    def forward(self, x, cos, sin, position_offset=0, paged_ctx=None):
+        b, s = x.shape[0], x.shape[1]
+        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        q, k = apply_rope(q, k, cos, sin, position_offset)
+        if paged_ctx is not None:
+            out = paged_ctx.attend(q, k, v)
+        else:
+            out = flash_attention_bshd(q, k, v, causal=True)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        c = config
+        kw = dict(device=device, dtype=dtype)
+        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps, **kw)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps, **kw)
+        self.mlp = LlamaMLP(config, **kw)
+
+    def forward(self, x, cos, sin, position_offset=0, paged_ctx=None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin,
+                               position_offset, paged_ctx=paged_ctx)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      **kw)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **kw)
+                                     for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        cos, sin = _rope_tables(
+            config.hidden_size // config.num_attention_heads,
+            config.max_position_embeddings, config.rope_theta)
+        self.register_buffer("rope_cos", cos.to(device=device),
+                             persistent=False)
+        self.register_buffer("rope_sin", sin.to(device=device),
+                             persistent=False)
+
+    def forward(self, input_ids, position_offset=0, paged_ctx=None):
+        x = self.embed_tokens(input_ids)
+        for i, layer in enumerate(self.layers):
+            if paged_ctx is not None:
+                paged_ctx.layer_idx = i
+            x = layer(x, self.rope_cos, self.rope_sin, position_offset,
+                      paged_ctx=paged_ctx)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """LLaMA causal LM.  Weights are drawn on ``device`` from ``seed`` as
+    N(0, 0.02) for every projection and the embedding (norm weights are
+    ones), as the JAX model's ``Normal(std=0.02)`` initializers do;
+    ``seed=None`` leaves them uninitialized for a caller that loads
+    them (``models.convert.params_from_numpy``)."""
+
+    def __init__(self, config: LlamaConfig, device="cuda", dtype=None,
+                 seed: Optional[int] = 0):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = dtype if dtype is not None else _DTYPES[config.dtype]
+        self.config = config
+        self.model = LlamaModel(config, device=device, dtype=dtype)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Linear(config.hidden_size, config.vocab_size,
+                               device=device, dtype=dtype))
+        if seed is not None:
+            self.init_weights(seed)
+
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> None:
+        """Draw every Linear/Embedding weight from N(0, 0.02) with a
+        generator on the model's device seeded by ``seed``."""
+        device = self.model.embed_tokens.weight.device
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        for module in self.modules():
+            if isinstance(module, (Linear, Embedding)):
+                module.weight.normal_(0.0, 0.02, generator=gen)
+
+    def forward(self, input_ids):
+        return self._logits_of(self.model(input_ids))
+
+    def _logits_of(self, hidden):
+        if self.lm_head is not None:
+            return self.lm_head(hidden)
+        return hidden @ self.model.embed_tokens.weight.T

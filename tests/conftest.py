@@ -33,6 +33,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running tests excluded from the tier-1 gate "
         "(-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips without one")
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,99 @@
+"""The port's hand-written kernels against their plain versions, on the
+card.  These need a CUDA device (and nvcc and Triton there); elsewhere
+they skip.  Run them on the card with
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_norm_rope as nr
+from paddle_tpu_torch.ops import paged_attention as pa
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"f32": (torch.float32, 1e-4), "bf16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol):
+    # tol x max(1, max |want|): a few bf16 ulps of the largest value
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("causal,sq,sk,h,kvh,d", [
+    (True, 200, 200, 4, 4, 128), (True, 70, 300, 4, 2, 64),
+    (False, 129, 33, 2, 2, 128)])
+def test_flash_forward_matches_plain(dev, dt, causal, sq, sk, h, kvh, d):
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(2, h, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, kvh, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, kvh, sk, d, generator=g, device=dev).to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
+    _close(out, ref, tol)
+    _close(lse, ref_lse, 1e-4)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("qh,kvh,d", [(8, 8, 128), (8, 2, 64)])
+def test_paged_ragged_matches_plain(dev, dt, qh, kvh, d):
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(1)
+    spans = [1, 7, 16, 3]
+    lens = torch.tensor([1, 40, 100, 3], dtype=torch.int32, device=dev)
+    tables = torch.randperm(32, generator=g, device=dev)[:4 * 8] \
+        .view(4, 8).to(torch.int32)
+    kp = torch.randn(kvh, 32, 16, d, generator=g, device=dev).to(dtype)
+    vp = torch.randn(kvh, 32, 16, d, generator=g, device=dev).to(dtype)
+    q = torch.randn(4, 16, qh, d, generator=g, device=dev).to(dtype)
+    ql = torch.tensor(spans, dtype=torch.int32, device=dev)
+    out = pa.paged_attention_ragged(q, kp, vp, lens, ql, tables)
+    ref = pa._ragged_plain(q, kp, vp, lens, ql, tables, d ** -0.5)
+    real = (torch.arange(16, device=dev)[None] < ql[:, None])[..., None,
+                                                               None]
+    _close(out * real, ref * real, tol)
+    assert float((out.float() * ~real).abs().max()) == 0.0
+    dec = pa.paged_attention(q[:, 0], kp, vp, lens, tables)
+    _close(dec, pa._decode_plain(q[:, 0], kp, vp, lens, tables, d ** -0.5),
+           tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_rms_norm_and_rope_match_plain(dev, dt):
+    dtype, _ = DTYPES[dt]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(3, 5, 4096, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
+    _close(nr.rms_norm(x, w, 1e-5), nr.rms_norm_plain(x, w, 1e-5), tol)
+    from paddle_tpu_torch.models.llama import _rope_tables
+    cos, sin = (t.to(dev) for t in _rope_tables(128, 64, 10000.0))
+    q = torch.randn(3, 9, 8, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(3, 9, 2, 128, generator=g, device=dev).to(dtype)
+    pos = torch.tensor([0, 20, 60], dtype=torch.int32, device=dev)
+    for got, want in zip(nr.apply_rope(q, k, cos, sin, pos),
+                         nr.apply_rope_plain(q, k, cos, sin, pos)):
+        _close(got, want, tol)
+
+
+def test_launch_counters_count_kernel_launches(dev):
+    x = torch.randn(2, 4096, device=dev)
+    before = nr.rms_norm_triton.launches
+    nr.rms_norm(x, torch.ones(4096, device=dev))
+    assert nr.rms_norm_triton.launches == before + 1
+    np.testing.assert_array_equal(
+        nr.rms_norm(x.cpu(), torch.ones(4096)).numpy(),
+        nr.rms_norm_plain(x.cpu(), torch.ones(4096)).numpy())
+    assert nr.rms_norm_triton.launches == before + 1

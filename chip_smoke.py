@@ -8,8 +8,9 @@ either it exits nonzero and prints no result.  Phases, each fatal on
 failure:
 
 1. build   — compile every CUDA kernel from ``paddle_tpu_torch/ops/csrc``
-            (one nvcc per source, in parallel); print the card's name and
-            power limit as nvidia-smi reports them.
+            (one nvcc per source, in parallel, while the Triton kernels
+            compile and are checked); print the card's name and power
+            limit as nvidia-smi reports them.
 2. kernels — run each hand-written kernel at the serving path's shapes
             against its plain PyTorch version on the card, with a stated
             tolerance; time kernel, plain version and, where one PyTorch
@@ -17,9 +18,18 @@ failure:
             port never uses), each as device time per call from CUDA
             graph replays; compute each kernel's bound from the bytes
             and operations of its inputs.
+   The training path's kernels are held and timed too, at llama_small's
+            training shapes (batch 8 x sequence 1024): the flash dK/dV and
+            dQ kernels (bf16 and f32, GQA, sq < sk, ragged lengths; the
+            yardstick is ``scaled_dot_product_attention``'s backward, its
+            kernels' device time from a profiler window), the RoPE
+            backward launch (the RoPE kernel with -sin), and the forward
+            kernels at those shapes.
 3. small   — a small f32 model served on the card (kernels) and on the
             CPU (plain versions) from the same weights: the greedy token
-            streams must agree.
+            streams must agree.  small-train: a small f32 model trains
+            5 AdamW steps on the card and on the CPU from the same
+            weights and batches: the per-step losses must agree.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked
             and then with 256-token prefill chunks.  The kernels' launch
@@ -32,13 +42,28 @@ failure:
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, host-clock step times, then one ``torch.profiler``
             window for the device's busy time, idle share and top kernels.
+6. train   — llama_small (full width and depth) in bf16 with
+            ``AdamW(multi_precision=True)`` through ``jit.TrainStep``, batch
+            8 x sequence 1024, one batch drawn from ``--seed`` and
+            repeated: 3 warm-up steps, then 20 timed steps with the launch
+            counters zeroed just before them.  Prints step ms p25/p50/p75,
+            tokens/s, model FLOPs per step and ``mfu`` (their share of the
+            bf16 peak), peak memory, launches per step, and the device's
+            busy time and idle share from one ``torch.profiler`` window.
+            Every loss must be finite, the last below the first (one
+            batch memorized), and every kernel of the path launched.
 
-The line before the last is the kernels' JSON record (each kernel's
-``launches`` is its count in the unchunked pass, the engine's default;
-``launches_by_path`` and ``serve`` give every pass's counts, TTFT p50
-and decode tokens/s); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record: each kernel's
+``launches`` is its count on its main path (the unchunked serve pass,
+the engine's default, for the serving kernels; the train pass for the
+two backward kernels), ``launches_by_path`` its count in every pass,
+``train_shape`` the times of a serving kernel at the training shapes;
+``serve`` and ``train`` hold each pass's end-to-end numbers, ``phase_s``
+each phase's wall seconds.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import concurrent.futures
 import itertools
 import json
 import os
@@ -46,12 +71,18 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+T_START = time.perf_counter()   # before torch's import, which takes seconds
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOP_S = 989e12        # dense bf16 tensor-core peak
 F32_FLOP_S = 67e12          # f32 outside the tensor cores
+# profiler windows record device activity only: the host operators'
+# events carry no device time and cost seconds of post-processing per
+# window (about 0.5 s per llama_7b decode step)
+DEVICE_ACTIVITY = [torch.profiler.ProfilerActivity.CUDA]
 
 KERNELS = {
     "paged_attention": dict(
@@ -66,7 +97,21 @@ KERNELS = {
     "apply_rope": dict(
         route="triton", source="paddle_tpu_torch/ops/fused_norm_rope.py",
         replaces="paddle_tpu/ops/pallas/fused_norm_rope.py:113"),
+    "flash_attention_bwd_dkv": dict(
+        route="cuda",
+        source="paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:182"),
+    "flash_attention_bwd_dq": dict(
+        route="cuda",
+        source="paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:241"),
 }
+# the pass whose launch count is a kernel's ``launches``
+MAIN_PATH = {name: "unchunked" for name in KERNELS}
+MAIN_PATH.update(flash_attention_bwd_dkv="train",
+                 flash_attention_bwd_dq="train")
+# the training path's shapes: llama_small, batch 8 x sequence 1024
+TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
 
 
 def log(*parts):
@@ -94,6 +139,23 @@ def cuda_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (3 * reps)
+
+
+def profiled_ms(fn, reps=10):
+    """Mean device milliseconds per call of ``fn``: the summed time of
+    the device kernels that ``reps`` calls launch, read from one
+    ``torch.profiler`` window.  For calls a CUDA graph cannot capture (an
+    autograd backward runs on the forward's stream, not the capture
+    stream), where CUDA events around back-to-back calls would also count
+    the host's launch gaps.  None when the profiler sees no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(_device_us(e) for e in prof.key_averages())
+    return busy_us / 1e3 / reps if busy_us else None
 
 
 def cold_inputs(t, l2_bytes=50 << 20):
@@ -133,6 +195,18 @@ def bound_ms(n_bytes, n_ops, flop_s):
     t_ops = n_ops / flop_s
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rope_bytes(q, k, positions, table_rows):
+    """Bytes a RoPE call must move: q and k read and written once, the
+    positions read, and each distinct f32 cos and sin table row that the
+    positions reach read once (tokens at one position share its row)."""
+    s, half = q.shape[1], q.shape[-1] // 2
+    idx = (positions.long()[:, None]
+           + torch.arange(s, device=positions.device)[None])
+    rows = int(torch.unique(idx.clamp(0, table_rows - 1)).numel())
+    return (2 * (q.numel() + k.numel()) * q.element_size()
+            + 2 * rows * half * 4 + positions.numel() * 4)
 
 
 # ------------------------------------------------------------- kernels
@@ -333,10 +407,8 @@ def check_norm_rope(records, dev):
             next(qs), next(ks), cos, sin, pos), 100)
         plain_ms = cuda_ms(lambda: nr.apply_rope_plain(
             next(qs), next(ks), cos, sin, pos), 20)
-        el = q.element_size()
-        n_bytes = 2 * (q.numel() + k.numel()) * el \
-            + 2 * b * s * 64 * 4 + b * 4
-        bms, by = bound_ms(n_bytes, 3 * (q.numel() + k.numel()), F32_FLOP_S)
+        bms, by = bound_ms(rope_bytes(q, k, pos, cos.shape[0]),
+                           3 * (q.numel() + k.numel()), F32_FLOP_S)
         log(f"  apply_rope {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bms:.4f} ms ({by})")
         records["apply_rope"] = dict(
@@ -344,15 +416,193 @@ def check_norm_rope(records, dev):
             bound_by=by, library_ms=None)
 
 
+def causal_pairs(sq, sk, causal):
+    """(q, kv) pairs the mask lets through, per head."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, max(0, r + off + 1)) for r in range(sq))
+
+
+def check_flash_bwd(records, dev):
+    """The dK/dV and dQ kernels against ``_bwd_blockwise`` on the card;
+    at the training shape, their times beside the plain version's and
+    ``scaled_dot_product_attention``'s backward (a yardstick that
+    computes dq, dk and dv together; the port never calls it)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def case(label, dtype, b, h, kvh, sq, sk, d, causal, timed=False):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        q, k, v = rnd(b, h, sq, d), rnd(b, kvh, sk, d), rnd(b, kvh, sk, d)
+        do = rnd(b, h, sq, d)
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
+        got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                               causal, scale)
+        ref = fa._bwd_blockwise(q, k, v, out, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        # f32: summation order; bf16: one rounding of each gradient
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        errs = {}
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"flash backward {label}: {name} is "
+                                     "not finite")
+            errs[name] = check("flash_attention_bwd", f"{label} {name}", g,
+                               r, tol)
+        if not timed:
+            return
+        delta = (out.float() * do.float()).sum(-1).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        args = (q, k, v, do, lse, delta, dq, dk, dv, causal, scale)
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args))
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args))
+        plain_ms = cuda_ms(lambda: fa._bwd_blockwise(
+            q, k, v, out, lse, do, causal, scale), reps=3)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lout = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal)
+        lib_ms = profiled_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), do, retain_graph=True))
+        el = q.element_size()
+        pairs = causal_pairs(sq, sk, causal) * b * h
+        rows = b * h * sq * 4 * 2                    # lse and delta, f32
+        dkv_bytes = (q.numel() + do.numel() + 2 * k.numel()
+                     + 2 * k.numel()) * el + rows
+        dq_bytes = (2 * q.numel() + do.numel() + 2 * k.numel()) * el + rows
+        for name, ms, n_ops, n_bytes, err in (
+                ("flash_attention_bwd_dkv", dkv_ms, 4 * 2 * pairs * d,
+                 dkv_bytes, max(errs["dk"], errs["dv"])),
+                ("flash_attention_bwd_dq", dq_ms, 3 * 2 * pairs * d,
+                 dq_bytes, errs["dq"])):
+            bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
+            log(f"  {name} {label}: {ms:.4f} ms, plain (dq+dk+dv) "
+                f"{plain_ms:.4f} ms, sdpa backward (dq+dk+dv, profiler) "
+                f"{lib_ms} ms, bound {bms:.4f} ms ({by})")
+            records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by,
+                                 library_ms=lib_ms, case=label)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, h, s, d = TRAIN_B, TRAIN_H, TRAIN_S, TRAIN_D
+    case(f"b{b} h{h} s{s} d{d} causal bf16", bf16, b, h, h, s, s, d, True,
+         timed=True)
+    case(f"b{b} h{h} s{s} d{d} causal f32", f32, b, h, h, s, s, d, True)
+    case("gqa 32/8 s2048 d128 causal bf16", bf16, 1, 32, 8, 2048, 2048,
+         128, True)
+    case("gqa 32/8 s512 d128 causal f32", f32, 1, 32, 8, 512, 512, 128,
+         True)
+    case("sq300<sk1000 causal 8/2 d128 bf16", bf16, 2, 8, 2, 300, 1000,
+         128, True)
+    case("sq500>sk200 causal d64 f32", f32, 2, 4, 4, 500, 200, 64, True)
+    case("sq77 sk333 full gqa 8/1 d64 bf16", bf16, 2, 8, 1, 77, 333, 64,
+         False)
+
+
+def time_train_shapes(records, dev):
+    """The forward kernels and the RoPE backward launch (the RoPE kernel
+    with -sin) at the training shapes (llama_small, batch 8 x 1024):
+    each held against its plain version there, then timed.  Adds each
+    serving kernel's ``train_shape`` record."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_norm_rope as nr
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, h, d, hid = TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    # flash forward, (b, h, s, d) as the training path's views
+    q, k, v = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
+    label = f"b{b} h{h} s{s} d{d} causal bf16"
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = check("flash_attention_forward", label, out, ref, 2e-2)
+    check("flash_attention_forward", label + " lse", lse, ref_lse, 1e-4)
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                       reps=3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional
+                     .scaled_dot_product_attention(q, k, v, is_causal=True))
+    bms, by = bound_ms(4 * q.numel() * 2 + b * h * s * 4,
+                       4 * causal_pairs(s, s, True) * b * h * d, BF16_FLOP_S)
+    log(f"  flash_attention_forward {label}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by})")
+    records["flash_attention_forward"]["train_shape"] = dict(
+        case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+
+    # RMSNorm over (b, s, hidden)
+    x = rnd(b * s, hid)
+    w = (1 + 0.1 * torch.randn(hid, generator=gen, device=dev)).to(bf16)
+    label = f"({b * s}, {hid}) bf16"
+    err = check("rms_norm", label, nr.rms_norm_triton(x, w, 1e-5),
+                nr.rms_norm_plain(x, w, 1e-5), 2e-2)
+    xs = cold_inputs(x)
+    ms = cuda_ms(lambda: nr.rms_norm_triton(next(xs), w, 1e-5), 100)
+    plain_ms = cuda_ms(lambda: nr.rms_norm_plain(next(xs), w, 1e-5), 100)
+    lib = getattr(torch.nn.functional, "rms_norm", None)
+    lib_ms = (cuda_ms(lambda: lib(next(xs), (hid,), w, 1e-5), 100)
+              if lib is not None else None)
+    bms, by = bound_ms(2 * x.numel() * 2 + hid * 2, 4 * x.numel(),
+                       F32_FLOP_S)
+    log(f"  rms_norm {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms} ms, bound {bms:.4f} ms ({by})")
+    records["rms_norm"]["train_shape"] = dict(
+        case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+
+    # RoPE forward, then its backward: the same kernel with the negated
+    # sin table on the cotangents of q and k; positions all 0 (the
+    # shared-offset branch)
+    cos, sin = (t.to(dev) for t in _rope_tables(d, 2048, 10000.0))
+    neg = -sin
+    pos = torch.zeros(b, dtype=torch.int32, device=dev)
+    fq, fk = rnd(b, s, h, d), rnd(b, s, h, d)
+    oq, ok = nr.apply_rope_triton(fq, fk, cos, sin, pos)
+    rq, rk = nr.apply_rope_plain(fq, fk, cos, sin, pos)
+    torch.cuda.synchronize()
+    label = f"forward q,k ({b},{s},{h},{d}) bf16"
+    check("apply_rope", label + " q", oq, rq, 2e-2)
+    check("apply_rope", label + " k", ok, rk, 2e-2)
+    gq, gk = rnd(b, s, h, d), rnd(b, s, h, d)
+    oq, ok = nr.apply_rope_triton(gq, gk, cos, neg, pos)
+    rq, rk = nr.apply_rope_plain(gq, gk, cos, neg, pos)
+    torch.cuda.synchronize()
+    label = f"backward (-sin) q,k ({b},{s},{h},{d}) bf16"
+    err = max(check("apply_rope", label + " dq", oq, rq, 2e-2),
+              check("apply_rope", label + " dk", ok, rk, 2e-2))
+    qs, ks = cold_inputs(gq), cold_inputs(gk)
+    ms = cuda_ms(lambda: nr.apply_rope_triton(next(qs), next(ks), cos, neg,
+                                              pos), 100)
+    plain_ms = cuda_ms(lambda: nr.apply_rope_plain(next(qs), next(ks), cos,
+                                                   neg, pos), 20)
+    bms, by = bound_ms(rope_bytes(gq, gk, pos, cos.shape[0]),
+                       3 * (gq.numel() + gk.numel()), F32_FLOP_S)
+    log(f"  apply_rope {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    records["apply_rope"]["train_shape"] = dict(
+        case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None)
+
+
 # ------------------------------------------------------------- serving
 def counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm_rope as nr
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_cuda
     from paddle_tpu_torch.ops.paged_attention import paged_attention_cuda
     return {"paged_attention": paged_attention_cuda,
-            "flash_attention_forward": flash_attention_cuda,
+            "flash_attention_forward": fa.flash_attention_cuda,
             "rms_norm": nr.rms_norm_triton,
-            "apply_rope": nr.apply_rope_triton}
+            "apply_rope": nr.apply_rope_triton,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_cuda,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_cuda}
 
 
 def serve(model, prompts, sharer, chunk, device):
@@ -467,6 +717,169 @@ def check_small():
             f"{len(prompts)} requests equal card vs CPU")
 
 
+def _lm_loss(logits, labels):
+    """The classic f32-logits cross entropy of ``bench.py``'s LLaMA
+    pretrain step."""
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    return cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                         labels.reshape(-1))
+
+
+def check_small_train():
+    """A small f32 model trains 5 AdamW steps on the card (kernels,
+    forward and backward) and on the CPU (plain versions) from the same
+    weights and batches: the per-step losses must agree within relative
+    1e-4 (f32 on both sides; sums run in other orders)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=512)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=9)
+    gpu = LlamaForCausalLM(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(9)
+    batches = [rng.integers(0, 512, (2, 2, 200)) for _ in range(5)]
+    losses = []
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        step = TrainStep(model, _lm_loss, AdamW(
+            learning_rate=1e-3, parameters=model.parameters()))
+        out = [step(torch.as_tensor(ids, device=dev),
+                    torch.as_tensor(labels, device=dev))
+               for ids, labels in batches]
+        losses.append(torch.stack(out).cpu().numpy())
+    rel = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
+    log(f"  small-train f32 5 AdamW steps: card {losses[0].tolist()}, "
+        f"cpu {losses[1].tolist()}, max relative difference "
+        f"{rel.max():.2e} (limit 1e-4)")
+    if not np.isfinite(losses[0]).all() or rel.max() > 1e-4:
+        raise AssertionError("small-train: the card's losses differ from "
+                             "the CPU's")
+
+
+def _kernel_class(name):
+    """A device kernel's share of the train step: the port's attention
+    kernels, its Triton kernels (RMSNorm, RoPE: ``kern``), cuBLAS GEMMs,
+    the loss's softmax, and every other torch op."""
+    if "flash_bwd" in name:
+        return "flash_backward"
+    if "flash_fwd" in name:
+        return "flash_forward"
+    if name == "kern":
+        return "triton_rms_rope"
+    if "nvjet" in name or "gemm" in name.lower() or "cutlass" in name:
+        return "gemm"
+    if "SoftMax" in name or "nll_loss" in name:
+        return "cross_entropy"
+    return "other_torch_ops"
+
+
+def model_flops(cfg, batch, seq):
+    """Model FLOPs of one training step, from the shapes: forward plus a
+    backward of twice the forward, for every Linear (2 per weight per
+    token each way) and the causal attention products (QK^T and PV over
+    the visible pairs)."""
+    d = cfg.hidden_size // cfg.num_attention_heads
+    kv = cfg.num_key_value_heads * d
+    per_layer = cfg.hidden_size * (2 * cfg.hidden_size + 2 * kv) \
+        + 3 * cfg.hidden_size * cfg.intermediate_size
+    linear = cfg.num_hidden_layers * per_layer \
+        + cfg.hidden_size * cfg.vocab_size
+    tokens = batch * seq
+    attn_fwd = 4 * batch * cfg.num_attention_heads * d \
+        * causal_pairs(seq, seq, True) * cfg.num_hidden_layers
+    return 3 * (2 * linear * tokens + attn_fwd)
+
+
+def train(seed, dev, card, steps=20, warmup=3):
+    """llama_small pretraining steps on the card; returns the train
+    pass's record and its launch counts (counters zeroed just before
+    the timed steps)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_small
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_small()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             seed=seed)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, _lm_loss, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    ids = torch.as_tensor(ids_np[:, :-1], device=dev)
+    labels = torch.as_tensor(ids_np[:, 1:], device=dev)
+    log(f"train: llama_small ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}) bf16 + AdamW(multi_precision) "
+        f"{n_params / 1e6:.1f} M params, batch {TRAIN_B} x {TRAIN_S}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(warmup):
+        losses.append(step(ids, labels))
+    torch.cuda.synchronize()
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    n_prof = 2
+    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+        for _ in range(n_prof):
+            losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in events)
+    top = sorted(events, key=_device_us, reverse=True)[:16]
+    by_class = {}
+    for e in events:
+        by_class[_kernel_class(e.key)] = by_class.get(
+            _kernel_class(e.key), 0.0) + _device_us(e) / 1e3 / n_prof
+    vals = torch.stack(losses).float().cpu().numpy()
+    flops = model_flops(cfg, TRAIN_B, TRAIN_S)
+    rec = {
+        "card": card, "batch": TRAIN_B, "seq": TRAIN_S,
+        "params_m": n_params / 1e6,
+        "step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
+        "tokens_per_s": TRAIN_B * TRAIN_S / (med / 1e3),
+        "model_flops_per_step": flops,
+        "mfu": flops / (med / 1e3) / BF16_FLOP_S,
+        "peak_memory_gb": peak / 1e9,
+        "launches_per_step": {n: c / steps for n, c in launches.items()},
+        "device_busy_ms_per_step": (busy_us / 1e3 / n_prof) if busy_us
+        else "not measured",
+        "device_idle_share": (1 - busy_us / 1e3 / n_prof / med) if busy_us
+        else "not measured",
+        "device_ms_per_step_by_class": by_class,
+        "top_device": [{"name": e.key[:60],
+                        "calls_per_step": e.count / n_prof,
+                        "device_ms_per_step": _device_us(e) / 1e3 / n_prof}
+                       for e in top if _device_us(e) > 0],
+        "loss_first": float(vals[0]), "loss_last": float(vals[-1])}
+    log("  losses: " + " ".join(f"{x:.4f}" for x in vals))
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"train: non-finite loss {vals.tolist()}")
+    if not vals[-1] < vals[0]:
+        raise AssertionError(f"train: the last loss {vals[-1]} is not below "
+                             f"the first {vals[0]}")
+    need = ("flash_attention_forward", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq", "rms_norm", "apply_rope")
+    missing = [n for n in need if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"train: kernels never launched on the "
+                             f"training path: {missing}")
+    return rec, launches
+
+
 def _device_us(evt):
     """Device time of a profiler kernel entry (0 for host-side operator
     entries, whose device time would count their kernels twice)."""
@@ -522,9 +935,7 @@ def profile_decode(model, batch, context, steps, seed):
     q1, med, q3 = np.percentile(times[1:], [25, 50, 75])
     n = steps - half
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -565,52 +976,71 @@ def main():
               "(paddle_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+    # wall seconds of each phase, from the start of this process
+    phase_s = {}
+    clock = [T_START]
 
-    # 1. build
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        log(f"[{name}: {phase_s[name]:.1f} s]")
+
+    # 1. build: one nvcc per CUDA source, waited on by a thread while
+    # this one sets up the card and checks the Triton kernels (2.), which
+    # need no nvcc; leaving the block waits for every nvcc, on error too
     from paddle_tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    log(f"build: {len(libs)} CUDA kernels in "
-        f"{time.perf_counter() - t0:.1f} s")
+
+    def build_all():
+        t0 = time.perf_counter()
+        return _build.build_all(), time.perf_counter() - t0
+
+    records = {}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        build = pool.submit(build_all)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"python {sys.version.split()[0]}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()
+        log(smi[0])
+        lap("start")
+        log("kernels:")
+        check_norm_rope(records, dev)
+        lap("check_norm_rope")
+        libs, build_s = build.result()
+    log(f"build: {len(libs)} CUDA kernels in {build_s:.1f} s, beside the "
+        "Triton checks")
     for name, info in sorted(_build.ptxas_info.items()):
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    log(smi[0])
+    lap("build")
 
     # 2. kernels against their plain versions
-    records = {}
-    log("kernels:")
-    t0 = time.perf_counter()
-    check_paged(records, dev)
-    check_flash(records, dev)
-    check_norm_rope(records, dev)
-    log(f"kernels: checked in {time.perf_counter() - t0:.1f} s")
+    for fn in (check_paged, check_flash, check_flash_bwd, time_train_shapes):
+        fn(records, dev)
+        lap(fn.__name__)
 
-    # 3. a small model, card vs CPU
+    # 3. a small model, card vs CPU: serving, then training
     log("small:")
     check_small()
+    lap("check_small")
+    check_small_train()
+    lap("check_small_train")
 
     # 4. llama_7b serving
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     cfg = llama_7b()
-    t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
                              seed=args.seed)
     torch.cuda.synchronize()
-    log(f"serve: llama_7b ({cfg.num_hidden_layers} layers) bf16 weights "
-        f"drawn in "
-        f"{time.perf_counter() - t0:.1f} s, "
+    log(f"serve: llama_7b ({cfg.num_hidden_layers} layers) bf16, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
     rng = np.random.default_rng(args.seed)
     lengths = rng.integers(64, 1025, 8)
@@ -645,8 +1075,8 @@ def main():
         log(f"serve {label}: " + json.dumps(passes[label]))
         # with 256-token chunks every prompt rides the ragged kernel, so
         # that path has no flash launch
-        need = [n for n in kernels if n != "flash_attention_forward"
-                or chunk is None]
+        need = [n for n in kernels if MAIN_PATH[n] == "unchunked"
+                and (n != "flash_attention_forward" or chunk is None)]
         missing = [n for n in need if got[n] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the "
@@ -657,6 +1087,7 @@ def main():
     log(f"serve: {same}/6 greedy streams identical unchunked vs chunked "
         "(bf16: the two paths round differently, so equality is "
         "reported, not required)")
+    lap("serve")
 
     # 5. where a decode step's time goes (after the serve passes, so no
     # launch of it is counted there; before the f32 check below, which
@@ -665,6 +1096,7 @@ def main():
     for context in (512, 2048):
         log("  " + json.dumps(dict(profile_decode(model, 8, context, 32,
                                                   args.seed), card=smi[0])))
+    lap("profile")
 
     # one request's prefill logits, kernel path vs plain forward on the
     # card: in f32 the two must agree closely; in bf16 the kernel path
@@ -693,18 +1125,34 @@ def main():
     if r32 > 1e-3 or r_kernel > 2 * r_plain:
         raise AssertionError("prefill logits: the kernel path is further "
                              "from the plain forward than its limit")
+    lap("prefill_logits")
+
+    # 6. llama_small pretraining (the 7B model's 27 GB of f32 go first)
+    del model
+    torch.cuda.empty_cache()
+    train_rec, launches["train"] = train(args.seed, dev, smi[0])
+    log("train: " + json.dumps(train_rec))
+    lap("train")
+    phase_s["total"] = time.perf_counter() - T_START
 
     out = []
     for name, meta in KERNELS.items():
         out.append(dict(name=name, **meta,
-                        launches=launches["unchunked"][name],
+                        launches=launches[MAIN_PATH[name]][name],
                         launches_by_path={p: launches[p][name]
                                           for p in launches},
                         **records[name]))
     serve_line = {p: {k: passes[p][k] for k in
                       ("ttft_p50_s", "decode_tok_s", "launches")}
                   for p in passes}
-    print(json.dumps({"kernels": out, "serve": serve_line}), flush=True)
+    train_line = {k: train_rec[k] for k in (
+        "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_gb",
+        "device_idle_share", "launches_per_step", "loss_first",
+        "loss_last")}
+    print(json.dumps({"kernels": out, "serve": serve_line,
+                      "train": train_line,
+                      "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

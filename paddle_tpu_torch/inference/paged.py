@@ -19,6 +19,7 @@ import torch
 from ..ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention_bshd
 from ..ops.paged_attention import (PagedKVCache, _gather_pages,
                                    _scatter_pages, paged_attention_ragged)
+from . import _threefry
 
 
 def next_pow2(n: int) -> int:
@@ -30,43 +31,35 @@ def next_pow2(n: int) -> int:
     return b
 
 
-_M64 = (1 << 64) - 1
-
-
-def _draw_seed(seed: int, ctr: int) -> int:
-    """splitmix64 of (seed, counter): a generator seed per draw."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(ctr) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return (z ^ (z >> 31)) >> 1
-
-
 def fused_sample(logits, seeds, ctrs, temps, flags):
     """Sampling tail: per row the greedy argmax or, where ``flags`` is
     set, a draw from softmax(logits / temperature).
 
     logits (batch, vocab) f32 on the model's device; seeds, ctrs, temps,
-    flags host arrays (batch,).  A draw is the Gumbel-max of uniforms
-    from a ``torch.Generator`` seeded by (seed, ctr), where the counter
-    is the token's absolute position: a (seed, position) pair replays the
-    same draw whatever the batch around it.  The JAX package draws with
-    threefry, which this does not reproduce bit for bit; the two agree
-    in distribution.  Returns (batch,) int32 on the logits' device."""
+    flags host arrays (batch,).  A draw is the JAX package's
+    ``jax.random.categorical(fold_in(PRNGKey(seed), ctr), logits /
+    max(temp, 1e-6))`` on the same random bits (``_threefry``), where
+    the counter is the token's absolute position: a (seed, position) pair
+    replays
+    the same draw whatever the batch around it, and the port's stream
+    equals the JAX engine's.  The sampled rows are drawn together in
+    one batched sequence of torch ops on the logits' device.  Returns
+    (batch,) int32 on the logits' device."""
     greedy = logits.argmax(dim=-1).to(torch.int32)
     rows = np.flatnonzero(np.asarray(flags, bool))
     if not rows.size:
         return greedy
+    dev = logits.device
+    pick = torch.from_numpy(rows).to(dev)
+    seed = torch.from_numpy(np.asarray(seeds, np.uint32)[rows]
+                            .astype(np.int64)).to(dev)
+    ctr = torch.from_numpy(np.asarray(ctrs, np.int32)[rows]
+                           .astype(np.int64)).to(dev)
+    temp = torch.from_numpy(np.asarray(temps, np.float32)[rows]).to(dev)
+    key = _threefry.fold_in(_threefry.prng_key(seed), ctr)
+    scaled = logits[pick].float() / temp.clamp_min(1e-6)[:, None]
     out = greedy.clone()
-    tiny = torch.finfo(torch.float32).tiny
-    for i in rows:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(_draw_seed(seeds[i], ctrs[i]))
-        u = torch.rand(logits.shape[-1], generator=gen,
-                       device=logits.device).clamp_min(tiny)
-        gumbel = -torch.log(-torch.log(u))
-        out[i] = torch.argmax(logits[i].float()
-                              / max(float(temps[i]), 1e-6) + gumbel)
+    out[pick] = _threefry.categorical(key, scaled).to(torch.int32)
     return out
 
 

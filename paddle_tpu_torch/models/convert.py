@@ -41,3 +41,16 @@ def params_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
                        f"{sorted(extra)}")
     model.load_state_dict(state)
     return model
+
+
+def params_to_numpy(model: LlamaForCausalLM) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`: every parameter as an
+    f32 numpy array under its ``paddle_tpu`` name and layout (Linear
+    weights transposed back to [in, out])."""
+    linear = {f"{name}.weight" for name, m in model.named_modules()
+              if isinstance(m, Linear)}
+    out = {}
+    for name, param in model.named_parameters():
+        a = param.detach().float().cpu().numpy()
+        out[name] = a.T if name in linear else a
+    return out

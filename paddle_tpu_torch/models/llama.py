@@ -2,9 +2,12 @@
 
 The serving path hands a paged context down through ``paged_ctx``
 exactly as the JAX model does; without one, attention is causal flash
-attention over the sequence.  RMSNorm, RoPE and attention run their
-hand-written kernels on the card; the projections stay ``F.linear``, as
-the JAX package leaves them to XLA.
+attention over the sequence, differentiable for training.  RMSNorm,
+RoPE and attention run their hand-written kernels on the card, forward
+and backward; the projections stay ``F.linear``, as the JAX package
+leaves them to XLA.  ``forward(input_ids, labels)`` returns
+``(loss, logits)``; ``config.use_recompute`` recomputes each decoder
+layer in the backward (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -14,10 +17,12 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
+from ..nn.functional import cross_entropy
 from ..ops.flash_attention import flash_attention_bshd
 from ..ops import fused_norm_rope
 
@@ -37,6 +42,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # recompute each decoder layer's activations in the backward instead
+    # of keeping them (PaddleNLP's use_recompute; jax.checkpoint in the
+    # JAX package)
+    use_recompute: bool = False
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -64,14 +73,15 @@ def _rope_tables(head_dim, max_pos, theta):
             torch.from_numpy(np.sin(freqs).astype(np.float32)))
 
 
-def apply_rope(q, k, cos, sin, position_offset=0):
+def apply_rope(q, k, cos, sin, position_offset, neg_sin):
     """Rotate-half RoPE on q (b, s, h, d) and k (b, s, kvh, d).
 
     ``position_offset`` is one int shared by every row, or a (b,) tensor
     of per-row offsets (continuous batching: each row sits at its own
     length).  A shared offset past the table raises; per-row offsets are
     device values the caller bounds (the engine does at submit), and an
-    index past the table clamps, as JAX's gather does."""
+    index past the table clamps, as JAX's gather does.  ``neg_sin`` is
+    -sin for the backward's rotation (see ``fused_norm_rope``)."""
     b, s = q.shape[0], q.shape[1]
     if isinstance(position_offset, torch.Tensor):
         positions = position_offset
@@ -83,7 +93,7 @@ def apply_rope(q, k, cos, sin, position_offset=0):
                 f"({cos.shape[0]} = max_position_embeddings)")
         positions = torch.full((b,), off, dtype=torch.int32,
                                device=q.device)
-    return fused_norm_rope.apply_rope(q, k, cos, sin, positions)
+    return fused_norm_rope.apply_rope(q, k, cos, sin, positions, neg_sin)
 
 
 class LlamaAttention(nn.Module):
@@ -103,12 +113,13 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
                              **kw)
 
-    def forward(self, x, cos, sin, position_offset=0, paged_ctx=None):
+    def forward(self, x, cos, sin, neg_sin, position_offset=0,
+                paged_ctx=None):
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        q, k = apply_rope(q, k, cos, sin, position_offset)
+        q, k = apply_rope(q, k, cos, sin, position_offset, neg_sin)
         if paged_ctx is not None:
             out = paged_ctx.attend(q, k, v)
         else:
@@ -140,8 +151,9 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, cos, sin, position_offset=0, paged_ctx=None):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin,
+    def forward(self, x, cos, sin, neg_sin, position_offset=0,
+                paged_ctx=None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, neg_sin,
                                position_offset, paged_ctx=paged_ctx)
         return x + self.mlp(self.post_attention_layernorm(x))
 
@@ -163,14 +175,24 @@ class LlamaModel(nn.Module):
                              persistent=False)
         self.register_buffer("rope_sin", sin.to(device=device),
                              persistent=False)
+        # -sin, the RoPE backward's table, kept so a train step makes none
+        self.register_buffer("rope_sin_neg", (-sin).to(device=device),
+                             persistent=False)
 
     def forward(self, input_ids, position_offset=0, paged_ctx=None):
         x = self.embed_tokens(input_ids)
+        recompute = (self.config.use_recompute and paged_ctx is None
+                     and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             if paged_ctx is not None:
                 paged_ctx.layer_idx = i
-            x = layer(x, self.rope_cos, self.rope_sin, position_offset,
-                      paged_ctx=paged_ctx)
+            if recompute:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, self.rope_cos, self.rope_sin, self.rope_sin_neg,
+                    position_offset, use_reentrant=False)
+            else:
+                x = layer(x, self.rope_cos, self.rope_sin, self.rope_sin_neg,
+                          position_offset, paged_ctx=paged_ctx)
         return self.norm(x)
 
 
@@ -205,8 +227,16 @@ class LlamaForCausalLM(nn.Module):
             if isinstance(module, (Linear, Embedding)):
                 module.weight.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, input_ids):
-        return self._logits_of(self.model(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits (b, s, vocab); with ``labels`` (b, s), ``(loss, logits)``
+        where the loss is the mean cross entropy over labels other than
+        -100, as the JAX model returns."""
+        logits = self._logits_of(self.model(input_ids))
+        if labels is None:
+            return logits
+        loss = cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                             labels.reshape(-1), ignore_index=-100)
+        return loss, logits
 
     def _logits_of(self, hidden):
         if self.lm_head is not None:

@@ -1,0 +1,465 @@
+// Flash-attention backward for Hopper (sm_90a): the FA2 dK/dV and dQ
+// passes, from the forward's f32 log-sum-exp and delta = rowsum(out * dO).
+//
+// Replaces: paddle_tpu/ops/pallas/flash_attention.py `_bwd_dkv_kernel`
+// and `_bwd_dq_kernel` (launched by `flash_attention_backward`).  Same
+// contract: causal mask bottom-right aligned at offset sk - sq;
+// p = where(mask, exp(s * scale - lse), 0), never exp of a mask value, so
+// a row that sees no column (sq > sk) gets zero gradients; q rows past sq
+// add nothing to dK/dV and kv columns past sk nothing to dQ; dK/dV sum
+// in f32 over the GQA group before one cast to k's type; dQ is cast to
+// q's type.
+//
+// What bounds it on the H100: per (q, kv) pair the dK/dV pass does four
+// d-long products (s, dp, dv, dk) and the dQ pass three (s, dp, dq),
+// against (sq + sk) * d elements per head moved, so both are bound by
+// operations.  This first version computes the products in f32 on the
+// CUDA cores, not the tensor cores (moving them onto wgmma is later
+// work), so it runs far below the bf16 tensor-core peak.  What its
+// design does about that:
+//
+// - dK/dV: one block per (batch, kv head, 64-row kv tile) keeps K, V and
+//   its dK, dV accumulators resident (tiles in shared memory, sums in
+//   registers) while it walks the q tiles of every q head of its GQA
+//   group.  The group sum happens in those registers, so write-back
+//   needs no atomics and no repeated K/V is ever materialized (the JAX
+//   kernel repeats K/V and sums the group after the kernel).  q tiles
+//   wholly above the causal diagonal are never loaded.
+// - dQ: one block per (batch, q head, 64-row q tile) keeps Q, dO, lse and
+//   delta resident and streams the kv tiles up to the causal limit.
+// - Every thread owns a 4x4 micro-tile of each 64x64 score tile and a
+//   4x(d/16) slice of each accumulator: 8 shared loads feed 16 FMAs.
+//   Shared rows are padded by one float, so no warp's column read hits
+//   one bank twice.
+// - q, k, v, out, dO and the three gradients are read and written
+//   through (b, h, s) strides, so the (b, s, h, d) training buffers need
+//   no transposed copies.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kB = 64;          // rows of a q tile and of a kv tile
+constexpr int kThreads = 256;   // tx = tid % 16, ty = tid / 16
+constexpr int kR = 4;           // tile rows per thread: ty * 4 + i
+constexpr int kC = kB / 16;     // tile columns per thread: tx + 16 * j
+constexpr int kPP = kB + 1;     // padded row of a score tile
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// 16 bytes of T from global memory into consecutive floats
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* dst) {
+  constexpr int kN = 16 / sizeof(T);
+  uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dst[i] = to_float(e[i]);
+}
+
+// rows row0 .. row0 + kB of a (s, D) slab with row stride `stride` into
+// shared floats [kB][D + 1]; rows at or past `valid` read as zeros
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* base, int64_t stride,
+                                          int row0, int valid, float* dst) {
+  constexpr int VEC = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < kB * (D / VEC); i += kThreads) {
+    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
+    const int row = row0 + r;
+    float tmp[VEC];
+    if (row < valid) {
+      load16(base + row * stride + c, tmp);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) tmp[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dst[r * (D + 1) + c + e] = tmp[e];
+  }
+}
+
+// acc[i][j] = sum_e a[ty*4+i][e] * b[tx+16j][e] over two [kB][D+1] tiles
+template <int D>
+__device__ __forceinline__ void tile_dot(const float* a, const float* b,
+                                         int tx, int ty, float acc[kR][kC]) {
+  constexpr int DP = D + 1;
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+  for (int e = 0; e < D; ++e) {
+    float av[kR], bv[kC];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) av[i] = a[(ty * kR + i) * DP + e];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) bv[j] = b[(tx + 16 * j) * DP + e];
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+#pragma unroll
+      for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+struct Strides {
+  // elements, (batch, head, seq) of q, k, v, dout, dq, dk, dv
+  int64_t qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+  int64_t dqb, dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int heads, int group, int sq,
+                     int sk, Strides st, int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DM = D / 16;     // accumulator dims per thread: tx + 16 * m
+  extern __shared__ float smem[];
+  float* ks = smem;              // [kB][DP]
+  float* vs = ks + kB * DP;      // [kB][DP]
+  float* qs = vs + kB * DP;      // [kB][DP]
+  float* dos = qs + kB * DP;     // [kB][DP]
+  float* ps = dos + kB * DP;     // [kB][kPP]: p, then ds
+  float* ls = ps + kB * kPP;     // [kB] lse of the q tile
+  float* dls = ls + kB;          // [kB] delta of the q tile
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int k0 = blockIdx.x * kB;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int offset = sk - sq;
+
+  load_tile<T, D>(k + b * st.kb + hk * st.kh, st.ks, k0, sk, ks);
+  load_tile<T, D>(v + b * st.vb + hk * st.vh, st.vs, k0, sk, vs);
+
+  float dka[kR][DM], dva[kR][DM];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int m = 0; m < DM; ++m) dka[i][m] = dva[i][m] = 0.f;
+
+  // q tiles wholly above the diagonal see none of this kv tile
+  int q_begin = 0;
+  if (causal) q_begin = max(0, k0 - offset) / kB * kB;
+
+  for (int g = 0; g < group; ++g) {
+    const int hq = hk * group + g;
+    const T* qb = q + b * st.qb + hq * st.qh;
+    const T* ob = dout + b * st.ob + hq * st.oh;
+    const float* lb = lse + ((int64_t)b * heads + hq) * sq;
+    const float* db = delta + ((int64_t)b * heads + hq) * sq;
+    for (int q0 = q_begin; q0 < sq; q0 += kB) {
+      __syncthreads();   // the previous tile's readers are done
+      load_tile<T, D>(qb, st.qs, q0, sq, qs);
+      load_tile<T, D>(ob, st.os, q0, sq, dos);
+      if (tid < kB) {
+        const int row = q0 + tid;
+        ls[tid] = row < sq ? lb[row] : 0.f;
+        dls[tid] = row < sq ? db[row] : 0.f;
+      }
+      __syncthreads();
+
+      float p[kR][kC], dp[kR][kC];
+      tile_dot<D>(qs, ks, tx, ty, p);
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int row = q0 + ty * kR + i;
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          const int col = k0 + tx + 16 * j;
+          const bool ok = row < sq && col < sk
+                          && (!causal || row + offset >= col);
+          p[i][j] = ok ? expf(p[i][j] * scale - ls[ty * kR + i]) : 0.f;
+          ps[(ty * kR + i) * kPP + tx + 16 * j] = p[i][j];
+        }
+      }
+      tile_dot<D>(dos, vs, tx, ty, dp);
+      __syncthreads();   // p complete
+
+      // dV += P^T dO: kv rows ty*4+i, dims tx+16m
+#pragma unroll 4
+      for (int r = 0; r < kB; ++r) {
+        float pv[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) pv[i] = ps[r * kPP + ty * kR + i];
+#pragma unroll
+        for (int m = 0; m < DM; ++m) {
+          const float o = dos[r * DP + tx + 16 * m];
+#pragma unroll
+          for (int i = 0; i < kR; ++i) dva[i][m] = fmaf(pv[i], o, dva[i][m]);
+        }
+      }
+      __syncthreads();   // p read; ds takes its place
+
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j)
+          ps[(ty * kR + i) * kPP + tx + 16 * j] =
+              p[i][j] * (dp[i][j] - dls[ty * kR + i]) * scale;
+      __syncthreads();
+
+      // dK += dS^T Q
+#pragma unroll 4
+      for (int r = 0; r < kB; ++r) {
+        float dsv[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) dsv[i] = ps[r * kPP + ty * kR + i];
+#pragma unroll
+        for (int m = 0; m < DM; ++m) {
+          const float qv = qs[r * DP + tx + 16 * m];
+#pragma unroll
+          for (int i = 0; i < kR; ++i) dka[i][m] = fmaf(dsv[i], qv, dka[i][m]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int row = k0 + ty * kR + i;
+    if (row >= sk) continue;
+    T* kout = dk + b * st.dkb + hk * st.dkh + row * st.dks;
+    T* vout = dv + b * st.dvb + hk * st.dvh + row * st.dvs;
+#pragma unroll
+    for (int m = 0; m < DM; ++m) {
+      kout[tx + 16 * m] = from_float<T>(dka[i][m]);
+      vout[tx + 16 * m] = from_float<T>(dva[i][m]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int heads, int group, int sq, int sk, Strides st,
+                    int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DM = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;              // [kB][DP]
+  float* dos = qs + kB * DP;     // [kB][DP]
+  float* ks = dos + kB * DP;     // [kB][DP]
+  float* vs = ks + kB * DP;      // [kB][DP]
+  float* ps = vs + kB * DP;      // [kB][kPP]: ds
+  float* ls = ps + kB * kPP;
+  float* dls = ls + kB;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * kB;
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / group;
+  const int offset = sk - sq;
+
+  load_tile<T, D>(q + b * st.qb + hq * st.qh, st.qs, q0, sq, qs);
+  load_tile<T, D>(dout + b * st.ob + hq * st.oh, st.os, q0, sq, dos);
+  if (tid < kB) {
+    const int row = q0 + tid;
+    const int64_t at = ((int64_t)b * heads + hq) * sq + row;
+    ls[tid] = row < sq ? lse[at] : 0.f;
+    dls[tid] = row < sq ? delta[at] : 0.f;
+  }
+  const T* kb = k + b * st.kb + hk * st.kh;
+  const T* vb = v + b * st.vb + hk * st.vh;
+
+  float dqa[kR][DM];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int m = 0; m < DM; ++m) dqa[i][m] = 0.f;
+
+  // kv tiles strictly right of the (offset) diagonal contribute nothing
+  int kv_end = sk;
+  if (causal) kv_end = min(sk, q0 + kB + offset);
+
+  for (int k0 = 0; k0 < kv_end; k0 += kB) {
+    __syncthreads();   // the previous tile's readers are done
+    load_tile<T, D>(kb, st.ks, k0, sk, ks);
+    load_tile<T, D>(vb, st.vs, k0, sk, vs);
+    __syncthreads();
+
+    float p[kR][kC], dp[kR][kC];
+    tile_dot<D>(qs, ks, tx, ty, p);
+    tile_dot<D>(dos, vs, tx, ty, dp);
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int row = q0 + ty * kR + i;
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool ok = row < sq && col < sk
+                        && (!causal || row + offset >= col);
+        const float pij = ok ? expf(p[i][j] * scale - ls[ty * kR + i]) : 0.f;
+        ps[(ty * kR + i) * kPP + tx + 16 * j] =
+            pij * (dp[i][j] - dls[ty * kR + i]) * scale;
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K: q rows ty*4+i, dims tx+16m
+#pragma unroll 4
+    for (int c = 0; c < kB; ++c) {
+      float dsv[kR];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) dsv[i] = ps[(ty * kR + i) * kPP + c];
+#pragma unroll
+      for (int m = 0; m < DM; ++m) {
+        const float kv = ks[c * DP + tx + 16 * m];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) dqa[i][m] = fmaf(dsv[i], kv, dqa[i][m]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
+    if (row >= sq) continue;
+    T* out = dq + b * st.dqb + hq * st.dqh + row * st.dqs;
+#pragma unroll
+    for (int m = 0; m < DM; ++m) out[tx + 16 * m] = from_float<T>(dqa[i][m]);
+  }
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return (4 * kB * (D + 1) + kB * kPP + 2 * kB) * (int)sizeof(float);
+}
+
+Strides unpack(const int64_t* s) {
+  return Strides{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],  s[6],
+                 s[7],  s[8],  s[9],  s[10], s[11], s[12], s[13],
+                 s[14], s[15], s[16], s[17], s[18], s[19], s[20]};
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int batch,
+                       int heads, int kv_heads, int sq, int sk,
+                       const int64_t* st, int causal, float scale,
+                       cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sk + kB - 1) / kB, kv_heads, batch);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), heads, heads / kv_heads, sq,
+      sk, unpack(st), causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int batch, int heads, int kv_heads, int sq,
+                      int sk, const int64_t* st, int causal, float scale,
+                      cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + kB - 1) / kB, heads, batch);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), heads, heads / kv_heads, sq, sk, unpack(st),
+      causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, dout, dq (b, h, sq, d); k, v, dk, dv (b, kv_h, sk, d): any strides
+// whose last dimension is contiguous, given in elements as
+// [q, k, v, dout, dq, dk, dv] x [batch, head, seq].  lse and delta:
+// contiguous (b, h, sq) f32.  dtype 0 = f32, 1 = bf16.  Each returns
+// cudaGetLastError() after its launch (0 = launched).
+int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv,
+                            int batch, int heads, int kv_heads, int sq,
+                            int sk, int head_dim, const int64_t* strides,
+                            int causal, float scale, int dtype,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (dtype == 1 && head_dim == 128)
+    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv,
+                                          batch, heads, kv_heads, sq, sk,
+                                          strides, causal, scale, s);
+  if (dtype == 1 && head_dim == 64)
+    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dk, dv,
+                                         batch, heads, kv_heads, sq, sk,
+                                         strides, causal, scale, s);
+  if (dtype == 0 && head_dim == 128)
+    return launch_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, batch,
+                                  heads, kv_heads, sq, sk, strides, causal,
+                                  scale, s);
+  if (dtype == 0 && head_dim == 64)
+    return launch_dkv<float, 64>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                                 kv_heads, sq, sk, strides, causal, scale,
+                                 s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int batch, int heads,
+                           int kv_heads, int sq, int sk, int head_dim,
+                           const int64_t* strides, int causal, float scale,
+                           int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (dtype == 1 && head_dim == 128)
+    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, batch,
+                                         heads, kv_heads, sq, sk, strides,
+                                         causal, scale, s);
+  if (dtype == 1 && head_dim == 64)
+    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dq, batch,
+                                        heads, kv_heads, sq, sk, strides,
+                                        causal, scale, s);
+  if (dtype == 0 && head_dim == 128)
+    return launch_dq<float, 128>(q, k, v, dout, l, dl, dq, batch, heads,
+                                 kv_heads, sq, sk, strides, causal, scale,
+                                 s);
+  if (dtype == 0 && head_dim == 64)
+    return launch_dq<float, 64>(q, k, v, dout, l, dl, dq, batch, heads,
+                                kv_heads, sq, sk, strides, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* flash_attention_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

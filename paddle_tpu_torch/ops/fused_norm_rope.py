@@ -23,6 +23,15 @@ element pair); the design gathers the token's cos/sin row once from a
 per-row ``positions`` vector inside the kernel — which covers both the
 shared-offset and the per-row-offset branches of ``llama.apply_rope`` —
 and clamps the table index as JAX's gather does for pad positions.
+
+Gradients (the JAX package's ``rms_norm_fused`` and ``fused_rope_fused``
+custom_vjps): ``rms_norm`` and ``apply_rope`` become autograd Functions
+when grad is enabled and an input requires it.  The RMSNorm backward is
+``_rms_bwd`` in torch ops (the JAX one is XLA, not a kernel).  The RoPE
+backward is the same Triton kernel run with a negated sin table — the
+adjoint of a rotation by theta is the rotation by -theta — as
+``_rope_bwd`` does; table cotangents are torch ops, computed only when
+a table requires grad.
 """
 import torch
 
@@ -66,13 +75,45 @@ def rms_norm_triton(x: torch.Tensor, weight: torch.Tensor,
 rms_norm_triton.launches = 0
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             epsilon: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim: the Triton kernel on the card, the plain
-    version on the CPU."""
+def _rms_forward(x, weight, epsilon):
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, epsilon)
     return rms_norm_triton(x, weight, epsilon)
+
+
+def rms_norm_backward(x, weight, g, epsilon):
+    """``_rms_bwd`` of the JAX package: (dx in x's dtype, dw in w's dtype
+    summed over every leading axis), f32 math."""
+    xf, gf, wf = x.float(), g.float(), weight.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)
+    gw = gf * wf
+    dot = (gw * xf).sum(dim=-1, keepdim=True)
+    dx = (r * gw - (r ** 3 / x.shape[-1]) * xf * dot).to(x.dtype)
+    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0).to(weight.dtype)
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        return _rms_forward(x, weight, epsilon)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_backward(x, weight, g, ctx.epsilon)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             epsilon: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim: the Triton kernel on the card, the plain
+    version on the CPU; differentiable (``_RMSNorm``) when autograd asks."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, epsilon)
+    return _rms_forward(x, weight, epsilon)
 
 
 # Triton kernels, defined at their first launch so that this module
@@ -167,13 +208,65 @@ def apply_rope_triton(q: torch.Tensor, k: torch.Tensor,
 apply_rope_triton.launches = 0
 
 
-def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor, positions: torch.Tensor):
-    """Rotate-half RoPE at per-row start positions: the Triton kernel on
-    the card, the plain version on the CPU."""
+def _rope_forward(q, k, cos, sin, positions):
     if q.device.type == "cpu":
         return apply_rope_plain(q, k, cos, sin, positions)
     return apply_rope_triton(q, k, cos, sin, positions)
+
+
+def rope_table_grads(q, k, gq, gk, positions, table_rows):
+    """Cotangents of the (max_pos, d/2) cos and sin tables: with
+    o1 = x1 c - x2 s and o2 = x2 c + x1 s, dc = sum g1 x1 + g2 x2 and
+    ds = sum g2 x1 - g1 x2 over heads, added into each token's table
+    row (clamped as the forward's gather is)."""
+    s = q.shape[1]
+    idx = (positions.to(torch.int64)[:, None]
+           + torch.arange(s, device=q.device)[None]).clamp(0, table_rows - 1)
+    dc = torch.zeros(table_rows, q.shape[-1] // 2, device=q.device)
+    dsn = torch.zeros_like(dc)
+    for x, gx in ((q, gq), (k, gk)):
+        half = x.shape[-1] // 2
+        x1, x2 = x[..., :half].float(), x[..., half:].float()
+        g1, g2 = gx[..., :half].float(), gx[..., half:].float()
+        dc.index_add_(0, idx.reshape(-1),
+                      (g1 * x1 + g2 * x2).sum(2).reshape(-1, half))
+        dsn.index_add_(0, idx.reshape(-1),
+                       (g2 * x1 - g1 * x2).sum(2).reshape(-1, half))
+    return dc, dsn
+
+
+class _Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, positions, neg_sin):
+        # q and k are needed only for table cotangents
+        tables = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        ctx.save_for_backward(q if tables else None, k if tables else None,
+                              cos, sin, positions, neg_sin)
+        return _rope_forward(q, k, cos, sin, positions)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        q, k, cos, sin, positions, neg_sin = ctx.saved_tensors
+        dq, dk = _rope_forward(gq, gk, cos, neg_sin, positions)
+        dcos = dsin = None
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dcos, dsin = rope_table_grads(q, k, gq, gk, positions,
+                                          cos.shape[0])
+            dcos, dsin = dcos.to(cos.dtype), dsin.to(sin.dtype)
+        return dq, dk, dcos, dsin, None, None
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, positions: torch.Tensor,
+               neg_sin: torch.Tensor):
+    """Rotate-half RoPE at per-row start positions: the Triton kernel on
+    the card, the plain version on the CPU.  Differentiable (``_Rope``)
+    when autograd asks; its backward rotates by ``neg_sin`` (-sin, kept
+    by the caller so a step allocates no table)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, cos, sin)):
+        return _Rope.apply(q, k, cos, sin, positions, neg_sin)
+    return _rope_forward(q, k, cos, sin, positions)
 
 
 def _rope_kernel():

@@ -83,7 +83,7 @@ def test_rms_norm_and_rope_match_plain(dev, dt):
     q = torch.randn(3, 9, 8, 128, generator=g, device=dev).to(dtype)
     k = torch.randn(3, 9, 2, 128, generator=g, device=dev).to(dtype)
     pos = torch.tensor([0, 20, 60], dtype=torch.int32, device=dev)
-    for got, want in zip(nr.apply_rope(q, k, cos, sin, pos),
+    for got, want in zip(nr.apply_rope(q, k, cos, sin, pos, -sin),
                          nr.apply_rope_plain(q, k, cos, sin, pos)):
         _close(got, want, tol)
 
@@ -97,3 +97,69 @@ def test_launch_counters_count_kernel_launches(dev):
         nr.rms_norm(x.cpu(), torch.ones(4096)).numpy(),
         nr.rms_norm_plain(x.cpu(), torch.ones(4096)).numpy())
     assert nr.rms_norm_triton.launches == before + 1
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("causal,sq,sk,h,kvh,d", [
+    (True, 200, 200, 4, 4, 64), (True, 70, 300, 4, 2, 128),
+    (False, 129, 33, 2, 1, 64), (True, 90, 40, 2, 2, 128)])
+def test_flash_backward_matches_plain(dev, dt, causal, sq, sk, h, kvh, d):
+    """dq, dk, dv of the dK/dV and dQ kernels against ``_bwd_blockwise``
+    on the same card: GQA, sq < sk, sq > sk (fully masked rows) and
+    lengths that are not a multiple of the 64-row tile."""
+    dtype, _ = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(2, h, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, kvh, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, kvh, sk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(2, h, sq, d, generator=g, device=dev).to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    scale = d ** -0.5
+    before = (fa.flash_attention_bwd_dkv_cuda.launches,
+              fa.flash_attention_bwd_dq_cuda.launches)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal, scale)
+    assert (fa.flash_attention_bwd_dkv_cuda.launches,
+            fa.flash_attention_bwd_dq_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa._bwd_blockwise(q, k, v, out, lse, do, causal, scale)
+    # f32: summation order; bf16: the gradients' one rounding to bf16
+    limit = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= limit
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_training_flash_rms_rope_grads_match_plain(dev, dt):
+    """The autograd Functions on the card (forward and backward kernels,
+    RoPE backward with -sin) against the same Functions on CPU copies
+    (plain versions)."""
+    dtype, _ = DTYPES[dt]
+    from paddle_tpu_torch.models.llama import _rope_tables
+    g = torch.Generator(device=dev).manual_seed(4)
+    cos, sin = (t.to(dev) for t in _rope_tables(64, 256, 10000.0))
+    q = torch.randn(2, 100, 4, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 100, 2, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 100, 2, 64, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(64, generator=g, device=dev)).to(dtype)
+    gout = torch.randn(2, 100, 4, 64, generator=g, device=dev).to(dtype)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(where).clone().requires_grad_()
+                  for t in (q, k, v, w)]
+        tq, tk, tv, tw = leaves
+        rq, rk = nr.apply_rope(tq, tk, cos.to(where), sin.to(where),
+                               pos.to(where), neg_sin=-sin.to(where))
+        out = fa.flash_attention_bshd(nr.rms_norm(rq, tw, 1e-5), rk, tv,
+                                      causal=True)
+        (out.float() * gout.to(where).float()).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(*grads):
+        assert _rel_l2(a, b) <= limit

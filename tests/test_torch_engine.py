@@ -1,8 +1,9 @@
 """Port parity: paddle_tpu_torch's continuous-batching engine against the
 JAX package's engine on the same weights and requests (CPU, f32).
 Greedy streams must be identical token for token — unchunked, chunked,
-and with a prefix-cache hit.  Sampled rows draw from torch generators,
-not JAX's threefry: they are held to replay and to their distribution."""
+and with a prefix-cache hit.  Sampled rows draw JAX's threefry bits, so
+sampled streams must be identical too; they are also held to replay and
+to their distribution."""
 import threading
 
 import numpy as np
@@ -71,6 +72,28 @@ def test_greedy_streams_match_jax_engine(models, chunk):
     assert got == want
 
 
+def _serve_sampled(engine):
+    """Three sampled requests beside one greedy one, at two temperatures
+    and three seeds; returns every stream."""
+    prompts, sharer = _prompts()
+    reqs = [engine.submit(p, max_new_tokens=8, do_sample=True,
+                          temperature=t, seed=s)
+            for p, t, s in zip(prompts, (0.8, 1.0, 1.5), (11, 0, 2 ** 32 - 1))]
+    reqs.append(engine.submit(sharer, max_new_tokens=8))
+    return [r.result(timeout=300).tolist() for r in reqs]
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["unchunked", "chunked"])
+def test_sampled_streams_match_jax_engine(models, chunk):
+    jm, tm = models
+    with JaxEngine(jm, prefill_chunk_tokens=chunk, **ENGINE) as eng:
+        want = _serve_sampled(eng)
+    with ContinuousBatchingEngine(tm, prefill_chunk_tokens=chunk,
+                                  device="cpu", **ENGINE) as eng:
+        got = _serve_sampled(eng)
+    assert got == want
+
+
 @pytest.mark.parametrize("chunk", [None, 8], ids=["unchunked", "chunked"])
 def test_sampled_request_replays_under_any_batch(models, chunk):
     """A sampled request's draws are keyed by (seed, absolute position),
@@ -94,13 +117,11 @@ def test_fused_sample_matches_softmax_distribution():
     logits = torch.tensor([[1.0, 0.5, 0.0, -0.5, 2.0, -1.0, 0.3, 1.2]])
     temp = 0.7
     n = 4000
-    counts = np.zeros(8)
-    for ctr in range(n):
-        tok = fused_sample(logits, np.array([5], np.uint32),
-                           np.array([ctr], np.int32),
-                           np.array([temp], np.float32),
-                           np.array([True]))
-        counts[int(tok[0])] += 1
+    # one row per counter, all drawn in one batched call
+    tok = fused_sample(logits.expand(n, 8), np.full(n, 5, np.uint32),
+                       np.arange(n, dtype=np.int32),
+                       np.full(n, temp, np.float32), np.ones(n, bool))
+    counts = np.bincount(tok.numpy(), minlength=8)
     want = torch.softmax(logits[0] / temp, dim=0).numpy()
     # 4000 draws: a binomial share's standard deviation is <= 0.008
     np.testing.assert_allclose(counts / n, want, rtol=0, atol=0.035)

@@ -11,7 +11,9 @@ failure:
             (one nvcc per source, in parallel, while the Triton kernels
             compile and are checked); print the card's name and power
             limit as nvidia-smi reports them.
-2. kernels — run each hand-written kernel at the serving path's shapes
+2. kernels — run each hand-written kernel (paged attention in its bf16,
+            f32 and int8-page modes, the w8 and w8a8 matmuls at llama_7b's
+            decode and prefill shapes) at the serving path's shapes
             against its plain PyTorch version on the card, with a stated
             tolerance; time kernel, plain version and, where one PyTorch
             call computes the same function, that call (a yardstick the
@@ -26,22 +28,28 @@ failure:
             backward launch (the RoPE kernel with -sin), and the forward
             kernels at those shapes.
 3. small   — a small f32 model served on the card (kernels) and on the
-            CPU (plain versions) from the same weights: the greedy token
-            streams must agree.  small-train: a small f32 model trains
+            CPU (plain versions) from the same weights, unquantized and
+            with int8 weights (w8, w8a8) and int8 KV pages: the greedy
+            token streams must agree.  small-train: a small f32 model trains
             5 AdamW steps on the card and on the CPU from the same
             weights and batches: the per-step losses must agree.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
-            8 requests through the continuous-batching engine, unchunked
-            and then with 256-token prefill chunks.  The kernels' launch
-            counters are zeroed just before each pass and read just
-            after it; every kernel of a pass's path must have launched,
-            every request must complete, and one request's prefill
-            logits must agree with a plain forward of the same model on
-            the card (in f32, and in bf16 relative to the plain bf16
-            forward's own distance from f32).
+            8 requests through the continuous-batching engine, unchunked,
+            with 256-token prefill chunks, and unchunked quantized
+            (``quantize="w8"`` and ``"w8a8"``, both with
+            ``kv_quant="int8"``).  The kernels' launch counters are
+            zeroed just before each pass and read just after it; every
+            kernel of a pass's path must have launched (a quantized pass:
+            its matmul once per Linear of every forward), every request
+            must complete, and one request's prefill logits must agree
+            with a plain forward of the same model on the card (in f32,
+            and in bf16 relative to the plain bf16 forward's own
+            distance from f32; quantized, in f32 against the plain
+            quantized forward).
 5. profile — where a decode step's time goes: batch 8 at contexts 512
-            and 2048, host-clock step times, then one ``torch.profiler``
-            window for the device's busy time, idle share and top kernels.
+            and 2048, and w8 with int8 KV at 512, host-clock step times,
+            then one ``torch.profiler`` window for the device's busy
+            time, idle share and top kernels.
 6. train   — llama_small (full width and depth) in bf16 with
             ``AdamW(multi_precision=True)`` through ``jit.TrainStep``, batch
             8 x sequence 1024, one batch drawn from ``--seed`` and
@@ -56,7 +64,8 @@ failure:
 The line before the last is the kernels' JSON record: each kernel's
 ``launches`` is its count on its main path (the unchunked serve pass,
 the engine's default, for the serving kernels; the train pass for the
-two backward kernels), ``launches_by_path`` its count in every pass,
+two backward kernels; the w8 or w8a8 pass for the quantized matmuls),
+``launches_by_path`` its count in every pass,
 ``train_shape`` the times of a serving kernel at the training shapes;
 ``serve`` and ``train`` hold each pass's end-to-end numbers, ``phase_s``
 each phase's wall seconds.  The last
@@ -64,6 +73,8 @@ line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import concurrent.futures
+import contextlib
+import gc
 import itertools
 import json
 import os
@@ -79,6 +90,7 @@ import torch  # noqa: E402
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOP_S = 989e12        # dense bf16 tensor-core peak
 F32_FLOP_S = 67e12          # f32 outside the tensor cores
+INT8_OP_S = 1979e12         # dense s8 tensor-core peak
 # profiler windows record device activity only: the host operators'
 # events carry no device time and cost seconds of post-processing per
 # window (about 0.5 s per llama_7b decode step)
@@ -105,11 +117,30 @@ KERNELS = {
         route="cuda",
         source="paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:241"),
+    "weight_only_matmul": dict(
+        route="cuda", source="paddle_tpu_torch/ops/csrc/quant_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/quant_matmul.py:44"),
+    "w8a8_matmul": dict(
+        route="cuda", source="paddle_tpu_torch/ops/csrc/quant_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/quant_matmul.py:173"),
+    # XLA ops in the JAX package (no pallas_call): the w8a8 prologue and
+    # the KV pages' quantizer, one kernel here
+    "dynamic_act_quant": dict(
+        route="cuda", source="paddle_tpu_torch/ops/csrc/quant_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/quant_matmul.py:159"),
 }
 # the pass whose launch count is a kernel's ``launches``
 MAIN_PATH = {name: "unchunked" for name in KERNELS}
 MAIN_PATH.update(flash_attention_bwd_dkv="train",
-                 flash_attention_bwd_dq="train")
+                 flash_attention_bwd_dq="train",
+                 weight_only_matmul="w8_int8kv", w8a8_matmul="w8a8_int8kv",
+                 dynamic_act_quant="w8a8_int8kv")
+# the serve passes: (label, prefill chunk, quantize, kv_quant)
+SERVE_PASSES = (("unchunked", None, None, None),
+                ("chunked256", 256, None, None),
+                ("w8_int8kv", None, "w8", "int8"),
+                ("w8a8_int8kv", None, "w8a8", "int8"))
+QUANT_KERNEL = {"w8": "weight_only_matmul", "w8a8": "w8a8_matmul"}
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
 
@@ -215,7 +246,8 @@ def check_paged(records, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rng = np.random.default_rng(1)
 
-    def case(label, dtype, q_heads, kv_heads, d, spans, ctxs, timed=False):
+    def case(label, dtype, q_heads, kv_heads, d, spans, ctxs, timed=False,
+             int8=False):
         b = len(spans)
         max_q = max(spans)
         lens = np.asarray(ctxs, np.int64) + np.asarray(spans)
@@ -235,14 +267,19 @@ def check_paged(records, dev):
                          device=dev).to(dtype)
         vp = torch.randn(kv_heads, total, page, d, generator=gen,
                          device=dev).to(dtype)
+        sc = {}
+        if int8:       # int8 pages with their per-slot scales
+            kp, ks = pa.quantize_kv(kp)
+            vp, vs = pa.quantize_kv(vp)
+            sc = dict(k_scales=ks, v_scales=vs)
         q = torch.randn(b, max_q, q_heads, d, generator=gen,
                         device=dev).to(dtype)
         lens_t = torch.as_tensor(lens, dtype=torch.int32, device=dev)
         ql_t = torch.as_tensor(spans, dtype=torch.int32, device=dev)
         tab_t = torch.as_tensor(tables, device=dev)
-        out = pa.paged_attention_cuda(q, kp, vp, lens_t, ql_t, tab_t)
+        out = pa.paged_attention_cuda(q, kp, vp, lens_t, ql_t, tab_t, **sc)
         ref = pa._ragged_plain(q, kp, vp, lens_t, ql_t, tab_t,
-                               1.0 / d ** 0.5)
+                               1.0 / d ** 0.5, **sc)
         torch.cuda.synchronize()
         # positions past a row's span are bucket padding: the plain
         # version computes discarded values there, the kernel zeros
@@ -256,12 +293,14 @@ def check_paged(records, dev):
         if not timed:
             return
         ms = cuda_ms(lambda: pa.paged_attention_cuda(
-            q, kp, vp, lens_t, ql_t, tab_t))
+            q, kp, vp, lens_t, ql_t, tab_t, **sc))
         plain_ms = cuda_ms(lambda: pa._ragged_plain(
-            q, kp, vp, lens_t, ql_t, tab_t, 1.0 / d ** 0.5), reps=3)
+            q, kp, vp, lens_t, ql_t, tab_t, 1.0 / d ** 0.5, **sc), reps=3)
         el = q.element_size()
-        # K/V of every row's context, read once per kv head; q and out
-        n_bytes = (int(lens.sum()) * kv_heads * d * 2 * el
+        # K/V of every row's context, read once per kv head (int8: one
+        # byte each plus an f32 scale per slot and head); q and out
+        per_slot = d * kp.element_size() + (4 if int8 else 0)
+        n_bytes = (int(lens.sum()) * kv_heads * per_slot * 2
                    + 2 * int(sum(spans)) * q_heads * d * el)
         visible = sum(int(min(n, n - s + 1 + j))
                       for n, s in zip(lens, spans) for j in range(s))
@@ -269,9 +308,12 @@ def check_paged(records, dev):
         bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
         log(f"  paged_attention {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {bms:.4f} ms ({by})")
-        records["paged_attention"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=None, case=label)
+        if int8:
+            records["paged_attention"]["int8"] = rec
+        else:
+            records["paged_attention"] = rec
 
     bf16, f32 = torch.bfloat16, torch.float32
     decode_ctx = list(rng.integers(64, 1056, 8))
@@ -286,6 +328,170 @@ def check_paged(records, dev):
     case("ragged gqa 8/2 d64 bf16", bf16, 8, 2, 64, mix_spans, mix_ctx)
     case("verify full spans 32/32 bf16", bf16, 32, 32, 128, [5] * 4,
          [100, 700, 1500, 3])
+    # the int8 KV mode, at the same tolerances (both sides attend the
+    # same dequantized values)
+    case("int8 decode b8 32/32 d128 bf16 ctx<=1056", bf16, 32, 32, 128,
+         [1] * 8, decode_ctx, timed=True, int8=True)
+    case("int8 ragged spans 1/7/64 32/32 d128 bf16", bf16, 32, 32, 128,
+         mix_spans, mix_ctx, int8=True)
+    case("int8 ragged gqa 32/8 d128 bf16", bf16, 32, 8, 128, mix_spans,
+         mix_ctx, int8=True)
+    case("int8 ragged 32/32 d128 f32", f32, 32, 32, 128, mix_spans, mix_ctx,
+         int8=True)
+    case("int8 verify full spans gqa 8/2 d64 bf16", bf16, 8, 2, 64, [5] * 4,
+         [100, 700, 1500, 3], int8=True)
+
+
+# llama_7b's quantized Linears: (M, K, N) at decode (the ragged step's 8
+# rows; q/k/v/o, gate/up, down, lm_head), at prefill, and odd tails
+QUANT_DECODE = ((8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
+                (8, 4096, 32000))
+QUANT_PREFILL = (1024, 4096, 11008)
+QUANT_ODD = ((77, 300, 200), (1, 4096, 32000), (5, 33, 17))
+
+
+def quant_bytes(m, k, n, el, w8a8):
+    """Bytes a quantized matmul must move: the int8 weight and f32
+    scales, x (int8 plus an f32 scale per row for w8a8) and y once."""
+    x_bytes = m * k + m * 4 if w8a8 else m * k * el
+    return n * k + n * 4 + x_bytes + m * n * el
+
+
+def check_quant(records, dev):
+    """The w8 and w8a8 kernels against their plain versions at llama_7b's
+    shapes, bf16 and f32; times beside the plain versions and a
+    yardstick the port never calls: ``F.linear`` with the bf16 twin for
+    w8 (the same product at twice the weight bytes), ``torch._int_mm``
+    for w8a8 (it needs M > 16: timed at M = 32 and at the prefill
+    shape).  Then the no-fallback check: with the kernel library
+    unbuildable, the quantized Linear raises ``KernelBuildError``."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {"weight_only_matmul": [], "w8a8_matmul": []}
+
+    def case(m, k, n, dtype, timed):
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sc = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        xq, xs = qm.dynamic_act_quant(x)
+        label = f"M{m} K{k} N{n} {str(dtype).split('.')[-1]}"
+        got = qm.weight_only_matmul_cuda(x, w, sc)
+        ref = qm.weight_only_matmul_plain(x, w, sc)
+        torch.cuda.synchronize()
+        # f32: sums in another order; bf16: one rounding of each output
+        err8 = check("weight_only_matmul", label, got, ref,
+                     1e-5 if dtype == f32 else 1e-2)
+        got = qm.w8a8_matmul_cuda(xq, xs, w, sc, dtype)
+        ref = qm.w8a8_matmul_plain(xq, xs, w, sc, dtype)
+        torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(got, ref))
+        # exact s32 sums and the same epilogue: bit-equal expected
+        erra = check("w8a8_matmul", f"{label} bit_equal={bit_equal}", got,
+                     ref, 1e-6)
+        if not timed:
+            return
+        el = x.element_size()
+        peak = BF16_FLOP_S if dtype == bf16 else F32_FLOP_S
+        wb = w.to(dtype)
+        ms = cuda_ms(lambda: qm.weight_only_matmul_cuda(x, w, sc))
+        plain_ms = cuda_ms(lambda: qm.weight_only_matmul_plain(x, w, sc),
+                           reps=3)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.linear(x, wb))
+        bms, by = bound_ms(quant_bytes(m, k, n, el, False), 2 * m * n * k,
+                           peak)
+        log(f"  weight_only_matmul {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.linear bf16 twin {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        rows["weight_only_matmul"].append(dict(
+            case=label, max_abs_err=err8, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        ms = cuda_ms(lambda: qm.w8a8_matmul_cuda(xq, xs, w, sc, dtype))
+        plain_ms = cuda_ms(lambda: qm.w8a8_matmul_plain(xq, xs, w, sc,
+                                                        dtype), reps=3)
+        lib_ms = None
+        if m > 16:
+            wt = w.t()
+            lib_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
+        bms, by = bound_ms(quant_bytes(m, k, n, el, True), 2 * m * n * k,
+                           INT8_OP_S)
+        log(f"  w8a8_matmul {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch._int_mm {lib_ms} ms, bound {bms:.4f} ms ({by})")
+        rows["w8a8_matmul"].append(dict(
+            case=label, max_abs_err=erra, bit_equal=bit_equal, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+
+    for m, k, n in QUANT_DECODE:
+        case(m, k, n, bf16, timed=True)
+        case(m, k, n, f32, timed=False)
+    case(*QUANT_PREFILL, bf16, timed=True)
+    case(*QUANT_PREFILL, f32, timed=False)
+    # the w8a8 yardstick needs M > 16
+    case(32, 4096, 11008, bf16, timed=True)
+    for m, k, n in QUANT_ODD:
+        for dtype in (bf16, f32):
+            case(m, k, n, dtype, timed=False)
+    # each kernel's record: the decode gate/up shape, every timed shape
+    # beside it
+    for name, timed in rows.items():
+        head = dict(timed[1])
+        head["shapes"] = timed
+        records[name] = head
+
+    # the activation quantizer: bit-equal expected (IEEE division,
+    # round half to even); timed at the prefill rows, L2-cold inputs
+    for shape, dtype, timed in (((1024, 4096), bf16, True),
+                                ((8, 11008), bf16, False),
+                                ((8 * 16, 32, 128), bf16, False),
+                                ((77, 300), f32, False)):
+        x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dtype)
+        q, s = qm.dynamic_act_quant_cuda(x)
+        pq, ps = qm.dynamic_act_quant_plain(x)
+        torch.cuda.synchronize()
+        label = f"{shape} {str(dtype).split('.')[-1]}"
+        if not (torch.equal(q, pq) and torch.equal(s, ps)):
+            raise AssertionError(f"dynamic_act_quant {label}: not bit-equal "
+                                 "to its plain version")
+        err = max(check("dynamic_act_quant", label + " q bit_equal=True",
+                        q, pq, 1e-6),
+                  check("dynamic_act_quant", label + " scale", s, ps, 1e-6))
+        if not timed:
+            continue
+        xs_ = cold_inputs(x)
+        ms = cuda_ms(lambda: qm.dynamic_act_quant_cuda(next(xs_)), 100)
+        plain_ms = cuda_ms(lambda: qm.dynamic_act_quant_plain(next(xs_)), 20)
+        n = x.numel()
+        bms, by = bound_ms(n * x.element_size() + n + s.numel() * 4, 3 * n,
+                           F32_FLOP_S)
+        log(f"  dynamic_act_quant {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by})")
+        records["dynamic_act_quant"] = dict(
+            case=label, max_abs_err=err, bit_equal=True, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+
+    def unbuildable(name):
+        raise _build.KernelBuildError(f"nvcc failed on {name}.cu "
+                                      "(simulated)")
+
+    x = torch.randn(8, 4096, device=dev, dtype=bf16)
+    w = torch.zeros(64, 4096, device=dev, dtype=torch.int8)
+    sc = torch.ones(64, device=dev)
+    layer = type("Bare", (), {"bias": None})()
+    real_load, _build.load = _build.load, unbuildable
+    try:
+        for mode in ("w8", "w8a8"):
+            try:
+                qm.quant_linear_forward(layer, x, (mode, w, sc))
+            except _build.KernelBuildError:
+                continue
+            raise AssertionError(f"{mode}: the quantized Linear did not "
+                                 "raise without its kernel library")
+    finally:
+        _build.load = real_load
+    log("  no fallback: without its kernel library the quantized Linear "
+        "raises KernelBuildError (w8 and w8a8)")
 
 
 def check_flash(records, dev):
@@ -596,25 +802,31 @@ def time_train_shapes(records, dev):
 def counters():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm_rope as nr
+    from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.paged_attention import paged_attention_cuda
     return {"paged_attention": paged_attention_cuda,
             "flash_attention_forward": fa.flash_attention_cuda,
             "rms_norm": nr.rms_norm_triton,
             "apply_rope": nr.apply_rope_triton,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_cuda,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_cuda}
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_cuda,
+            "weight_only_matmul": qm.weight_only_matmul_cuda,
+            "w8a8_matmul": qm.w8a8_matmul_cuda,
+            "dynamic_act_quant": qm.dynamic_act_quant_cuda}
 
 
-def serve(model, prompts, sharer, chunk, device):
+def serve(model, prompts, sharer, chunk, device, quantize=None,
+          kv_quant=None):
     """Serve ``prompts`` (the last two sampled) and then ``sharer``,
     which shares prompts[0]'s first 256 tokens, once prompts[0] has its
-    first token (so its prefix is cached).  Returns requests and wall
-    seconds."""
+    first token (so its prefix is cached).  Returns requests, wall
+    seconds and the KV cache's resident bytes (pages, scales)."""
     from paddle_tpu_torch.inference.continuous import \
         ContinuousBatchingEngine
     t0 = time.perf_counter()
     with ContinuousBatchingEngine(model, total_pages=1024, page_size=16,
                                   max_batch=8, prefill_chunk_tokens=chunk,
+                                  quantize=quantize, kv_quant=kv_quant,
                                   device=device) as eng:
         reqs = []
         for i, p in enumerate(prompts):
@@ -628,7 +840,9 @@ def serve(model, prompts, sharer, chunk, device):
             r.result(timeout=600)
         if device.type == "cuda":
             torch.cuda.synchronize()
-    return reqs, time.perf_counter() - t0
+        kv_bytes = dict(kv_pool_bytes=eng.cache.kv_pool_bytes,
+                        kv_scale_bytes=eng.cache.kv_scale_bytes)
+    return reqs, time.perf_counter() - t0, kv_bytes
 
 
 def serve_stats(reqs, wall):
@@ -643,49 +857,175 @@ def serve_stats(reqs, wall):
                 decode_tok_s=decode_tokens / span, wall_s=wall)
 
 
-def plain_forward(model, ids):
+class CodeReplay:
+    """The int8 codes the kernel path's quantizer (``dynamic_act_quant``:
+    the w8a8 activations and every int8 K/V write) returned in one
+    prefill, in call order, replayed into the plain forward.
+
+    Two f32 sums taken in different orders can put a value on either side
+    of an int8 rounding tie, a whole quantization step apart, and random
+    layers amplify that until the logits of two sound paths differ by
+    1e-2 to 0.3.  Replaying the kernel path's codes removes the flips at
+    their source, so the logits are held at a fixed limit; the codes are
+    held on their own: each against the plain quantizer's on the plain
+    path's own values, at most one step apart, on at most 1% of them,
+    with scales within 1e-3 relative, the limit of the values they scale
+    (a sound run on an H100 reads 4.2e-5 at full depth; a wrong rule
+    moves most codes or a scale: truncation, a wrong row, or dividing by
+    128 for 127, 7.9e-3)."""
+
+    MAX_FLIP_SHARE = 1e-2
+    MAX_SCALE_REL = 1e-3
+
+    def __init__(self):
+        self.codes, self.flips, self.n, self.worst_step = [], 0, 0, 0
+        self.worst_scale = 0.0
+
+    @contextlib.contextmanager
+    def recording(self):
+        from paddle_tpu_torch.ops import quant_matmul as qm
+        kernel = qm.dynamic_act_quant_cuda
+
+        def record(x):
+            q, scale = kernel(x)
+            self.codes.append((q, scale))
+            return q, scale
+
+        # the wrapper counts its launches under the module's name, which
+        # is ``record`` meanwhile
+        record.launches = kernel.launches
+        qm.dynamic_act_quant_cuda = record
+        try:
+            yield
+        finally:
+            qm.dynamic_act_quant_cuda = kernel
+            kernel.launches = record.launches
+
+    def quantize(self, x):
+        """The next recorded codes for ``x``, checked against the plain
+        quantizer's codes of ``x`` itself."""
+        from paddle_tpu_torch.ops import quant_matmul as qm
+        own_q, own_s = qm.dynamic_act_quant_plain(x)
+        if not self.codes:
+            raise AssertionError("the plain forward quantized more often "
+                                 "than the kernel path")
+        q, scale = self.codes.pop(0)
+        if q.numel() != own_q.numel():
+            raise AssertionError(
+                f"replayed codes of {tuple(q.shape)} for a value of "
+                f"{tuple(own_q.shape)}: the two paths quantize in another "
+                "order")
+        q, scale = q.reshape(own_q.shape), scale.reshape(own_s.shape)
+        step = (q.int() - own_q.int()).abs()
+        self.flips += int((step != 0).sum())
+        self.n += q.numel()
+        self.worst_step = max(self.worst_step, int(step.max()))
+        self.worst_scale = max(self.worst_scale, float(
+            ((scale - own_s).abs() / own_s).max()))
+        return q, scale
+
+    def verdict(self):
+        """Raises unless every code was replayed and the codes agree as a
+        sound quantizer's do; returns the flipped share."""
+        share = self.flips / max(1, self.n)
+        if self.codes:
+            raise AssertionError(f"{len(self.codes)} recorded quantizations "
+                                 "were never replayed")
+        if self.worst_step > 1 or share > self.MAX_FLIP_SHARE \
+                or self.worst_scale > self.MAX_SCALE_REL:
+            raise AssertionError(
+                f"int8 codes of the kernel path vs the plain quantizer: "
+                f"worst step {self.worst_step} (limit 1), flipped share "
+                f"{share:.2e} (limit {self.MAX_FLIP_SHARE}), scales "
+                f"{self.worst_scale:.2e} relative (limit "
+                f"{self.MAX_SCALE_REL})")
+        return share
+
+
+def plain_forward(model, ids, quantize=None, kv_quant=None, replay=None):
     """The port's LLaMA forward on its plain versions (no kernel): the
-    reference for the kernel path's logits on the card."""
+    reference for the kernel path's last-token logits on the card.
+    ``quantize`` runs every Linear through the plain quantized matmul with
+    the same int8 twins the serving path builds; ``kv_quant`` makes
+    attention consume the int8 round trip of K and V, as the pages hold
+    them.  ``replay`` (a :class:`CodeReplay`) supplies the kernel path's
+    int8 codes wherever the plain path quantizes."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.flash_attention import mha_reference
     from paddle_tpu_torch.ops.fused_norm_rope import (apply_rope_plain,
                                                       rms_norm_plain)
+    from paddle_tpu_torch.ops.paged_attention import dequantize_kv
+    from paddle_tpu_torch.quantization.serving import \
+        quantize_linear_weights
+    twins = {id(layer): (w_q, sc) for layer, w_q, sc in
+             (quantize_linear_weights(model) if quantize else ())}
+    act_quant = replay.quantize if replay else qm.dynamic_act_quant_plain
+
+    def linear(layer, x):
+        if not quantize:
+            return layer(x)
+        w_q, sc = twins[id(layer)]
+        x2 = x.reshape(-1, x.shape[-1])
+        if quantize == "w8a8":
+            xq, xs = act_quant(x2)
+            y = qm.w8a8_matmul_plain(xq, xs, w_q, sc, x.dtype)
+        else:
+            y = qm.weight_only_matmul_plain(x2, w_q, sc)
+        return y.reshape(*x.shape[:-1], -1)
+
+    def kv(t):
+        return dequantize_kv(*act_quant(t), t.dtype) if kv_quant else t
+
     m = model.model
     x = m.embed_tokens(ids)
     b, s = ids.shape
     pos = torch.zeros(b, dtype=torch.int32, device=ids.device)
     for layer in m.layers:
-        at = layer.self_attn
+        at, mlp = layer.self_attn, layer.mlp
         h = rms_norm_plain(x, layer.input_layernorm.weight,
                            layer.input_layernorm.epsilon)
-        q = at.q_proj(h).view(b, s, at.num_heads, at.head_dim)
-        k = at.k_proj(h).view(b, s, at.num_kv_heads, at.head_dim)
-        v = at.v_proj(h).view(b, s, at.num_kv_heads, at.head_dim)
+        q = linear(at.q_proj, h).view(b, s, at.num_heads, at.head_dim)
+        k = linear(at.k_proj, h).view(b, s, at.num_kv_heads, at.head_dim)
+        v = linear(at.v_proj, h).view(b, s, at.num_kv_heads, at.head_dim)
         q, k = apply_rope_plain(q, k, m.rope_cos, m.rope_sin, pos)
+        k, v = kv(k), kv(v)
         o = mha_reference(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=True).transpose(1, 2)
-        x = x + at.o_proj(o.reshape(b, s, -1))
-        x = x + layer.mlp(rms_norm_plain(
-            x, layer.post_attention_layernorm.weight,
-            layer.post_attention_layernorm.epsilon))
-    x = rms_norm_plain(x, m.norm.weight, m.norm.epsilon)
-    return model._logits_of(x).float()
+        x = x + linear(at.o_proj, o.reshape(b, s, -1))
+        h = rms_norm_plain(x, layer.post_attention_layernorm.weight,
+                           layer.post_attention_layernorm.epsilon)
+        x = x + linear(mlp.down_proj, torch.nn.functional.silu(
+            linear(mlp.gate_proj, h)) * linear(mlp.up_proj, h))
+    # the last token only, as the serving prefill's head sees it
+    x = rms_norm_plain(x[:, -1], m.norm.weight, m.norm.epsilon)
+    head = model.lm_head
+    return (linear(head, x) if head is not None
+            else model._logits_of(x)).float()
 
 
-def prefill_logits(model, ids):
+def prefill_logits(model, ids, quantize=None, kv_quant=None):
     """Last-token logits of ``ids`` (1, s) through the serving prefill
-    (kernels) and through ``plain_forward``, both on the model's card."""
+    (kernels) and through ``plain_forward``, both on the model's card.
+    Where the path quantizes activations or K/V, the plain forward replays
+    the kernel path's int8 codes; the :class:`CodeReplay` comes back
+    third (None otherwise)."""
     from paddle_tpu_torch.inference.paged import PagedDecoder
     from paddle_tpu_torch.ops.paged_attention import PagedKVCache
-    cache = PagedKVCache.from_model(model, total_pages=32, page_size=16)
+    cache = PagedKVCache.from_model(model, total_pages=32, page_size=16,
+                                    kv_dtype=kv_quant)
+    replay = CodeReplay() if quantize == "w8a8" or kv_quant else None
     with torch.no_grad():
-        got = PagedDecoder(model).prefill(cache, [0], ids.cpu().numpy())
-        ref = plain_forward(model, ids)[0, -1]
-    return torch.as_tensor(got[0], device=ref.device), ref
+        decoder = PagedDecoder(model, quantize=quantize)
+        with replay.recording() if replay else contextlib.nullcontext():
+            got = decoder.prefill(cache, [0], ids.cpu().numpy())
+        ref = plain_forward(model, ids, quantize, kv_quant, replay)[0]
+    return torch.as_tensor(got[0], device=ref.device), ref, replay
 
 
 def check_small():
     """A small f32 model: greedy streams on the card (kernels) equal the
-    CPU's (plain versions) from the same weights."""
+    CPU's (plain versions) from the same weights, unquantized and with
+    int8 weights (w8, w8a8) and int8 KV pages, unchunked and chunked."""
     from paddle_tpu_torch.inference.continuous import \
         ContinuousBatchingEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -699,21 +1039,24 @@ def check_small():
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 512, n).astype(np.int32)
                for n in (9, 40, 130)]
-    for chunk in (None, 32):
+    for (quant, kv), chunk in itertools.product(
+            ((None, None), ("w8", "int8"), ("w8a8", "int8")), (None, 32)):
         streams = []
         for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
             with ContinuousBatchingEngine(model, total_pages=64,
                                           page_size=16, max_batch=4,
                                           prefill_chunk_tokens=chunk,
+                                          quantize=quant, kv_quant=kv,
                                           device=dev) as eng:
                 reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
                 streams.append([r.result(timeout=300).tolist()
                                 for r in reqs])
+        label = f"quantize={quant} kv_quant={kv} chunk={chunk}"
         if streams[0] != streams[1]:
             raise AssertionError(
-                f"small f32 model, chunk={chunk}: greedy streams on the "
+                f"small f32 model, {label}: greedy streams on the "
                 f"card {streams[0]} differ from the CPU's {streams[1]}")
-        log(f"  small f32 model chunk={chunk}: greedy streams of "
+        log(f"  small f32 model {label}: greedy streams of "
             f"{len(prompts)} requests equal card vs CPU")
 
 
@@ -891,7 +1234,8 @@ def _device_us(evt):
     return 0.0
 
 
-def profile_decode(model, batch, context, steps, seed):
+def profile_decode(model, batch, context, steps, seed, quantize=None,
+                   kv_quant=None):
     """Prefill ``batch`` sequences of ``context`` tokens one by one, then
     run ``steps`` ragged decode steps (one token per row): the first
     half timed on the host clock (each step ends in the host transfer
@@ -901,8 +1245,8 @@ def profile_decode(model, batch, context, steps, seed):
     from paddle_tpu_torch.ops.paged_attention import PagedKVCache
     pages = batch * (-(-(context + steps + 8) // 16))
     cache = PagedKVCache.from_model(model, total_pages=pages + 1,
-                                    page_size=16)
-    dec = PagedDecoder(model)
+                                    page_size=16, kv_dtype=kv_quant)
+    dec = PagedDecoder(model, quantize=quantize)
     rng = np.random.default_rng(seed)
     seqs = list(range(batch))
     nxt = np.zeros(batch, np.int32)
@@ -945,7 +1289,8 @@ def profile_decode(model, batch, context, steps, seed):
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:8]
     return {
-        "batch": batch, "context": context,
+        "batch": batch, "context": context, "quantize": quantize,
+        "kv_quant": kv_quant,
         "prefill_s_first": walls[0],
         "prefill_s_median_rest": float(np.median(walls[1:])),
         "step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
@@ -1023,7 +1368,8 @@ def main():
     lap("build")
 
     # 2. kernels against their plain versions
-    for fn in (check_paged, check_flash, check_flash_bwd, time_train_shapes):
+    for fn in (check_paged, check_quant, check_flash, check_flash_bwd,
+               time_train_shapes):
         fn(records, dev)
         lap(fn.__name__)
 
@@ -1054,10 +1400,12 @@ def main():
     launches = {}
     passes = {}
     greedy = {}
-    for label, chunk in (("unchunked", None), ("chunked256", 256)):
+    norms_per_forward = 2 * cfg.num_hidden_layers + 1
+    for label, chunk, quant, kv in SERVE_PASSES:
         for fn in kernels.values():
             fn.launches = 0
-        reqs, wall = serve(model, prompts, sharer, chunk, dev)
+        reqs, wall, kv_bytes = serve(model, prompts, sharer, chunk, dev,
+                                     quant, kv)
         got = {n: fn.launches for n, fn in kernels.items()}
         launches[label] = got
         for i, r in enumerate(reqs):
@@ -1071,31 +1419,67 @@ def main():
                                  f"{reqs[-1].prefix_tokens} cached tokens, "
                                  "expected 256")
         stats = serve_stats(reqs, wall)
-        passes[label] = dict(stats, launches=got)
-        log(f"serve {label}: " + json.dumps(passes[label]))
+        passes[label] = dict(stats, launches=got, **kv_bytes)
         # with 256-token chunks every prompt rides the ragged kernel, so
-        # that path has no flash launch
-        need = [n for n in kernels if MAIN_PATH[n] == "unchunked"
-                and (n != "flash_attention_forward" or chunk is None)]
+        # that path has no flash launch; a quantized pass launches its
+        # matmul kernel for every Linear of every forward (7 per layer
+        # and the head), the other one never
+        need = ["paged_attention", "rms_norm", "apply_rope"]
+        if chunk is None:
+            need.append("flash_attention_forward")
+        if quant or kv:
+            need.append("dynamic_act_quant")
+        if quant:
+            need.append(QUANT_KERNEL[quant])
+            forwards = got["rms_norm"] / norms_per_forward
+            passes[label]["quant_launches_per_forward"] = \
+                got[QUANT_KERNEL[quant]] / forwards
+            if got[QUANT_KERNEL[quant]] != (7 * cfg.num_hidden_layers
+                                            + 1) * forwards:
+                raise AssertionError(
+                    f"{label}: {got[QUANT_KERNEL[quant]]} quantized "
+                    f"launches in {forwards} forwards, expected "
+                    f"{7 * cfg.num_hidden_layers + 1} each")
+        log(f"serve {label}: " + json.dumps(passes[label]))
         missing = [n for n in need if got[n] == 0]
-        if missing:
+        stray = [k for q, k in QUANT_KERNEL.items() if q != quant and got[k]]
+        if not (quant or kv) and got["dynamic_act_quant"]:
+            stray.append("dynamic_act_quant")
+        if missing or stray:
             raise AssertionError(f"{label}: kernels never launched on the "
-                                 f"serving path: {missing}")
+                                 f"serving path: {missing}; launched off "
+                                 f"it: {stray}")
         greedy[label] = [r.generated for r in reqs[:6]]
+        if quant:
+            # the engine and its int8 twins go before the next pass
+            del reqs
+            gc.collect()
+            torch.cuda.empty_cache()
     same = sum(a == b for a, b in zip(greedy["unchunked"],
                                       greedy["chunked256"]))
     log(f"serve: {same}/6 greedy streams identical unchunked vs chunked "
         "(bf16: the two paths round differently, so equality is "
         "reported, not required)")
+    for label in ("w8_int8kv", "w8a8_int8kv"):
+        same = sum(a == b for a, b in zip(greedy["unchunked"],
+                                          greedy[label]))
+        log(f"serve: {same}/6 greedy streams of {label} identical to the "
+            f"bf16 pass's (reported); KV pages {passes[label]['kv_pool_bytes']}"
+            f" B + scales {passes[label]['kv_scale_bytes']} B against bf16 "
+            f"pages {passes['unchunked']['kv_pool_bytes']} B")
     lap("serve")
 
     # 5. where a decode step's time goes (after the serve passes, so no
     # launch of it is counted there; before the f32 check below, which
     # turns the model to f32)
     log("profile:")
-    for context in (512, 2048):
+    for context, quant, kv in ((512, None, None), (2048, None, None),
+                               (512, "w8", "int8")):
         log("  " + json.dumps(dict(profile_decode(model, 8, context, 32,
-                                                  args.seed), card=smi[0])))
+                                                  args.seed, quant, kv),
+                                   card=smi[0])))
+        gc.collect()
+        torch.cuda.empty_cache()
     lap("profile")
 
     # one request's prefill logits, kernel path vs plain forward on the
@@ -1105,9 +1489,9 @@ def main():
     # any rounding, so a fixed bf16 tolerance would say nothing)
     ids = torch.as_tensor(prompts[1][None, :256].astype(np.int64),
                           device=dev)
-    got16, ref16 = prefill_logits(model, ids)
+    got16, ref16, _ = prefill_logits(model, ids)
     model.float()
-    got32, ref32 = prefill_logits(model, ids)
+    got32, ref32, _ = prefill_logits(model, ids)
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
@@ -1125,9 +1509,32 @@ def main():
     if r32 > 1e-3 or r_kernel > 2 * r_plain:
         raise AssertionError("prefill logits: the kernel path is further "
                              "from the plain forward than its limit")
+    # the quantized prefills in f32 at full depth, kernels vs plain
+    # versions with the same int8 twins; the plain forward replays the
+    # kernel path's int8 codes (``CodeReplay`` says why and how the codes
+    # are held), so what is left is f32 order: limit 1e-3, as unquantized
+    for quant, kv in (("w8", None), ("w8", "int8"), ("w8a8", "int8")):
+        got, ref, replay = prefill_logits(model, ids, quant, kv)
+        r = rel(got, ref)
+        codes = ""
+        if replay:
+            share = replay.verdict()
+            codes = (f"; {replay.n} int8 codes replayed, {share:.2e} of "
+                     f"them one step from the plain quantizer's, scales "
+                     f"within {replay.worst_scale:.2e}")
+        log(f"serve: prefill logits {quant} kv_quant={kv}, f32 kernels vs "
+            f"f32 plain, relative L2 {r:.2e} (limit 1e-3){codes}; int8 "
+            f"moves the plain logits {rel(ref, ref32):.2e}; argmax kernels "
+            f"{int(got.argmax())}, plain {int(ref.argmax())}")
+        if not torch.isfinite(got).all() or r > 1e-3:
+            raise AssertionError(
+                f"prefill logits {quant} kv_quant={kv}: the kernel path is "
+                "further from the plain forward than its limit")
+        gc.collect()
     lap("prefill_logits")
 
-    # 6. llama_small pretraining (the 7B model's 27 GB of f32 go first)
+    # 6. llama_small pretraining (the 7B model's 27 GB of f32 go first,
+    # with the slice that shares its tensors and the loop's last handle)
     del model
     torch.cuda.empty_cache()
     train_rec, launches["train"] = train(args.seed, dev, smi[0])
@@ -1143,7 +1550,8 @@ def main():
                                           for p in launches},
                         **records[name]))
     serve_line = {p: {k: passes[p][k] for k in
-                      ("ttft_p50_s", "decode_tok_s", "launches")}
+                      ("ttft_p50_s", "tpot_p50_s", "decode_tok_s", "wall_s",
+                       "kv_pool_bytes", "kv_scale_bytes", "launches")}
                   for p in passes}
     train_line = {k: train_rec[k] for k in (
         "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_gb",

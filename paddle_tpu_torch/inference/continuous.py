@@ -81,14 +81,17 @@ class ContinuousBatchingEngine:
     ``prefix_cache`` keeps retired prompts' page-aligned prefix KV
     resident (refcounted, LRU-evicted under pool pressure);
     ``prefill_chunk_tokens`` caps the prompt tokens one iteration
-    ingests, so long prompts interleave with decode.  ``device`` is where
-    the model lives; the engine's steps run on PyTorch's current stream
-    there, from the scheduler thread."""
+    ingests, so long prompts interleave with decode.  ``quantize``
+    ("w8"/"w8a8") and ``kv_quant`` ("int8") select quantized serving.
+    ``device`` is where the model lives; the engine's steps run on
+    PyTorch's current stream there, from the scheduler thread."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
                  prefix_cache: bool = True,
                  prefill_chunk_tokens: Optional[int] = None,
+                 quantize: Optional[str] = None,
+                 kv_quant: Optional[str] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -105,9 +108,17 @@ class ContinuousBatchingEngine:
         self.prefix_cache = bool(prefix_cache)
         self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
+        # quantized serving: ``quantize`` runs every Linear of the steps
+        # in int8 ("w8" weight-only, "w8a8" dynamic per token);
+        # ``kv_quant="int8"`` stores the KV pages in int8 with per-slot
+        # scale pools
+        if kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant must be None or 'int8', got {kv_quant!r}")
         self.cache = PagedKVCache.from_model(model, total_pages=total_pages,
-                                             page_size=page_size)
-        self._decoder = PagedDecoder(model)
+                                             page_size=page_size,
+                                             kv_dtype=kv_quant)
+        self._decoder = PagedDecoder(model, quantize=quantize)
         # the ragged step's pad rows write nowhere, but admission keeps
         # the JAX engine's pad-row page headroom so the two admit alike
         self._pad_pages = 1

@@ -1,6 +1,7 @@
 """Paged-KV serving steps for causal LMs (port of
 paddle_tpu/inference/paged.py: the prefill, prefix/chunk and ragged
-programs, and the fused sampling tail).
+programs, the fused sampling tail, and quantized serving — int8 weights
+through the armed ``Linear`` hook, int8 KV pages).
 
 Where the JAX package compiles one program per (mode, bucket) and
 donates the page pools through it, the port runs the same steps eagerly
@@ -11,14 +12,19 @@ that a later CUDA-graph capture needs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention_bshd
-from ..ops.paged_attention import (PagedKVCache, _gather_pages,
-                                   _scatter_pages, paged_attention_ragged)
+from ..ops.paged_attention import (PagedKVCache, _gather_dequant,
+                                   _scatter_pages, dequantize_kv,
+                                   paged_attention_ragged, quantize_kv)
+from ..quantization.serving import (SERVING_QUANT_MODES,
+                                    quantize_linear_weights)
 from . import _threefry
 
 
@@ -64,20 +70,22 @@ def fused_sample(logits, seeds, ctrs, temps, flags):
 
 
 def _prefix_suffix_attention(q, k_suf, v_suf, k_pages, v_pages, tables,
-                             prefix_lens):
+                             prefix_lens, k_scales=None, v_scales=None):
     """Prompt-suffix attention for rows whose prefix KV is already in
     pages: every suffix token attends the whole gathered prefix plus the
     suffix causally.  Dense masked attention, as in the JAX package.
 
-    q (b, s, q_heads, d); k_suf/v_suf (b, s, kv_heads, d) post-rope;
-    pages (kv_heads, total, page, d); tables (b, P) int32 pointing at the
-    prefix pages; prefix_lens (b,) int32.  Returns (b, s, q_heads, d)."""
+    q (b, s, q_heads, d); k_suf/v_suf (b, s, kv_heads, d) post-rope (in
+    the int8 mode already round-tripped by the caller); pages (kv_heads,
+    total, page, d), int8 with ``k/v_scales`` (kv_heads, total, page, 1);
+    tables (b, P) int32 pointing at the prefix pages; prefix_lens (b,)
+    int32.  Returns (b, s, q_heads, d)."""
     b, s, qh, d = q.shape
     group = qh // k_suf.shape[2]
     t_pre = tables.shape[1] * k_pages.shape[2]
-    k_all = torch.cat([_gather_pages(k_pages, tables, q.dtype),
+    k_all = torch.cat([_gather_dequant(k_pages, k_scales, tables, q.dtype),
                        k_suf.transpose(1, 2)], dim=2)
-    v_all = torch.cat([_gather_pages(v_pages, tables, q.dtype),
+    v_all = torch.cat([_gather_dequant(v_pages, v_scales, tables, q.dtype),
                        v_suf.transpose(1, 2)], dim=2)
     if group != 1:
         k_all = k_all.repeat_interleave(group, dim=1)
@@ -114,6 +122,10 @@ class PagedContext:
     - ``"ragged"``: each row's left-aligned span over its pages, through
       ``paged_attention_ragged`` (``lens`` counts the span, ``q_lens``
       is the span length).
+
+    In the int8 KV mode the write quantizes per slot and head and stores
+    the scales beside the values, and prefill attends the round-tripped
+    K/V, so every consumer sees exactly what the pages hold.
     """
 
     def __init__(self, cache: PagedKVCache, pg: np.ndarray, sl: np.ndarray,
@@ -135,29 +147,44 @@ class PagedContext:
         self.prefix_lens = prefix_lens
         self.layer_idx = 0
 
-    def _write(self, kp, vp, k, v) -> None:
-        b, s, kvh, d = k.shape
-        kf = k.reshape(b * s, kvh, d)
-        vf = v.reshape(b * s, kvh, d)
+    def _store(self, pool, vals) -> None:
+        """Scatter (b * s, kv_heads, last) values at the kept targets."""
         if self.keep is not None:
-            kf = kf.index_select(0, self.keep)
-            vf = vf.index_select(0, self.keep)
-        _scatter_pages(kp, self.pg, self.sl, kf.transpose(0, 1))
-        _scatter_pages(vp, self.pg, self.sl, vf.transpose(0, 1))
+            vals = vals.index_select(0, self.keep)
+        _scatter_pages(pool, self.pg, self.sl, vals.transpose(0, 1))
+
+    def _write(self, layer, x, pages, scales):
+        """Write one of k/v (b, s, kv_heads, d) into its pool; returns
+        the values prefill attention consumes (round-tripped in the int8
+        mode; the ragged step reads the pages instead)."""
+        b, s, kvh, d = x.shape
+        flat = x.reshape(b * s, kvh, d)
+        if not self.cache.kv_quant:
+            self._store(pages[layer], flat)
+            return x
+        x8, sc = quantize_kv(flat)
+        self._store(pages[layer], x8)
+        self._store(scales[layer], sc)
+        if self.mode == "ragged":
+            return None
+        return dequantize_kv(x8, sc, x.dtype).reshape(b, s, kvh, d)
 
     def attend(self, q, k, v):
         """q (b, s, q_heads, d), k/v (b, s, kv_heads, d), post-rope.
         Writes k/v into the pages and returns (b, s, q_heads, d)."""
-        kp = self.cache.k_pages[self.layer_idx]
-        vp = self.cache.v_pages[self.layer_idx]
-        self._write(kp, vp, k, v)
+        c, i = self.cache, self.layer_idx
+        k = self._write(i, k, c.k_pages, c.k_scales)
+        v = self._write(i, v, c.v_pages, c.v_scales)
+        kp, vp = c.k_pages[i], c.v_pages[i]
+        ks, vs = (c.k_scales[i], c.v_scales[i]) if c.kv_quant \
+            else (None, None)
         if self.mode == "prefill":
             return flash_attention_bshd(q, k, v, causal=True)
         if self.mode == "prefix":
             return _prefix_suffix_attention(q, k, v, kp, vp, self.tables,
-                                            self.prefix_lens)
+                                            self.prefix_lens, ks, vs)
         return paged_attention_ragged(q, kp, vp, self.lens, self.q_lens,
-                                      self.tables)
+                                      self.tables, k_scales=ks, v_scales=vs)
 
 
 class PagedDecoder:
@@ -165,12 +192,38 @@ class PagedDecoder:
     prefill, prefix/chunk prefill and the ragged unified step.  Every
     step plans its page writes on the host, runs the model once with a
     :class:`PagedContext`, and on any failure rolls the sequences'
-    lengths back to where the step found them."""
+    lengths back to where the step found them.
 
-    def __init__(self, model):
+    ``quantize="w8"`` or ``"w8a8"`` builds every Linear's int8 twin once
+    (``quantization.serving.quantize_linear_weights``) and arms the
+    Linears with it for the duration of each step; the model's own
+    weights stay as they are.  The arming writes onto the model's shared
+    Linear modules, so a quantized decoder owns its model while it steps:
+    no other decoder on the same model may step at the same time."""
+
+    def __init__(self, model, quantize: Optional[str] = None):
+        if quantize not in SERVING_QUANT_MODES:
+            raise ValueError(
+                f"quantize must be one of {SERVING_QUANT_MODES}, got "
+                f"{quantize!r}")
         self.model = model
         self.max_position = int(model.config.max_position_embeddings)
         self.device = model.model.embed_tokens.weight.device
+        self.quantize = quantize
+        self._quant = (quantize_linear_weights(model) if quantize
+                       else [])
+
+    @contextlib.contextmanager
+    def _armed(self):
+        """Arm every quantized Linear with its twin for one step; cleared
+        on the way out, on failure too."""
+        for layer, w_q, scale in self._quant:
+            layer._serving_quant = (self.quantize, w_q, scale)
+        try:
+            yield
+        finally:
+            for layer, _w_q, _scale in self._quant:
+                layer._serving_quant = None
 
     # ---------------------------------------------------------- helpers
     def _tensor(self, a, dtype=torch.int32):
@@ -240,9 +293,10 @@ class PagedDecoder:
                                                     b, s, s_b)
         try:
             ctx = PagedContext(cache, pg, sl, "prefill")
-            hidden = self.model.model(self._tensor(ids_np, torch.int64), 0,
-                                      paged_ctx=ctx)
-            logits = self._last_logits(hidden, np.full(b, s - 1))
+            with self._armed():
+                hidden = self.model.model(self._tensor(ids_np, torch.int64),
+                                          0, paged_ctx=ctx)
+                logits = self._last_logits(hidden, np.full(b, s - 1))
             return self._tail(logits, sampling)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
@@ -306,9 +360,10 @@ class PagedDecoder:
                                tables=self._tensor(ptabs),
                                prefix_lens=plens)
             # the prefix length doubles as the per-row rope offset
-            hidden = self.model.model(self._tensor(ids_np, torch.int64),
-                                      plens, paged_ctx=ctx)
-            logits = self._last_logits(hidden, np.full(b, s - 1))
+            with self._armed():
+                hidden = self.model.model(self._tensor(ids_np, torch.int64),
+                                          plens, paged_ctx=ctx)
+                logits = self._last_logits(hidden, np.full(b, s - 1))
             return self._tail(logits, sampling)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
@@ -388,8 +443,9 @@ class PagedDecoder:
             paged = PagedContext(cache, pg.reshape(-1), sl.reshape(-1),
                                  "ragged", lens=ctx_t + ql_t,
                                  tables=self._tensor(tabs), q_lens=ql_t)
-            hidden = self.model.model(ids_t, ctx_t, paged_ctx=paged)
-            lg = self.model._logits_of(hidden).float()       # (B, S, V)
+            with self._armed():
+                hidden = self.model.model(ids_t, ctx_t, paged_ctx=paged)
+                lg = self.model._logits_of(hidden).float()   # (B, S, V)
             targets = lg.argmax(dim=-1)
             # verify-row accept arithmetic, gated to the first nd
             # positions so chunk/decode rows (nd == 0) accept nothing

@@ -11,9 +11,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.quant_matmul import quant_linear_forward
+
 
 class Linear(nn.Module):
-    """y = x @ weight.T (+ bias), weight [out_features, in_features]."""
+    """y = x @ weight.T (+ bias), weight [out_features, in_features].
+
+    Quantized serving: while a serving step runs, the paged decoder arms
+    ``_serving_quant = (mode, w_q, scale)`` with the layer's int8 twin
+    and the forward runs ``ops.quant_matmul.quant_linear_forward``; the
+    decoder clears it when the step ends, so it is never armed outside
+    one."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = False, device=None, dtype=None):
@@ -25,8 +33,12 @@ class Linear(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
                                               dtype=dtype))
                      if bias else None)
+        self._serving_quant = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = self._serving_quant
+        if q is not None:
+            return quant_linear_forward(self, x, q)
         return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self) -> str:

@@ -112,6 +112,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on ``device``, as a pointer value."""
+    """PyTorch's current stream on ``device``, as a pointer value (the
+    raw accessor: ``torch.cuda.current_stream`` builds a Stream object
+    under a device switch, microseconds on every launch)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -22,10 +22,20 @@
 // the block's queries are never read, and scores, softmax state and the
 // output accumulate in f32.  Splitting long contexts across blocks
 // (split-KV) and tensor-core products are later work.
+//
+// int8 mode (`_decode_kernel(quantized=True)`): pages hold int8 values
+// with one f32 scale per slot and head (scale pools (kv_heads,
+// total_pages, page_size, 1)).  Each element is dequantized while its tile
+// is staged as T(float(q8) * s), rounded through the compute type before
+// any dot, as `dequantize_kv` does for every other consumer, so attention
+// sees bit-identical K/V to prefill's round trip.  The tile reads a
+// quarter (f32) or half (bf16) of the page bytes plus the scales.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,6 +68,18 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   for (int i = 0; i < kN; ++i) dst[i] = to_float(e[i]);
 }
 
+// 16 int8 page elements dequantized with their slot's scale, each
+// rounded through the compute type T
+template <typename T>
+__device__ __forceinline__ void load16_int8(const int8_t* src, float s,
+                                            float* dst) {
+  uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    dst[i] = to_float(from_float<T>(static_cast<float>(e[i]) * s));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -72,20 +94,25 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // q/out (batch, max_q, q_heads, D); pages (kv_heads, total_pages,
-// page_size, D); lens/q_lens (batch,); tables (batch, table_width).
-// Block (x, h, b): query rows x*kRows .. of row b, kv head h, where query
-// row r is span position r / group of q head h * group + r % group.
-template <typename T, int D>
+// page_size, D) of type P (T, or int8 with k/v_scales pools
+// (kv_heads, total_pages, page_size)); lens/q_lens (batch,); tables
+// (batch, table_width).  Block (x, h, b): query rows x*kRows .. of row b,
+// kv head h, where query row r is span position r / group of q head
+// h * group + r % group.
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp,
+paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                       const P* __restrict__ vp,
+                       const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales,
                        const int* __restrict__ lens,
                        const int* __restrict__ q_lens,
                        const int* __restrict__ tables, T* __restrict__ out,
                        int max_q, int q_heads, int kv_heads, int page_size,
                        int total_pages, int table_width, float scale) {
   constexpr int DP = D + 1;              // padded rows: conflict-free reads
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(T);     // q elements per 16-byte load
+  constexpr int PVEC = 16 / sizeof(P);    // page elements per 16-byte load
   constexpr int TPD = kThreads / D;      // threads sharing one output dim
   constexpr int RPT = kRows / TPD;       // output rows per thread
   __shared__ float qs[kRows][DP];
@@ -147,26 +174,32 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
 
   const int* tab = tables + (size_t)b * table_width;
-  const size_t head_off = (size_t)hk * total_pages * page_size * D;
+  const size_t head_slot = (size_t)hk * total_pages * page_size;
 
   for (int t0 = 0; t0 < kv_end; t0 += kTile) {
     __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kTile * (D / VEC); i += kThreads) {
-      const int tt = i / (D / VEC), c = (i % (D / VEC)) * VEC;
+    for (int i = tid; i < kTile * (D / PVEC); i += kThreads) {
+      const int tt = i / (D / PVEC), c = (i % (D / PVEC)) * PVEC;
       const int t = t0 + tt;
-      float tk[VEC], tv[VEC];
+      float tk[PVEC], tv[PVEC];
       if (t < kv_end) {
         const int page = tab[t / page_size];
-        const size_t off =
-            head_off + ((size_t)page * page_size + t % page_size) * D + c;
-        load16(kp + off, tk);
-        load16(vp + off, tv);
+        const size_t slot = head_slot + (size_t)page * page_size
+                            + t % page_size;
+        const size_t off = slot * D + c;
+        if constexpr (std::is_same<P, int8_t>::value) {
+          load16_int8<T>(kp + off, k_scales[slot], tk);
+          load16_int8<T>(vp + off, v_scales[slot], tv);
+        } else {
+          load16(kp + off, tk);
+          load16(vp + off, tv);
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) tk[e] = tv[e] = 0.f;
+        for (int e = 0; e < PVEC; ++e) tk[e] = tv[e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < PVEC; ++e) {
         ks[tt][c + e] = tk[e];
         vs[tt][c + e] = tv[e];
       }
@@ -222,18 +255,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* lens, const int* q_lens, const int* tables,
-                   void* out, int batch, int max_q, int q_heads,
-                   int kv_heads, int page_size, int total_pages,
-                   int table_width, float scale, cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* lens,
+                   const int* q_lens, const int* tables, void* out,
+                   int batch, int max_q, int q_heads, int kv_heads,
+                   int page_size, int total_pages, int table_width,
+                   float scale, cudaStream_t stream) {
   const int group = q_heads / kv_heads;
   dim3 grid((max_q * group + kRows - 1) / kRows, kv_heads, batch);
-  paged_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), lens, q_lens, tables, static_cast<T*>(out),
-      max_q, q_heads, kv_heads, page_size, total_pages, table_width, scale);
+  paged_attention_kernel<T, P, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp),
+      static_cast<const P*>(vp), ks, vs, lens, q_lens, tables,
+      static_cast<T*>(out), max_q, q_heads, kv_heads, page_size, total_pages,
+      table_width, scale);
   return cudaGetLastError();
 }
 
@@ -242,26 +277,35 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 extern "C" {
 
 // dtype 0 = f32, 1 = bf16; head_dim 64 or 128.  Every tensor contiguous.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// kv_int8: the pages are int8 and k_scales/v_scales their f32 scale
+// pools (else both are ignored).  Returns cudaGetLastError() after the
+// launch (0 = launched).
 int paged_attention_fwd(const void* q, const void* k_pages,
-                        const void* v_pages, const void* lens,
+                        const void* v_pages, const void* k_scales,
+                        const void* v_scales, const void* lens,
                         const void* q_lens, const void* tables, void* out,
                         int batch, int max_q, int q_heads, int kv_heads,
                         int head_dim, int page_size, int total_pages,
-                        int table_width, float scale, int dtype,
+                        int table_width, float scale, int dtype, int kv_int8,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   const int* ln = static_cast<const int*>(lens);
   const int* ql = static_cast<const int*>(q_lens);
   const int* tb = static_cast<const int*>(tables);
-#define PAGED_LAUNCH(T, D)                                                 \
-  return (int)launch<T, D>(q, k_pages, v_pages, ln, ql, tb, out, batch,   \
-                           max_q, q_heads, kv_heads, page_size,           \
-                           total_pages, table_width, scale, s)
-  if (dtype == 1 && head_dim == 128) PAGED_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == 1 && head_dim == 64) PAGED_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 0 && head_dim == 128) PAGED_LAUNCH(float, 128);
-  if (dtype == 0 && head_dim == 64) PAGED_LAUNCH(float, 64);
+#define PAGED_LAUNCH(T, P, D)                                              \
+  return (int)launch<T, P, D>(q, k_pages, v_pages, ks, vs, ln, ql, tb,     \
+                              out, batch, max_q, q_heads, kv_heads,        \
+                              page_size, total_pages, table_width, scale, s)
+#define PAGED_DTYPE(T)                                                     \
+  if (kv_int8 && head_dim == 128) PAGED_LAUNCH(T, int8_t, 128);            \
+  if (kv_int8 && head_dim == 64) PAGED_LAUNCH(T, int8_t, 64);              \
+  if (!kv_int8 && head_dim == 128) PAGED_LAUNCH(T, T, 128);                \
+  if (!kv_int8 && head_dim == 64) PAGED_LAUNCH(T, T, 64)
+  if (dtype == 1) { PAGED_DTYPE(__nv_bfloat16); }
+  if (dtype == 0) { PAGED_DTYPE(float); }
+#undef PAGED_DTYPE
 #undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,796 @@
+// Int8 quantized matmuls for Hopper (sm_90a): weight-only (w8) and w8a8.
+//
+// Replaces: paddle_tpu/ops/pallas/quant_matmul.py `_wo_kernel` (launched
+// by `weight_only_matmul_pallas`) and `_w8a8_kernel` (launched by
+// `w8a8_matmul_pallas`).  The weight keeps the port's Linear layout
+// [N, K], K contiguous (the JAX twin is its transpose, [K, N]).
+//
+//   w8:    y[m, n] = T((sum_k x[m, k] * T(w[n, k])) * scale[n]), the sum in
+//          f32, the per-column scale applied once after the last k.
+//   w8a8:  y[m, n] = T(float(sum_k xq[m, k] * w[n, k]) * xs[m] * scale[n]),
+//          the sum exact in s32, the epilogue in that order of products,
+//          so the result is bit-equal to any exact s32 sum.
+//
+// What bounds them on the H100: at decode (M = the ragged step's rows, a
+// handful) each weight byte feeds M multiply-adds, so both are bound by
+// the bytes of the int8 weight (half of bf16's); at prefill (M in the
+// thousands) by operations.  What the design does about that, per regime
+// and type:
+//
+//   The tensor cores, mma.sync: m16n8k16 bf16 -> f32 for w8 with bf16 x
+//   (the serving path; the int8 weight converted exactly to bf16 in
+//   registers with integer/float bit tricks, no I2F), m16n8k32 s8 -> s32
+//   for w8a8 (the int8 bytes are the fragments).  M <= 16: a block owns 16
+//   output columns, its 8 warps split K and meet in shared memory, every
+//   lane streams 16-byte weight loads with the next block's loads issued
+//   before the current block's products.  M > 16: 128 x 128 output tiles,
+//   8 warps of 64 x 32, k tiles staged in shared memory.
+//
+//   w8 with f32 x runs on the CUDA cores (the tensor cores have no f32
+//   product), 128 x 128 tiles of f32 FMAs, 8 x 8 outputs per thread, at
+//   every M: no serving workload runs f32, so its decode is not tuned.
+//
+// Pipelined (cp.async, TMA) tiles and wgmma are later work.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 128;    // tiled: output tile edge
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float byte_to_float(uint32_t word, int b) {
+  return static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xffu));
+}
+
+// 16 int8 of a K-contiguous row from column k; bytes past K read as 0.
+// VEC: K % 16 == 0 and the row 16-byte aligned, so k < K means k + 16 <= K.
+template <bool VEC>
+__device__ __forceinline__ uint4 load_i8x16(const int8_t* row, int k, int K) {
+  if (VEC) {
+    if (k < K) return __ldg(reinterpret_cast<const uint4*>(row + k));
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (k + e < K)
+      w[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(row[k + e]))
+                  << (8 * (e % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 8 floats of a K-contiguous row from column k; past K read as 0.
+template <bool VEC>
+__device__ __forceinline__ void load_row8(const float* row, int k, int K,
+                                          float* dst) {
+  if (VEC && k < K) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row + k));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row + k) + 1);
+    dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+    dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) dst[e] = (k + e < K) ? row[k + e] : 0.f;
+}
+
+// ------------------------------------------------- w8, skinny, bf16 mma
+// bf16 x at M <= 16 on the tensor cores: mma.sync m16n8k16 (bf16 in,
+// f32 accumulate; int8 -> bf16 is exact, so are the products).  Warp w of
+// the block takes the 64-k blocks w, w + 8, ... of the block's 16 output
+// columns (two n8 tiles); the 8 warps' partial sums meet in shared memory.
+// Lane (g, t) = (lane / 4, lane % 4) loads 16 bytes of weight row g of
+// each tile at k = kb + 16 t, and the 16 x values of rows g and g + 8 at
+// the same k.  The k order inside a 64-block is permuted identically for
+// both operands — mma step j gives lane (g, t) the k pairs kb + 16 t + 4 j
+// + {0, 1} and {2, 3} — so each lane's fragments come from its own loads.
+constexpr int kMmaTiles = 2;               // n8 tiles per block
+
+// four int8 (one word) -> two bf16x2, exactly: the biased byte becomes the
+// low mantissa bits of 2^23, subtracting 2^23 + 128 leaves the integer
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t word, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440))
+                   - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441))
+                   - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442))
+                   - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443))
+                   - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 16 bf16 of x row m from column k as 8 words (bf16 pairs); zeros past M/K
+template <bool VEC>
+__device__ __forceinline__ void load_x16(const __nv_bfloat16* x, int m,
+                                         int M, int k, int K, uint32_t* w) {
+  if (m >= M || k >= K) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = 0u;
+    return;
+  }
+  const __nv_bfloat16* row = x + (size_t)m * K;
+  if (VEC) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + k));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(row + k) + 1);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+    return;
+  }
+  const uint16_t* r16 = reinterpret_cast<const uint16_t*>(row);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t lo = k + 2 * i < K ? r16[k + 2 * i] : 0u;
+    const uint32_t hi = k + 2 * i + 1 < K ? r16[k + 2 * i + 1] : 0u;
+    w[i] = lo | (hi << 16);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+wo_mma_skinny_kernel(const __nv_bfloat16* __restrict__ x,
+                     const int8_t* __restrict__ w,
+                     const float* __restrict__ scale,
+                     __nv_bfloat16* __restrict__ y, int M, int N, int K) {
+  __shared__ float part[kWarps][kMmaTiles][32][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kMmaTiles * 8;
+
+  float d[kMmaTiles][4];
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i)
+    d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+
+  auto load_w = [&](int kb, uint4* dst) {
+#pragma unroll
+    for (int i = 0; i < kMmaTiles; ++i) {
+      const int n = n0 + 8 * i + g;
+      dst[i] = n < N ? load_i8x16<VEC>(w + (size_t)n * K, kb + 16 * t, K)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  uint4 cur[kMmaTiles], nxt[kMmaTiles];
+  load_w(warp * 64, cur);
+  for (int kb = warp * 64; kb < K; kb += kWarps * 64) {
+    load_w(kb + kWarps * 64, nxt);        // the next block's weights
+    uint32_t xa[8], xb[8];                // rows g and g + 8
+    load_x16<VEC>(x, g, M, kb + 16 * t, K, xa);
+    load_x16<VEC>(x, g + 8, M, kb + 16 * t, K, xb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < kMmaTiles; ++i) {
+        uint32_t b0, b1;
+        i8x4_to_bf16x2(word_of(cur[i], j), b0, b1);
+        mma_bf16(d[i], xa[2 * j], xb[2 * j], xa[2 * j + 1], xb[2 * j + 1],
+                 b0, b1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMmaTiles; ++i) cur[i] = nxt[i];
+  }
+
+  // d[i][0..1]: row g, columns 2t, 2t + 1 of tile i; d[i][2..3]: row g + 8
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i) {
+    part[warp][i][lane][0] = d[i][0];
+    part[warp][i][lane][1] = d[i][1];
+  }
+  float hi[kMmaTiles][2];
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i) hi[i][0] = d[i][2], hi[i][1] = d[i][3];
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < kMmaTiles; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = 0.f;
+#pragma unroll
+        for (int ww = 0; ww < kWarps; ++ww) v += part[ww][i][lane][c];
+        const int n = n0 + 8 * i + 2 * t + c;
+        if (g < M && n < N)
+          y[(size_t)g * N + n] = from_float<__nv_bfloat16>(v * scale[n]);
+      }
+  }
+  if (M <= 8) return;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i) {
+    part[warp][i][lane][0] = hi[i][0];
+    part[warp][i][lane][1] = hi[i][1];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < kMmaTiles; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = 0.f;
+#pragma unroll
+        for (int ww = 0; ww < kWarps; ++ww) v += part[ww][i][lane][c];
+        const int n = n0 + 8 * i + 2 * t + c;
+        if (g + 8 < M && n < N)
+          y[(size_t)(g + 8) * N + n] =
+              from_float<__nv_bfloat16>(v * scale[n]);
+      }
+  }
+}
+
+// -------------------------------------------------------- w8, f32, tiled
+// Thread (tx, ty) of 16 x 16 owns rows ty*4 + {0..3, 64..67} and columns
+// tx*4 + {0..3, 64..67} of the tile: float4 reads of the staged tiles.
+__device__ __forceinline__ int tile_idx(int t, int i) {
+  return (i < 4) ? t * 4 + i : 64 + t * 4 + (i - 4);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+wo_tiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, float* __restrict__ y,
+                int M, int N, int K) {
+  constexpr int BK = 16;
+  __shared__ __align__(16) float as[BK][kTile + 4];
+  __shared__ __align__(16) float bs[BK][kTile + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int r = tid >> 1, kb = (tid & 1) * 8;   // staging: row r, k kb..+8
+  const int m = m0 + r, n = n0 + r;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    float xv[8], wv[8];
+    if (m < M) {
+      load_row8<VEC>(x + (size_t)m * K, k0 + kb, K, xv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xv[e] = 0.f;
+    }
+    if (n < N) {
+      const int8_t* row = w + (size_t)n * K;
+      const int k = k0 + kb;
+      if (VEC && k < K) {
+        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(row + k));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          wv[e] = byte_to_float(raw.x, e);
+          wv[4 + e] = byte_to_float(raw.y, e);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          wv[e] = (k + e < K) ? static_cast<float>(row[k + e]) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wv[e] = 0.f;
+    }
+    __syncthreads();   // the previous tile's readers are done
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      as[kb + e][r] = xv[e];
+      bs[kb + e][r] = wv[e];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[8], b[8];
+      *reinterpret_cast<float4*>(a) =
+          *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      *reinterpret_cast<float4*>(a + 4) =
+          *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
+      *reinterpret_cast<float4*>(b) =
+          *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+      *reinterpret_cast<float4*>(b + 4) =
+          *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int mm = m0 + tile_idx(ty, i);
+    if (mm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int nn = n0 + tile_idx(tx, j);
+      if (nn < N) y[(size_t)mm * N + nn] = acc[i][j] * scale[nn];
+    }
+  }
+}
+
+// -------------------------------------------------- w8, tiled, bf16 mma
+// bf16 x at M > 16: a 128 x 128 output tile per block, 8 warps of 64 x 32
+// (4 m16 x 4 n8 mma.sync tiles each), k tiles of 32 staged in shared
+// memory as bf16 (the weight converted exactly while staged).  Rows of 40
+// bf16 (80 bytes) make the fragment reads conflict-free.
+constexpr int kMmaBK = 32;
+constexpr int kMmaLd = kMmaBK + 8;
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+wo_mma_tiled_kernel(const __nv_bfloat16* __restrict__ x,
+                    const int8_t* __restrict__ w,
+                    const float* __restrict__ scale,
+                    __nv_bfloat16* __restrict__ y, int M, int N, int K) {
+  __shared__ __align__(16) uint16_t xs[kTile][kMmaLd];
+  __shared__ __align__(16) uint16_t ws[kTile][kMmaLd];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;   // warp tile
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+
+  float d[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      d[i][j][0] = d[i][j][1] = d[i][j][2] = d[i][j][3] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
+    // x: 128 rows x 32 k = 512 pieces of 8 bf16, two per thread
+    uint4 xr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * kThreads, r = p >> 2, c = (p & 3) * 8;
+      const int m = m0 + r, k = k0 + c;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (m < M) {
+        const __nv_bfloat16* row = x + (size_t)m * K;
+        if (VEC && k < K) {
+          const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + k));
+          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        } else if (!VEC) {
+          const uint16_t* r16 = reinterpret_cast<const uint16_t*>(row);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (k + e < K)
+              v[e / 2] |= static_cast<uint32_t>(r16[k + e]) << (16 * (e & 1));
+        }
+      }
+      xr[h] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    // w: 128 rows x 32 k = 256 pieces of 16 int8, one per thread
+    const int wr = tid >> 1, wc = (tid & 1) * 16;
+    const uint4 wraw = n0 + wr < N
+        ? load_i8x16<VEC>(w + (size_t)(n0 + wr) * K, k0 + wc, K)
+        : make_uint4(0u, 0u, 0u, 0u);
+    uint32_t wb[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      i8x4_to_bf16x2(word_of(wraw, q), wb[2 * q], wb[2 * q + 1]);
+    __syncthreads();   // the previous tile's readers are done
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * kThreads, r = p >> 2, c = (p & 3) * 8;
+      *reinterpret_cast<uint4*>(&xs[r][c]) = xr[h];
+    }
+    *reinterpret_cast<uint4*>(&ws[wr][wc]) =
+        make_uint4(wb[0], wb[1], wb[2], wb[3]);
+    *reinterpret_cast<uint4*>(&ws[wr][wc + 8]) =
+        make_uint4(wb[4], wb[5], wb[6], wb[7]);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK; kk += 16) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm + 16 * i + g;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 2 * t]);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 2 * t]);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 8 + 2 * t]);
+        a[i][3] =
+            *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 8 + 2 * t]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn + 8 * j + g;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(&ws[c][kk + 2 * t]);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(&ws[c][kk + 8 + 2 * t]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(d[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[j][0],
+                   b[j][1]);
+    }
+  }
+
+  // d[i][j][0..1]: row wm + 16 i + g, columns wn + 8 j + 2 t + {0, 1};
+  // d[i][j][2..3]: the same columns of row + 8
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = n0 + wn + 8 * j + 2 * t + c;
+          if (n < N)
+            y[(size_t)m * N + n] =
+                from_float<__nv_bfloat16>(d[i][j][2 * h + c] * scale[n]);
+        }
+    }
+}
+
+// ---------------------------------------------------- w8a8, s8 mma.sync
+// mma.sync m16n8k32 s8 x s8 -> s32 on the tensor cores, the same block
+// shapes as the bf16 w8 kernels and no conversion: the fragments are the
+// int8 bytes themselves.  Skinny (M <= 16): lane (g, t) loads 16 bytes of
+// weight row g of each n8 tile and of x rows g, g + 8 at k = kb + 16 t;
+// step j of a 64-block takes words 2 j and 2 j + 1 of them, the same k
+// permutation for both operands.  Tiled (M > 16): 128 x 128 tiles, k
+// tiles of 64 bytes in shared memory (rows of 80 bytes: conflict-free).
+__device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+w8a8_mma_skinny_kernel(const int8_t* __restrict__ xq,
+                       const float* __restrict__ xscale,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ scale, T* __restrict__ y,
+                       int M, int N, int K) {
+  __shared__ int part[kWarps][kMmaTiles][32][4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kMmaTiles * 8;
+
+  int d[kMmaTiles][4];
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i) d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0;
+
+  auto load_w = [&](int kb, uint4* dst) {
+#pragma unroll
+    for (int i = 0; i < kMmaTiles; ++i) {
+      const int n = n0 + 8 * i + g;
+      dst[i] = n < N ? load_i8x16<VEC>(w + (size_t)n * K, kb + 16 * t, K)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  uint4 cur[kMmaTiles], nxt[kMmaTiles];
+  load_w(warp * 64, cur);
+  for (int kb = warp * 64; kb < K; kb += kWarps * 64) {
+    load_w(kb + kWarps * 64, nxt);
+    const int k = kb + 16 * t;
+    const uint4 xa = g < M ? load_i8x16<VEC>(xq + (size_t)g * K, k, K)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 xb = g + 8 < M
+        ? load_i8x16<VEC>(xq + (size_t)(g + 8) * K, k, K)
+        : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < kMmaTiles; ++i)
+        mma_s8(d[i], word_of(xa, 2 * j), word_of(xb, 2 * j),
+               word_of(xa, 2 * j + 1), word_of(xb, 2 * j + 1),
+               word_of(cur[i], 2 * j), word_of(cur[i], 2 * j + 1));
+#pragma unroll
+    for (int i = 0; i < kMmaTiles; ++i) cur[i] = nxt[i];
+  }
+
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[warp][i][lane][c] = d[i][c];
+  __syncthreads();
+  if (warp != 0) return;
+  // d[i][0..1]: row g, columns 2t, 2t + 1 of tile i; d[i][2..3]: row g + 8
+#pragma unroll
+  for (int i = 0; i < kMmaTiles; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int v = 0;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) v += part[ww][i][lane][c];
+      const int m = g + 8 * (c >> 1), n = n0 + 8 * i + 2 * t + (c & 1);
+      if (m < M && n < N)
+        y[(size_t)m * N + n] =
+            from_float<T>(static_cast<float>(v) * xscale[m] * scale[n]);
+    }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+w8a8_mma_tiled_kernel(const int8_t* __restrict__ xq,
+                      const float* __restrict__ xscale,
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, T* __restrict__ y,
+                      int M, int N, int K) {
+  constexpr int BK = 64, LD = BK + 16;
+  __shared__ __align__(16) int8_t xs[kTile][LD];
+  __shared__ __align__(16) int8_t ws[kTile][LD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+
+  int d[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      d[i][j][0] = d[i][j][1] = d[i][j][2] = d[i][j][3] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // 128 rows x 64 bytes of each operand: two 16-byte pieces per thread
+    uint4 xr[2], wr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * kThreads, r = p >> 2, c = (p & 3) * 16;
+      xr[h] = m0 + r < M
+          ? load_i8x16<VEC>(xq + (size_t)(m0 + r) * K, k0 + c, K)
+          : make_uint4(0u, 0u, 0u, 0u);
+      wr[h] = n0 + r < N
+          ? load_i8x16<VEC>(w + (size_t)(n0 + r) * K, k0 + c, K)
+          : make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();   // the previous tile's readers are done
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = tid + h * kThreads, r = p >> 2, c = (p & 3) * 16;
+      *reinterpret_cast<uint4*>(&xs[r][c]) = xr[h];
+      *reinterpret_cast<uint4*>(&ws[r][c]) = wr[h];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm + 16 * i + g;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 4 * t]);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 4 * t]);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 16 + 4 * t]);
+        a[i][3] =
+            *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 16 + 4 * t]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn + 8 * j + g;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(&ws[c][kk + 4 * t]);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(&ws[c][kk + 16 + 4 * t]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_s8(d[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[j][0],
+                 b[j][1]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+      const float xsm = xscale[m];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = n0 + wn + 8 * j + 2 * t + c;
+          if (n < N)
+            y[(size_t)m * N + n] = from_float<T>(
+                static_cast<float>(d[i][j][2 * h + c]) * xsm * scale[n]);
+        }
+    }
+}
+
+// ------------------------------------------------------- activation quant
+// dynamic_act_quant (an XLA function in the JAX package, the prologue of
+// w8a8 and the KV pages' quantizer): one block per row, the row's absmax
+// by a block reduction, then q = clamp(rint(x / scale), -127, 127) with
+// scale = max(absmax, 1e-30) / 127 — IEEE division and round-half-even,
+// bit-equal to the torch ops.  Bound by bytes (x read twice, from L2 the
+// second time); it exists to make the ~8 torch launches one.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                 float* __restrict__ xs, int K) {
+  __shared__ float red[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* row = x + (size_t)blockIdx.x * K;
+  float amax = 0.f;
+  for (int k = tid; k < K; k += kThreads)
+    amax = fmaxf(amax, fabsf(to_float(row[k])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) amax = fmaxf(amax, red[i]);
+  const float scale = fmaxf(amax, 1e-30f) / 127.f;
+  int8_t* out = xq + (size_t)blockIdx.x * K;
+  for (int k = tid; k < K; k += kThreads) {
+    const float q = rintf(to_float(row[k]) / scale);
+    out[k] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  }
+  if (tid == 0) xs[blockIdx.x] = scale;
+}
+
+// ---------------------------------------------------------------- launch
+// bf16 x: the tensor-core kernels
+cudaError_t launch_wo_bf16(const __nv_bfloat16* x, const int8_t* w,
+                           const float* scale, __nv_bfloat16* y, int M,
+                           int N, int K, cudaStream_t s) {
+  const bool vec = K % 16 == 0;
+  if (M <= 16) {
+    dim3 grid((N + kMmaTiles * 8 - 1) / (kMmaTiles * 8));
+    if (vec)
+      wo_mma_skinny_kernel<true><<<grid, kThreads, 0, s>>>(x, w, scale, y, M,
+                                                           N, K);
+    else
+      wo_mma_skinny_kernel<false><<<grid, kThreads, 0, s>>>(x, w, scale, y,
+                                                            M, N, K);
+  } else {
+    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+    if (vec)
+      wo_mma_tiled_kernel<true><<<grid, kThreads, 0, s>>>(x, w, scale, y, M,
+                                                          N, K);
+    else
+      wo_mma_tiled_kernel<false><<<grid, kThreads, 0, s>>>(x, w, scale, y, M,
+                                                           N, K);
+  }
+  return cudaGetLastError();
+}
+
+// f32 x: f32 FMAs on the CUDA cores (the tensor cores have no f32
+// product), the tiled kernel at every M (it bounds-checks the rows)
+cudaError_t launch_wo_f32(const float* x, const int8_t* w, const float* scale,
+                          float* y, int M, int N, int K, cudaStream_t s) {
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  if (K % 16 == 0)
+    wo_tiled_kernel<true><<<grid, kThreads, 0, s>>>(x, w, scale, y, M, N, K);
+  else
+    wo_tiled_kernel<false><<<grid, kThreads, 0, s>>>(x, w, scale, y, M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_w8a8(const int8_t* xq, const float* xscale,
+                        const int8_t* w, const float* scale, void* y, int M,
+                        int N, int K, cudaStream_t s) {
+  T* yt = static_cast<T*>(y);
+  const bool vec = K % 16 == 0;
+  if (M <= 16) {
+    dim3 grid((N + kMmaTiles * 8 - 1) / (kMmaTiles * 8));
+    if (vec)
+      w8a8_mma_skinny_kernel<T, true><<<grid, kThreads, 0, s>>>(
+          xq, xscale, w, scale, yt, M, N, K);
+    else
+      w8a8_mma_skinny_kernel<T, false><<<grid, kThreads, 0, s>>>(
+          xq, xscale, w, scale, yt, M, N, K);
+  } else {
+    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+    if (vec)
+      w8a8_mma_tiled_kernel<T, true><<<grid, kThreads, 0, s>>>(
+          xq, xscale, w, scale, yt, M, N, K);
+    else
+      w8a8_mma_tiled_kernel<T, false><<<grid, kThreads, 0, s>>>(
+          xq, xscale, w, scale, yt, M, N, K);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype 0 = f32, 1 = bf16 (of x and y).  x (M, K), w (N, K) int8,
+// scale (N,) f32, y (M, N); every tensor contiguous, 16-byte aligned.
+// Returns cudaGetLastError() after the launch (0 = launched).
+int weight_only_matmul_fwd(const void* x, const void* w, const void* scale,
+                           void* y, int M, int N, int K, int dtype,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    return (int)launch_wo_f32(static_cast<const float*>(x), wq, sc,
+                              static_cast<float*>(y), M, N, K, s);
+  if (dtype == 1)
+    return (int)launch_wo_bf16(static_cast<const __nv_bfloat16*>(x), wq, sc,
+                               static_cast<__nv_bfloat16*>(y), M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype 0 = f32, 1 = bf16 (of y).  xq (M, K) int8, xscale (M,) f32,
+// w (N, K) int8, scale (N,) f32, y (M, N).
+int w8a8_matmul_fwd(const void* xq, const void* xscale, const void* w,
+                    const void* scale, void* y, int M, int N, int K,
+                    int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(xq);
+  const float* xs = static_cast<const float*>(xscale);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    return (int)launch_w8a8<float>(xi, xs, wq, sc, y, M, N, K, s);
+  if (dtype == 1)
+    return (int)launch_w8a8<__nv_bfloat16>(xi, xs, wq, sc, y, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype 0 = f32, 1 = bf16 (of x).  x (rows, K), xq (rows, K) int8,
+// xscale (rows,) f32.
+int dynamic_act_quant_fwd(const void* x, void* xq, void* xscale, int rows,
+                          int K, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* xs = static_cast<float*>(xscale);
+  if (dtype == 0)
+    act_quant_kernel<float><<<rows, kThreads, 0, s>>>(
+        static_cast<const float*>(x), q, xs, K);
+  else if (dtype == 1)
+    act_quant_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), q, xs, K);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+const char* quant_matmul_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,11 +1,13 @@
 """Paged attention and the paged KV cache.
 
-Port of paddle_tpu/ops/pallas/paged_attention.py without the int8 KV mode
-and the tensor-parallel mesh.  ``paged_attention``,
-``paged_attention_multi`` and ``paged_attention_ragged`` share one CUDA
-kernel (``csrc/paged_attention.cu``; its header says what it replaces,
-what bounds it and how it is laid out) and take their plain twins of the
-JAX package's XLA oracles for CPU tensors.
+Port of paddle_tpu/ops/pallas/paged_attention.py without the
+tensor-parallel mesh.  ``paged_attention``, ``paged_attention_multi`` and
+``paged_attention_ragged`` share one CUDA kernel
+(``csrc/paged_attention.cu``; its header says what it replaces, what
+bounds it and how it is laid out) and take their plain twins of the JAX
+package's XLA oracles for CPU tensors.  Each takes ``k_scales`` and
+``v_scales`` for the int8 KV mode: pages of int8 values with one f32
+scale per slot and head, dequantized by :func:`dequantize_kv`.
 
 The page allocator (:class:`PagedKVCache`) is host-side bookkeeping; the
 page pools live on the cache's device and are updated in place.
@@ -23,6 +25,7 @@ import torch
 
 from . import _build
 from .flash_attention import DEFAULT_MASK_VALUE
+from .quant_matmul import dynamic_act_quant
 from .._device import resolve_device
 
 
@@ -31,22 +34,46 @@ class PagesExhausted(RuntimeError):
     after evicting every reclaimable prefix-cache entry."""
 
 
+# --------------------------------------------------------- int8 KV quant
+def quantize_kv(x):
+    """Symmetric int8 quantization of K/V appends: per token and head,
+    absmax over head_dim.  x (..., d) float -> (q int8 (..., d), scale
+    f32 (..., 1)).  Scales are per slot because pages are append-only.
+    The same rule as :func:`quant_matmul.dynamic_act_quant`."""
+    return dynamic_act_quant(x)
+
+
+def dequantize_kv(q, scale, dtype):
+    """Invert :func:`quantize_kv`: int8 values times f32 scales, cast to
+    the compute ``dtype`` — the one dequant rule of every consumer (the
+    gathers here, the kernel's staging, the pages' round trip)."""
+    return (q.float() * scale).to(dtype)
+
+
 # ------------------------------------------------------------ plain twins
-def _gather_pages(pages, page_tables, dtype):
+def _gather_dequant(pages, scales, page_tables, dtype):
     """Pages (kv_heads, total, page, d) gathered through (batch, W)
-    tables to (batch, kv_heads, W * page, d)."""
-    kv_heads, _tot, page_size, d = pages.shape
-    batch, width = page_tables.shape
-    got = pages[:, page_tables.long()]             # (kvh, b, W, page, d)
-    return got.permute(1, 0, 2, 3, 4).reshape(
-        batch, kv_heads, width * page_size, d).to(dtype)
+    tables to (batch, kv_heads, W * page, d); with ``scales`` (the int8
+    mode's (kv_heads, total, page, 1) pool) dequantized per slot right
+    after the gather."""
+    def g(pool):
+        kv_heads, _tot, page_size, last = pool.shape
+        batch, width = page_tables.shape
+        got = pool[:, page_tables.long()]          # (kvh, b, W, page, last)
+        return got.permute(1, 0, 2, 3, 4).reshape(
+            batch, kv_heads, width * page_size, last)
+
+    if scales is not None:
+        return dequantize_kv(g(pages), g(scales), dtype)
+    return g(pages).to(dtype)
 
 
-def _gathered_kv(q_heads, k_pages, v_pages, page_tables, dtype):
+def _gathered_kv(q_heads, k_pages, v_pages, page_tables, dtype,
+                 k_scales=None, v_scales=None):
     """Table-indexed K and V pages, (batch, q_heads, T, d): kv heads
     repeated over their query group."""
-    k = _gather_pages(k_pages, page_tables, dtype)
-    v = _gather_pages(v_pages, page_tables, dtype)
+    k = _gather_dequant(k_pages, k_scales, page_tables, dtype)
+    v = _gather_dequant(v_pages, v_scales, page_tables, dtype)
     group = q_heads // k_pages.shape[0]
     if group != 1:
         k = k.repeat_interleave(group, dim=1)
@@ -67,31 +94,36 @@ def _span_attention(q, k, v, limit, scale):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _decode_plain(q, k_pages, v_pages, lengths, page_tables, scale):
+def _decode_plain(q, k_pages, v_pages, lengths, page_tables, scale,
+                  k_scales=None, v_scales=None):
     """Twin of ``_decode_xla``: one query per row, q (b, q_heads, d),
     attending cols < length."""
-    k, v = _gathered_kv(q.shape[1], k_pages, v_pages, page_tables, q.dtype)
+    k, v = _gathered_kv(q.shape[1], k_pages, v_pages, page_tables, q.dtype,
+                        k_scales, v_scales)
     limit = lengths.long()[:, None, None, None]
     return _span_attention(q[:, None], k, v, limit, scale)[:, 0]
 
 
-def _multi_plain(q, k_pages, v_pages, lengths, page_tables, scale):
+def _multi_plain(q, k_pages, v_pages, lengths, page_tables, scale,
+                 k_scales=None, v_scales=None):
     """Twin of ``_multi_xla``: q (b, nq, q_heads, d); query s of the
     block attends cols < length - (nq - 1 - s)."""
     n_query = q.shape[1]
-    k, v = _gathered_kv(q.shape[2], k_pages, v_pages, page_tables, q.dtype)
+    k, v = _gathered_kv(q.shape[2], k_pages, v_pages, page_tables, q.dtype,
+                        k_scales, v_scales)
     qpos = torch.arange(n_query, device=q.device)[None, None, :, None]
     limit = lengths.long()[:, None, None, None] - (n_query - 1 - qpos)
     return _span_attention(q, k, v, limit, scale)
 
 
 def _ragged_plain(q, k_pages, v_pages, lengths, q_lens, page_tables,
-                  scale):
+                  scale, k_scales=None, v_scales=None):
     """Twin of ``_ragged_xla``: row b's real queries sit left-aligned in
     the bucket, query j attends cols < min(kv, kv - q_len + 1 + j); pad
     queries clamp at kv and compute values the caller discards."""
     n_query = q.shape[1]
-    k, v = _gathered_kv(q.shape[2], k_pages, v_pages, page_tables, q.dtype)
+    k, v = _gathered_kv(q.shape[2], k_pages, v_pages, page_tables, q.dtype,
+                        k_scales, v_scales)
     qpos = torch.arange(n_query, device=q.device)[None, None, :, None]
     kv = lengths.long()[:, None, None, None]
     ql = q_lens.long()[:, None, None, None]
@@ -109,8 +141,8 @@ def _lib():
         vp = ctypes.c_void_p
         i32 = ctypes.c_int
         lib.paged_attention_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-            i32, ctypes.c_float, i32, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+            i32, i32, ctypes.c_float, i32, i32, vp]
         lib.paged_attention_fwd.restype = i32
         lib.paged_attention_error_string.argtypes = [i32]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -119,27 +151,39 @@ def _lib():
 
 
 def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
-                         scale=None):
+                         scale=None, k_scales=None, v_scales=None):
     """Launch the CUDA ragged paged-attention kernel.
 
     q (b, max_q, q_heads, d) f32/bf16 with d 64 or 128; pages
-    (kv_heads, total_pages, page_size, d) of q's type; lengths, q_lens
-    (b,) and page_tables (b, W) int32, all on one CUDA device.  Query j
-    of row b attends cols < min(len, len - q_len + 1 + j); positions
-    j >= q_len are bucket padding and come back as zeros.  Every real
-    row needs ``lengths[b] <= W * page_size`` and table entries below
-    ``total_pages``: the kernel reads what the table names."""
+    (kv_heads, total_pages, page_size, d) of q's type, or int8 with
+    ``k_scales``/``v_scales`` (kv_heads, total_pages, page_size, 1) f32;
+    lengths, q_lens (b,) and page_tables (b, W) int32, all on one CUDA
+    device.  Query j of row b attends cols < min(len, len - q_len + 1 +
+    j); positions j >= q_len are bucket padding and come back as zeros.
+    Every real row needs ``lengths[b] <= W * page_size`` and table
+    entries below ``total_pages``: the kernel reads what the table
+    names."""
     dev = q.device
+    quant = k_scales is not None
+    scales = (k_scales, v_scales) if quant else ()
     if dev.type != "cuda" or any(
             t.device != dev for t in (k_pages, v_pages, lengths, q_lens,
-                                      page_tables)):
+                                      page_tables, *scales)):
         raise ValueError("paged_attention_cuda needs every tensor on one "
                          "CUDA device")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    page_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPES or k_pages.dtype != page_dtype \
+            or v_pages.dtype != page_dtype:
         raise ValueError(f"paged_attention_cuda takes f32 or bf16 q and "
-                         f"pages of q's type, got {q.dtype}/"
-                         f"{k_pages.dtype}/{v_pages.dtype}")
+                         f"pages of q's type (int8 with scales), got "
+                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if quant and (v_scales is None or any(
+            s.dtype != torch.float32
+            or tuple(s.shape) != tuple(k_pages.shape[:3]) + (1,)
+            for s in scales)):
+        raise ValueError("paged_attention_cuda: int8 pages need f32 "
+                         "k_scales and v_scales of shape (kv_heads, "
+                         "total_pages, page_size, 1)")
     b, max_q, q_heads, d = q.shape
     kv_heads, total_pages, page_size, _d = k_pages.shape
     if d not in (64, 128) or _d != d or v_pages.shape != k_pages.shape \
@@ -150,6 +194,8 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     q, kp, vp = q.contiguous(), k_pages.contiguous(), v_pages.contiguous()
+    ks, vs = ((k_scales.contiguous(), v_scales.contiguous()) if quant
+              else (kp, vp))          # ignored by the kernel without int8
     lens, qls, tabs = (t.to(torch.int32).contiguous()
                        for t in (lengths, q_lens, page_tables))
     out = torch.empty_like(q)
@@ -157,10 +203,11 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
         return out
     lib = _lib()
     status = lib.paged_attention_fwd(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), lens.data_ptr(),
-        qls.data_ptr(), tabs.data_ptr(), out.data_ptr(), b, max_q, q_heads,
-        kv_heads, d, page_size, total_pages, tabs.shape[1], float(scale),
-        _DTYPES[q.dtype], _build.stream_ptr(dev))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), lens.data_ptr(), qls.data_ptr(), tabs.data_ptr(),
+        out.data_ptr(), b, max_q, q_heads, kv_heads, d, page_size,
+        total_pages, tabs.shape[1], float(scale), _DTYPES[q.dtype],
+        int(quant), _build.stream_ptr(dev))
     if status:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(status)
@@ -172,25 +219,28 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
 paged_attention_cuda.launches = 0
 
 
-def paged_attention(q, k_pages, v_pages, lengths, page_tables, scale=None):
+def paged_attention(q, k_pages, v_pages, lengths, page_tables, scale=None,
+                    k_scales=None, v_scales=None):
     """Decode-step attention over a paged KV cache.
 
     q (batch, q_heads, head_dim), one new token per sequence already
     written to the pages; k/v_pages (kv_heads, total_pages, page_size,
     head_dim); lengths (batch,) valid cached tokens including the new
-    one; page_tables (batch, max_pages_per_seq) int32."""
+    one; page_tables (batch, max_pages_per_seq) int32; k/v_scales
+    (kv_heads, total_pages, page_size, 1) f32 when the pages are int8."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return _decode_plain(q, k_pages, v_pages, lengths, page_tables,
-                             scale)
+                             scale, k_scales, v_scales)
     ones = torch.ones_like(lengths, dtype=torch.int32)
     return paged_attention_cuda(q[:, None], k_pages, v_pages, lengths,
-                                ones, page_tables, scale)[:, 0]
+                                ones, page_tables, scale, k_scales,
+                                v_scales)[:, 0]
 
 
 def paged_attention_multi(q, k_pages, v_pages, lengths, page_tables,
-                          scale=None):
+                          scale=None, k_scales=None, v_scales=None):
     """Multi-query (speculative verify) attention: q (batch, n_query,
     q_heads, head_dim) whose K/V are already in the pages; query s
     attends cols < length - (n_query - 1 - s).  An ``n_query == 1`` call
@@ -199,16 +249,19 @@ def paged_attention_multi(q, k_pages, v_pages, lengths, page_tables,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] == 1:
         return paged_attention(q[:, 0], k_pages, v_pages, lengths,
-                               page_tables, scale)[:, None]
+                               page_tables, scale, k_scales,
+                               v_scales)[:, None]
     if q.device.type == "cpu":
-        return _multi_plain(q, k_pages, v_pages, lengths, page_tables, scale)
+        return _multi_plain(q, k_pages, v_pages, lengths, page_tables, scale,
+                            k_scales, v_scales)
     full = torch.full_like(lengths, q.shape[1], dtype=torch.int32)
     return paged_attention_cuda(q, k_pages, v_pages, lengths, full,
-                                page_tables, scale)
+                                page_tables, scale, k_scales, v_scales)
 
 
 def paged_attention_ragged(q, k_pages, v_pages, lengths, q_lens,
-                           page_tables, scale=None):
+                           page_tables, scale=None, k_scales=None,
+                           v_scales=None):
     """Ragged paged attention: rows with different query-span lengths —
     decode rows, prefill/chunk spans and verify blocks — in one call.
 
@@ -220,17 +273,19 @@ def paged_attention_ragged(q, k_pages, v_pages, lengths, q_lens,
     ``max_q == 1`` call is exactly :func:`paged_attention`.  On the CPU
     pad queries compute discarded values, as in the JAX package; the
     kernel writes zeros there.  Returns (batch, max_q, q_heads,
-    head_dim)."""
+    head_dim).  ``k/v_scales`` mark int8 pages, as in
+    :func:`paged_attention`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] == 1:
         return paged_attention(q[:, 0], k_pages, v_pages, lengths,
-                               page_tables, scale)[:, None]
+                               page_tables, scale, k_scales,
+                               v_scales)[:, None]
     if q.device.type == "cpu":
         return _ragged_plain(q, k_pages, v_pages, lengths, q_lens,
-                             page_tables, scale)
+                             page_tables, scale, k_scales, v_scales)
     return paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens,
-                                page_tables, scale)
+                                page_tables, scale, k_scales, v_scales)
 
 
 # ------------------------------------------------------------- page cache
@@ -276,29 +331,39 @@ class PagedKVCache:
 
     @classmethod
     def from_model(cls, model, total_pages: int = 256,
-                   page_size: int = 16) -> "PagedKVCache":
+                   page_size: int = 16,
+                   kv_dtype: Optional[str] = None) -> "PagedKVCache":
         """Cache sized for a causal LM's config, on its device and in
-        its dtype."""
+        its dtype; ``kv_dtype="int8"`` selects the quantized storage."""
         c = model.config
         w = model.model.embed_tokens.weight
         return cls(num_layers=c.num_hidden_layers,
                    kv_heads=c.num_key_value_heads,
                    head_dim=c.hidden_size // c.num_attention_heads,
                    total_pages=total_pages, page_size=page_size,
-                   dtype=w.dtype, device=w.device)
+                   dtype=w.dtype, kv_dtype=kv_dtype, device=w.device)
 
     def __init__(self, num_layers: int, kv_heads: int, head_dim: int,
                  total_pages: int = 256, page_size: int = 16,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, kv_dtype: Optional[str] = None,
+                 device="cuda"):
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         self.num_layers = num_layers
         self.kv_heads = kv_heads
         self.head_dim = head_dim
         self.page_size = page_size
         self.total_pages = total_pages
+        # the int8 mode stores int8 pages beside per-slot f32 scale pools;
+        # ``dtype`` stays the compute type attention dequantizes toward
         self.dtype = dtype
+        self.kv_quant = kv_dtype == "int8"
         self.device = resolve_device(device)
         self.k_pages: List[torch.Tensor] = []
         self.v_pages: List[torch.Tensor] = []
+        self.k_scales: List[torch.Tensor] = []
+        self.v_scales: List[torch.Tensor] = []
         self._alloc_pools()
         self._free: List[int] = list(range(total_pages))
         self._seq_pages: Dict[object, List[int]] = {}
@@ -315,14 +380,30 @@ class PagedKVCache:
         self.generation = 0
 
     def _alloc_pools(self) -> None:
-        shape = (self.kv_heads, self.total_pages, self.page_size,
-                 self.head_dim)
-        self.k_pages = [torch.zeros(shape, dtype=self.dtype,
-                                    device=self.device)
-                        for _ in range(self.num_layers)]
-        self.v_pages = [torch.zeros(shape, dtype=self.dtype,
-                                    device=self.device)
-                        for _ in range(self.num_layers)]
+        def pools(last, dtype):
+            shape = (self.kv_heads, self.total_pages, self.page_size, last)
+            return [torch.zeros(shape, dtype=dtype, device=self.device)
+                    for _ in range(self.num_layers)]
+
+        store = torch.int8 if self.kv_quant else self.dtype
+        self.k_pages = pools(self.head_dim, store)
+        self.v_pages = pools(self.head_dim, store)
+        if self.kv_quant:
+            self.k_scales = pools(1, torch.float32)
+            self.v_scales = pools(1, torch.float32)
+
+    @property
+    def kv_pool_bytes(self) -> int:
+        """Resident bytes of the KV data pages across all layers."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.k_pages + self.v_pages)
+
+    @property
+    def kv_scale_bytes(self) -> int:
+        """Resident bytes of the int8 mode's scale pools (0 when the
+        cache stores full-precision KV)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.k_scales + self.v_scales)
 
     # ------------------------------------------------------- bookkeeping
     def _decref_seq(self, page: int) -> bool:
@@ -415,9 +496,9 @@ class PagedKVCache:
         return released
 
     def reset_pools(self) -> None:
-        """Reallocate zeroed pools.  Bookkeeping survives, cached K/V
-        does not, so the prefix index is dropped and ``generation``
-        bumps."""
+        """Reallocate zeroed pools (the scale pools too, in the int8
+        mode).  Bookkeeping survives, cached K/V does not, so the prefix
+        index is dropped and ``generation`` bumps."""
         self.generation += 1
         self._alloc_pools()
         while self._prefix_index:

@@ -11,6 +11,7 @@ import torch
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm_rope as nr
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +164,105 @@ def test_training_flash_rms_rope_grads_match_plain(dev, dt):
     limit = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(*grads):
         assert _rel_l2(a, b) <= limit
+
+
+QUANT_SHAPES = [(1, 4096, 4096), (8, 4096, 11008), (16, 512, 1024),
+                (77, 300, 200), (130, 512, 384), (5, 33, 17)]
+
+
+def _quant_inputs(dev, m, k, n, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4
+    return x, w, s
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("m,k,n", QUANT_SHAPES)
+def test_weight_only_matmul_matches_plain(dev, dt, m, k, n):
+    """The w8 kernel (bf16: skinny at M <= 16, tiled above; f32: tiled
+    at every M) against its plain version: f32 sums in another order, or
+    one bf16 rounding."""
+    dtype, _ = DTYPES[dt]
+    x, w, s = _quant_inputs(dev, m, k, n, dtype, 5)
+    before = qm.weight_only_matmul_cuda.launches
+    got = qm.weight_only_matmul(x, w, s)
+    assert qm.weight_only_matmul_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    limit = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel_l2(got, qm.weight_only_matmul_plain(x, w, s)) <= limit
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("m,k,n", QUANT_SHAPES)
+def test_w8a8_matmul_bit_equal_to_plain(dev, dt, m, k, n):
+    """The s32 sum is exact and the epilogue multiplies in the plain
+    version's order, so the kernel is bit-equal to it."""
+    dtype, _ = DTYPES[dt]
+    x, w, s = _quant_inputs(dev, m, k, n, dtype, 6)
+    before = qm.w8a8_matmul_cuda.launches
+    got = qm.w8a8_matmul(x, w, s)
+    assert qm.w8a8_matmul_cuda.launches == before + 1
+    xq, xs = qm.dynamic_act_quant_plain(x)
+    assert torch.equal(got, qm.w8a8_matmul_plain(xq, xs, w, s, dtype))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 4096), (130, 300), (3, 5, 2, 128)])
+def test_dynamic_act_quant_bit_equal_to_plain(dev, dt, shape):
+    dtype, _ = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+    x[0] = 0                                  # a zero row
+    before = qm.dynamic_act_quant_cuda.launches
+    q, s = qm.dynamic_act_quant(x)
+    assert qm.dynamic_act_quant_cuda.launches == before + 1
+    pq, ps = qm.dynamic_act_quant_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("qh,kvh,d", [(8, 8, 128), (8, 2, 64)])
+def test_paged_ragged_int8_matches_plain(dev, dt, qh, kvh, d):
+    """int8 pages with per-slot scales, dequantized in the kernel through
+    the compute type, against the plain gather-and-dequantize version."""
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(7)
+    spans = [1, 7, 16, 3]
+    lens = torch.tensor([1, 40, 100, 3], dtype=torch.int32, device=dev)
+    tables = torch.randperm(32, generator=g, device=dev)[:4 * 8] \
+        .view(4, 8).to(torch.int32)
+    kp, ks = pa.quantize_kv(torch.randn(kvh, 32, 16, d, generator=g,
+                                        device=dev))
+    vp, vs = pa.quantize_kv(torch.randn(kvh, 32, 16, d, generator=g,
+                                        device=dev))
+    q = torch.randn(4, 16, qh, d, generator=g, device=dev).to(dtype)
+    ql = torch.tensor(spans, dtype=torch.int32, device=dev)
+    sc = dict(k_scales=ks, v_scales=vs)
+    out = pa.paged_attention_ragged(q, kp, vp, lens, ql, tables, **sc)
+    ref = pa._ragged_plain(q, kp, vp, lens, ql, tables, d ** -0.5, **sc)
+    real = (torch.arange(16, device=dev)[None] < ql[:, None])[..., None,
+                                                               None]
+    _close(out * real, ref * real, tol)
+    assert float((out.float() * ~real).abs().max()) == 0.0
+    dec = pa.paged_attention(q[:, 0], kp, vp, lens, tables, **sc)
+    _close(dec, pa._decode_plain(q[:, 0], kp, vp, lens, tables, d ** -0.5,
+                                 **sc), tol)
+
+
+def test_quantized_path_raises_without_its_kernel(dev, monkeypatch):
+    """No fallback: a kernel library that does not build surfaces as
+    KernelBuildError on the quantized path."""
+    from paddle_tpu_torch.ops import _build
+
+    def broken(name):
+        raise _build.KernelBuildError(f"nvcc failed on {name}.cu")
+
+    monkeypatch.setattr(_build, "load", broken)
+    x, w, s = _quant_inputs(dev, 8, 64, 32, torch.bfloat16, 8)
+    for mode in ("w8", "w8a8"):
+        with pytest.raises(_build.KernelBuildError):
+            qm.quant_linear_forward(
+                type("L", (), {"bias": None})(), x, (mode, w, s))

@@ -38,6 +38,8 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("paddle_tpu_torch/ops/paged_attention.py",
+                 "paddle_tpu_torch/ops/quant_matmul.py",
+                 "paddle_tpu_torch/quantization/serving.py",
                  "paddle_tpu_torch/inference/continuous.py",
                  "chip_smoke.py"):
         assert must in names

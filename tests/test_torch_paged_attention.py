@@ -202,3 +202,107 @@ def test_exhaustion_raises_pages_exhausted():
     with pytest.raises(tpa.PagesExhausted):
         c.allocate(1, 1)
     assert issubclass(tpa.PagesExhausted, RuntimeError)
+
+
+# ------------------------------------------------------------ int8 mode
+def _int8_pools(seed):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-127, 128, (KVH, TOTAL, PAGE, D)).astype(np.int8)
+    v = rng.integers(-127, 128, (KVH, TOTAL, PAGE, D)).astype(np.int8)
+    ks = rng.uniform(0.01, 0.1, (KVH, TOTAL, PAGE, 1)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.1, (KVH, TOTAL, PAGE, 1)).astype(np.float32)
+    tables = rng.permutation(TOTAL)[:3 * 5].reshape(3, 5).astype(np.int32)
+    return k, v, ks, vs, tables
+
+
+def _close_int8(got, want):
+    # f32 attention over dequantized values; the interpret kernel's
+    # online softmax sums in another order
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["decode", "multi", "ragged"])
+def test_int8_pages_match_pallas_and_xla(mode):
+    k, v, ks, vs, tab = _int8_pools(10)
+    rng = np.random.default_rng(11)
+    scale = 1.0 / np.sqrt(D)
+    if mode == "decode":
+        q = rng.standard_normal((3, QH, D)).astype(np.float32)
+        lens = np.array([1, 9, 20], np.int32)
+        args = (q, k, v, lens, tab)
+        got = tpa.paged_attention(*_t(*args), k_scales=torch.from_numpy(ks),
+                                  v_scales=torch.from_numpy(vs)).numpy()
+        wants = (jpa.paged_attention(*_j(*args), interpret=True,
+                                     k_scales=jnp.asarray(ks),
+                                     v_scales=jnp.asarray(vs)),
+                 jpa._decode_xla(*_j(*args), scale, k_scales=jnp.asarray(ks),
+                                 v_scales=jnp.asarray(vs)))
+    elif mode == "multi":
+        q = rng.standard_normal((3, 4, QH, D)).astype(np.float32)
+        lens = np.array([4, 11, 20], np.int32)
+        args = (q, k, v, lens, tab)
+        got = tpa.paged_attention_multi(
+            *_t(*args), k_scales=torch.from_numpy(ks),
+            v_scales=torch.from_numpy(vs)).numpy()
+        wants = (jpa.paged_attention_multi(*_j(*args), interpret=True,
+                                           k_scales=jnp.asarray(ks),
+                                           v_scales=jnp.asarray(vs)),
+                 jpa._multi_xla(*_j(*args), scale, k_scales=jnp.asarray(ks),
+                                v_scales=jnp.asarray(vs)))
+    else:
+        q = rng.standard_normal((3, 4, QH, D)).astype(np.float32)
+        lens = np.array([1, 9, 20], np.int32)
+        q_lens = np.array([1, 3, 4], np.int32)
+        args = (q, k, v, lens, q_lens, tab)
+        got = tpa.paged_attention_ragged(
+            *_t(*args), k_scales=torch.from_numpy(ks),
+            v_scales=torch.from_numpy(vs)).numpy()
+        wants = (jpa.paged_attention_ragged(*_j(*args), interpret=True,
+                                            k_scales=jnp.asarray(ks),
+                                            v_scales=jnp.asarray(vs)),
+                 jpa._ragged_xla(*_j(*args), scale, k_scales=jnp.asarray(ks),
+                                 v_scales=jnp.asarray(vs)))
+    for want in wants:
+        _close_int8(got, want)
+
+
+def test_int8_full_span_rows_equal_verify_and_max_q_1_equals_decode():
+    k, v, ks, vs, tab = _int8_pools(12)
+    sc = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    q = np.random.default_rng(13).standard_normal((3, 4, QH, D)).astype(
+        np.float32)
+    lens = np.array([5, 12, 20], np.int32)
+    full = np.full(3, 4, np.int32)
+    ragged = tpa.paged_attention_ragged(*_t(q, k, v, lens, full, tab), **sc)
+    verify = tpa.paged_attention_multi(*_t(q, k, v, lens, tab), **sc)
+    assert torch.equal(ragged, verify)
+    ones = np.ones(3, np.int32)
+    ragged1 = tpa.paged_attention_ragged(*_t(q[:, :1], k, v, lens, ones,
+                                             tab), **sc)
+    decode = tpa.paged_attention(*_t(q[:, 0], k, v, lens, tab), **sc)
+    assert torch.equal(ragged1[:, 0], decode)
+
+
+def test_int8_cache_pools_bytes_and_reset():
+    c = tpa.PagedKVCache(2, KVH, D, total_pages=8, page_size=PAGE,
+                         kv_dtype="int8", device="cpu")
+    base = tpa.PagedKVCache(2, KVH, D, total_pages=8, page_size=PAGE,
+                            device="cpu")
+    jc = jpa.PagedKVCache(2, KVH, D, total_pages=8, page_size=PAGE,
+                          kv_dtype="int8")
+    assert c.kv_quant and c.k_pages[0].dtype == torch.int8
+    assert c.k_scales[0].shape == (KVH, 8, PAGE, 1)
+    assert c.k_scales[0].dtype == torch.float32
+    assert (c.kv_pool_bytes, c.kv_scale_bytes) == (jc.kv_pool_bytes,
+                                                   jc.kv_scale_bytes)
+    # int8 pages hold a quarter of the f32 pages' bytes
+    assert c.kv_pool_bytes * 4 == base.kv_pool_bytes
+    assert base.kv_scale_bytes == 0
+    c.k_scales[1].fill_(3.0)
+    gen = c.generation
+    c.reset_pools()
+    assert c.generation == gen + 1
+    assert float(c.k_scales[1].abs().max()) == 0.0
+    assert c.k_pages[0].dtype == torch.int8
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tpa.PagedKVCache(1, KVH, D, kv_dtype="fp4", device="cpu")

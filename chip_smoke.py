@@ -20,6 +20,12 @@ failure:
             port never uses), each as device time per call from CUDA
             graph replays; compute each kernel's bound from the bytes
             and operations of its inputs.
+   The top-k MoE gating kernel is held against its plain version
+            (``torch.softmax`` and the routing oracle) on the same logits:
+            routing identical, weights, balance loss and the backward's
+            logit gradient within stated limits, at the MoE pass's decode
+            and prefill shapes and at odd, drop-heavy, top-1 and top-3
+            ones.
    The training path's kernels are held and timed too, at llama_small's
             training shapes (batch 8 x sequence 1024): the flash dK/dV and
             dQ kernels (bf16 and f32, GQA, sq < sk, ragged lengths; the
@@ -33,6 +39,8 @@ failure:
             token streams must agree.  small-train: a small f32 model trains
             5 AdamW steps on the card and on the CPU from the same
             weights and batches: the per-step losses must agree.
+            small-moe: a small f32 MoE model's greedy ``generate`` streams
+            equal card vs CPU.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks, and unchunked quantized
@@ -60,15 +68,27 @@ failure:
             busy time and idle share from one ``torch.profiler`` window.
             Every loss must be finite, the last below the first (one
             batch memorized), and every kernel of the path launched.
+7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
+            of 32 layers, bf16 with f32 gates (so every MoE layer routes
+            through the gating kernel), weights drawn on the card from
+            ``--seed``, eval: greedy ``generate`` of 32 tokens for 8
+            prompts of 512 tokens (33 forwards), launch counters zeroed
+            just before it and read just after (gating 8 per forward);
+            prints prefill seconds, decode ms per step, tokens/s, peak
+            memory, and one ``torch.profiler`` window over decode steps.
+            Then f32 logits of a 2-layer model at full width: the kernel
+            path against a plain forward that replays its routing (limit
+            1e-3), the routing held on its own against the plain routing
+            of the same logits.
 
 The line before the last is the kernels' JSON record: each kernel's
 ``launches`` is its count on its main path (the unchunked serve pass,
 the engine's default, for the serving kernels; the train pass for the
-two backward kernels; the w8 or w8a8 pass for the quantized matmuls),
-``launches_by_path`` its count in every pass,
-``train_shape`` the times of a serving kernel at the training shapes;
-``serve`` and ``train`` hold each pass's end-to-end numbers, ``phase_s``
-each phase's wall seconds.  The last
+two backward kernels; the w8 or w8a8 pass for the quantized matmuls; the
+moe pass for the gating kernel), ``launches_by_path`` its count in every
+pass, ``train_shape`` the times of a serving kernel at the training
+shapes; ``serve``, ``train`` and ``moe`` hold each pass's end-to-end
+numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -128,13 +148,16 @@ KERNELS = {
     "dynamic_act_quant": dict(
         route="cuda", source="paddle_tpu_torch/ops/csrc/quant_matmul.cu",
         replaces="paddle_tpu/ops/pallas/quant_matmul.py:159"),
+    "topk_gating": dict(
+        route="cuda", source="paddle_tpu_torch/ops/csrc/moe_gating.cu",
+        replaces="paddle_tpu/ops/pallas/moe_gating.py:48"),
 }
 # the pass whose launch count is a kernel's ``launches``
 MAIN_PATH = {name: "unchunked" for name in KERNELS}
 MAIN_PATH.update(flash_attention_bwd_dkv="train",
                  flash_attention_bwd_dq="train",
                  weight_only_matmul="w8_int8kv", w8a8_matmul="w8a8_int8kv",
-                 dynamic_act_quant="w8a8_int8kv")
+                 dynamic_act_quant="w8a8_int8kv", topk_gating="moe")
 # the serve passes: (label, prefill chunk, quantize, kv_quant)
 SERVE_PASSES = (("unchunked", None, None, None),
                 ("chunked256", 256, None, None),
@@ -143,6 +166,10 @@ SERVE_PASSES = (("unchunked", None, None, None),
 QUANT_KERNEL = {"w8": "weight_only_matmul", "w8a8": "w8a8_matmul"}
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
+# the MoE generate pass: Mixtral-8x7B's widths cut to 8 of its 32 layers,
+# batch 8, a 512-token prompt, 32 new tokens (33 forwards); the logits
+# check at 2 layers in f32
+MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_NEW, MOE_CHECK_LAYERS = 8, 8, 512, 32, 2
 
 
 def log(*parts):
@@ -798,10 +825,99 @@ def time_train_shapes(records, dev):
         bound_by=by, library_ms=None)
 
 
+def gating_bytes(T, E, k):
+    """Bytes the gating function must move: the f32 logits read once,
+    eidx, pos, keep and w written once per assignment, fill and gsum."""
+    return T * E * 4 + 16 * k * T + 8 * E
+
+
+def check_moe_gating(records, dev):
+    """The top-k gating kernel against its plain version (``torch.softmax``
+    and the routing oracle) on the same logits: the Mixtral-width path's
+    decode (T 8) and prefill (T 4096) calls and T 37 and 8192 at E 8,
+    top-2, eval capacity; a tight capacity that drops most assignments;
+    E 4 top-1 and E 32 top-3.  Routing (eidx, pos, keep) and the round-0
+    fill must be identical, w within 1e-6 and l_aux within 1e-5
+    relative, and the backward's logit gradient within 1e-5 of autograd
+    of the plain version.  Timed at the decode and prefill shapes; no
+    single PyTorch call computes this function (library: none)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_capacity
+    from paddle_tpu_torch.ops import moe_gating as mg
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = [(T, 8, 2, moe_capacity(2, T, 8, 2.4), T in (8, 4096))
+             for T in (8, 37, 4096, 8192)]
+    cases += [(4096, 8, 2, 256, False),
+              (4096, 4, 1, moe_capacity(1, 4096, 4, 2.4), False),
+              (4096, 32, 3, moe_capacity(3, 4096, 32, 2.4), False),
+              (64, 8, 3, 64, False)]
+    timed = []
+    for T, E, k, cap, time_it in cases:
+        # the card model's gate logits have a standard deviation of about
+        # 1.4 (unit RMS-normed rows times an XavierNormal [4096, 8] weight)
+        x = torch.randn(T, E, generator=gen, device=dev) * 1.4
+        label = f"T{T} E{E} k{k} C{cap}"
+        if k == 3 and E == 8:
+            # every gate but one or two underflows to 0: a chosen gate is
+            # masked by multiplying it by 0, so later rounds pick the
+            # first expert again, as the oracle does
+            x = torch.zeros(T, E, device=dev)
+            x[:, 2] = 200.0
+            x[1::2, 5] = 200.0
+            label += " underflowed gates"
+        raw = mg.topk_gating_cuda(x, k, cap)
+        got = mg._route(x, k, cap, True)
+        want = mg.topk_gating_plain(x, k, cap, True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("eidx", "pos", "keep"), got[:3], want[:3]):
+            if not torch.equal(a, b):
+                bad = int((a != b).any(dim=0).sum())
+                raise AssertionError(f"topk_gating {label}: {name} differs "
+                                     f"from the plain routing on {bad} "
+                                     "tokens")
+        fill = torch.bincount(want[0][0].long(), minlength=E)
+        if not torch.equal(raw[4].long(), fill):
+            raise AssertionError(f"topk_gating {label}: fill {raw[4]} is not "
+                                 f"the top-1 count {fill}")
+        kept = float(want[2].float().mean())
+        err = check("topk_gating", f"{label} w (routing identical, "
+                    f"kept {kept:.3f})", got[3], want[3], 1e-6)
+        aux_rel = abs(float(got[4]) - float(want[4])) / abs(float(want[4]))
+        log(f"  topk_gating {label} l_aux: {float(got[4]):.6f} vs plain "
+            f"{float(want[4]):.6f}, relative {aux_rel:.2e} (limit 1e-5)")
+        if aux_rel > 1e-5:
+            raise AssertionError(f"topk_gating {label}: l_aux off by "
+                                 f"{aux_rel:.2e} relative")
+        # backward: the kernel path's Function against autograd of the
+        # plain version, same cotangents
+        cw = torch.randn(k, T, generator=gen, device=dev)
+        grads = []
+        for fn in (mg.topk_gating, mg.topk_gating_plain):
+            lg = x.clone().requires_grad_()
+            _, _, _, w, l_aux = fn(lg, k, cap, True)
+            ((w * cw).sum() + 3.0 * l_aux).backward()
+            grads.append(lg.grad)
+        check("topk_gating", f"{label} d logits", grads[0], grads[1], 1e-5)
+        if not time_it:
+            continue
+        ms = cuda_ms(lambda: mg.topk_gating_cuda(x, k, cap), 100)
+        plain_ms = cuda_ms(lambda: mg.topk_gating_plain(x, k, cap, True),
+                           reps=3)
+        bms, by = bound_ms(gating_bytes(T, E, k), 8 * T * E, F32_FLOP_S)
+        log(f"  topk_gating {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.6f} ms ({by}), library none")
+        timed.append(dict(case=label, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None))
+    # the record: the decode call (256 of a generate's 264 launches), the
+    # prefill call beside it
+    records["topk_gating"] = dict(timed[0], shapes=timed)
+
+
 # ------------------------------------------------------------- serving
 def counters():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm_rope as nr
+    from paddle_tpu_torch.ops import moe_gating as mg
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.paged_attention import paged_attention_cuda
     return {"paged_attention": paged_attention_cuda,
@@ -812,7 +928,8 @@ def counters():
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_cuda,
             "weight_only_matmul": qm.weight_only_matmul_cuda,
             "w8a8_matmul": qm.w8a8_matmul_cuda,
-            "dynamic_act_quant": qm.dynamic_act_quant_cuda}
+            "dynamic_act_quant": qm.dynamic_act_quant_cuda,
+            "topk_gating": mg.topk_gating_cuda}
 
 
 def serve(model, prompts, sharer, chunk, device, quantize=None,
@@ -1102,6 +1219,308 @@ def check_small_train():
                              "the CPU's")
 
 
+def check_small_moe():
+    """A small f32 MoE model (GShard top-2 over 8 experts, eval): greedy
+    ``generate`` streams on the card (kernels, the gating kernel once per
+    layer and forward) equal the CPU's (plain versions) from the same
+    weights."""
+    from paddle_tpu_torch.models.llama_moe import (LlamaMoeConfig,
+                                                   LlamaMoeForCausalLM)
+    from paddle_tpu_torch.ops import moe_gating as mg
+    cfg = LlamaMoeConfig(vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         max_position_embeddings=512, num_experts=8)
+    cpu = LlamaMoeForCausalLM(cfg, device="cpu", seed=7).eval()
+    gpu = LlamaMoeForCausalLM(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.eval()
+    ids = np.random.default_rng(7).integers(0, 512, (4, 40))
+    new = 12
+    before = mg.topk_gating_cuda.launches
+    card = gpu.generate(torch.as_tensor(ids, device="cuda"),
+                        max_new_tokens=new).cpu()
+    launched = mg.topk_gating_cuda.launches - before
+    ref = cpu.generate(torch.as_tensor(ids), max_new_tokens=new)
+    if not torch.equal(card, ref):
+        raise AssertionError(f"small f32 MoE model: greedy streams on the "
+                             f"card {card[:, 40:].tolist()} differ from the "
+                             f"CPU's {ref[:, 40:].tolist()}")
+    want = cfg.num_hidden_layers * (new + 1)
+    if launched != want:
+        raise AssertionError(f"small f32 MoE model: {launched} gating "
+                             f"launches, expected {want}")
+    log(f"  small f32 MoE model: greedy generate of {ids.shape[0]} x "
+        f"{new} tokens equal card vs CPU, {launched} gating launches")
+
+
+class RouteRecord:
+    """The routing the gating kernel returned in one forward of the
+    kernel path, per layer in call order, with the logits it was given.
+
+    A gate value one ulp off can flip a top-2 choice or a capacity drop,
+    a discrete change that depth amplifies; so the plain forward replays
+    the kernel path's routing (``moe_plain_forward``), and the routing is
+    held on its own against the plain routing of the same logits
+    (``verdict``)."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from paddle_tpu_torch.ops import moe_gating as mg
+        kernel = mg.topk_gating_cuda
+
+        def record(logits, top_k, capacity):
+            out = kernel(logits, top_k, capacity)
+            self.calls.append((logits.detach().clone(), top_k, capacity,
+                               out))
+            return out
+
+        # the wrapper counts its launches under the module's name, which
+        # is ``record`` meanwhile
+        record.launches = kernel.launches
+        mg.topk_gating_cuda = record
+        try:
+            yield
+        finally:
+            mg.topk_gating_cuda = kernel
+            kernel.launches = record.launches
+
+    def verdict(self):
+        """Each layer's kernel routing against the plain routing of the
+        same logits: a token's choices may differ only where two of its
+        top k + 1 gates are within 1e-6; where no choice differs, slots
+        and keeps are identical.  Returns the differing tokens per
+        layer."""
+        from paddle_tpu_torch.ops import moe_gating as mg
+        differing = []
+        for i, (logits, k, cap, out) in enumerate(self.calls):
+            eidx, pos, keep = out[0], out[1], out[2].bool()
+            want = mg.topk_gating_plain(logits, k, cap, True)
+            rows = (eidx != want[0]).any(dim=0)
+            n = int(rows.sum())
+            differing.append(n)
+            if n:
+                top = torch.softmax(logits, -1).topk(
+                    min(k + 1, logits.shape[1]), dim=-1).values
+                gap = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+                far = int((rows & (gap > 1e-6)).sum())
+                if far:
+                    raise AssertionError(
+                        f"layer {i}: the kernel routes {far} tokens "
+                        "otherwise than the plain routing of the same "
+                        "logits, with no gates within 1e-6")
+            elif not (torch.equal(pos, want[1])
+                      and torch.equal(keep, want[2])):
+                raise AssertionError(f"layer {i}: same choices, but slots "
+                                     "or keeps differ from the plain "
+                                     "routing")
+        return differing
+
+
+def moe_plain_forward(model, ids, record):
+    """The MoE model's logits on the plain versions (RMSNorm, RoPE,
+    attention) with each layer's routing replayed from the kernel path's
+    ``record``; the weights of the replayed choices are the plain softmax
+    of this path's own gate logits."""
+    from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import (
+        _ragged_combine, _ragged_dispatch)
+    from paddle_tpu_torch.ops import moe_gating as mg
+    from paddle_tpu_torch.ops.flash_attention import mha_reference
+    from paddle_tpu_torch.ops.fused_norm_rope import (apply_rope_plain,
+                                                      rms_norm_plain)
+    m = model.model
+    x = m.embed_tokens(ids)
+    b, s = ids.shape
+    pos = torch.zeros(b, dtype=torch.int32, device=ids.device)
+    if len(record.calls) != len(m.layers):
+        raise AssertionError(f"{len(record.calls)} routings recorded for "
+                             f"{len(m.layers)} layers")
+    for layer, (_, _, cap, out) in zip(m.layers, record.calls):
+        at, moe = layer.self_attn, layer.moe
+        h = rms_norm_plain(x, layer.input_layernorm.weight,
+                           layer.input_layernorm.epsilon)
+        q = at.q_proj(h).view(b, s, at.num_heads, at.head_dim)
+        k = at.k_proj(h).view(b, s, at.num_kv_heads, at.head_dim)
+        v = at.v_proj(h).view(b, s, at.num_kv_heads, at.head_dim)
+        q, k = apply_rope_plain(q, k, m.rope_cos, m.rope_sin, pos)
+        o = mha_reference(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True).transpose(1, 2)
+        x = x + at.o_proj(o.reshape(b, s, -1))
+        h = rms_norm_plain(x, layer.post_attention_layernorm.weight,
+                           layer.post_attention_layernorm.epsilon)
+        tokens = h.reshape(b * s, -1)
+        eidx, slot, keep = out[0], out[1], out[2].bool()
+        w, _ = mg._weights(moe.gate.gate_logits(tokens), eidx, keep,
+                           moe.gate.normalize)
+        buf = _ragged_dispatch(tokens, eidx, slot, keep, moe.num_expert, cap)
+        y = _ragged_combine(moe.experts(buf), eidx, slot, keep, w)
+        x = x + y.view(b, s, -1)
+    x = rms_norm_plain(x, m.norm.weight, m.norm.epsilon)
+    return model.lm_head(x).float()
+
+
+def check_moe_launches(launches, forwards, layers):
+    """Every forward of the MoE generate pass launches the gating kernel,
+    flash attention and RoPE once per layer and RMSNorm twice per layer
+    and once for the final norm; no other kernel launches."""
+    want = dict(topk_gating=layers * forwards,
+                flash_attention_forward=layers * forwards,
+                apply_rope=layers * forwards,
+                rms_norm=(2 * layers + 1) * forwards)
+    wrong = {n: (launches[n], c) for n, c in want.items() if launches[n] != c}
+    stray = [n for n, c in launches.items() if c and n not in want]
+    if forwards != MOE_NEW + 1 or wrong or stray:
+        raise AssertionError(f"moe: {forwards} forwards (expected "
+                             f"{MOE_NEW + 1}); launches (got, expected) "
+                             f"{wrong}; launched off the path: {stray}")
+
+
+def moe_generate(seed, dev, card):
+    """Mixtral-8x7B's widths cut to ``MOE_LAYERS`` layers, bf16 with f32
+    gates, eval: greedy ``generate`` of ``MOE_NEW`` tokens for ``MOE_B``
+    prompts of ``MOE_PROMPT`` tokens drawn from ``seed``, after a short
+    warm-up call.  The launch counters are zeroed just before the timed
+    call and read just after it.  Then one ``torch.profiler`` window over
+    decode steps of the same loop.  Returns the pass's record and its
+    launch counts."""
+    from paddle_tpu_torch.models.llama import empty_kv_caches
+    from paddle_tpu_torch.models.llama_moe import (LlamaMoeForCausalLM,
+                                                   mixtral_8x7b)
+    cfg = mixtral_8x7b(MOE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaMoeForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=seed, gate_dtype=torch.float32)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (MOE_B, MOE_PROMPT)), device=dev)
+    log(f"moe: llama_moe at Mixtral-8x7B widths, {cfg.num_hidden_layers} of "
+        f"32 layers, bf16 with f32 gates, {n_params / 1e9:.2f} B params, "
+        f"batch {MOE_B} x {MOE_PROMPT} prompt tokens, {MOE_NEW} new, greedy")
+    model.generate(ids[:, :64], max_new_tokens=2)        # warm-up
+    torch.cuda.synchronize()
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    stamps = []
+    hook = model.model.register_forward_pre_hook(
+        lambda *_: stamps.append(time.perf_counter()))
+    try:
+        out = model.generate(ids, max_new_tokens=MOE_NEW)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    finally:
+        hook.remove()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    forwards = len(stamps) - 1
+    prefill_s = stamps[1] - stamps[0]
+    steps = np.diff(stamps[1:]) * 1e3
+    total_s = stamps[-1] - stamps[0]
+    q1, med, q3 = np.percentile(steps, [25, 50, 75])
+    if tuple(out.shape) != (MOE_B, MOE_PROMPT + MOE_NEW) \
+            or not torch.equal(out[:, :MOE_PROMPT], ids) \
+            or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"moe: generate returned {tuple(out.shape)} "
+                             "tokens, or changed the prompt, or left the "
+                             "vocabulary")
+    L = cfg.num_hidden_layers
+    check_moe_launches(launches, forwards, L)
+
+    # where a decode step's time goes: the generate loop's step (forward,
+    # head, host argmax) in one profiler window
+    with torch.no_grad():
+        caches = empty_kv_caches(model, MOE_B)
+        hidden, caches = model.model(ids, 0, caches)
+        logits = model._logits_of(hidden[:, -1:])
+        n_prof = 4
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+            for i in range(n_prof):
+                nxt = logits[:, -1].float().cpu().numpy().argmax(-1)
+                nxt_t = torch.as_tensor(nxt[:, None], device=dev)
+                hidden, caches = model.model(nxt_t, MOE_PROMPT + i, caches)
+                logits = model._logits_of(hidden)
+            torch.cuda.synchronize()
+        del caches, hidden, logits
+    events = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in events)
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    rec = {
+        "card": card, "layers": L, "params_b": n_params / 1e9,
+        "batch": MOE_B, "prompt": MOE_PROMPT, "new_tokens": MOE_NEW,
+        "forwards": forwards, "prefill_s": prefill_s,
+        "decode_ms_p25": q1, "decode_ms_p50": med, "decode_ms_p75": q3,
+        "generate_s": total_s, "tokens_per_s": MOE_B * MOE_NEW / total_s,
+        "peak_memory_gb": peak / 1e9,
+        "launches": launches,
+        "gating_launches_per_forward": launches["topk_gating"] / forwards,
+        "device_busy_ms_per_step": (busy_us / 1e3 / n_prof) if busy_us
+        else "not measured",
+        # against the unprofiled median step of the generate call
+        "device_idle_share": (1 - busy_us / 1e3 / n_prof / med) if busy_us
+        else "not measured",
+        "top_device": [{"name": e.key[:60],
+                        "calls_per_step": e.count / n_prof,
+                        "device_ms_per_step": _device_us(e) / 1e3 / n_prof}
+                       for e in top if _device_us(e) > 0]}
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def moe_logits(seed, dev):
+    """f32 logits of a batch-2 x 512 prompt at Mixtral-8x7B's widths and
+    ``MOE_CHECK_LAYERS`` layers: the kernel path's forward against
+    ``moe_plain_forward`` replaying its routing, relative L2 within 1e-3;
+    the routing held on its own (``RouteRecord.verdict``).  The experts
+    are drawn from N(0, 0.02) here: XavierNormal's fans of a [8, 4096,
+    28672] weight give a std of 1.3e-4, and the layers' MoE output would
+    be about 1e-6 of the residual, which no logits check could see."""
+    from paddle_tpu_torch.models.llama_moe import (LlamaMoeForCausalLM,
+                                                   mixtral_8x7b)
+    cfg = mixtral_8x7b(MOE_CHECK_LAYERS)
+    model = LlamaMoeForCausalLM(cfg, device=dev, dtype=torch.float32,
+                                seed=seed)
+    model.eval()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for layer in model.model.layers:
+            layer.moe.experts.w1.normal_(0.0, 0.02, generator=gen)
+            layer.moe.experts.w2.normal_(0.0, 0.02, generator=gen)
+    rng = np.random.default_rng(seed + 1)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, MOE_PROMPT)),
+                          device=dev)
+    record = RouteRecord()
+    with torch.no_grad():
+        with record.recording():
+            got, aux = model(ids)
+        ref = moe_plain_forward(model, ids, record)
+    torch.cuda.synchronize()
+    differing = record.verdict()
+    r = float((got - ref).norm() / ref.norm())
+    kept = [float(out[2].float().mean()) for _, _, _, out in record.calls]
+    log(f"moe: f32 logits of 2 x {MOE_PROMPT} tokens at full width, "
+        f"{MOE_CHECK_LAYERS} layers: kernels vs plain forward replaying the "
+        f"kernel routing, relative L2 {r:.2e} (limit 1e-3); tokens routed "
+        f"otherwise by the plain routing of the same logits, per layer: "
+        f"{differing}; kept share per layer {kept}; aux {float(aux):.6f}")
+    if not torch.isfinite(got).all() or r > 1e-3:
+        raise AssertionError("moe logits: the kernel path is further from "
+                             "the plain forward than its limit")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(logits_rel_l2=r, routing_differing_tokens=differing)
+
+
 def _kernel_class(name):
     """A device kernel's share of the train step: the port's attention
     kernels, its Triton kernels (RMSNorm, RoPE: ``kern``), cuBLAS GEMMs,
@@ -1369,7 +1788,7 @@ def main():
 
     # 2. kernels against their plain versions
     for fn in (check_paged, check_quant, check_flash, check_flash_bwd,
-               time_train_shapes):
+               time_train_shapes, check_moe_gating):
         fn(records, dev)
         lap(fn.__name__)
 
@@ -1379,6 +1798,8 @@ def main():
     lap("check_small")
     check_small_train()
     lap("check_small_train")
+    check_small_moe()
+    lap("check_small_moe")
 
     # 4. llama_7b serving
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
@@ -1540,6 +1961,14 @@ def main():
     train_rec, launches["train"] = train(args.seed, dev, smi[0])
     log("train: " + json.dumps(train_rec))
     lap("train")
+
+    # 7. the MoE model generating at Mixtral-8x7B widths (the 7B model
+    # and the trainer are gone), then its full-width f32 logits
+    moe_rec, launches["moe"] = moe_generate(args.seed, dev, smi[0])
+    log("moe: " + json.dumps(moe_rec))
+    lap("moe")
+    moe_rec.update(moe_logits(args.seed, dev))
+    lap("moe_logits")
     phase_s["total"] = time.perf_counter() - T_START
 
     out = []
@@ -1557,8 +1986,11 @@ def main():
         "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_gb",
         "device_idle_share", "launches_per_step", "loss_first",
         "loss_last")}
+    moe_line = {k: moe_rec[k] for k in (
+        "layers", "prefill_s", "decode_ms_p50", "tokens_per_s",
+        "peak_memory_gb", "device_idle_share", "launches", "logits_rel_l2")}
     print(json.dumps({"kernels": out, "serve": serve_line,
-                      "train": train_line,
+                      "train": train_line, "moe": moe_line,
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

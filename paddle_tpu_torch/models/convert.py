@@ -1,4 +1,4 @@
-"""Carry a JAX-package LLaMA's weights into the port."""
+"""Carry a JAX-package LLaMA's (dense or MoE) weights into the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,19 +8,20 @@ import torch
 
 from ..nn import Linear
 from .llama import LlamaConfig, LlamaForCausalLM
+from .llama_moe import LlamaMoeConfig, LlamaMoeForCausalLM
 
 
-def params_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
-                      device="cuda", dtype=None) -> LlamaForCausalLM:
-    """Build a port model computing the same function as a
-    ``paddle_tpu`` LLaMA whose parameters are ``arrays``, keyed by their
-    ``paddle_tpu`` names (``model.layers.0.self_attn.q_proj.weight``,
-    ...).  The port's module tree uses the same names; every Linear
-    weight is transposed, because the JAX package stores [in, out] and
-    the port [out, in].  Missing or unexpected names raise."""
-    model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=None)
-    linear = {f"{name}.weight" for name, m in model.named_modules()
-              if isinstance(m, Linear)}
+def _linear_weights(model):
+    """Names of the Linear weights: [in, out] in the JAX package and
+    [out, in] here, so transposed on the way in and out.  Nothing else
+    is (the stacked experts' w1/w2/b1/b2 and the gates' [d, E]
+    ``gate_weight`` keep the JAX layout)."""
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, Linear)}
+
+
+def _load(model, arrays):
+    linear = _linear_weights(model)
     state = {}
     for name, param in model.state_dict().items():
         if name not in arrays:
@@ -43,14 +44,48 @@ def params_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
     return model
 
 
-def params_to_numpy(model: LlamaForCausalLM) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`params_from_numpy`: every parameter as an
-    f32 numpy array under its ``paddle_tpu`` name and layout (Linear
-    weights transposed back to [in, out])."""
-    linear = {f"{name}.weight" for name, m in model.named_modules()
-              if isinstance(m, Linear)}
+def _to_numpy(model):
+    linear = _linear_weights(model)
     out = {}
     for name, param in model.named_parameters():
         a = param.detach().float().cpu().numpy()
         out[name] = a.T if name in linear else a
     return out
+
+
+def params_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
+                      device="cuda", dtype=None) -> LlamaForCausalLM:
+    """Build a port model computing the same function as a
+    ``paddle_tpu`` LLaMA whose parameters are ``arrays``, keyed by their
+    ``paddle_tpu`` names (``model.layers.0.self_attn.q_proj.weight``,
+    ...).  The port's module tree uses the same names; every Linear
+    weight is transposed, because the JAX package stores [in, out] and
+    the port [out, in].  Missing or unexpected names raise."""
+    return _load(LlamaForCausalLM(cfg, device=device, dtype=dtype,
+                                  seed=None), arrays)
+
+
+def params_to_numpy(model: LlamaForCausalLM) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`: every parameter as an
+    f32 numpy array under its ``paddle_tpu`` name and layout (Linear
+    weights transposed back to [in, out])."""
+    return _to_numpy(model)
+
+
+def moe_params_from_numpy(cfg: LlamaMoeConfig, arrays: Dict[str, np.ndarray],
+                          device="cuda", dtype=None,
+                          gate_dtype=None) -> LlamaMoeForCausalLM:
+    """:func:`params_from_numpy` for a ``paddle_tpu`` ``LlamaMoeForCausalLM``:
+    Linear weights transposed, the stacked experts
+    (``model.layers.i.moe.experts.w1``/``b1``/``w2``/``b2``) and the gates
+    (``model.layers.i.moe.gate.gate_weight`` [d, E]) as they are.
+    ``gate_dtype`` keeps the gates in another type than ``dtype`` (f32
+    gates in a bf16 model).  Missing or unexpected names raise."""
+    return _load(LlamaMoeForCausalLM(cfg, device=device, dtype=dtype,
+                                     seed=None, gate_dtype=gate_dtype),
+                 arrays)
+
+
+def moe_params_to_numpy(model: LlamaMoeForCausalLM) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`moe_params_from_numpy`."""
+    return _to_numpy(model)

@@ -1,11 +1,12 @@
 """LLaMA decoder LM (port of paddle_tpu/models/llama.py).
 
 The serving path hands a paged context down through ``paged_ctx``
-exactly as the JAX model does; without one, attention is causal flash
-attention over the sequence, differentiable for training.  RMSNorm,
-RoPE and attention run their hand-written kernels on the card, forward
-and backward; the projections stay ``F.linear``, as the JAX package
-leaves them to XLA.  ``forward(input_ids, labels)`` returns
+exactly as the JAX model does; the eager decode loop (``generate``)
+hands each layer its (k, v) cache through ``kv_caches``; without either,
+attention is causal flash attention over the sequence, differentiable
+for training.  RMSNorm, RoPE and attention run their hand-written
+kernels on the card, forward and backward; the projections stay
+``F.linear``, as the JAX package leaves them to XLA.  ``forward(input_ids, labels)`` returns
 ``(loss, logits)``; ``config.use_recompute`` recomputes each decoder
 layer in the backward (``torch.utils.checkpoint``).
 """
@@ -114,7 +115,12 @@ class LlamaAttention(nn.Module):
                              **kw)
 
     def forward(self, x, cos, sin, neg_sin, position_offset=0,
-                paged_ctx=None):
+                kv_cache=None, paged_ctx=None):
+        """The attention output; with ``kv_cache`` = (k, v) of the
+        earlier positions, ``(output, (k, v))`` with this call's keys and
+        values appended on the sequence axis, the queries attending
+        causally aligned bottom-right (query i sees keys up to
+        i + cached length)."""
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
@@ -123,8 +129,14 @@ class LlamaAttention(nn.Module):
         if paged_ctx is not None:
             out = paged_ctx.attend(q, k, v)
         else:
+            if kv_cache is not None:
+                k = torch.cat([kv_cache[0], k], dim=1)
+                v = torch.cat([kv_cache[1], v], dim=1)
             out = flash_attention_bshd(q, k, v, causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        if kv_cache is not None:
+            return out, (k, v)
+        return out
 
 
 class LlamaMLP(nn.Module):
@@ -152,10 +164,17 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, **kw)
 
     def forward(self, x, cos, sin, neg_sin, position_offset=0,
-                paged_ctx=None):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, neg_sin,
-                               position_offset, paged_ctx=paged_ctx)
-        return x + self.mlp(self.post_attention_layernorm(x))
+                kv_cache=None, paged_ctx=None):
+        attn = self.self_attn(self.input_layernorm(x), cos, sin, neg_sin,
+                              position_offset, kv_cache=kv_cache,
+                              paged_ctx=paged_ctx)
+        if kv_cache is not None:
+            attn, new_cache = attn
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        if kv_cache is not None:
+            return x, new_cache
+        return x
 
 
 class LlamaModel(nn.Module):
@@ -179,21 +198,45 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin_neg", (-sin).to(device=device),
                              persistent=False)
 
-    def forward(self, input_ids, position_offset=0, paged_ctx=None):
+    def forward(self, input_ids, position_offset=0, kv_caches=None,
+                paged_ctx=None):
+        """Hidden states; with ``kv_caches`` (one (k, v) pair per layer,
+        ``empty_kv_caches`` for a prefill), ``(hidden, new_caches)``."""
         x = self.embed_tokens(input_ids)
         recompute = (self.config.use_recompute and paged_ctx is None
-                     and torch.is_grad_enabled())
+                     and kv_caches is None and torch.is_grad_enabled())
+        new_caches = [] if kv_caches is not None else None
         for i, layer in enumerate(self.layers):
             if paged_ctx is not None:
                 paged_ctx.layer_idx = i
-            if recompute:
+            if kv_caches is not None:
+                x, cache = layer(x, self.rope_cos, self.rope_sin,
+                                 self.rope_sin_neg, position_offset,
+                                 kv_cache=kv_caches[i])
+                new_caches.append(cache)
+            elif recompute:
                 x = torch.utils.checkpoint.checkpoint(
                     layer, x, self.rope_cos, self.rope_sin, self.rope_sin_neg,
                     position_offset, use_reentrant=False)
             else:
                 x = layer(x, self.rope_cos, self.rope_sin, self.rope_sin_neg,
                           position_offset, paged_ctx=paged_ctx)
-        return self.norm(x)
+        x = self.norm(x)
+        if new_caches is not None:
+            return x, new_caches
+        return x
+
+
+def empty_kv_caches(model, batch: int):
+    """One empty (k, v) cache pair per layer for the eager decode path:
+    [batch, 0, kv_heads, head_dim] in the embedding's type and device
+    (any causal LM with ``.config`` and ``.model.embed_tokens``)."""
+    cfg = model.config
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    weight = model.model.embed_tokens.weight
+    empty = torch.zeros((batch, 0, cfg.num_key_value_heads, head_dim),
+                        dtype=weight.dtype, device=weight.device)
+    return [(empty, empty) for _ in range(cfg.num_hidden_layers)]
 
 
 class LlamaForCausalLM(nn.Module):
@@ -242,3 +285,66 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is not None:
             return self.lm_head(hidden)
         return hidden @ self.model.embed_tokens.weight.T
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, do_sample: bool = False,
+                 eos_token_id: Optional[int] = None, seed: int = 0):
+        """Autoregressive decoding with a KV cache, the JAX package's
+        eager loop: one prefill forward over the prompt, then one forward
+        per new token over the cached K/V (including one after the last
+        token, as there).  Greedy by default; temperature, top-k and
+        top-p sampling with ``do_sample=True`` draw on the host from
+        ``np.random.default_rng(seed)`` exactly as the JAX loop does, so
+        equal logits give equal tokens.  ``input_ids`` [b, s] (a tensor
+        or an array); returns prompt and new tokens, [b, s + n]."""
+        device = self.model.embed_tokens.weight.device
+        ids = torch.as_tensor(input_ids, device=device)
+        caches = empty_kv_caches(self, int(ids.shape[0]))
+        hidden, caches = self.model(ids, 0, caches)
+        logits = self._logits_of(hidden[:, -1:])
+        out_tokens = [ids]
+        rng = np.random.default_rng(seed)
+        finished = np.zeros(int(ids.shape[0]), bool)
+        pos = int(ids.shape[1])
+        for _ in range(max_new_tokens):
+            step_logits = logits[:, -1].float().cpu().numpy()
+            if do_sample:
+                if temperature and temperature != 1.0:
+                    step_logits = step_logits / max(temperature, 1e-6)
+                if top_k is not None:
+                    kth = np.partition(
+                        step_logits, -top_k, axis=-1)[:, -top_k][:, None]
+                    step_logits = np.where(step_logits < kth, -np.inf,
+                                           step_logits)
+                if top_p is not None:
+                    sort_idx = np.argsort(-step_logits, axis=-1)
+                    sorted_l = np.take_along_axis(step_logits, sort_idx,
+                                                  axis=-1)
+                    probs = np.exp(sorted_l - sorted_l.max(-1, keepdims=True))
+                    probs /= probs.sum(-1, keepdims=True)
+                    cum = probs.cumsum(-1)
+                    cut = cum - probs > top_p
+                    sorted_l[cut] = -np.inf
+                    restored = np.full_like(step_logits, -np.inf)
+                    np.put_along_axis(restored, sort_idx, sorted_l, axis=-1)
+                    step_logits = restored
+                p = np.exp(step_logits - step_logits.max(-1, keepdims=True))
+                p /= p.sum(-1, keepdims=True)
+                nxt = np.array([rng.choice(p.shape[-1], p=p[b])
+                                for b in range(p.shape[0])])
+            else:
+                nxt = step_logits.argmax(-1)
+            if eos_token_id is not None:
+                nxt = np.where(finished, eos_token_id, nxt)
+                finished |= nxt == eos_token_id
+            nxt_t = torch.as_tensor(nxt[:, None], dtype=ids.dtype,
+                                    device=device)
+            out_tokens.append(nxt_t)
+            if eos_token_id is not None and finished.all():
+                break
+            hidden, caches = self.model(nxt_t, pos, caches)
+            logits = self._logits_of(hidden)
+            pos += 1
+        return torch.cat(out_tokens, dim=1)

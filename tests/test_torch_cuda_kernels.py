@@ -10,6 +10,7 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm_rope as nr
+from paddle_tpu_torch.ops import moe_gating as mg
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
 
@@ -266,3 +267,69 @@ def test_quantized_path_raises_without_its_kernel(dev, monkeypatch):
         with pytest.raises(_build.KernelBuildError):
             qm.quant_linear_forward(
                 type("L", (), {"bias": None})(), x, (mode, w, s))
+
+
+# (T, E, k, capacity): decode and prefill of the Mixtral-width path, a
+# tight capacity that drops most assignments, top-1 and top-3
+GATING_CASES = [(8, 8, 2, 5), (4096, 8, 2, 2458), (4096, 8, 2, 300),
+                (37, 4, 1, 3), (1000, 32, 3, 40), (300, 64, 2, 12)]
+
+
+@pytest.mark.parametrize("T,E,k,cap", GATING_CASES,
+                         ids=[f"T{c[0]}-E{c[1]}-k{c[2]}-C{c[3]}"
+                              for c in GATING_CASES])
+def test_topk_gating_matches_plain(dev, T, E, k, cap):
+    """Routing identical (the kernel's softmax sums in the order of
+    torch's warp softmax; random logits have no gates an ulp apart), w
+    within 1e-6 relative, l_aux within 1e-5, fill = the top-1 counts."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(T, E, generator=g, device=dev) * 2
+    eidx, pos, keep, w, fill, gsum = mg.topk_gating_cuda(x, k, cap)
+    got = mg._route(x, k, cap, True)
+    want = mg.topk_gating_plain(x, k, cap, True)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(eidx, got[0]) and torch.equal(keep.bool(), got[2])
+    assert torch.equal(fill.long(), torch.bincount(want[0][0].long(),
+                                                   minlength=E))
+    assert float((got[3] - want[3]).abs().max()) <= 1e-6
+    assert abs(float(got[4]) - float(want[4])) <= 1e-5 * float(want[4])
+    if cap < T * k // E:
+        assert not bool(keep.all())          # the tight case drops
+
+
+def test_topk_gating_underflowed_gates_match_plain(dev):
+    """Gates that underflow to 0: the kernel masks a chosen gate by
+    multiplying it by 0, so later rounds pick the first expert again
+    (with ties to the first index), as the plain routing does."""
+    x = torch.zeros(64, 8, device=dev)
+    x[:, 2] = 200.0
+    x[1::2, 5] = 200.0
+    got = mg._route(x, 3, 64, True)
+    want = mg.topk_gating_plain(x, 3, 64, True)
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    assert got[0][:, 0].tolist() == [2, 0, 0]
+    assert got[0][:, 1].tolist() == [2, 5, 0]
+
+
+def test_topk_gating_grad_matches_plain_autograd(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(512, 8, generator=g, device=dev)
+    cw = torch.randn(2, 512, generator=g, device=dev)
+    grads = []
+    for fn in (mg.topk_gating, mg.topk_gating_plain):
+        lg = x.clone().requires_grad_()
+        _, _, _, w, l_aux = fn(lg, 2, 100, True)
+        ((w * cw).sum() + 3.0 * l_aux).backward()
+        grads.append(lg.grad)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5
+
+
+def test_topk_gating_launch_counter(dev):
+    x = torch.randn(16, 8, device=dev)
+    before = mg.topk_gating_cuda.launches
+    mg.topk_gating(x, 2, 4, True)
+    assert mg.topk_gating_cuda.launches == before + 1
+    mg.topk_gating(x.cpu(), 2, 4, True)
+    assert mg.topk_gating_cuda.launches == before + 1

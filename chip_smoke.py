@@ -26,6 +26,12 @@ failure:
             logit gradient within stated limits, at the MoE pass's decode
             and prefill shapes and at odd, drop-heavy, top-1 and top-3
             ones.
+   The FlashMask forward, dK/dV and dQ kernels are held against their
+            plain versions (1, 2 and 4 interval columns, causal on and
+            off, 32 heads x 128 at s 2048, MHA and 32/8 GQA, bf16 and f32,
+            a ragged s 1000 with 2 mask heads, fully masked rows exactly
+            0), and timed at the flashmask phase's doc_causal case beside
+            ``scaled_dot_product_attention`` with the same dense mask.
    The training path's kernels are held and timed too, at llama_small's
             training shapes (batch 8 x sequence 1024): the flash dK/dV and
             dQ kernels (bf16 and f32, GQA, sq < sk, ragged lengths; the
@@ -33,6 +39,16 @@ failure:
             kernels' device time from a profiler window), the RoPE
             backward launch (the RoPE kernel with -sin), and the forward
             kernels at those shapes.
+   flashmask — ``F.flashmask_attention`` forward, then
+            ``out.backward(dO)``, bf16, b 1 x 8192 packed tokens, head
+            dim 128, five masks: doc_causal (32/32 and 32/8 heads),
+            sliding_window (4096), doc_bidirectional and causal_full
+            (timed beside the causal flash kernels and held against
+            them); launch counters zeroed just before and read just
+            after: one launch of each FlashMask kernel per forward +
+            backward, no other kernel.  Prints forward and
+            forward+backward ms p50, tokens/s, peak memory and the share
+            of 64 x 64 tiles skipped.
 3. small   — a small f32 model served on the card (kernels) and on the
             CPU (plain versions) from the same weights, unquantized and
             with int8 weights (w8, w8a8) and int8 KV pages: the greedy
@@ -85,9 +101,10 @@ The line before the last is the kernels' JSON record: each kernel's
 ``launches`` is its count on its main path (the unchunked serve pass,
 the engine's default, for the serving kernels; the train pass for the
 two backward kernels; the w8 or w8a8 pass for the quantized matmuls; the
-moe pass for the gating kernel), ``launches_by_path`` its count in every
-pass, ``train_shape`` the times of a serving kernel at the training
-shapes; ``serve``, ``train`` and ``moe`` hold each pass's end-to-end
+moe pass for the gating kernel; the flashmask phase for the FlashMask
+kernels), ``launches_by_path`` its count in every pass, ``train_shape``
+the times of a serving kernel at the training shapes; ``serve``,
+``train``, ``moe`` and ``flashmask`` hold each pass's end-to-end
 numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -151,13 +168,27 @@ KERNELS = {
     "topk_gating": dict(
         route="cuda", source="paddle_tpu_torch/ops/csrc/moe_gating.cu",
         replaces="paddle_tpu/ops/pallas/moe_gating.py:48"),
+    "flashmask_fwd": dict(
+        route="cuda",
+        source="paddle_tpu_torch/ops/csrc/flashmask_attention.cu",
+        replaces="paddle_tpu/ops/pallas/flashmask_attention.py:72"),
+    "flashmask_bwd_dkv": dict(
+        route="cuda",
+        source="paddle_tpu_torch/ops/csrc/flashmask_attention.cu",
+        replaces="paddle_tpu/ops/pallas/flashmask_attention.py:122"),
+    "flashmask_bwd_dq": dict(
+        route="cuda",
+        source="paddle_tpu_torch/ops/csrc/flashmask_attention.cu",
+        replaces="paddle_tpu/ops/pallas/flashmask_attention.py:166"),
 }
 # the pass whose launch count is a kernel's ``launches``
 MAIN_PATH = {name: "unchunked" for name in KERNELS}
 MAIN_PATH.update(flash_attention_bwd_dkv="train",
                  flash_attention_bwd_dq="train",
                  weight_only_matmul="w8_int8kv", w8a8_matmul="w8a8_int8kv",
-                 dynamic_act_quant="w8a8_int8kv", topk_gating="moe")
+                 dynamic_act_quant="w8a8_int8kv", topk_gating="moe",
+                 flashmask_fwd="flashmask", flashmask_bwd_dkv="flashmask",
+                 flashmask_bwd_dq="flashmask")
 # the serve passes: (label, prefill chunk, quantize, kv_quant)
 SERVE_PASSES = (("unchunked", None, None, None),
                 ("chunked256", 256, None, None),
@@ -170,6 +201,16 @@ TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
 # batch 8, a 512-token prompt, 32 new tokens (33 forwards); the logits
 # check at 2 layers in f32
 MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_NEW, MOE_CHECK_LAYERS = 8, 8, 512, 32, 2
+# the flashmask phase: b 1 x 8192 packed tokens, head dim 128, bf16; its
+# documents (lengths 128-2048) drawn from a fixed seed, part of the cases
+FM_S, FM_D, FM_DOC_SEED = 8192, 128, 0
+# (case, q heads, kv heads, intervals, causal): llama_7b's attention and
+# the Mixtral-8x7B widths of the moe phase (32 over 8 kv heads)
+FM_CASES = (("doc_causal", 32, 32, "doc_causal", True),
+            ("doc_causal_gqa", 32, 8, "doc_causal", True),
+            ("sliding_window", 32, 32, "sliding_window", True),
+            ("doc_bidirectional", 32, 32, "doc_bidirectional", False),
+            ("causal_full", 32, 32, "causal_full", True))
 
 
 def log(*parts):
@@ -913,9 +954,328 @@ def check_moe_gating(records, dev):
     records["topk_gating"] = dict(timed[0], shapes=timed)
 
 
+# ------------------------------------------------------------- flashmask
+def doc_bounds(s, rng, lo, hi):
+    """Per position, the start and end of its document: documents of
+    seeded lengths lo..hi filling s tokens, the last one cut."""
+    lengths = []
+    while sum(lengths) < s:
+        lengths.append(int(rng.integers(lo, hi + 1)))
+    ends = np.minimum(np.cumsum(lengths), s)
+    starts = np.concatenate([[0], ends[:-1]])
+    doc = np.searchsorted(ends, np.arange(s), side="right")
+    return starts[doc], ends[doc]
+
+
+def fm_intervals(kind, s, rng, dev, hm=1, docs=(128, 2048), window=4096):
+    """(1, hm, s, ncol) int32 FlashMask intervals (column j masks rows
+    [start_j, end_j)) of one kind: ``doc_causal`` (1 column: rows from
+    the end of j's document on; with causal, a packed causal document
+    mask), ``sliding_window`` (2: [j + window, s), Mistral's form),
+    ``doc_bidirectional`` (4: [doc end, s) and [0, doc start)),
+    ``causal_full`` (1: start = s, nothing beyond causal), ``band`` (2:
+    a random band per mask head and column) and ``masked_rows`` (2: rows
+    [s/4, s/2) masked by every column)."""
+    j = np.arange(s)
+    start, end = doc_bounds(s, rng, *docs)
+    if kind == "doc_causal":
+        cols = [end]
+    elif kind == "sliding_window":
+        cols = [np.minimum(j + window, s), np.full(s, s)]
+    elif kind == "doc_bidirectional":
+        cols = [end, np.full(s, s), np.zeros(s), start]
+    elif kind == "causal_full":
+        cols = [np.full(s, s)]
+    elif kind == "band":
+        lo = rng.integers(0, s, (hm, s))
+        cols = [lo, lo + rng.integers(0, s - lo + 1)]
+    else:
+        cols = [np.full(s, s // 4), np.full(s, s // 2)]
+    se = np.broadcast_to(np.stack(cols, -1), (hm, s, len(cols)))
+    return torch.as_tensor(np.array(se[None]), dtype=torch.int32,
+                           device=dev)
+
+
+def fm_keep(se, sq, causal):
+    """The dense KEEP mask (b, hm, sq, sk) bool of the intervals."""
+    from paddle_tpu_torch.ops.flashmask_attention import _keep
+    sk = se.shape[2]
+    rows = torch.arange(sq, device=se.device)[:, None]
+    cols = torch.arange(sk, device=se.device)[None, :]
+    return _keep(se, rows, cols, se.shape[-1], causal)
+
+
+def check_flashmask(records, dev):
+    """The FlashMask forward, dK/dV and dQ kernels against their plain
+    versions on the card (1, 2 and 4 interval columns, causal on and
+    off, MHA and GQA, bf16 and f32, a ragged length with 2 mask heads,
+    fully masked rows); at the flashmask phase's doc_causal case (b 1 x
+    8192, 32 heads x 128, bf16) their times beside the plain versions',
+    their bounds over the pairs the mask keeps, the share of tiles that
+    run, and ``scaled_dot_product_attention`` with the same dense boolean
+    mask (a yardstick the port never calls)."""
+    from paddle_tpu_torch.ops import flashmask_attention as fm
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rng = np.random.default_rng(13)
+
+    def case(label, dtype, h, kvh, s, d, kind, causal, hm=1, docs=(64, 512),
+             window=512, timed=False):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        q, k, v, do = (rnd(1, h, s, d), rnd(1, kvh, s, d), rnd(1, kvh, s, d),
+                       rnd(1, h, s, d))
+        se = fm_intervals(kind, s, rng, dev, hm, docs, window)
+        out, lse = fm.flashmask_fwd_cuda(q, k, v, se, causal)
+        got = fm.flashmask_attention_backward(q, k, v, out, lse, do, se,
+                                              causal)
+        ref, ref_lse = fm.flashmask_attention_plain(q, k, v, se, causal)
+        want = fm.flashmask_attention_backward_plain(q, k, v, out, lse, do,
+                                                     se, causal)
+        torch.cuda.synchronize()
+        keep = fm_keep(se, s, causal)
+        dead = (~keep.any(-1)).repeat_interleave(h // hm, 1)   # (1, h, s)
+        for name, t in (("out", out), ("lse", lse), ("dq", got[0]),
+                        ("dk", got[1]), ("dv", got[2])):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"flashmask {label}: {name} is not "
+                                     "finite")
+        # a zero error can be real (one GEMM of the plain version may sum
+        # in the kernel's order), but not against an all-zero reference
+        for name, r in (("out", ref), ("dq", want[0]), ("dk", want[1]),
+                        ("dv", want[2])):
+            if float(r.float().abs().max()) == 0.0:
+                raise AssertionError(f"flashmask {label}: the plain {name} "
+                                     "is all zeros, the case checks nothing")
+        bf = dtype == torch.bfloat16
+        err = check("flashmask_fwd", label, out, ref, 2e-2 if bf else 1e-4)
+        check("flashmask_fwd", label + " lse", lse[~dead], ref_lse[~dead],
+              1e-4)
+        # f32: summation order; bf16: one rounding of each gradient
+        errs = {name: check(f"flashmask_bwd_{name}", label, g, r,
+                            1e-2 if bf else 1e-4)
+                for name, g, r in zip(("dq", "dk", "dv"), got, want)}
+        if dead.any():
+            ok = (float(out[dead].float().abs().max()) == 0.0
+                  and bool((lse[dead] == fm.DEFAULT_MASK_VALUE).all())
+                  and bool((ref_lse[dead] == fm.DEFAULT_MASK_VALUE).all())
+                  and float(got[0][dead].float().abs().max()) == 0.0)
+            log(f"  flashmask {label}: {int(dead.sum())} fully masked rows "
+                f"give out 0, lse DEFAULT_MASK_VALUE and dq 0 exactly: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flashmask {label}: fully masked rows "
+                                     "are not exact zeros")
+        if not timed:
+            return
+        # timed: each kernel alone, given the skip table and delta
+        sei = se.contiguous()
+        skip = fm.flashmask_skip_table(sei, s, causal)
+        delta = (out.float() * do.float()).sum(-1).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        fwd_ms = cuda_ms(lambda: fm.flashmask_fwd_cuda(
+            q, k, v, sei, causal, skip=skip))
+        dkv_ms = cuda_ms(lambda: fm.flashmask_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, sei, dk, dv, causal, skip=skip))
+        dq_ms = cuda_ms(lambda: fm.flashmask_bwd_dq_cuda(
+            q, k, v, do, lse, delta, sei, dq, causal, skip=skip))
+        plain_fwd = cuda_ms(lambda: fm.flashmask_attention_plain(
+            q, k, v, se, causal), reps=3)
+        plain_bwd = cuda_ms(lambda: fm.flashmask_attention_backward_plain(
+            q, k, v, out, lse, do, se, causal), reps=3)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_fwd = profiled_ms(lambda: sdpa(q, k, v, attn_mask=keep))
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lout = sdpa(lq, lk, lv, attn_mask=keep)
+        lib_bwd = profiled_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), do, retain_graph=True))
+        pairs = int(keep.sum()) * (h // hm)          # kept (q, k) pairs
+        el = q.element_size()
+        rows = h * s * 4                             # one f32 per row
+        ints = se.numel() * 4
+        share = 1.0 - float(skip.float().mean())
+        for name, ms, plain, lib, n_ops, n_bytes, e in (
+                ("flashmask_fwd", fwd_ms, plain_fwd, lib_fwd, 4 * d * pairs,
+                 (2 * q.numel() + k.numel() + v.numel()) * el + rows + ints,
+                 err),
+                ("flashmask_bwd_dkv", dkv_ms, plain_bwd, lib_bwd,
+                 8 * d * pairs,
+                 (2 * q.numel() + 4 * k.numel()) * el + 2 * rows + ints,
+                 max(errs["dk"], errs["dv"])),
+                ("flashmask_bwd_dq", dq_ms, plain_bwd, lib_bwd, 6 * d * pairs,
+                 (3 * q.numel() + 2 * k.numel()) * el + 2 * rows + ints,
+                 errs["dq"])):
+            bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
+            log(f"  {name} {label}: {ms:.4f} ms, plain {plain:.4f} ms"
+                f"{' (dq+dk+dv)' if 'bwd' in name else ''}, sdpa with the "
+                f"mask {lib} ms, bound {bms:.4f} ms ({by}), {pairs} kept "
+                f"pairs, {share:.4f} of 64x64 tiles run")
+            records[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                                 bound_ms=bms, bound_by=by, library_ms=lib,
+                                 case=label, kept_pairs=pairs,
+                                 tiles_run_share=share)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    s = 2048
+    case("doc 1col causal 32/32 d128 bf16", bf16, 32, 32, s, 128,
+         "doc_causal", True)
+    case("doc 1col causal gqa 32/8 d128 bf16", bf16, 32, 8, s, 128,
+         "doc_causal", True)
+    case("doc 1col full 32/32 d128 f32", f32, 32, 32, s, 128, "doc_causal",
+         False)
+    case("window 2col causal 32/32 d128 f32", f32, 32, 32, s, 128,
+         "sliding_window", True)
+    case("band 2col full gqa 32/8 d128 bf16", bf16, 32, 8, s, 128, "band",
+         False)
+    case("bidir 4col full 32/32 d128 bf16", bf16, 32, 32, s, 128,
+         "doc_bidirectional", False)
+    case("bidir 4col causal gqa 32/8 d128 f32", f32, 32, 8, s, 128,
+         "doc_bidirectional", True)
+    case("ragged s1000 band 2col causal 4/4 d64 hm2 bf16", bf16, 4, 4, 1000,
+         64, "band", True, hm=2)
+    case("ragged s1000 band 2col causal 4/4 d64 hm2 f32", f32, 4, 4, 1000,
+         64, "band", True, hm=2)
+    case("masked rows 2col full 8/2 d128 f32", f32, 8, 2, 512, 128,
+         "masked_rows", False)
+    case("masked rows 2col causal 8/8 d64 bf16", bf16, 8, 8, 512, 64,
+         "masked_rows", True)
+    # the flashmask phase's doc_causal case, its documents included
+    rng = np.random.default_rng(FM_DOC_SEED)
+    case(f"doc_causal b1 s{FM_S} 32/32 d{FM_D} bf16", bf16, 32, 32, FM_S,
+         FM_D, "doc_causal", True, docs=(128, 2048), timed=True)
+
+
+def event_ms(fn):
+    """Milliseconds of one synchronized call of ``fn``, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def flashmask_phase(seed, dev, card, reps=5):
+    """``F.flashmask_attention`` as a training step runs it: forward, then
+    ``out.backward(dO)``, bf16, b 1 x 8192 packed tokens, head dim 128,
+    one case per mask (``FM_CASES``).  The launch counters are zeroed
+    just before the cases and read just after them: each forward launches
+    the forward kernel once, each backward the dK/dV and dQ kernels once,
+    and no other kernel launches.  Then the flash kernels on causal_full's
+    inputs, timed beside it (the same mask, bottom-right and top-left
+    alike at sq = sk), outputs and gradients held against FlashMask's.
+    Returns the phase's record and its launch counts."""
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.ops import flashmask_attention as fm
+    kernels = counters()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rec = {"card": card, "batch": 1, "seq": FM_S, "head_dim": FM_D,
+           "dtype": "bf16", "reps": reps}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    for name, h, kvh, kind, causal in FM_CASES:
+        # one document layout for every case, the same as check_flashmask's
+        se = fm_intervals(kind, FM_S, np.random.default_rng(FM_DOC_SEED),
+                          dev)
+
+        def rnd(heads):
+            return torch.randn(1, FM_S, heads, FM_D, generator=gen,
+                               device=dev).to(torch.bfloat16)
+        q, k, v = (rnd(n).requires_grad_() for n in (h, kvh, kvh))
+        dout = rnd(h)
+
+        def fwd():
+            return TF.flashmask_attention(q, k, v, se, causal=causal)
+
+        def fwd_bwd():
+            for t in (q, k, v):
+                t.grad = None
+            out = fwd()
+            out.backward(dout)
+            return out.detach()
+
+        before = {n: fn.launches for n, fn in kernels.items()}
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()                              # first call of the shapes
+        fwd_ms = [event_ms(fwd) for _ in range(reps)]
+        fb_ms = [event_ms(fwd_bwd) for _ in range(reps)]
+        out = fwd_bwd()
+        peak = torch.cuda.max_memory_allocated()
+        got = {n: fn.launches - before[n] for n, fn in kernels.items()}
+        # one launch of each kernel per forward + backward, one forward
+        # launch per forward alone, and no other kernel
+        n_fb = reps + 2
+        expect = dict(flashmask_fwd=n_fb + reps, flashmask_bwd_dkv=n_fb,
+                      flashmask_bwd_dq=n_fb)
+        stray = {n: c for n, c in got.items() if c != expect.get(n, 0)}
+        if stray:
+            raise AssertionError(f"flashmask {name}: launches {stray} in "
+                                 f"{n_fb} forward+backward and {reps} "
+                                 f"forward calls, expected {expect} and no "
+                                 "other kernel")
+        for t in (out, q.grad, k.grad, v.grad):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"flashmask {name}: non-finite output "
+                                     "or gradient")
+        fb = float(np.median(fb_ms))
+        rec[name] = {
+            "heads": h, "kv_heads": kvh, "ncol": se.shape[-1],
+            "causal": causal, "fwd_ms_p50": float(np.median(fwd_ms)),
+            "fwd_bwd_ms_p50": fb, "fwd_bwd_ms_min": float(min(fb_ms)),
+            "tokens_per_s": FM_S / (fb / 1e3), "peak_memory_gb": peak / 1e9,
+            "tiles_skipped_share": float(fm.flashmask_skip_table(
+                se, FM_S, causal).float().mean()),
+            "pairs_kept_share": float(fm_keep(se, FM_S, causal)
+                                      .float().mean()),
+            "launches": {n: got[n] for n in expect},
+            "fwd_bwd_calls": n_fb, "fwd_calls": reps}
+        log(f"flashmask {name}: " + json.dumps(rec[name]))
+        if name == "causal_full":
+            full = (q, k, v, dout, out)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+
+    # the port's causal flash kernels on causal_full's inputs, uncounted
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
+    q, k, v, dout, out = full
+    grads_fm = [t.grad.clone() for t in (q, k, v)]
+
+    def flash_fwd():
+        return flash_attention_bshd(q, k, v, causal=True)
+
+    def flash_fwd_bwd():
+        flash_fwd().backward(dout)
+
+    for t in (q, k, v):
+        t.grad = None
+    flash_fwd_bwd()
+    check("flashmask", "causal_full out vs the causal flash kernel", out,
+          flash_fwd().detach(), 2e-2)
+    for name, t, g in zip(("dq", "dk", "dv"), (q, k, v), grads_fm):
+        check("flashmask", f"causal_full {name} vs the flash kernels", g,
+              t.grad, 1e-2)
+    f_fwd = [event_ms(flash_fwd) for _ in range(reps)]
+    f_fb = []
+    for _ in range(reps):
+        for t in (q, k, v):
+            t.grad = None
+        f_fb.append(event_ms(flash_fwd_bwd))
+    rec["causal_full"]["flash_fwd_ms_p50"] = float(np.median(f_fwd))
+    rec["causal_full"]["flash_fwd_bwd_ms_p50"] = float(np.median(f_fb))
+    log(f"flashmask causal_full beside the flash kernels: fwd "
+        f"{rec['causal_full']['flash_fwd_ms_p50']:.3f} ms, fwd+bwd "
+        f"{rec['causal_full']['flash_fwd_bwd_ms_p50']:.3f} ms")
+    del q, k, v, dout, out, full, grads_fm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 # ------------------------------------------------------------- serving
 def counters():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask_attention as fm
     from paddle_tpu_torch.ops import fused_norm_rope as nr
     from paddle_tpu_torch.ops import moe_gating as mg
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -929,7 +1289,10 @@ def counters():
             "weight_only_matmul": qm.weight_only_matmul_cuda,
             "w8a8_matmul": qm.w8a8_matmul_cuda,
             "dynamic_act_quant": qm.dynamic_act_quant_cuda,
-            "topk_gating": mg.topk_gating_cuda}
+            "topk_gating": mg.topk_gating_cuda,
+            "flashmask_fwd": fm.flashmask_fwd_cuda,
+            "flashmask_bwd_dkv": fm.flashmask_bwd_dkv_cuda,
+            "flashmask_bwd_dq": fm.flashmask_bwd_dq_cuda}
 
 
 def serve(model, prompts, sharer, chunk, device, quantize=None,
@@ -1788,9 +2151,17 @@ def main():
 
     # 2. kernels against their plain versions
     for fn in (check_paged, check_quant, check_flash, check_flash_bwd,
-               time_train_shapes, check_moe_gating):
+               time_train_shapes, check_moe_gating, check_flashmask):
         fn(records, dev)
         lap(fn.__name__)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # FlashMask forward + backward at 8192 packed tokens (before the 7B
+    # model takes the card's memory)
+    launches = {}
+    fm_rec, launches["flashmask"] = flashmask_phase(args.seed, dev, smi[0])
+    lap("flashmask")
 
     # 3. a small model, card vs CPU: serving, then training
     log("small:")
@@ -1818,7 +2189,6 @@ def main():
         0, cfg.vocab_size, int(lengths[7]) - 256 if lengths[7] > 256
         else 64)]).astype(np.int32)
     kernels = counters()
-    launches = {}
     passes = {}
     greedy = {}
     norms_per_forward = 2 * cfg.num_hidden_layers + 1
@@ -1989,8 +2359,13 @@ def main():
     moe_line = {k: moe_rec[k] for k in (
         "layers", "prefill_s", "decode_ms_p50", "tokens_per_s",
         "peak_memory_gb", "device_idle_share", "launches", "logits_rel_l2")}
+    fm_line = {c[0]: {k: fm_rec[c[0]][k] for k in fm_rec[c[0]] if k in (
+        "fwd_ms_p50", "fwd_bwd_ms_p50", "tokens_per_s", "peak_memory_gb",
+        "tiles_skipped_share", "flash_fwd_ms_p50", "flash_fwd_bwd_ms_p50")}
+        for c in FM_CASES}
     print(json.dumps({"kernels": out, "serve": serve_line,
                       "train": train_line, "moe": moe_line,
+                      "flashmask": fm_line,
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

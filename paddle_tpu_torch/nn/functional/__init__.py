@@ -1,11 +1,12 @@
 """Functional ops of the port (port of paddle_tpu/nn/functional): the
-loss and the attention entry the training path calls."""
+loss the training path calls and the attention entries of
+``attention.py``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ...ops.flash_attention import flash_attention_bshd
+from .attention import flash_attention, flashmask_attention
 
 
 def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
@@ -32,12 +33,4 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     return total / count.clamp_min(1.0)
 
 
-def flash_attention(query, key, value, causal=False):
-    """The reference API ``flash_attention``: layout (batch, seq, heads,
-    head_dim), returns ``(out, None)``.  It always runs the port's flash
-    kernels on the card (differentiable under autograd) and their plain
-    versions on the CPU; the port has no autotune between the two."""
-    return flash_attention_bshd(query, key, value, causal=causal), None
-
-
-__all__ = ["cross_entropy", "flash_attention"]
+__all__ = ["cross_entropy", "flash_attention", "flashmask_attention"]

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import flashmask_attention as fm
 from paddle_tpu_torch.ops import fused_norm_rope as nr
 from paddle_tpu_torch.ops import moe_gating as mg
 from paddle_tpu_torch.ops import paged_attention as pa
@@ -333,3 +334,97 @@ def test_topk_gating_launch_counter(dev):
     assert mg.topk_gating_cuda.launches == before + 1
     mg.topk_gating(x.cpu(), 2, 4, True)
     assert mg.topk_gating_cuda.launches == before + 1
+
+
+def _fm_intervals(kind, b, hm, sq, sk, seed):
+    """(b, hm, sk, ncol) int32 FlashMask intervals of one kind."""
+    g = torch.Generator().manual_seed(seed)
+    j = torch.arange(sk).expand(b, hm, sk)
+    if kind == "1col":       # documents: column j masks rows from j + r
+        cols = [(j + torch.randint(1, 96, (b, hm, sk), generator=g))
+                .clamp(max=sq)]
+    elif kind == "2col":     # random bands [start, end)
+        start = torch.randint(0, sq, (b, hm, sk), generator=g)
+        cols = [start, start + (torch.rand(b, hm, sk, generator=g)
+                                * (sq - start + 1)).long()]
+    elif kind == "4col":     # rows [j - 70, j + 20) see column j
+        cols = [(j + 20).clamp(max=sq), torch.full_like(j, sq),
+                torch.zeros_like(j), (j - 70).clamp(min=0)]
+    else:                    # rows [40, 90) masked by every column
+        cols = [torch.full_like(j, 40), torch.full_like(j, 90)]
+    return torch.stack(cols, -1).to(torch.int32)
+
+
+# (kind, causal, b, h, kvh, hm, sq, sk, d): GQA, mask heads, sq != sk,
+# lengths off the 64-row tile, and rows that every column masks
+FLASHMASK_CASES = [
+    ("1col", True, 2, 4, 4, 1, 200, 200, 64),
+    ("2col", True, 1, 4, 2, 2, 130, 300, 128),
+    ("4col", False, 2, 4, 1, 4, 257, 190, 64),
+    ("masked_rows", False, 1, 2, 2, 1, 150, 150, 128),
+]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("kind,causal,b,h,kvh,hm,sq,sk,d", FLASHMASK_CASES)
+def test_flashmask_kernels_match_plain(dev, dt, kind, causal, b, h, kvh, hm,
+                                       sq, sk, d):
+    """The FlashMask forward, dK/dV and dQ kernels against their plain
+    versions on the card, one launch each; fully masked rows give out 0,
+    lse DEFAULT_MASK_VALUE and dq 0 exactly."""
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, kvh, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, kvh, sk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    se = _fm_intervals(kind, b, hm, sq, sk, 10).to(dev)
+    launches = (fm.flashmask_fwd_cuda.launches,
+                fm.flashmask_bwd_dkv_cuda.launches,
+                fm.flashmask_bwd_dq_cuda.launches)
+    out, lse = fm.flashmask_attention_forward(q, k, v, se, causal)
+    got = fm.flashmask_attention_backward(q, k, v, out, lse, do, se, causal)
+    assert (fm.flashmask_fwd_cuda.launches,
+            fm.flashmask_bwd_dkv_cuda.launches,
+            fm.flashmask_bwd_dq_cuda.launches) == tuple(n + 1
+                                                        for n in launches)
+    ref, ref_lse = fm.flashmask_attention_plain(q, k, v, se, causal)
+    _close(out, ref, tol)
+    _close(lse, ref_lse, 1e-4)
+    want = fm.flashmask_attention_backward_plain(q, k, v, out, lse, do, se,
+                                                 causal)
+    limit = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, r) <= limit
+    if kind == "masked_rows":
+        assert float(out[:, :, 40:90].float().abs().max()) == 0.0
+        assert bool((lse[:, :, 40:90] == fa.DEFAULT_MASK_VALUE).all())
+        assert float(got[0][:, :, 40:90].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flashmask_functional_grads_match_cpu(dev, dt):
+    """``F.flashmask_attention`` under autograd on the card (the three
+    kernels through (b, s, h, d) strides) against the same call on CPU
+    copies (the plain versions)."""
+    from paddle_tpu_torch.nn import functional as TF
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(2, 190, 8, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 190, 2, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 190, 2, 64, generator=g, device=dev).to(dtype)
+    gout = torch.randn(2, 190, 8, 64, generator=g, device=dev).to(dtype)
+    se = _fm_intervals("1col", 2, 1, 190, 190, 12)
+    outs, grads = [], []
+    for where in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(where).clone().requires_grad_()
+                  for t in (q, k, v)]
+        out = TF.flashmask_attention(*leaves, se.to(where), causal=True)
+        (out.float() * gout.to(where).float()).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append([t.grad.cpu() for t in leaves])
+    _close(outs[0], outs[1], tol)
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(*grads):
+        assert _rel_l2(a, b) <= limit

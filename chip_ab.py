@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the port on one card, in turns.
+
+    python3 chip_ab.py BASE_DIR [--phases flash,train,moe] [--seed N]
+
+BASE_DIR is a checkout inside this one, in a directory that
+``.gitignore`` lists, e.g. one unpacked with
+``git archive <commit> | tar -x -C .checkout/parent``, so the kernels it
+builds stay in its own ``ops/_build/``.  Each side runs in a process of
+its own from its own checkout, which builds its kernels from its own
+sources, in the order base, this, this, base, so a drift of the card's
+clocks over the call shows as a difference between the two runs of one
+side.  Phases: ``flash`` times the flash forward (serve, train and MoE
+decode shapes) and dK/dV (train shape) kernels through their public
+wrappers on the same seeded inputs; ``train`` and ``moe`` run
+``chip_smoke.py``'s end-to-end phases (llama_small training steps; the
+Mixtral-width MoE generate).  Each side's ``chip_smoke.py`` must provide
+``cuda_ms(fn)``, ``train(seed, dev, card)`` and ``moe_generate(seed, dev,
+card)`` as this one does.  Prints one JSON line per run, then a summary
+line with each side's two runs of every metric.  Needs one CUDA card;
+exits nonzero if any run fails.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+# the flash cases: (name, kernel, b, h, kv_h, sq, sk, d), bf16, causal
+FLASH_CASES = (("fwd serve s2048 32/32 d128", "fwd", 1, 32, 32, 2048, 2048,
+                128),
+               ("fwd train b8 h12 s1024 d64", "fwd", 8, 12, 12, 1024, 1024,
+                64),
+               ("fwd decode b8 sq1 sk544 32/8 d128", "fwd", 8, 32, 8, 1, 544,
+                128),
+               ("dkv train b8 h12 s1024 d64", "dkv", 8, 12, 12, 1024, 1024,
+                64))
+METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
+           "train": ("step_ms_p50", "tokens_per_s", "mfu",
+                     "device_busy_ms_per_step", "device_idle_share",
+                     "device_ms_per_step_by_class"),
+           "moe": ("prefill_s", "decode_ms_p50", "tokens_per_s",
+                   "device_busy_ms_per_step", "device_idle_share")}
+
+
+def flash(cs, seed, dev):
+    """{case: device ms per call} of the flash forward and dK/dV kernels,
+    timed with the side's own ``cuda_ms`` (CUDA-graph replay)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, kernel, b, h, kvh, sq, sk, d in FLASH_CASES:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+        q, k, v = rnd(b, h, sq, d), rnd(b, kvh, sk, d), rnd(b, kvh, sk, d)
+        if kernel == "fwd":
+            out[name] = cs.cuda_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=True))
+            continue
+        do = rnd(b, h, sq, d)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True)
+        delta = (o.float() * do.float()).sum(-1).contiguous()
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        out[name] = cs.cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, *grads, True, d ** -0.5))
+    return out
+
+
+def child(phases, seed):
+    """One side's run, from the checkout in the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import _build
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {"card": card}
+    for phase in phases:
+        if phase == "flash":
+            out[phase] = flash(cs, seed, dev)
+        else:
+            fn = {"train": cs.train, "moe": cs.moe_generate}[phase]
+            rec, _launches = fn(seed, dev, card)
+            out[phase] = {k: rec[k] for k in METRICS[phase]}
+        torch.cuda.empty_cache()
+    print("AB " + json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("base")
+    ap.add_argument("--phases", default="flash,train,moe")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if any(p not in METRICS for p in phases):
+        ap.error(f"phases are {sorted(METRICS)}")
+    if args.child:
+        child(phases, args.seed)
+        return 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.abspath(args.base)
+    runs = {"base": [], "this": []}
+    for side in ("base", "this", "this", "base"):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_ab.py"), base,
+             "--phases", args.phases, "--seed", str(args.seed), "--child"],
+            cwd=base if side == "base" else here, capture_output=True,
+            text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("AB ")]
+        if proc.returncode or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        rec = json.loads(lines[-1][3:])
+        runs[side].append(rec)
+        print(json.dumps({"side": side, **rec}), flush=True)
+    summary = {phase: {m: {side: [r[phase][m] for r in runs[side]]
+                           for side in runs}
+                       for m in METRICS[phase]} for phase in phases}
+    print(json.dumps({"summary": summary, "card": runs["this"][0]["card"]}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

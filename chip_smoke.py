@@ -10,7 +10,10 @@ failure:
 1. build   — compile every CUDA kernel from ``paddle_tpu_torch/ops/csrc``
             (one nvcc per source, in parallel, while the Triton kernels
             compile and are checked); print the card's name and power
-            limit as nvidia-smi reports them.
+            limit as nvidia-smi reports them; count the wgmma (HGMMA)
+            instructions of each flash kernel in ``cuobjdump -sass`` of
+            its library: the tensor-core forward and dK/dV kernels must
+            hold some.
 2. kernels — run each hand-written kernel (paged attention in its bf16,
             f32 and int8-page modes, the w8 and w8a8 matmuls at llama_7b's
             decode and prefill shapes) at the serving path's shapes
@@ -39,6 +42,10 @@ failure:
             kernels' device time from a profiler window), the RoPE
             backward launch (the RoPE kernel with -sin), and the forward
             kernels at those shapes.
+   The flash forward is also timed at the MoE pass's decode call (b 8,
+            one query over 544 columns, 32/8 heads, d 128), and the
+            CUDA-core forward and dK/dV kernels (every f32 call's) at
+            f32 cases.
    flashmask — ``F.flashmask_attention`` forward, then
             ``out.backward(dO)``, bf16, b 1 x 8192 packed tokens, head
             dim 128, five masks: doc_causal (32/32 and 32/8 heads),
@@ -69,7 +76,8 @@ failure:
             with a plain forward of the same model on the card (in f32,
             and in bf16 relative to the plain bf16 forward's own
             distance from f32; quantized, in f32 against the plain
-            quantized forward).
+            quantized forward); a profiler window over the bf16 prefill
+            must show the tensor-core flash forward.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, and w8 with int8 KV at 512, host-clock step times,
             then one ``torch.profiler`` window for the device's busy
@@ -83,7 +91,9 @@ failure:
             bf16 peak), peak memory, launches per step, and the device's
             busy time and idle share from one ``torch.profiler`` window.
             Every loss must be finite, the last below the first (one
-            batch memorized), and every kernel of the path launched.
+            batch memorized), and every kernel of the path launched; the
+            profiler window must show the tensor-core flash forward and
+            dK/dV kernels and not their CUDA-core versions.
 7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
             of 32 layers, bf16 with f32 gates (so every MoE layer routes
             through the gating kernel), weights drawn on the card from
@@ -91,7 +101,8 @@ failure:
             prompts of 512 tokens (33 forwards), launch counters zeroed
             just before it and read just after (gating 8 per forward);
             prints prefill seconds, decode ms per step, tokens/s, peak
-            memory, and one ``torch.profiler`` window over decode steps.
+            memory, and one ``torch.profiler`` window over decode steps
+            (which must show the tensor-core flash forward).
             Then f32 logits of a 2-layer model at full width: the kernel
             path against a plain forward that replays its routing (limit
             1e-3), the routing held on its own against the plain routing
@@ -103,7 +114,9 @@ the engine's default, for the serving kernels; the train pass for the
 two backward kernels; the w8 or w8a8 pass for the quantized matmuls; the
 moe pass for the gating kernel; the flashmask phase for the FlashMask
 kernels), ``launches_by_path`` its count in every pass, ``train_shape``
-the times of a serving kernel at the training shapes; ``serve``,
+the times of a serving kernel at the training shapes, ``decode`` and
+``f32`` the flash forward's decode and f32 cases (and dK/dV's f32
+case), ``hgmma`` the wgmma instructions of each instantiation; ``serve``,
 ``train``, ``moe`` and ``flashmask`` hold each pass's end-to-end
 numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -115,6 +128,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -287,6 +301,47 @@ def check(name, case, out, ref, tol):
                              f"{limit:.3e}), relative L2 {rel:.3e} (limit "
                              f"{tol:g})")
     return err
+
+
+def sass_counts(lib_path, opcode="HGMMA"):
+    """{kernel: number of ``opcode`` instructions} of each flash kernel in
+    a built library, from ``cuobjdump -sass`` (beside nvcc).  HGMMA is
+    wgmma in SASS, so a tensor-core kernel with none was not built as
+    one."""
+    from paddle_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : \S*?(flash_[a-z_]+?_kernel)I(\w+?)EEv",
+                       line)
+        if fn:
+            args = re.findall(r"Li(\d+)E", fn.group(2))
+            if "bfloat16" in fn.group(2):
+                args.insert(0, "bf16")
+            elif fn.group(2).startswith("f"):
+                args.insert(0, "f32")
+            name = f"{fn.group(1)}<{','.join(args)}>"
+            counts[name] = 0
+        elif "Function :" in line:
+            name = None
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def device_kernels_seen(prof, where, want, refuse):
+    """Fail unless the profiler window ``prof`` ran every kernel whose name
+    holds a string of ``want`` and none holding one of ``refuse`` (the
+    bf16 paths must take the tensor-core kernels)."""
+    names = [e.key for e in prof.key_averages() if _device_us(e) > 0]
+    missing = [w for w in want if not any(w in n for n in names)]
+    stray = [r for r in refuse if any(r in n for n in names)]
+    if missing or stray:
+        raise AssertionError(f"{where}: device kernels {missing} never ran, "
+                             f"{stray} ran off the path")
+    return want
 
 
 def bound_ms(n_bytes, n_ops, flop_s):
@@ -566,10 +621,10 @@ def check_flash(records, dev):
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def case(label, dtype, h, kvh, sq, sk, d, causal, timed=False):
+    def case(label, dtype, h, kvh, sq, sk, d, causal, timed=False, b=1):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-        q, k, v = rnd(1, h, sq, d), rnd(1, kvh, sk, d), rnd(1, kvh, sk, d)
+        q, k, v = rnd(b, h, sq, d), rnd(b, kvh, sk, d), rnd(b, kvh, sk, d)
         out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -584,23 +639,27 @@ def check_flash(records, dev):
             q, k, v, causal=causal))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=causal), reps=3)
+        # SDPA's causal mask is top-left aligned: at sq = 1 the
+        # bottom-right mask this function uses keeps every column
         lib_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q, k, v,
-                                                       is_causal=causal))
+                         .scaled_dot_product_attention(
+                             q, k, v, is_causal=causal and sq > 1,
+                             enable_gqa=h != kvh))
         el = q.element_size()
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * el \
             + lse.numel() * 4
-        off = sk - sq
-        pairs = sum(min(sk, max(0, r + off + 1)) for r in range(sq)) \
-            if causal else sq * sk
-        n_ops = 4 * pairs * d * h
-        bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
+        n_ops = 4 * causal_pairs(sq, sk, causal) * d * h * q.shape[0]
+        bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S if bf else F32_FLOP_S)
         log(f"  flash_attention_forward {label}: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
             f"({by})")
-        records["flash_attention_forward"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms)
+        if timed is True:
+            records["flash_attention_forward"] = rec
+        else:   # "decode" or "f32", after the main case
+            records["flash_attention_forward"][timed] = dict(case=label,
+                                                             **rec)
 
     bf16, f32 = torch.bfloat16, torch.float32
     case("s512 causal 32/32 d128 bf16", bf16, 32, 32, 512, 512, 128, True)
@@ -608,8 +667,13 @@ def check_flash(records, dev):
          True, timed=True)
     case("sq256<sk1024 causal bf16", bf16, 32, 32, 256, 1024, 128, True)
     case("gqa 32/8 s512 causal bf16", bf16, 32, 8, 512, 512, 128, True)
-    case("s512 causal f32", f32, 32, 32, 512, 512, 128, True)
+    case("s512 causal f32", f32, 32, 32, 512, 512, 128, True, timed="f32")
     case("d64 sk1000 full bf16", bf16, 8, 8, 300, 1000, 64, False)
+    # the MoE generate pass's decode call: one query over its context
+    case("decode b8 sq1 sk544 32/8 d128 bf16", bf16, 32, 8, 1, 544, 128,
+         True, timed="decode", b=8)
+    case("decode b8 sq1 sk544 32/8 d128 f32", f32, 32, 8, 1, 544, 128, True,
+         b=8)
     # the serving layout: (b, s, h, d) buffers read through strides
     q = torch.randn(1, 777, 32, 128, generator=gen, device=dev).bfloat16()
     k = torch.randn(1, 777, 32, 128, generator=gen, device=dev).bfloat16()
@@ -717,7 +781,8 @@ def check_flash_bwd(records, dev):
                                                causal, scale)
         ref = fa._bwd_blockwise(q, k, v, out, lse, do, causal, scale)
         torch.cuda.synchronize()
-        # f32: summation order; bf16: one rounding of each gradient
+        # f32: summation order; bf16: one rounding of each gradient, and
+        # (dK/dV) P and dS rounded to bf16 before their products
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
         errs = {}
         for name, g, r in zip(("dq", "dk", "dv"), got, ref):
@@ -746,24 +811,31 @@ def check_flash_bwd(records, dev):
         dkv_bytes = (q.numel() + do.numel() + 2 * k.numel()
                      + 2 * k.numel()) * el + rows
         dq_bytes = (2 * q.numel() + do.numel() + 2 * k.numel()) * el + rows
+        bf = dtype == torch.bfloat16
         for name, ms, n_ops, n_bytes, err in (
                 ("flash_attention_bwd_dkv", dkv_ms, 4 * 2 * pairs * d,
                  dkv_bytes, max(errs["dk"], errs["dv"])),
                 ("flash_attention_bwd_dq", dq_ms, 3 * 2 * pairs * d,
                  dq_bytes, errs["dq"])):
-            bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
+            bms, by = bound_ms(n_bytes, n_ops,
+                               BF16_FLOP_S if bf else F32_FLOP_S)
             log(f"  {name} {label}: {ms:.4f} ms, plain (dq+dk+dv) "
                 f"{plain_ms:.4f} ms, sdpa backward (dq+dk+dv, profiler) "
                 f"{lib_ms} ms, bound {bms:.4f} ms ({by})")
-            records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bms, bound_by=by,
-                                 library_ms=lib_ms, case=label)
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                       case=label)
+            if bf:
+                records[name] = rec
+            else:   # after the bf16 case
+                records[name]["f32"] = rec
 
     bf16, f32 = torch.bfloat16, torch.float32
     b, h, s, d = TRAIN_B, TRAIN_H, TRAIN_S, TRAIN_D
     case(f"b{b} h{h} s{s} d{d} causal bf16", bf16, b, h, h, s, s, d, True,
          timed=True)
-    case(f"b{b} h{h} s{s} d{d} causal f32", f32, b, h, h, s, s, d, True)
+    case(f"b{b} h{h} s{s} d{d} causal f32", f32, b, h, h, s, s, d, True,
+         timed=True)
     case("gqa 32/8 s2048 d128 causal bf16", bf16, 1, 32, 8, 2048, 2048,
          128, True)
     case("gqa 32/8 s512 d128 causal f32", f32, 1, 32, 8, 512, 512, 128,
@@ -1813,6 +1885,8 @@ def moe_generate(seed, dev, card):
             torch.cuda.synchronize()
         del caches, hidden, logits
     events = prof.key_averages()
+    seen = device_kernels_seen(prof, "moe decode", ("flash_fwd_wgmma_kernel",),
+                               ("flash_fwd_kernel",))
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:8]
     rec = {
@@ -1824,6 +1898,7 @@ def moe_generate(seed, dev, card):
         "peak_memory_gb": peak / 1e9,
         "launches": launches,
         "gating_launches_per_forward": launches["topk_gating"] / forwards,
+        "attention_kernels_seen": list(seen),
         "device_busy_ms_per_step": (busy_us / 1e3 / n_prof) if busy_us
         else "not measured",
         # against the unprofiled median step of the generate call
@@ -1963,6 +2038,10 @@ def train(seed, dev, card, steps=20, warmup=3):
             losses.append(step(ids, labels))
         torch.cuda.synchronize()
     events = prof.key_averages()
+    seen = device_kernels_seen(
+        prof, "train", ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                        "flash_bwd_dq_kernel"),
+        ("flash_fwd_kernel", "flash_bwd_dkv_kernel"))
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:16]
     by_class = {}
@@ -1989,7 +2068,8 @@ def train(seed, dev, card, steps=20, warmup=3):
                         "calls_per_step": e.count / n_prof,
                         "device_ms_per_step": _device_us(e) / 1e3 / n_prof}
                        for e in top if _device_us(e) > 0],
-        "loss_first": float(vals[0]), "loss_last": float(vals[-1])}
+        "loss_first": float(vals[0]), "loss_last": float(vals[-1]),
+        "attention_kernels_seen": list(seen)}
     log("  losses: " + " ".join(f"{x:.4f}" for x in vals))
     if not np.isfinite(vals).all():
         raise AssertionError(f"train: non-finite loss {vals.tolist()}")
@@ -2147,6 +2227,17 @@ def main():
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # wgmma instructions in the tensor-core flash kernels' machine code
+    hgmma = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        hgmma.update(sass_counts(libs[name]))
+    log("  HGMMA per kernel: " + json.dumps(hgmma))
+    tensor_core = {k: c for k, c in hgmma.items() if "wgmma" in k}
+    if sorted({k.split("<")[0] for k in tensor_core}) != [
+            "flash_bwd_dkv_wgmma_kernel", "flash_fwd_wgmma_kernel"] \
+            or min(tensor_core.values()) == 0:
+        raise AssertionError(f"the tensor-core flash kernels hold no wgmma: "
+                             f"{hgmma}")
     lap("build")
 
     # 2. kernels against their plain versions
@@ -2154,6 +2245,10 @@ def main():
                time_train_shapes, check_moe_gating, check_flashmask):
         fn(records, dev)
         lap(fn.__name__)
+    for name, prefix in (("flash_attention_forward", "flash_fwd"),
+                         ("flash_attention_bwd_dkv", "flash_bwd_dkv")):
+        records[name]["hgmma"] = {k: c for k, c in hgmma.items()
+                                  if k.startswith(prefix)}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2280,7 +2375,12 @@ def main():
     # any rounding, so a fixed bf16 tolerance would say nothing)
     ids = torch.as_tensor(prompts[1][None, :256].astype(np.int64),
                           device=dev)
-    got16, ref16, _ = prefill_logits(model, ids)
+    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+        got16, ref16, _ = prefill_logits(model, ids)
+        torch.cuda.synchronize()
+    device_kernels_seen(prof, "serve prefill", ("flash_fwd_wgmma_kernel",),
+                        ("flash_fwd_kernel",))
+    log("serve: the bf16 prefill ran flash_fwd_wgmma_kernel (profiler)")
     model.float()
     got32, ref32, _ = prefill_logits(model, ids)
 

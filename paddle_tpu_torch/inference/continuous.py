@@ -31,7 +31,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.paged_attention import PagedKVCache
-from .paged import PagedDecoder
+from .paged import PagedDecoder, sample_token
 
 
 class _Request:
@@ -44,7 +44,8 @@ class _Request:
         self.eos_token_id = eos_token_id
         self.do_sample = bool(do_sample)
         self.temperature = float(temperature)
-        self.seed = int(seed) & 0xFFFFFFFF
+        self.seed = int(seed) & 0xFFFFFFFF   # on-device threefry seed
+        self.rng = np.random.default_rng(seed)   # host draws
         self.prefix_tokens = 0       # prompt tokens shared at admission
         self.prefill_pos = 0         # prompt tokens resident in the cache
         self._admit_plan = None      # (need, shared_tok) fit-check stash
@@ -285,12 +286,11 @@ class ContinuousBatchingEngine:
         return seeds, np.asarray(ctrs, np.int32), temps, flags
 
     def _pick(self, req, logits_row) -> int:
-        """Host-side sampling (``sample_on_device=False``)."""
-        logits = torch.as_tensor(logits_row, dtype=torch.float32)[None]
-        seeds, ctrs, temps, flags = self._sampling_for(
-            [req], [len(req.prompt) + len(req.generated)])
-        from .paged import fused_sample
-        return int(fused_sample(logits, seeds, ctrs, temps, flags)[0])
+        """Host-side sampling (``sample_on_device=False``): the JAX
+        engine's ``sample_token`` on the request's numpy generator."""
+        return sample_token(np.asarray(torch.as_tensor(logits_row)
+                                       .float().cpu()),
+                            req.do_sample, req.temperature, req.rng)
 
     def _ingest(self, req, k: int, n: int, sampling):
         """One bucketed prompt-ingest dispatch of prompt[k:k+n]: fresh

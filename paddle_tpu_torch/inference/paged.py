@@ -69,6 +69,20 @@ def fused_sample(logits, seeds, ctrs, temps, flags):
     return out
 
 
+def sample_token(logits_row, do_sample, temperature, rng) -> int:
+    """One row's next token on the host (the engine's
+    ``sample_on_device=False`` path, a copy of the JAX package's
+    ``sample_token``): the greedy argmax, or a draw from
+    softmax(logits / temperature) by the request's numpy generator
+    ``rng``, so the port draws the JAX engine's tokens."""
+    if do_sample:
+        z = np.asarray(logits_row, np.float32) / max(temperature, 1e-6)
+        p = np.exp(z - z.max())
+        p /= p.sum()
+        return int(rng.choice(p.shape[-1], p=p))
+    return int(np.asarray(logits_row).argmax())
+
+
 def _prefix_suffix_attention(q, k_suf, v_suf, k_pages, v_pages, tables,
                              prefix_lens, k_scales=None, v_scales=None):
     """Prompt-suffix attention for rows whose prefix KV is already in

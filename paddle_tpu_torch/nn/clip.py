@@ -9,8 +9,9 @@ class ClipGradByGlobalNorm:
     """Scale every gradient by min(1, clip_norm / global_norm), where the
     global norm is the f32 L2 norm over all clipped gradients.  A
     parameter whose ``need_clip`` attribute is False is neither counted
-    nor scaled.  Takes and returns (param, grad) pairs; scales the grads
-    in place, on the device (no host sync)."""
+    nor scaled.  Takes (param, grad) pairs and returns new pairs with
+    the scaled grads, on the device (no host sync); the grads it was
+    given, ``p.grad`` among them, are left as they were."""
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
@@ -24,5 +25,7 @@ class ClipGradByGlobalNorm:
         global_norm = torch.linalg.vector_norm(torch.stack(norms))
         scale = torch.clamp_max(self.clip_norm
                                 / torch.clamp_min(global_norm, 1e-12), 1.0)
-        torch._foreach_mul_(grads, scale)
-        return params_grads
+        scaled = iter(torch._foreach_mul(grads, scale))
+        return [(p, next(scaled)
+                 if g is not None and getattr(p, "need_clip", True) else g)
+                for p, g in params_grads]

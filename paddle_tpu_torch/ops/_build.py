@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into
-``_build/<name>-<hash>.so`` (the hash covers the source text and the
-flags, so an edited source never reuses a stale library).  The sources
+``_build/<name>-<hash>.so`` (the hash covers the source text, every
+shared header ``csrc/*.cuh`` and the flags, so an edited source or header
+never reuses a stale library).  The sources
 expose a plain C interface, so nothing includes PyTorch's headers and a
 build takes seconds.  :func:`build_all` starts one ``nvcc`` per source at
 once; :func:`load` builds on first use and returns the ``ctypes.CDLL``.
@@ -55,9 +56,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def sources():

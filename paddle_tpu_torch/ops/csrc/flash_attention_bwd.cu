@@ -13,24 +13,37 @@
 // What bounds it on the H100: per (q, kv) pair the dK/dV pass does four
 // d-long products (s, dp, dv, dk) and the dQ pass three (s, dp, dq),
 // against (sq + sk) * d elements per head moved, so both are bound by
-// operations.  This first version computes the products in f32 on the
-// CUDA cores, not the tensor cores (moving them onto wgmma is later
-// work), so it runs far below the bf16 tensor-core peak.  What its
-// design does about that:
+// operations, and only the tensor cores come near that bound.  The
+// kernels:
 //
-// - dK/dV: one block per (batch, kv head, 64-row kv tile) keeps K, V and
-//   its dK, dV accumulators resident (tiles in shared memory, sums in
-//   registers) while it walks the q tiles of every q head of its GQA
-//   group.  The group sum happens in those registers, so write-back
-//   needs no atomics and no repeated K/V is ever materialized (the JAX
-//   kernel repeats K/V and sums the group after the kernel).  q tiles
-//   wholly above the causal diagonal are never loaded.
+// - dK/dV, bf16: `flash_bwd_dkv_wgmma_kernel`, the four products on the
+//   tensor cores (wgmma.mma_async).  One block (one warpgroup) per
+//   (batch, kv head, 64-row kv tile) keeps K and V resident in
+//   128-byte-swizzled shared tiles and its dK, dV accumulators in
+//   registers while it walks the q tiles of every q head of its GQA
+//   group, so the group sum happens in those registers with no atomics.
+//   The q tiles (Q, dO, lse, delta) stream through a three-stage ring
+//   filled by cp.async two tiles ahead of the one multiplied (cp.async,
+//   not TMA, for the reasons the forward's header gives: strided views,
+//   per-row zero fill).  S^T = K Q^T and dP^T = V dO^T read both operands
+//   from shared memory; P^T and dS^T are computed in f32 on their
+//   accumulators, rounded to bf16 and fed straight back as the A operands
+//   of dV += P^T dO and dK += dS^T Q (dO and Q read MN-major from the same
+//   tiles).  Rounding P and dS to bf16 is this kernel's one divergence
+//   from the JAX kernel, which takes those two products in f32 (so do
+//   FlashAttention-2 and -3).  At head dim 128 the two 64 x 128 f32
+//   accumulators take 128 registers a thread; the products are ordered so
+//   that S^T and dP^T (64 more) are dead before P^T and dS^T are packed.
+//   q tiles wholly above the causal diagonal are never loaded.
+// - dK/dV, f32: `flash_bwd_dkv_kernel`, the same blocking with the
+//   products in f32 on the CUDA cores (wgmma has no f32 product).
 // - dQ: one block per (batch, q head, 64-row q tile) keeps Q, dO, lse and
-//   delta resident and streams the kv tiles up to the causal limit.
-// - Every thread owns a 4x4 micro-tile of each 64x64 score tile and a
-//   4x(d/16) slice of each accumulator: 8 shared loads feed 16 FMAs.
-//   Shared rows are padded by one float, so no warp's column read hits
-//   one bank twice.
+//   delta resident and streams the kv tiles up to the causal limit, the
+//   products in f32 on the CUDA cores.
+// - The CUDA-core kernels: every thread owns a 4x4 micro-tile of each
+//   64x64 score tile and a 4x(d/16) slice of each accumulator: 8 shared
+//   loads feed 16 FMAs.  Shared rows are padded by one float, so no
+//   warp's column read hits one bank twice.
 // - q, k, v, out, dO and the three gradients are read and written
 //   through (b, h, s) strides, so the (b, s, h, d) training buffers need
 //   no transposed copies.
@@ -39,6 +52,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_wgmma.cuh"
+
 namespace {
 
 constexpr int kB = 64;          // rows of a q tile and of a kv tile
@@ -46,6 +61,7 @@ constexpr int kThreads = 256;   // tx = tid % 16, ty = tid / 16
 constexpr int kR = 4;           // tile rows per thread: ty * 4 + i
 constexpr int kC = kB / 16;     // tile columns per thread: tx + 16 * j
 constexpr int kPP = kB + 1;     // padded row of a score tile
+constexpr int kStages = 3;      // q-tile ring of the wgmma dK/dV kernel
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -245,6 +261,179 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int heads,
+                           int group, int sq, int sk, Strides st, int causal,
+                           float scale) {
+  using namespace hopper;
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int TILE = kB * D * 2;        // one 64-row bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ks = base, vs = base + TILE;
+  const uint32_t ring = base + 2 * TILE;  // stage s: Q, then dO
+  // [stage][lse 64, delta 64]
+  float* rows_f32 = reinterpret_cast<float*>(
+      smem_raw + (ring + kStages * 2 * TILE - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * kB;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int offset = sk - sq;
+
+  for (int idx = tid; idx < kB * CH; idx += 128) {
+    const int r = idx / CH, c = idx % CH;
+    const int row = k0 + r;
+    const bool ok = row < sk;
+    const int64_t at = ok ? row : 0;
+    cp_async16(ks + swizzled(r, c, kB),
+               k + b * st.kb + hk * st.kh + at * st.ks + c * 8, ok);
+    cp_async16(vs + swizzled(r, c, kB),
+               v + b * st.vb + hk * st.vh + at * st.vs + c * 8, ok);
+  }
+
+  // q tiles wholly above the diagonal see none of this kv tile
+  int q_begin = 0;
+  if (causal) q_begin = max(0, k0 - offset) / kB * kB;
+  const int n_qt = q_begin < sq ? (sq - q_begin + kB - 1) / kB : 0;
+  const int total = group * n_qt;
+
+  auto load_q = [&](int t) {
+    const int stage = t % kStages;
+    const int hq = hk * group + t / n_qt;
+    const int q0 = q_begin + (t % n_qt) * kB;
+    const uint32_t qs = ring + stage * 2 * TILE, dos = qs + TILE;
+    for (int idx = tid; idx < kB * CH; idx += 128) {
+      const int r = idx / CH, c = idx % CH;
+      const int row = q0 + r;
+      const bool ok = row < sq;
+      const int64_t at = ok ? row : 0;
+      cp_async16(qs + swizzled(r, c, kB),
+                 q + b * st.qb + hq * st.qh + at * st.qs + c * 8, ok);
+      cp_async16(dos + swizzled(r, c, kB),
+                 dout + b * st.ob + hq * st.oh + at * st.os + c * 8, ok);
+    }
+    const int r = tid % kB;
+    const bool ok = q0 + r < sq;
+    const int64_t at = ((int64_t)b * heads + hq) * sq + (ok ? q0 + r : 0);
+    float* dst = rows_f32 + stage * 2 * kB + (tid / kB) * kB + r;
+    cp_async4(smem_u32(dst), (tid < kB ? lse : delta) + at, ok);
+  };
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+
+  // groups in flight: K, V with q tile 0, then q tile 1 (each may be empty)
+  if (total > 0) load_q(0);
+  cp_async_commit();
+  if (total > 1) load_q(1);
+  cp_async_commit();
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<1>();   // K, V and q tile t have landed
+    fence_proxy_async();
+    __syncthreads();      // ... for every thread; q tile t - 1 is read
+    if (t + 2 < total) load_q(t + 2);   // into q tile t - 1's stage
+    cp_async_commit();
+    const int q0 = q_begin + (t % n_qt) * kB;
+    const uint32_t qs = ring + (t % kStages) * 2 * TILE, dos = qs + TILE;
+    const float* ls = rows_f32 + (t % kStages) * 2 * kB;
+    const float* dls = ls + kB;
+
+    // S^T = K Q^T and dP^T = V dO^T: kv rows x q columns
+    float p[32], ds[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) p[x] = ds[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t at = (kk / 4) * kB * 128 + (kk % 4) * 32;
+      wgmma_ss_n64(p, desc_sw128(ks + at, 16, 1024),
+                   desc_sw128(qs + at, 16, 1024), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t at = (kk / 4) * kB * 128 + (kk % 4) * 32;
+      wgmma_ss_n64(ds, desc_sw128(vs + at, 16, 1024),
+                   desc_sw128(dos + at, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(p);
+    fence_operand(ds);
+
+    // p = where(mask, exp(s * scale - lse), 0); ds = p (dp - delta) scale.
+    // Only tiles on a ragged edge or the causal diagonal need the compares
+    const bool edge = q0 + kB > sq || k0 + kB > sk
+                      || (causal && q0 + offset < k0 + kB - 1);
+    const float sl2 = scale * kLog2e;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kv = k0 + 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * (lane % 4) + e;
+          const int row = q0 + c;
+          const int x = 4 * j + 2 * h + e;
+          p[x] = ex2(fmaf(p[x], sl2, -ls[c] * kLog2e));
+          if (edge && !(row < sq && kv < sk
+                        && (!causal || row + offset >= kv)))
+            p[x] = 0.f;
+          ds[x] = p[x] * (ds[x] - dls[c]) * scale;
+        }
+    }
+    uint32_t pa[kB / 16][4], dsa[kB / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kB / 16; ++kc) {
+      a_slice(p, kc, pa[kc]);
+      a_slice(ds, kc, dsa[kc]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kB / 16; ++kc) {
+      wgmma_rs<D>(dva, pa[kc], desc_sw128(dos + kc * 16 * 128, kB * 128,
+                                          1024), 1);
+      wgmma_rs<D>(dka, dsa[kc], desc_sw128(qs + kc * 16 * 128, kB * 128,
+                                           1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(dva);
+    fence_operand(dka);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= sk) continue;
+    __nv_bfloat16* kout = dk + b * st.dkb + hk * st.dkh + row * st.dks;
+    __nv_bfloat16* vout = dv + b * st.dvb + hk * st.dvh + row * st.dvs;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(kout + c) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vout + c) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -373,6 +562,31 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv,
+                             int batch, int heads, int kv_heads, int sq,
+                             int sk, const int64_t* st, int causal,
+                             float scale, cudaStream_t stream) {
+  // K, V, a ring of Q and dO, lse and delta of every stage
+  constexpr int smem = 1024 + (2 + 2 * kStages) * kB * D * 2
+                       + kStages * 2 * kB * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sk + kB - 1) / kB, kv_heads, batch);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      heads, heads / kv_heads, sq, sk, unpack(st), causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
@@ -400,8 +614,9 @@ extern "C" {
 // q, dout, dq (b, h, sq, d); k, v, dk, dv (b, kv_h, sk, d): any strides
 // whose last dimension is contiguous, given in elements as
 // [q, k, v, dout, dq, dk, dv] x [batch, head, seq].  lse and delta:
-// contiguous (b, h, sq) f32.  dtype 0 = f32, 1 = bf16.  Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// contiguous (b, h, sq) f32.  dtype 0 = f32, 1 = bf16; dK/dV takes the
+// tensor-core kernel for bf16 and the CUDA-core one for f32.  Each
+// returns cudaGetLastError() after its launch (0 = launched).
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv,
@@ -413,13 +628,12 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 1 && head_dim == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv,
-                                          batch, heads, kv_heads, sq, sk,
-                                          strides, causal, scale, s);
+    return launch_dkv_wgmma<128>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                                 kv_heads, sq, sk, strides, causal, scale,
+                                 s);
   if (dtype == 1 && head_dim == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dk, dv,
-                                         batch, heads, kv_heads, sq, sk,
-                                         strides, causal, scale, s);
+    return launch_dkv_wgmma<64>(q, k, v, dout, l, dl, dk, dv, batch, heads,
+                                kv_heads, sq, sk, strides, causal, scale, s);
   if (dtype == 0 && head_dim == 128)
     return launch_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, batch,
                                   heads, kv_heads, sq, sk, strides, causal,

@@ -1,11 +1,13 @@
 """Flash attention: hand-written CUDA kernels and their plain versions.
 
-Port of paddle_tpu/ops/pallas/flash_attention.py.  The forward kernel
-lives in ``csrc/flash_attention.cu``, the two backward kernels (dK/dV and
-dQ) in ``csrc/flash_attention_bwd.cu`` — each header says what it
-replaces, what bounds it and how it is laid out.  Every public function
-takes the plain version for CPU tensors and launches the kernels for
-CUDA tensors.  ``flash_attention_bshd`` is differentiable when autograd
+Port of paddle_tpu/ops/pallas/flash_attention.py.  The forward kernels
+live in ``csrc/flash_attention.cu``, the backward kernels (dK/dV and dQ)
+in ``csrc/flash_attention_bwd.cu`` — each header says what it replaces,
+what bounds it and how it is laid out.  bf16 calls of the forward and of
+dK/dV take the tensor-core (wgmma) kernels, f32 calls the CUDA-core ones.
+Every public function takes the plain version for CPU tensors and
+launches the kernels for CUDA tensors.  ``flash_attention_bshd`` is
+differentiable when autograd
 asks for it: ``_FlashAttention`` saves the forward's output and f32 lse
 and runs the backward kernels, as the JAX package's
 ``flash_attention_bhsd`` custom_vjp does.

@@ -205,8 +205,9 @@ class AdamW(Adam):
     """Adam with decoupled weight decay: before the Adam rule, every
     parameter that ``apply_decay_param_fun(name)`` keeps (all of them
     when it is None) is scaled by 1 - lr * coeff.  ``name`` is the
-    parameter's ``name`` attribute where one is set, else ``param_<i>``,
-    its index in the optimizer's list."""
+    parameter's ``name`` attribute, ``''`` where none is set, as the JAX
+    package passes ``p.name`` (``param_<i>`` names only state-dict
+    keys)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -219,10 +220,9 @@ class AdamW(Adam):
 
     def _rule(self, works, grads, states, lr, step, params):
         if self._coeff:
-            names = self._names()
             fun = self._apply_decay_param_fun
             decay = [w for w, p in zip(works, params)
-                     if fun is None or fun(names[id(p)])]
+                     if fun is None or fun(getattr(p, "name", None) or "")]
             if decay:
                 torch._foreach_mul_(decay, 1 - lr * self._coeff)
         super()._rule(works, grads, states, lr, step, params)

@@ -168,6 +168,90 @@ def test_training_flash_rms_rope_grads_match_plain(dev, dt):
         assert _rel_l2(a, b) <= limit
 
 
+# the tensor-core (wgmma) kernels: bf16 forward and dK/dV.  (b, causal,
+# sq, sk, q heads, kv heads, d): MHA and GQA 32/8 at head dims 64 and
+# 128, sq < sk, sq > sk (rows that see no column), lengths that are not a
+# multiple of the 64-row tiles, and decode (sq 1, the MoE generate step)
+WGMMA_CASES = [(2, True, 200, 200, 4, 4, 64), (1, True, 256, 256, 32, 8, 128),
+               (2, True, 70, 300, 4, 2, 128), (1, True, 300, 100, 8, 2, 64),
+               (2, False, 129, 33, 2, 2, 128), (2, False, 77, 333, 32, 8, 64),
+               (8, True, 1, 544, 32, 8, 128), (3, False, 1, 97, 4, 4, 64)]
+
+
+def _wgmma_inputs(dev, b, sq, sk, h, kvh, d, seed, bshd):
+    """bf16 q, k, v (b, h, s, d) and a dO; with ``bshd``, transposed views
+    of (b, s, h, d) buffers, as the serving and training paths pass."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(heads, s):
+        if bshd:
+            return torch.randn(b, s, heads, d, generator=g, device=dev) \
+                .bfloat16().transpose(1, 2)
+        return torch.randn(b, heads, s, d, generator=g, device=dev).bfloat16()
+    return rnd(h, sq), rnd(kvh, sk), rnd(kvh, sk), rnd(h, sq)
+
+
+def _seen(sq, sk, causal, dev):
+    """(sq,) bool: the rows that see at least one column."""
+    rows = torch.arange(sq, device=dev)
+    return rows + (sk - sq) >= 0 if causal else torch.ones_like(rows) > 0
+
+
+@pytest.mark.parametrize("bshd", [False, True], ids=["bhsd", "bshd"])
+@pytest.mark.parametrize("b,causal,sq,sk,h,kvh,d", WGMMA_CASES)
+def test_flash_forward_wgmma_matches_plain(dev, bshd, b, causal, sq, sk, h,
+                                           kvh, d):
+    """The bf16 tensor-core forward against ``flash_attention_plain``
+    (2e-2 of max |ref|, relative L2 2e-2, lse 1e-4).  A row that sees no
+    column writes zeros and lse DEFAULT_MASK_VALUE (the plain version's
+    softmax of an all-masked row is uniform instead)."""
+    q, k, v, _ = _wgmma_inputs(dev, b, sq, sk, h, kvh, d, 10, bshd)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
+    seen = _seen(sq, sk, causal, dev)
+    _close(out[:, :, seen], ref[:, :, seen], 2e-2)
+    assert _rel_l2(out[:, :, seen], ref[:, :, seen]) <= 2e-2
+    _close(lse[:, :, seen], ref_lse[:, :, seen], 1e-4)
+    assert float(out[:, :, ~seen].float().abs().sum()) == 0.0
+    assert bool((lse[:, :, ~seen] == fa.DEFAULT_MASK_VALUE).all())
+
+
+@pytest.mark.parametrize("bshd", [False, True], ids=["bhsd", "bshd"])
+@pytest.mark.parametrize("b,causal,sq,sk,h,kvh,d", WGMMA_CASES)
+def test_flash_dkv_wgmma_matches_plain(dev, bshd, b, causal, sq, sk, h, kvh,
+                                       d):
+    """The bf16 tensor-core dK/dV (P and dS rounded to bf16 before their
+    products) against ``_bwd_blockwise`` at the unchanged relative L2
+    limit 1e-2; rows that see no column get zero gradients."""
+    q, k, v, do = _wgmma_inputs(dev, b, sq, sk, h, kvh, d, 11, bshd)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal, scale)
+    want = fa._bwd_blockwise(q, k, v, out, lse, do, causal, scale)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, w) <= 1e-2
+    seen = _seen(sq, sk, causal, dev)
+    assert float(got[0][:, :, ~seen].float().abs().sum()) == 0.0
+
+
+def test_bf16_flash_raises_without_its_kernel(dev, monkeypatch):
+    """No fallback: a bf16 call whose kernel library does not build
+    raises KernelBuildError, forward and backward."""
+    from paddle_tpu_torch.ops import _build
+
+    def broken(name):
+        raise _build.KernelBuildError(f"nvcc failed on {name}.cu")
+
+    q, k, v, do = _wgmma_inputs(dev, 1, 64, 64, 4, 4, 64, 12, False)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    monkeypatch.setattr(_build, "load", broken)
+    with pytest.raises(_build.KernelBuildError):
+        fa.flash_attention_forward(q, k, v, causal=True)
+    with pytest.raises(_build.KernelBuildError):
+        fa.flash_attention_backward(q, k, v, out, lse, do, True, 0.125)
+
+
 QUANT_SHAPES = [(1, 4096, 4096), (8, 4096, 11008), (16, 512, 1024),
                 (77, 300, 200), (130, 512, 384), (5, 33, 17)]
 

@@ -94,6 +94,32 @@ def test_sampled_streams_match_jax_engine(models, chunk):
     assert got == want
 
 
+def _serve_host_sampled(engine):
+    """Two sampled requests at temperature 1.5 (seeds 1 and 2) beside a
+    greedy one, sampled on the host."""
+    prompts, _ = _prompts()
+    reqs = [engine.submit(p, max_new_tokens=8, do_sample=True,
+                          temperature=1.5, seed=s)
+            for p, s in zip(prompts[:2], (1, 2))]
+    reqs.append(engine.submit(prompts[2], max_new_tokens=8))
+    return [r.result(timeout=300).tolist() for r in reqs]
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["unchunked", "chunked"])
+def test_host_sampled_streams_match_jax_engine(models, chunk):
+    """``sample_on_device=False`` draws from each request's numpy
+    generator, as the JAX engine's ``sample_token`` does."""
+    jm, tm = models
+    with JaxEngine(jm, prefill_chunk_tokens=chunk, sample_on_device=False,
+                   **ENGINE) as eng:
+        want = _serve_host_sampled(eng)
+    with ContinuousBatchingEngine(tm, prefill_chunk_tokens=chunk,
+                                  sample_on_device=False, device="cpu",
+                                  **ENGINE) as eng:
+        got = _serve_host_sampled(eng)
+    assert got == want
+
+
 @pytest.mark.parametrize("chunk", [None, 8], ids=["unchunked", "chunked"])
 def test_sampled_request_replays_under_any_batch(models, chunk):
     """A sampled request's draws are keyed by (seed, absolute position),

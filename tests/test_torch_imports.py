@@ -1,6 +1,7 @@
-"""The port stands alone: no module of paddle_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the paddle_tpu package (even a
-jax-free module there runs paddle_tpu/__init__.py, which loads jax)."""
+"""The port stands alone: no module of paddle_tpu_torch, and neither
+chip_smoke.py nor chip_ab.py, imports jax or anything of the paddle_tpu
+package (even a jax-free module there runs paddle_tpu/__init__.py, which
+loads jax)."""
 import ast
 import pathlib
 
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -48,5 +49,5 @@ def test_scan_sees_the_whole_port():
                  "paddle_tpu_torch/models/llama_moe.py",
                  "paddle_tpu_torch/ops/flashmask_attention.py",
                  "paddle_tpu_torch/nn/functional/attention.py",
-                 "chip_smoke.py"):
+                 "chip_smoke.py", "chip_ab.py"):
         assert must in names

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 chip_ab.py BASE_DIR [--phases flash,train,moe] [--seed N]
+    python3 chip_ab.py BASE_DIR [--phases flash,quant,train,moe] [--seed N]
 
 BASE_DIR is a checkout inside this one, in a directory that
 ``.gitignore`` lists, e.g. one unpacked with
@@ -11,8 +11,10 @@ its own from its own checkout, which builds its kernels from its own
 sources, in the order base, this, this, base, so a drift of the card's
 clocks over the call shows as a difference between the two runs of one
 side.  Phases: ``flash`` times the flash forward (serve, train and MoE
-decode shapes) and dK/dV (train shape) kernels through their public
-wrappers on the same seeded inputs; ``train`` and ``moe`` run
+decode shapes), dK/dV and dQ (train shape) kernels through their public
+wrappers on the same seeded inputs; ``quant`` times the bf16 weight-only
+int8 matmul at llama_7b's four prefill widths (1024 rows) and at 32 rows
+the same way; ``train`` and ``moe`` run
 ``chip_smoke.py``'s end-to-end phases (llama_small training steps; the
 Mixtral-width MoE generate).  Each side's ``chip_smoke.py`` must provide
 ``cuda_ms(fn)``, ``train(seed, dev, card)`` and ``moe_generate(seed, dev,
@@ -34,8 +36,15 @@ FLASH_CASES = (("fwd serve s2048 32/32 d128", "fwd", 1, 32, 32, 2048, 2048,
                ("fwd decode b8 sq1 sk544 32/8 d128", "fwd", 8, 32, 8, 1, 544,
                 128),
                ("dkv train b8 h12 s1024 d64", "dkv", 8, 12, 12, 1024, 1024,
+                64),
+               ("dq train b8 h12 s1024 d64", "dq", 8, 12, 12, 1024, 1024,
                 64))
+# the w8 cases: (M, K, N), bf16 x, llama_7b's q/k/v/o, gate/up, down and
+# head widths at a 1024-token prefill, and gate/up at 32 rows
+QUANT_CASES = ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
+               (1024, 4096, 32000), (32, 4096, 11008))
 METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
+           "quant": tuple(f"w8 M{m} K{k} N{n}" for m, k, n in QUANT_CASES),
            "train": ("step_ms_p50", "tokens_per_s", "mfu",
                      "device_busy_ms_per_step", "device_idle_share",
                      "device_ms_per_step_by_class"),
@@ -44,8 +53,8 @@ METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
 
 
 def flash(cs, seed, dev):
-    """{case: device ms per call} of the flash forward and dK/dV kernels,
-    timed with the side's own ``cuda_ms`` (CUDA-graph replay)."""
+    """{case: device ms per call} of the flash forward, dK/dV and dQ
+    kernels, timed with the side's own ``cuda_ms`` (CUDA-graph replay)."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -62,9 +71,30 @@ def flash(cs, seed, dev):
         o, lse = fa.flash_attention_cuda(q, k, v, causal=True)
         delta = (o.float() * do.float()).sum(-1).contiguous()
         grads = [torch.empty_like(t) for t in (q, k, v)]
-        out[name] = cs.cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        launch = {"dkv": fa.flash_attention_bwd_dkv_cuda,
+                  "dq": fa.flash_attention_bwd_dq_cuda}[kernel]
+        out[name] = cs.cuda_ms(lambda: launch(
             q, k, v, do, lse, delta, *grads, True, d ** -0.5))
     return out
+
+
+def quant(cs, seed, dev):
+    """{case: device ms per call} of the bf16 w8 kernel, timed with the
+    side's own ``cuda_ms``."""
+    import torch
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (m, k, n) in zip(METRICS["quant"], QUANT_CASES):
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sc = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        out[name] = cs.cuda_ms(lambda: qm.weight_only_matmul_cuda(x, w, sc))
+    return out
+
+
+KERNEL_PHASES = {"flash": flash, "quant": quant}
 
 
 def child(phases, seed):
@@ -84,8 +114,8 @@ def child(phases, seed):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"card": card}
     for phase in phases:
-        if phase == "flash":
-            out[phase] = flash(cs, seed, dev)
+        if phase in KERNEL_PHASES:
+            out[phase] = KERNEL_PHASES[phase](cs, seed, dev)
         else:
             fn = {"train": cs.train, "moe": cs.moe_generate}[phase]
             rec, _launches = fn(seed, dev, card)
@@ -97,7 +127,7 @@ def child(phases, seed):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base")
-    ap.add_argument("--phases", default="flash,train,moe")
+    ap.add_argument("--phases", default="flash,quant,train,moe")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()

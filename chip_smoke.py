@@ -11,12 +11,13 @@ failure:
             (one nvcc per source, in parallel, while the Triton kernels
             compile and are checked); print the card's name and power
             limit as nvidia-smi reports them; count the wgmma (HGMMA)
-            instructions of each flash kernel in ``cuobjdump -sass`` of
-            its library: the tensor-core forward and dK/dV kernels must
-            hold some.
+            instructions of each flash and weight-only matmul kernel in
+            ``cuobjdump -sass`` of its library: the tensor-core forward,
+            dK/dV, dQ and w8 kernels must hold some.
 2. kernels — run each hand-written kernel (paged attention in its bf16,
             f32 and int8-page modes, the w8 and w8a8 matmuls at llama_7b's
-            decode and prefill shapes) at the serving path's shapes
+            decode and prefill shapes, w8 also at every prefill width and
+            at 32 rows) at the serving path's shapes
             against its plain PyTorch version on the card, with a stated
             tolerance; time kernel, plain version and, where one PyTorch
             call computes the same function, that call (a yardstick the
@@ -77,7 +78,8 @@ failure:
             and in bf16 relative to the plain bf16 forward's own
             distance from f32; quantized, in f32 against the plain
             quantized forward); a profiler window over the bf16 prefill
-            must show the tensor-core flash forward.
+            must show the tensor-core flash forward, and one over a bf16
+            w8 prefill the tensor-core w8 kernel.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, and w8 with int8 KV at 512, host-clock step times,
             then one ``torch.profiler`` window for the device's busy
@@ -92,8 +94,8 @@ failure:
             busy time and idle share from one ``torch.profiler`` window.
             Every loss must be finite, the last below the first (one
             batch memorized), and every kernel of the path launched; the
-            profiler window must show the tensor-core flash forward and
-            dK/dV kernels and not their CUDA-core versions.
+            profiler window must show the tensor-core flash forward,
+            dK/dV and dQ kernels and not their CUDA-core versions.
 7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
             of 32 layers, bf16 with f32 gates (so every MoE layer routes
             through the gating kernel), weights drawn on the card from
@@ -304,23 +306,24 @@ def check(name, case, out, ref, tol):
 
 
 def sass_counts(lib_path, opcode="HGMMA"):
-    """{kernel: number of ``opcode`` instructions} of each flash kernel in
-    a built library, from ``cuobjdump -sass`` (beside nvcc).  HGMMA is
-    wgmma in SASS, so a tensor-core kernel with none was not built as
-    one."""
+    """{kernel: number of ``opcode`` instructions} of each flash and
+    weight-only matmul kernel in a built library, from ``cuobjdump -sass``
+    (beside nvcc).  HGMMA is wgmma in SASS, so a tensor-core kernel with
+    none was not built as one."""
     from paddle_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        fn = re.search(r"Function : \S*?(flash_[a-z_]+?_kernel)I(\w+?)EEv",
-                       line)
+        fn = re.search(r"Function : \S*?((?:flash|wo)_[a-z_]+?_kernel)"
+                       r"(?:I(\w+?)EEv)?", line)
         if fn:
-            args = re.findall(r"Li(\d+)E", fn.group(2))
-            if "bfloat16" in fn.group(2):
+            targs = fn.group(2) or ""
+            args = re.findall(r"Li(\d+)E", targs)
+            if "bfloat16" in targs:
                 args.insert(0, "bf16")
-            elif fn.group(2).startswith("f"):
+            elif targs.startswith("f"):
                 args.insert(0, "f32")
             name = f"{fn.group(1)}<{','.join(args)}>"
             counts[name] = 0
@@ -470,6 +473,8 @@ def check_paged(records, dev):
 QUANT_DECODE = ((8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
                 (8, 4096, 32000))
 QUANT_PREFILL = (1024, 4096, 11008)
+# the other prefill widths, timed only: q/k/v/o and down
+QUANT_PREFILL_MORE = ((1024, 4096, 4096), (1024, 11008, 4096))
 QUANT_ODD = ((77, 300, 200), (1, 4096, 32000), (5, 33, 17))
 
 
@@ -551,6 +556,8 @@ def check_quant(records, dev):
         case(m, k, n, f32, timed=False)
     case(*QUANT_PREFILL, bf16, timed=True)
     case(*QUANT_PREFILL, f32, timed=False)
+    for m, k, n in QUANT_PREFILL_MORE:
+        case(m, k, n, bf16, timed=True)
     # the w8a8 yardstick needs M > 16
     case(32, 4096, 11008, bf16, timed=True)
     for m, k, n in QUANT_ODD:
@@ -1574,6 +1581,23 @@ def prefill_logits(model, ids, quantize=None, kv_quant=None):
     return torch.as_tensor(got[0], device=ref.device), ref, replay
 
 
+def w8_prefill_window(model, ids):
+    """One bf16 w8 prefill of ``ids`` (1, s) in a ``torch.profiler``
+    window: every quantized Linear there has more than 16 rows, so the
+    window must show ``wo_wgmma_kernel`` and not the mma.sync tiles."""
+    from paddle_tpu_torch.inference.paged import PagedDecoder
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
+    cache = PagedKVCache.from_model(model, total_pages=32, page_size=16)
+    with torch.no_grad():
+        decoder = PagedDecoder(model, quantize="w8")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+            decoder.prefill(cache, [0], ids.cpu().numpy())
+            torch.cuda.synchronize()
+    return device_kernels_seen(prof, "w8 prefill", ("wo_wgmma_kernel",),
+                               ("wo_mma_tiled_kernel",))
+
+
 def check_small():
     """A small f32 model: greedy streams on the card (kernels) equal the
     CPU's (plain versions) from the same weights, unquantized and with
@@ -2040,8 +2064,8 @@ def train(seed, dev, card, steps=20, warmup=3):
     events = prof.key_averages()
     seen = device_kernels_seen(
         prof, "train", ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                        "flash_bwd_dq_kernel"),
-        ("flash_fwd_kernel", "flash_bwd_dkv_kernel"))
+                        "flash_bwd_dq_wgmma_kernel"),
+        ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:16]
     by_class = {}
@@ -2227,16 +2251,17 @@ def main():
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    # wgmma instructions in the tensor-core flash kernels' machine code
+    # wgmma instructions in the tensor-core kernels' machine code
     hgmma = {}
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "quant_matmul"):
         hgmma.update(sass_counts(libs[name]))
     log("  HGMMA per kernel: " + json.dumps(hgmma))
     tensor_core = {k: c for k, c in hgmma.items() if "wgmma" in k}
     if sorted({k.split("<")[0] for k in tensor_core}) != [
-            "flash_bwd_dkv_wgmma_kernel", "flash_fwd_wgmma_kernel"] \
+            "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+            "flash_fwd_wgmma_kernel", "wo_wgmma_kernel"] \
             or min(tensor_core.values()) == 0:
-        raise AssertionError(f"the tensor-core flash kernels hold no wgmma: "
+        raise AssertionError(f"the tensor-core kernels hold no wgmma: "
                              f"{hgmma}")
     lap("build")
 
@@ -2246,7 +2271,9 @@ def main():
         fn(records, dev)
         lap(fn.__name__)
     for name, prefix in (("flash_attention_forward", "flash_fwd"),
-                         ("flash_attention_bwd_dkv", "flash_bwd_dkv")):
+                         ("flash_attention_bwd_dkv", "flash_bwd_dkv"),
+                         ("flash_attention_bwd_dq", "flash_bwd_dq"),
+                         ("weight_only_matmul", "wo_")):
         records[name]["hgmma"] = {k: c for k, c in hgmma.items()
                                   if k.startswith(prefix)}
     gc.collect()
@@ -2381,6 +2408,9 @@ def main():
     device_kernels_seen(prof, "serve prefill", ("flash_fwd_wgmma_kernel",),
                         ("flash_fwd_kernel",))
     log("serve: the bf16 prefill ran flash_fwd_wgmma_kernel (profiler)")
+    w8_prefill_window(model, ids)
+    log("serve: the bf16 w8 prefill ran wo_wgmma_kernel (profiler)")
+    gc.collect()
     model.float()
     got32, ref32, _ = prefill_logits(model, ids)
 

@@ -37,9 +37,22 @@
 //   q tiles wholly above the causal diagonal are never loaded.
 // - dK/dV, f32: `flash_bwd_dkv_kernel`, the same blocking with the
 //   products in f32 on the CUDA cores (wgmma has no f32 product).
-// - dQ: one block per (batch, q head, 64-row q tile) keeps Q, dO, lse and
-//   delta resident and streams the kv tiles up to the causal limit, the
-//   products in f32 on the CUDA cores.
+// - dQ, bf16: `flash_bwd_dq_wgmma_kernel`, the three products on the
+//   tensor cores.  One warpgroup per (batch, q head, 64-row q tile) keeps
+//   Q and dO resident in swizzled tiles, its rows' lse and delta in
+//   registers and dQ's 64 x d f32 accumulator in registers, while the K
+//   and V tiles of its kv head (q head h reads kv head h / group) stream
+//   through the same three-stage cp.async ring up to the causal limit;
+//   tiles right of the diagonal are never loaded.  S = Q K^T and
+//   dP = dO V^T read both operands from shared memory; dS, rounded to
+//   bf16 (the JAX kernel takes dQ += dS K in f32; FlashAttention-2 and -3
+//   round as here), is the register A operand of dQ += dS K, K read
+//   MN-major from the tile that gave S.  dQ is its own pass, not summed
+//   with f32 atomics inside the dK/dV kernel (FA2's and FA3's fused
+//   form): each dQ element is written once, so dQ is deterministic, and
+//   the pass mirrors the JAX kernel's.
+// - dQ, f32: `flash_bwd_dq_kernel`, the same blocking with the products in
+//   f32 on the CUDA cores.
 // - The CUDA-core kernels: every thread owns a 4x4 micro-tile of each
 //   64x64 score tile and a 4x(d/16) slice of each accumulator: 8 shared
 //   loads feed 16 FMAs.  Shared rows are padded by one float, so no
@@ -61,19 +74,13 @@ constexpr int kThreads = 256;   // tx = tid % 16, ty = tid / 16
 constexpr int kR = 4;           // tile rows per thread: ty * 4 + i
 constexpr int kC = kB / 16;     // tile columns per thread: tx + 16 * j
 constexpr int kPP = kB + 1;     // padded row of a score tile
-constexpr int kStages = 3;      // q-tile ring of the wgmma dK/dV kernel
+constexpr int kStages = 3;      // ring of the wgmma kernels' streamed tiles
 
+// the CUDA-core kernels run f32 only (bf16 takes the wgmma kernels)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // 16 bytes of T from global memory into consecutive floats
@@ -434,6 +441,169 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// dQ on the tensor cores: the dK/dV kernel above with the roles of the q
+// and kv tiles swapped.  One warpgroup per (batch, q head, 64-row q tile)
+// keeps Q and dO resident and its rows' lse and delta in registers; the
+// K and V tiles of the q head's kv head stream through the ring up to
+// the causal limit.  dS is rounded to bf16 and fed back as the A operand
+// of dQ += dS K, K read MN-major from the tile that gave S.
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int heads,
+                          int group, int sq, int sk, Strides st, int causal,
+                          float scale) {
+  using namespace hopper;
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int TILE = kB * D * 2;        // one 64-row bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base, dos = base + TILE;
+  const uint32_t ring = base + 2 * TILE;  // stage s: K, then V
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * kB;
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / group;
+  const int offset = sk - sq;
+
+  for (int idx = tid; idx < kB * CH; idx += 128) {
+    const int r = idx / CH, c = idx % CH;
+    const int row = q0 + r;
+    const bool ok = row < sq;
+    const int64_t at = ok ? row : 0;
+    cp_async16(qs + swizzled(r, c, kB),
+               q + b * st.qb + hq * st.qh + at * st.qs + c * 8, ok);
+    cp_async16(dos + swizzled(r, c, kB),
+               dout + b * st.ob + hq * st.oh + at * st.os + c * 8, ok);
+  }
+  // this thread's two accumulator rows: lse * log2(e) and delta
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * h;
+    const int64_t at = ((int64_t)b * heads + hq) * sq + row;
+    lr[h] = row < sq ? lse[at] * kLog2e : 0.f;
+    dr[h] = row < sq ? delta[at] : 0.f;
+  }
+
+  // kv tiles strictly right of the (offset) diagonal contribute nothing
+  const int kv_end = causal ? min(sk, q0 + kB + offset) : sk;
+  const int n_kt = kv_end > 0 ? (kv_end + kB - 1) / kB : 0;
+
+  auto load_kv = [&](int t) {
+    const uint32_t ks = ring + (t % kStages) * 2 * TILE, vs = ks + TILE;
+    for (int idx = tid; idx < kB * CH; idx += 128) {
+      const int r = idx / CH, c = idx % CH;
+      const int row = t * kB + r;
+      const bool ok = row < sk;
+      const int64_t at = ok ? row : 0;
+      cp_async16(ks + swizzled(r, c, kB),
+                 k + b * st.kb + hk * st.kh + at * st.ks + c * 8, ok);
+      cp_async16(vs + swizzled(r, c, kB),
+                 v + b * st.vb + hk * st.vh + at * st.vs + c * 8, ok);
+    }
+  };
+
+  float dqa[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dqa[x] = 0.f;
+
+  // groups in flight: Q, dO with kv tile 0, then kv tile 1 (each may be
+  // empty)
+  if (n_kt > 0) load_kv(0);
+  cp_async_commit();
+  if (n_kt > 1) load_kv(1);
+  cp_async_commit();
+  const float sl2 = scale * kLog2e;
+  for (int t = 0; t < n_kt; ++t) {
+    cp_async_wait<1>();   // Q, dO and kv tile t have landed
+    fence_proxy_async();
+    __syncthreads();      // ... for every thread; kv tile t - 1 is read
+    if (t + 2 < n_kt) load_kv(t + 2);   // into kv tile t - 1's stage
+    cp_async_commit();
+    const int k0 = t * kB;
+    const uint32_t ks = ring + (t % kStages) * 2 * TILE, vs = ks + TILE;
+
+    // S = Q K^T and dP = dO V^T: q rows x kv columns
+    float s[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] = dp[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t at = (kk / 4) * kB * 128 + (kk % 4) * 32;
+      wgmma_ss_n64(s, desc_sw128(qs + at, 16, 1024),
+                   desc_sw128(ks + at, 16, 1024), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t at = (kk / 4) * kB * 128 + (kk % 4) * 32;
+      wgmma_ss_n64(dp, desc_sw128(dos + at, 16, 1024),
+                   desc_sw128(vs + at, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+
+    // p = where(mask, exp(s * scale - lse), 0); ds = p (dp - delta) scale,
+    // into s.  Only tiles on a ragged edge or the causal diagonal need the
+    // compares
+    const bool edge = q0 + kB > sq || k0 + kB > sk
+                      || (causal && q0 + offset < k0 + kB - 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * (lane % 4) + e;
+          const int x = 4 * j + 2 * h + e;
+          float p = ex2(fmaf(s[x], sl2, -lr[h]));
+          if (edge && !(row < sq && col < sk
+                        && (!causal || row + offset >= col)))
+            p = 0.f;
+          s[x] = p * (dp[x] - dr[h]) * scale;
+        }
+    }
+    uint32_t dsa[kB / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kB / 16; ++kc) a_slice(s, kc, dsa[kc]);
+
+    // dQ += dS K, K MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kB / 16; ++kc)
+      wgmma_rs<D>(dqa, dsa[kc], desc_sw128(ks + kc * 16 * 128, kB * 128,
+                                           1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(dqa);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= sq) continue;
+    __nv_bfloat16* out = dq + b * st.dqb + hq * st.dqh + row * st.dqs;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(out + c) =
+          __floats2bfloat162_rn(dqa[4 * j + 2 * h], dqa[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -587,6 +757,30 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int batch,
+                            int heads, int kv_heads, int sq, int sk,
+                            const int64_t* st, int causal, float scale,
+                            cudaStream_t stream) {
+  // Q, dO, a ring of K and V
+  constexpr int smem = 1024 + (2 + 2 * kStages) * kB * D * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + kB - 1) / kB, heads, batch);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), heads, heads / kv_heads, sq, sk,
+      unpack(st), causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
@@ -614,9 +808,9 @@ extern "C" {
 // q, dout, dq (b, h, sq, d); k, v, dk, dv (b, kv_h, sk, d): any strides
 // whose last dimension is contiguous, given in elements as
 // [q, k, v, dout, dq, dk, dv] x [batch, head, seq].  lse and delta:
-// contiguous (b, h, sq) f32.  dtype 0 = f32, 1 = bf16; dK/dV takes the
-// tensor-core kernel for bf16 and the CUDA-core one for f32.  Each
-// returns cudaGetLastError() after its launch (0 = launched).
+// contiguous (b, h, sq) f32.  dtype 0 = f32, 1 = bf16; dK/dV and dQ each
+// take the tensor-core kernel for bf16 and the CUDA-core one for f32.
+// Each returns cudaGetLastError() after its launch (0 = launched).
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv,
@@ -655,13 +849,11 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 1 && head_dim == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, batch,
-                                         heads, kv_heads, sq, sk, strides,
-                                         causal, scale, s);
+    return launch_dq_wgmma<128>(q, k, v, dout, l, dl, dq, batch, heads,
+                                kv_heads, sq, sk, strides, causal, scale, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dq, batch,
-                                        heads, kv_heads, sq, sk, strides,
-                                        causal, scale, s);
+    return launch_dq_wgmma<64>(q, k, v, dout, l, dl, dq, batch, heads,
+                               kv_heads, sq, sk, strides, causal, scale, s);
   if (dtype == 0 && head_dim == 128)
     return launch_dq<float, 128>(q, k, v, dout, l, dl, dq, batch, heads,
                                  kv_heads, sq, sk, strides, causal, scale,

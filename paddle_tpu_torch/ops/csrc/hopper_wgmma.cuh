@@ -1,8 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels: 16-byte cp.async copies into the 128-byte-swizzled shared
-// layout that wgmma's descriptors read, the descriptors themselves, and
-// the warpgroup matrix multiplies (wgmma.mma_async, bf16 in, f32
-// accumulators in registers).
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
+// flash attention kernels and the weight-only int8 matmul): cp.async
+// copies into the 128-byte-swizzled shared layout that wgmma's
+// descriptors read, the descriptors themselves, mbarriers, TMA tile loads
+// and the warpgroup matrix multiplies (wgmma.mma_async, bf16 in, f32
+// accumulators in registers), each named by its shape: m64 x n64 x k16
+// with both operands in shared memory (ss), m64 x n{64, 128} x k16 with A
+// in registers (rs) and B MN-major or K-major.
 //
 // Shared tiles: a tile of R rows x D bf16 columns (D a multiple of 64) is
 // kept as D / 64 panels of R rows x 128 bytes.  Inside a panel, row r
@@ -80,6 +83,47 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
   return d;
 }
 
+// mbarriers in shared memory (`bar` a shared address, 8-byte aligned)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// make the initialised barriers visible before any thread uses them
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// arrive and expect `bytes` more from asynchronous copies (TMA)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// wait for the completion of the barrier's phase of parity `parity`
+// (the c-th completion, counting from 0, has parity c % 2)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// TMA: the box at coordinates (c0 innermost, c1) of the tensor map at
+// generic address `map` (a __grid_constant__ kernel parameter) into shared
+// memory at `dst`; completes `bytes` of the transaction on `bar`.
+// Elements outside the tensor are written as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -152,7 +196,8 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A from registers (four
 // packed bf16 pairs, the accumulator layout of a 64 x 16 tile), B from
-// shared memory MN-major (trans-b = 1)
+// shared memory MN-major (TB = 1, trans-b) or K-major (TB = 0)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
@@ -165,7 +210,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -175,12 +220,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A from registers (four
 // packed bf16 pairs, the accumulator layout of a 64 x 16 tile), B from
-// shared memory MN-major (trans-b = 1)
+// shared memory MN-major (TB = 1, trans-b) or K-major (TB = 0)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
@@ -197,7 +243,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -215,7 +261,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 

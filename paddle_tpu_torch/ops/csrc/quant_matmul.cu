@@ -17,23 +17,36 @@
 // thousands) by operations.  What the design does about that, per regime
 // and type:
 //
-//   The tensor cores, mma.sync: m16n8k16 bf16 -> f32 for w8 with bf16 x
-//   (the serving path; the int8 weight converted exactly to bf16 in
-//   registers with integer/float bit tricks, no I2F), m16n8k32 s8 -> s32
-//   for w8a8 (the int8 bytes are the fragments).  M <= 16: a block owns 16
-//   output columns, its 8 warps split K and meet in shared memory, every
-//   lane streams 16-byte weight loads with the next block's loads issued
-//   before the current block's products.  M > 16: 128 x 128 output tiles,
-//   8 warps of 64 x 32, k tiles staged in shared memory.
+//   w8 with bf16 x (the serving path) runs on the tensor cores, the int8
+//   weight converted exactly to bf16 (integer/float bit tricks, no I2F),
+//   and the kernel is chosen by shape (`launch_wo_bf16`):
+//   - M <= 16 (decode): mma.sync m16n8k16, bound by the weight's bytes.
+//     A block owns 16 output columns, its 8 warps split K and meet in
+//     shared memory, every lane streams 16-byte weight loads with the
+//     next block's loads issued before the current block's products.
+//   - M > 16 and K % 16 == 0 (prefill, chunked prefill, ragged steps
+//     above 16 rows; every Linear of llama_7b): wgmma, `wo_wgmma_kernel`,
+//     bound by operations.  256-feature x 128-token output tiles; x and
+//     the raw int8 weight tiles arrive by TMA in a ring, and four
+//     warpgroups convert their weight rows in registers and multiply
+//     them as wgmma's register A operand against x from shared memory.
+//   - M > 16 and K % 16 != 0 (weight rows TMA cannot copy: its rows must
+//     be 16-byte aligned): mma.sync 128 x 128 tiles staged element by
+//     element.
+//   w8a8 runs mma.sync m16n8k32 s8 -> s32 (the int8 bytes are the
+//   fragments): the skinny blocking at M <= 16, 128 x 128 tiles above.
 //
 //   w8 with f32 x runs on the CUDA cores (the tensor cores have no f32
 //   product), 128 x 128 tiles of f32 FMAs, 8 x 8 outputs per thread, at
 //   every M: no serving workload runs f32, so its decode is not tuned.
 //
-// Pipelined (cp.async, TMA) tiles and wgmma are later work.
+// w8a8's tiles are not pipelined yet (later work).
+#include <cuda.h>            // CUtensorMap (the encoder comes from the runtime)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -343,14 +356,15 @@ wo_tiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 // -------------------------------------------------- w8, tiled, bf16 mma
-// bf16 x at M > 16: a 128 x 128 output tile per block, 8 warps of 64 x 32
-// (4 m16 x 4 n8 mma.sync tiles each), k tiles of 32 staged in shared
-// memory as bf16 (the weight converted exactly while staged).  Rows of 40
+// bf16 x at M > 16 with K % 16 != 0 (weight rows that TMA cannot copy;
+// every other bf16 call above 16 rows takes wo_wgmma_kernel): a
+// 128 x 128 output tile per block, 8 warps of 64 x 32 (4 m16 x 4 n8
+// mma.sync tiles each), k tiles of 32 staged in shared memory as bf16 (the
+// weight converted exactly while staged), element by element.  Rows of 40
 // bf16 (80 bytes) make the fragment reads conflict-free.
 constexpr int kMmaBK = 32;
 constexpr int kMmaLd = kMmaBK + 8;
 
-template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 wo_mma_tiled_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ w,
@@ -379,24 +393,19 @@ wo_mma_tiled_kernel(const __nv_bfloat16* __restrict__ x,
       const int m = m0 + r, k = k0 + c;
       uint32_t v[4] = {0u, 0u, 0u, 0u};
       if (m < M) {
-        const __nv_bfloat16* row = x + (size_t)m * K;
-        if (VEC && k < K) {
-          const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + k));
-          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-        } else if (!VEC) {
-          const uint16_t* r16 = reinterpret_cast<const uint16_t*>(row);
+        const uint16_t* r16 =
+            reinterpret_cast<const uint16_t*>(x + (size_t)m * K);
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (k + e < K)
-              v[e / 2] |= static_cast<uint32_t>(r16[k + e]) << (16 * (e & 1));
-        }
+        for (int e = 0; e < 8; ++e)
+          if (k + e < K)
+            v[e / 2] |= static_cast<uint32_t>(r16[k + e]) << (16 * (e & 1));
       }
       xr[h] = make_uint4(v[0], v[1], v[2], v[3]);
     }
     // w: 128 rows x 32 k = 256 pieces of 16 int8, one per thread
     const int wr = tid >> 1, wc = (tid & 1) * 16;
     const uint4 wraw = n0 + wr < N
-        ? load_i8x16<VEC>(w + (size_t)(n0 + wr) * K, k0 + wc, K)
+        ? load_i8x16<false>(w + (size_t)(n0 + wr) * K, k0 + wc, K)
         : make_uint4(0u, 0u, 0u, 0u);
     uint32_t wb[8];
 #pragma unroll
@@ -458,6 +467,169 @@ wo_mma_tiled_kernel(const __nv_bfloat16* __restrict__ x,
                 from_float<__nv_bfloat16>(d[i][j][2 * h + c] * scale[n]);
         }
     }
+}
+
+// ------------------------------------------------------ w8, bf16 wgmma
+// bf16 x at M > 16 with K % 16 == 0, on wgmma: a block computes a
+// 256-feature x 128-token output tile in K steps of 64 as Y^T += W X^T,
+// the weight the A operand from registers and x the B operand from
+// shared memory, as CUTLASS's mixed-input GEMMs do:
+// - TMA copies each step's x tile (128 tokens x 64 k, 128-byte swizzle,
+//   straight into wgmma's K-major layout) and raw int8 weight tile (256
+//   features x 64 bytes) into a ring of kWoStages stages; thread 0
+//   refills a stage once every warpgroup has released it, kWoStages - 1
+//   steps ahead of its own warpgroup;
+// - each of the four warpgroups owns 64 features: per 16-k slice every
+//   thread reads the 4 weight bytes of its A fragment for each of its two
+//   rows (one 16-byte shared load per row, shared by four lanes),
+//   converts them exactly to bf16 in registers (i8x4_to_bf16x2) and
+//   issues wgmma m64 x n128 x k16 with A from registers, B K-major.  The
+//   converted weight never goes through shared memory, and the
+//   conversion is spread over all 512 threads;
+// - the 64 x 128 f32 accumulator (features x tokens) stays in registers;
+//   a warpgroup waits for its own products before it converts the next
+//   step (the A registers must not change under an issued wgmma), while
+//   the other three keep the tensor cores busy.
+// TMA zero-fills tokens past M, features past N and k past K; it needs
+// 16-byte weight rows (K % 16 == 0).  The epilogue multiplies by
+// scale[n] in f32 and rounds to bf16 once, as the plain version does.
+// Where the output tiles would fill less than half of the SMs (short
+// prompts: 16 tiles at 128 tokens x 4096 features), K is split over
+// gridDim.z blocks (`wo_splits`); each writes f32 partial sums and
+// wo_splitk_reduce_kernel adds them in split order (deterministic), then
+// scales and rounds.
+constexpr int kWoBF = 256;                 // features of a block
+constexpr int kWoBT = 128;                 // tokens of a block
+constexpr int kWoBK = 64;                  // k of a step
+constexpr int kWoStages = 6;
+constexpr int kWoXT = kWoBT * 128;         // x stage, bytes
+constexpr int kWoWR = kWoBF * kWoBK;       // raw int8 weight stage, bytes
+// the ring, and a full and an empty barrier per stage
+constexpr int kWoSmem = 1024 + kWoStages * (kWoXT + kWoWR)
+                        + 2 * kWoStages * 8;
+
+__global__ void __launch_bounds__(512, 1)
+wo_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
+                __grid_constant__ const CUtensorMap w_map,
+                const float* __restrict__ scale,
+                __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                int M, int N, int K) {
+  using namespace hopper;
+  constexpr int S = kWoStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw0 = smem_u32(smem_raw);
+  const uint32_t xs = (raw0 + 1023) & ~1023u;
+  const uint32_t wr = xs + S * kWoXT;
+  const uint32_t bars = wr + S * kWoWR;
+  const uint8_t* const wr_ptr = smem_raw + (wr - raw0);
+  // full[s]: stage s landed; empty[s]: every warpgroup multiplied it
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * kWoBF, m0 = blockIdx.y * kWoBT;
+  // this block's K steps (all of them unless K is split over blockIdx.z);
+  // t counts them from 0
+  const int steps = (K + kWoBK - 1) / kWoBK;
+  const int k0 = blockIdx.z * steps / gridDim.z * kWoBK;
+  const int nk = (blockIdx.z + 1) * steps / gridDim.z - k0 / kWoBK;
+  const void* const xm = &x_map;   // the maps stay in parameter space
+  const void* const wm = &w_map;
+  auto issue = [&](int t) {
+    const int s = t % S;
+    mbar_arrive_expect_tx(full(s), kWoXT + kWoWR);
+    tma_load_2d(xs + s * kWoXT, xm, full(s), k0 + t * kWoBK, m0);
+    tma_load_2d(wr + s * kWoWR, wm, full(s), k0 + t * kWoBK, n0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);
+    }
+    fence_mbar_init();
+    for (int t = 0; t < S && t < nk; ++t) issue(t);
+  }
+  __syncthreads();
+
+  // this thread's A fragment: weight rows r and r + 8 of the warpgroup's
+  // 64, k bytes 2q, 2q + 1 (-> a[0], a[1]) and 2q + 8, 2q + 9 (-> a[2],
+  // a[3]) of each 16-byte slice
+  const int r = 64 * wg + 16 * warp + lane / 4, q = lane % 4;
+  const uint32_t pick = (q & 1) ? 0x7632u : 0x5410u;
+  float acc[kWoBT / 2];
+#pragma unroll
+  for (int i = 0; i < kWoBT / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % S;
+    mbar_wait(full(s), (t / S) & 1);
+    const uint8_t* wrow = wr_ptr + s * kWoWR + r * kWoBK;
+    uint32_t a[kWoBK / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kWoBK / 16; ++kc) {
+      const uint4 v0 = *reinterpret_cast<const uint4*>(wrow + 16 * kc);
+      const uint4 v1 = *reinterpret_cast<const uint4*>(wrow + 8 * kWoBK
+                                                       + 16 * kc);
+      i8x4_to_bf16x2(__byte_perm(q < 2 ? v0.x : v0.y, q < 2 ? v0.z : v0.w,
+                                 pick), a[kc][0], a[kc][2]);
+      i8x4_to_bf16x2(__byte_perm(q < 2 ? v1.x : v1.y, q < 2 ? v1.z : v1.w,
+                                 pick), a[kc][1], a[kc][3]);
+    }
+    const uint32_t xb = xs + s * kWoXT;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kWoBK / 16; ++kc)
+      wgmma_rs_n128<0>(acc, a[kc], desc_sw128(xb + 32 * kc, 16, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    // stage s is read: released by each warpgroup.  Thread 0 refills the
+    // stage of step t - 1, which the other warpgroups have most likely
+    // released by now, with step t - 1 + S
+    if (tid % 128 == 0) mbar_arrive(empty(s));
+    if (tid == 0 && t >= 1 && t - 1 + S < nk) {
+      mbar_wait(empty((t - 1) % S), ((t - 1) / S) & 1);
+      issue(t - 1 + S);
+    }
+    __syncwarp();
+  }
+
+  // acc[4 j + 2 h + e]: feature r + 8 h, token 8 j + 2 q + e.  A split
+  // block writes its f32 partial sums, which wo_splitk_reduce_kernel adds
+  float* const out = part ? part + (size_t)blockIdx.z * M * N : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + r + 8 * h;
+    if (n >= N) continue;
+    const float sc = scale[n];
+#pragma unroll
+    for (int j = 0; j < kWoBT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * q + e;
+        if (m >= M) continue;
+        const float v = acc[4 * j + 2 * h + e];
+        if (out)
+          out[(size_t)m * N + n] = v;
+        else
+          y[(size_t)m * N + n] = __float2bfloat16(v * sc);
+      }
+  }
+}
+
+// y = bf16(scale[n] * sum of the splits' partial sums, in split order)
+__global__ void __launch_bounds__(kThreads)
+wo_splitk_reduce_kernel(const float* __restrict__ part,
+                        const float* __restrict__ scale,
+                        __nv_bfloat16* __restrict__ y, int M, int N,
+                        int splits) {
+  const size_t total = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * kThreads) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += part[z * total + i];
+    y[i] = __float2bfloat16(v * scale[i % N]);
+  }
 }
 
 // ---------------------------------------------------- w8a8, s8 mma.sync
@@ -669,28 +841,111 @@ act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
 }
 
 // ---------------------------------------------------------------- launch
-// bf16 x: the tensor-core kernels
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, uint64_t cols, uint64_t rows,
+                          uint64_t row_bytes, uint32_t box_cols,
+                          uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// K splits of wo_wgmma_kernel: enough to give about every SM a block
+// where the output tiles fill less than half of them, each split at least
+// 4 K steps; 1 otherwise
+cudaError_t wo_splits(int M, int N, int K, int* splits) {
+  *splits = 1;
+  if (M <= 16 || K % 16 != 0 || K == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + kWoBF - 1) / kWoBF * ((M + kWoBT - 1) / kWoBT);
+  const int most = K / kWoBK / 4;
+  if (2 * tiles <= sms && most > 1)
+    *splits = sms / tiles < most ? sms / tiles : most;
+  return cudaSuccess;
+}
+
+cudaError_t launch_wo_wgmma(const __nv_bfloat16* x, const int8_t* w,
+                            const float* scale, __nv_bfloat16* y,
+                            float* part, int M, int N, int K,
+                            cudaStream_t s) {
+  int splits = 1;
+  cudaError_t err = wo_splits(M, N, K, &splits);
+  if (err != cudaSuccess) return err;
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap x_map, w_map;
+  err = tensor_map_2d(
+      &x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2,
+      kWoBK, kWoBT, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, K,
+                        kWoBK, kWoBF, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wo_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWoSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kWoBF - 1) / kWoBF, (M + kWoBT - 1) / kWoBT, splits);
+  wo_wgmma_kernel<<<grid, 512, kWoSmem, s>>>(
+      x_map, w_map, scale, y, splits > 1 ? part : nullptr, M, N, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t blocks = ((size_t)M * N + kThreads - 1) / kThreads;
+  wo_splitk_reduce_kernel<<<blocks < 1024 ? (int)blocks : 1024, kThreads, 0,
+                            s>>>(part, scale, y, M, N, splits);
+  return cudaGetLastError();
+}
+
+// bf16 x, on the tensor cores; the kernel is chosen by shape alone:
+//   M <= 16               wo_mma_skinny_kernel (decode: split K, bytes)
+//   M > 16, K % 16 == 0   wo_wgmma_kernel (TMA needs 16-byte weight rows),
+//                         K split over blocks where the tiles are few
+//   M > 16, K % 16 != 0   wo_mma_tiled_kernel (element-wise staging)
 cudaError_t launch_wo_bf16(const __nv_bfloat16* x, const int8_t* w,
-                           const float* scale, __nv_bfloat16* y, int M,
-                           int N, int K, cudaStream_t s) {
-  const bool vec = K % 16 == 0;
+                           const float* scale, __nv_bfloat16* y, float* part,
+                           int M, int N, int K, cudaStream_t s) {
   if (M <= 16) {
     dim3 grid((N + kMmaTiles * 8 - 1) / (kMmaTiles * 8));
-    if (vec)
+    if (K % 16 == 0)
       wo_mma_skinny_kernel<true><<<grid, kThreads, 0, s>>>(x, w, scale, y, M,
                                                            N, K);
     else
       wo_mma_skinny_kernel<false><<<grid, kThreads, 0, s>>>(x, w, scale, y,
                                                             M, N, K);
-  } else {
-    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    if (vec)
-      wo_mma_tiled_kernel<true><<<grid, kThreads, 0, s>>>(x, w, scale, y, M,
-                                                          N, K);
-    else
-      wo_mma_tiled_kernel<false><<<grid, kThreads, 0, s>>>(x, w, scale, y, M,
-                                                           N, K);
+    return cudaGetLastError();
   }
+  if (K % 16 == 0 && K > 0)
+    return launch_wo_wgmma(x, w, scale, y, part, M, N, K, s);
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  wo_mma_tiled_kernel<<<grid, kThreads, 0, s>>>(x, w, scale, y, M, N, K);
   return cudaGetLastError();
 }
 
@@ -736,12 +991,22 @@ cudaError_t launch_w8a8(const int8_t* xq, const float* xscale,
 
 extern "C" {
 
+// f32 elements of scratch that weight_only_matmul_fwd needs for these
+// shapes (the K splits' partial sums; 0: none), or -1 on a CUDA error
+long long weight_only_matmul_workspace(int M, int N, int K, int dtype) {
+  if (dtype != 1) return 0;
+  int splits = 1;
+  if (wo_splits(M, N, K, &splits) != cudaSuccess) return -1;
+  return splits > 1 ? (long long)splits * M * N : 0;
+}
+
 // dtype 0 = f32, 1 = bf16 (of x and y).  x (M, K), w (N, K) int8,
-// scale (N,) f32, y (M, N); every tensor contiguous, 16-byte aligned.
+// scale (N,) f32, y (M, N); every tensor contiguous, 16-byte aligned;
+// `workspace` f32 of weight_only_matmul_workspace's size (NULL if 0).
 // Returns cudaGetLastError() after the launch (0 = launched).
 int weight_only_matmul_fwd(const void* x, const void* w, const void* scale,
                            void* y, int M, int N, int K, int dtype,
-                           void* stream) {
+                           void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
@@ -750,7 +1015,8 @@ int weight_only_matmul_fwd(const void* x, const void* w, const void* scale,
                               static_cast<float*>(y), M, N, K, s);
   if (dtype == 1)
     return (int)launch_wo_bf16(static_cast<const __nv_bfloat16*>(x), wq, sc,
-                               static_cast<__nv_bfloat16*>(y), M, N, K, s);
+                               static_cast<__nv_bfloat16*>(y),
+                               static_cast<float*>(workspace), M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 

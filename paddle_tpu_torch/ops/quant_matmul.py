@@ -77,8 +77,10 @@ def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.weight_only_matmul_workspace.argtypes = [i32, i32, i32, i32]
+        lib.weight_only_matmul_workspace.restype = ctypes.c_longlong
         lib.weight_only_matmul_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                               i32, vp]
+                                               i32, vp, vp]
         lib.weight_only_matmul_fwd.restype = i32
         lib.w8a8_matmul_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                         i32, vp]
@@ -159,10 +161,17 @@ def weight_only_matmul_cuda(x, w_q, scale):
         return out
     x, w_q, scale = _aligned(x), _aligned(w_q), _aligned(scale)
     lib = _lib()
+    dtype = _DTYPES[x.dtype]
+    # the kernel's scratch: f32 partial sums where it splits K
+    n_ws = lib.weight_only_matmul_workspace(M, N, K, dtype)
+    if n_ws < 0:
+        raise RuntimeError("weight_only_matmul: the CUDA device query failed")
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) \
+        if n_ws else None
     _raise_on(lib.weight_only_matmul_fwd(
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N,
-        K, _DTYPES[x.dtype], _build.stream_ptr(x.device)), lib,
-        "weight_only_matmul")
+        K, dtype, ws.data_ptr() if ws is not None else None,
+        _build.stream_ptr(x.device)), lib, "weight_only_matmul")
     weight_only_matmul_cuda.launches += 1
     return out
 

@@ -168,7 +168,7 @@ def test_training_flash_rms_rope_grads_match_plain(dev, dt):
         assert _rel_l2(a, b) <= limit
 
 
-# the tensor-core (wgmma) kernels: bf16 forward and dK/dV.  (b, causal,
+# the tensor-core (wgmma) kernels: bf16 forward, dK/dV and dQ.  (b, causal,
 # sq, sk, q heads, kv heads, d): MHA and GQA 32/8 at head dims 64 and
 # 128, sq < sk, sq > sk (rows that see no column), lengths that are not a
 # multiple of the 64-row tiles, and decode (sq 1, the MoE generate step)
@@ -235,6 +235,31 @@ def test_flash_dkv_wgmma_matches_plain(dev, bshd, b, causal, sq, sk, h, kvh,
     assert float(got[0][:, :, ~seen].float().abs().sum()) == 0.0
 
 
+@pytest.mark.parametrize("bshd", [False, True], ids=["bhsd", "bshd"])
+@pytest.mark.parametrize("b,causal,sq,sk,h,kvh,d", WGMMA_CASES)
+def test_flash_dq_wgmma_matches_plain(dev, bshd, b, causal, sq, sk, h, kvh,
+                                      d):
+    """The bf16 tensor-core dQ kernel alone (dS rounded to bf16 before
+    dQ += dS K) against ``_bwd_blockwise``'s dq at relative L2 1e-2, one
+    launch; rows that see no column get dQ exactly 0."""
+    q, k, v, do = _wgmma_inputs(dev, b, sq, sk, h, kvh, d, 13, bshd)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    delta = (out.float() * do.float()).sum(-1).contiguous()
+    dq = torch.full(q.shape, float("nan"), dtype=q.dtype, device=dev)
+    dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=dev)
+              for _ in range(2))
+    before = fa.flash_attention_bwd_dq_cuda.launches
+    fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, dq, dk, dv,
+                                   causal, scale)
+    assert fa.flash_attention_bwd_dq_cuda.launches == before + 1
+    want = fa._bwd_blockwise(q, k, v, out, lse, do, causal, scale)[0]
+    assert torch.isfinite(dq).all()
+    assert _rel_l2(dq, want) <= 1e-2
+    seen = _seen(sq, sk, causal, dev)
+    assert float(dq[:, :, ~seen].float().abs().sum()) == 0.0
+
+
 def test_bf16_flash_raises_without_its_kernel(dev, monkeypatch):
     """No fallback: a bf16 call whose kernel library does not build
     raises KernelBuildError, forward and backward."""
@@ -253,7 +278,7 @@ def test_bf16_flash_raises_without_its_kernel(dev, monkeypatch):
 
 
 QUANT_SHAPES = [(1, 4096, 4096), (8, 4096, 11008), (16, 512, 1024),
-                (77, 300, 200), (130, 512, 384), (5, 33, 17)]
+                (77, 300, 200), (130, 512, 384), (5, 33, 17), (40, 264, 136)]
 
 
 def _quant_inputs(dev, m, k, n, dtype, seed):
@@ -268,9 +293,9 @@ def _quant_inputs(dev, m, k, n, dtype, seed):
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("m,k,n", QUANT_SHAPES)
 def test_weight_only_matmul_matches_plain(dev, dt, m, k, n):
-    """The w8 kernel (bf16: skinny at M <= 16, tiled above; f32: tiled
-    at every M) against its plain version: f32 sums in another order, or
-    one bf16 rounding."""
+    """The w8 kernel (bf16: skinny at M <= 16, wgmma above, mma.sync
+    tiles where K % 16 != 0; f32: tiled at every M) against its plain
+    version: f32 sums in another order, or one bf16 rounding."""
     dtype, _ = DTYPES[dt]
     x, w, s = _quant_inputs(dev, m, k, n, dtype, 5)
     before = qm.weight_only_matmul_cuda.launches
@@ -279,6 +304,28 @@ def test_weight_only_matmul_matches_plain(dev, dt, m, k, n):
     assert got.dtype == dtype and got.shape == (m, n)
     limit = 1e-5 if dtype == torch.float32 else 1e-2
     assert _rel_l2(got, qm.weight_only_matmul_plain(x, w, s)) <= limit
+
+
+# bf16 w8 at M > 16 with K % 16 == 0: the wgmma kernel.  llama_7b's
+# gate/up and down widths, a small one, and a narrow N that is not a
+# multiple of the 128-feature tile
+WO_WGMMA_MS = (17, 32, 64, 130, 1024)
+WO_WGMMA_KN = ((4096, 11008), (11008, 4096), (512, 384), (4096, 200))
+
+
+@pytest.mark.parametrize("m", WO_WGMMA_MS)
+@pytest.mark.parametrize("k,n", WO_WGMMA_KN)
+def test_weight_only_matmul_wgmma_matches_plain(dev, m, k, n):
+    """The bf16 w8 wgmma kernel against its plain version: int8 -> bf16
+    is exact, so only the f32 sum order and the one bf16 rounding of
+    each output differ (relative L2 1e-2); one launch counted."""
+    x, w, s = _quant_inputs(dev, m, k, n, torch.bfloat16, 14)
+    before = qm.weight_only_matmul_cuda.launches
+    got = qm.weight_only_matmul(x, w, s)
+    assert qm.weight_only_matmul_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, qm.weight_only_matmul_plain(x, w, s)) <= 1e-2
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 chip_ab.py BASE_DIR [--phases flash,quant,train,moe] [--seed N]
+    python3 chip_ab.py BASE_DIR [--phases flash,quant,flashmask,serve,train,moe]
+                       [--seed N]
 
 BASE_DIR is a checkout inside this one, in a directory that
 ``.gitignore`` lists, e.g. one unpacked with
@@ -13,12 +14,19 @@ clocks over the call shows as a difference between the two runs of one
 side.  Phases: ``flash`` times the flash forward (serve, train and MoE
 decode shapes), dK/dV and dQ (train shape) kernels through their public
 wrappers on the same seeded inputs; ``quant`` times the bf16 weight-only
-int8 matmul at llama_7b's four prefill widths (1024 rows) and at 32 rows
-the same way; ``train`` and ``moe`` run
+(w8) and w8a8 int8 matmuls at llama_7b's four prefill widths (1024 rows)
+and at 32 rows the same way; ``flashmask`` times FlashMask's dK/dV kernel
+at the flashmask phase's doc_causal and causal_full cases (b 1 x 8192,
+32 heads x 128, bf16); ``serve`` serves chip_smoke.py's 8 requests on
+llama_7b (bf16 weights from ``--seed``) with ``w8`` and ``w8a8`` weights
+and int8 KV pages and times one 1024-token quantized prefill of each
+mode (host wall clock, synchronized, and device busy time in a
+profiler window); ``train`` and ``moe`` run
 ``chip_smoke.py``'s end-to-end phases (llama_small training steps; the
 Mixtral-width MoE generate).  Each side's ``chip_smoke.py`` must provide
-``cuda_ms(fn)``, ``train(seed, dev, card)`` and ``moe_generate(seed, dev,
-card)`` as this one does.  Prints one JSON line per run, then a summary
+``cuda_ms(fn)``, ``profiled_ms(fn)``, ``serve(...)``, ``serve_stats``,
+``fm_intervals``, ``train(seed, dev, card)`` and ``moe_generate(seed,
+dev, card)`` as this one does.  Prints one JSON line per run, then a summary
 line with each side's two runs of every metric.  Needs one CUDA card;
 exits nonzero if any run fails.
 """
@@ -39,12 +47,22 @@ FLASH_CASES = (("fwd serve s2048 32/32 d128", "fwd", 1, 32, 32, 2048, 2048,
                 64),
                ("dq train b8 h12 s1024 d64", "dq", 8, 12, 12, 1024, 1024,
                 64))
-# the w8 cases: (M, K, N), bf16 x, llama_7b's q/k/v/o, gate/up, down and
-# head widths at a 1024-token prefill, and gate/up at 32 rows
+# the quantized cases: (M, K, N), bf16 x, llama_7b's q/k/v/o, gate/up,
+# down and head widths at a 1024-token prefill, and gate/up at 32 rows;
+# each through the w8 and the w8a8 kernel
 QUANT_CASES = ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
                (1024, 4096, 32000), (32, 4096, 11008))
+# the FlashMask dK/dV cases: chip_smoke.py's flashmask phase masks
+FLASHMASK_CASES = ("doc_causal", "causal_full")
 METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
-           "quant": tuple(f"w8 M{m} K{k} N{n}" for m, k, n in QUANT_CASES),
+           "quant": tuple(f"{mode} M{m} K{k} N{n}"
+                          for mode in ("w8", "w8a8", "torch._int_mm")
+                          for m, k, n in QUANT_CASES),
+           "flashmask": tuple(f"dkv {c} b1 s8192 32/32 d128"
+                              for c in FLASHMASK_CASES),
+           "serve": tuple(f"{mode} {m}" for mode in ("w8", "w8a8") for m in (
+               "ttft_p50_s", "tpot_p50_s", "prefill1024_wall_ms",
+               "prefill1024_device_ms")),
            "train": ("step_ms_p50", "tokens_per_s", "mfu",
                      "device_busy_ms_per_step", "device_idle_share",
                      "device_ms_per_step_by_class"),
@@ -79,22 +97,112 @@ def flash(cs, seed, dev):
 
 
 def quant(cs, seed, dev):
-    """{case: device ms per call} of the bf16 w8 kernel, timed with the
-    side's own ``cuda_ms``."""
+    """{case: device ms per call} of the bf16 w8 and w8a8 kernels, timed
+    with the side's own ``cuda_ms``, and of ``torch._int_mm`` on the w8a8
+    call's int8 operands (the yardstick; the port never calls it)."""
     import torch
     from paddle_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, (m, k, n) in zip(METRICS["quant"], QUANT_CASES):
+    for m, k, n in QUANT_CASES:
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                           dtype=torch.int8)
         sc = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
-        out[name] = cs.cuda_ms(lambda: qm.weight_only_matmul_cuda(x, w, sc))
+        xq, xs = qm.dynamic_act_quant(x)
+        out[f"w8 M{m} K{k} N{n}"] = cs.cuda_ms(
+            lambda: qm.weight_only_matmul_cuda(x, w, sc))
+        out[f"w8a8 M{m} K{k} N{n}"] = cs.cuda_ms(
+            lambda: qm.w8a8_matmul_cuda(xq, xs, w, sc, torch.bfloat16))
+        wt = w.t()
+        out[f"torch._int_mm M{m} K{k} N{n}"] = cs.cuda_ms(
+            lambda: torch._int_mm(xq, wt))
     return out
 
 
-KERNEL_PHASES = {"flash": flash, "quant": quant}
+def flashmask(cs, seed, dev):
+    """{case: device ms per call} of FlashMask's dK/dV kernel on the
+    flashmask phase's intervals (``cs.fm_intervals``), given its skip
+    table and delta, timed with the side's own ``cuda_ms``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import flashmask_attention as fm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s, d = 8192, 128
+    out = {}
+    for name, kind in zip(METRICS["flashmask"], FLASHMASK_CASES):
+        se = cs.fm_intervals(kind, s, np.random.default_rng(0), dev)
+        q, k, v, do = (torch.randn(1, 32, s, d, generator=gen,
+                                   device=dev).bfloat16() for _ in range(4))
+        o, lse = fm.flashmask_fwd_cuda(q, k, v, se, True)
+        delta = (o.float() * do.float()).sum(-1).contiguous()
+        skip = fm.flashmask_skip_table(se, s, True)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        out[name] = cs.cuda_ms(lambda: fm.flashmask_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, se, dk, dv, True, skip=skip))
+    return out
+
+
+def serve(cs, seed, dev):
+    """llama_7b with int8 weights (w8, w8a8): one 1024-token quantized
+    prefill alone, its synchronized wall milliseconds (median of 3 after
+    a first call) and its device busy milliseconds (profiler); then
+    chip_smoke.py's 8 requests through the engine with int8 KV pages
+    (TTFT and TPOT p50)."""
+    import time
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.paged import PagedDecoder
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
+    cfg = llama_7b()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             seed=seed)
+    # chip_smoke.py main()'s requests
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(64, 1025, 8)
+    lengths[0] = max(lengths[0], 300)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lengths[:7]]
+    sharer = np.concatenate([prompts[0][:256], rng.integers(
+        0, cfg.vocab_size, int(lengths[7]) - 256 if lengths[7] > 256
+        else 64)]).astype(np.int32)
+    ids = rng.integers(0, cfg.vocab_size, (1, 1024)).astype(np.int32)
+    out = {}
+    for mode in ("w8", "w8a8"):
+        # the prefill alone first: its first call also builds the int8
+        # twins and compiles the Triton kernels, which the serve pass
+        # would otherwise pay inside its TTFT
+        cache = PagedKVCache.from_model(model, total_pages=80, page_size=16)
+        decoder = PagedDecoder(model, quantize=mode)
+
+        def prefill():
+            decoder.prefill(cache, [0], ids)
+            cache.free(0)
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"{mode} prefill1024_wall_ms"] = float(np.median(walls[1:]))
+        out[f"{mode} prefill1024_device_ms"] = cs.profiled_ms(prefill,
+                                                              reps=3)
+        del cache, decoder
+        torch.cuda.empty_cache()
+        reqs, wall, _ = cs.serve(model, prompts, sharer, None, dev, mode,
+                                 "int8")
+        stats = cs.serve_stats(reqs, wall)
+        out[f"{mode} ttft_p50_s"] = stats["ttft_p50_s"]
+        out[f"{mode} tpot_p50_s"] = stats["tpot_p50_s"]
+        del reqs
+        torch.cuda.empty_cache()
+    return out
+
+
+KERNEL_PHASES = {"flash": flash, "quant": quant, "flashmask": flashmask,
+                 "serve": serve}
 
 
 def child(phases, seed):
@@ -127,7 +235,8 @@ def child(phases, seed):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base")
-    ap.add_argument("--phases", default="flash,quant,train,moe")
+    ap.add_argument("--phases",
+                    default="flash,quant,flashmask,serve,train,moe")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()

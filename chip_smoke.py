@@ -10,14 +10,17 @@ failure:
 1. build   — compile every CUDA kernel from ``paddle_tpu_torch/ops/csrc``
             (one nvcc per source, in parallel, while the Triton kernels
             compile and are checked); print the card's name and power
-            limit as nvidia-smi reports them; count the wgmma (HGMMA)
-            instructions of each flash and weight-only matmul kernel in
-            ``cuobjdump -sass`` of its library: the tensor-core forward,
-            dK/dV, dQ and w8 kernels must hold some.
+            limit as nvidia-smi reports them; count the wgmma
+            instructions (HGMMA, and IGMMA for s8) of each flash,
+            FlashMask and int8 matmul kernel in ``cuobjdump -sass`` of
+            its library: the tensor-core flash forward, dK/dV and dQ, the
+            FlashMask dK/dV and the w8 and w8a8 kernels must hold some.
 2. kernels — run each hand-written kernel (paged attention in its bf16,
             f32 and int8-page modes, the w8 and w8a8 matmuls at llama_7b's
-            decode and prefill shapes, w8 also at every prefill width and
-            at 32 rows) at the serving path's shapes
+            decode shapes, every prefill width (the head's included) and
+            32 rows; w8a8 bit-equal, also at 17 and 130 rows and with K
+            split, each case's kernel read from a profiler window) at the
+            serving path's shapes
             against its plain PyTorch version on the card, with a stated
             tolerance; time kernel, plain version and, where one PyTorch
             call computes the same function, that call (a yardstick the
@@ -34,8 +37,12 @@ failure:
             plain versions (1, 2 and 4 interval columns, causal on and
             off, 32 heads x 128 at s 2048, MHA and 32/8 GQA, bf16 and f32,
             a ragged s 1000 with 2 mask heads, fully masked rows exactly
-            0), and timed at the flashmask phase's doc_causal case beside
-            ``scaled_dot_product_attention`` with the same dense mask.
+            0; each backward's dK/dV kernel read from a profiler window:
+            bf16 on the tensor cores, f32 on the CUDA cores), timed at
+            the flashmask phase's doc_causal case beside
+            ``scaled_dot_product_attention`` with the same dense mask;
+            without its kernel library ``F.flashmask_attention`` must
+            raise.
    The training path's kernels are held and timed too, at llama_small's
             training shapes (batch 8 x sequence 1024): the flash dK/dV and
             dQ kernels (bf16 and f32, GQA, sq < sk, ragged lengths; the
@@ -52,7 +59,9 @@ failure:
             dim 128, five masks: doc_causal (32/32 and 32/8 heads),
             sliding_window (4096), doc_bidirectional and causal_full
             (timed beside the causal flash kernels and held against
-            them); launch counters zeroed just before and read just
+            them, its dK/dV kernel alone beside the flash dK/dV kernel
+            and its bound); launch counters zeroed just before and read
+            just
             after: one launch of each FlashMask kernel per forward +
             backward, no other kernel.  Prints forward and
             forward+backward ms p50, tokens/s, peak memory and the share
@@ -78,8 +87,8 @@ failure:
             and in bf16 relative to the plain bf16 forward's own
             distance from f32; quantized, in f32 against the plain
             quantized forward); a profiler window over the bf16 prefill
-            must show the tensor-core flash forward, and one over a bf16
-            w8 prefill the tensor-core w8 kernel.
+            must show the tensor-core flash forward, and ones over a bf16
+            w8 and a w8a8 prefill the tensor-core w8 and w8a8 kernels.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, and w8 with int8 KV at 512, host-clock step times,
             then one ``torch.profiler`` window for the device's busy
@@ -305,19 +314,19 @@ def check(name, case, out, ref, tol):
     return err
 
 
-def sass_counts(lib_path, opcode="HGMMA"):
-    """{kernel: number of ``opcode`` instructions} of each flash and
-    weight-only matmul kernel in a built library, from ``cuobjdump -sass``
-    (beside nvcc).  HGMMA is wgmma in SASS, so a tensor-core kernel with
-    none was not built as one."""
+def sass_counts(lib_path, opcodes=("HGMMA", "IGMMA")):
+    """{kernel: number of ``opcodes`` instructions} of each flash,
+    FlashMask and int8 matmul kernel in a built library, from ``cuobjdump
+    -sass`` (beside nvcc).  HGMMA (bf16) and IGMMA (s8) are wgmma in SASS,
+    so a tensor-core kernel with none was not built as one."""
     from paddle_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        fn = re.search(r"Function : \S*?((?:flash|wo)_[a-z_]+?_kernel)"
-                       r"(?:I(\w+?)EEv)?", line)
+        fn = re.search(r"Function : \S*?((?:flashmask|flash|wo|w8a8)_"
+                       r"[a-z_]+?_kernel)(?:I(\w+?)EEv)?", line)
         if fn:
             targs = fn.group(2) or ""
             args = re.findall(r"Li(\d+)E", targs)
@@ -329,7 +338,7 @@ def sass_counts(lib_path, opcode="HGMMA"):
             counts[name] = 0
         elif "Function :" in line:
             name = None
-        elif name is not None and opcode in line:
+        elif name is not None and any(op in line for op in opcodes):
             counts[name] += 1
     return counts
 
@@ -345,6 +354,28 @@ def device_kernels_seen(prof, where, want, refuse):
         raise AssertionError(f"{where}: device kernels {missing} never ran, "
                              f"{stray} ran off the path")
     return want
+
+
+def kernels_of(fn):
+    """Short names (``name<template args>``) of the device kernels that one
+    call of ``fn`` runs, from a ``torch.profiler`` window."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.key_averages():
+        if _device_us(e) > 0:
+            m = re.search(r"(\w+_kernel)(<[^(]*>)?", e.key)
+            names.add(m.group(0).replace(" ", "") if m else e.key)
+    return sorted(names)
+
+
+def w8a8_kernel(m, k):
+    """The kernel a w8a8 call of m rows and depth k must take."""
+    if m <= 16:
+        return "w8a8_mma_skinny_kernel"
+    return "w8a8_wgmma_kernel" if k % 16 == 0 else "w8a8_mma_tiled_kernel"
 
 
 def bound_ms(n_bytes, n_ops, flop_s):
@@ -473,9 +504,15 @@ def check_paged(records, dev):
 QUANT_DECODE = ((8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
                 (8, 4096, 32000))
 QUANT_PREFILL = (1024, 4096, 11008)
-# the other prefill widths, timed only: q/k/v/o and down
-QUANT_PREFILL_MORE = ((1024, 4096, 4096), (1024, 11008, 4096))
+# the other prefill widths, timed only: q/k/v/o, down and the head
+QUANT_PREFILL_MORE = ((1024, 4096, 4096), (1024, 11008, 4096),
+                      (1024, 4096, 32000))
 QUANT_ODD = ((77, 300, 200), (1, 4096, 32000), (5, 33, 17))
+# w8a8 above 16 rows: the narrowest token tile (17 rows), a ragged 130
+# (two 128-token tiles' worth in one 256-token tile) and the down
+# projection at 32 rows, whose 32 output tiles split K 4 ways; bit-equal
+# checks, the last one timed
+QUANT_W8A8 = ((17, 4096, 11008), (130, 4096, 11008), (32, 11008, 4096))
 
 
 def quant_bytes(m, k, n, el, w8a8):
@@ -516,9 +553,17 @@ def check_quant(records, dev):
         ref = qm.w8a8_matmul_plain(xq, xs, w, sc, dtype)
         torch.cuda.synchronize()
         bit_equal = bool(torch.equal(got, ref))
+        ran = kernels_of(lambda: qm.w8a8_matmul_cuda(xq, xs, w, sc, dtype))
+        log(f"  w8a8_matmul {label}: kernels {ran}")
+        if not any(n.startswith(w8a8_kernel(m, k)) for n in ran):
+            raise AssertionError(f"w8a8_matmul {label} ran {ran}, not "
+                                 f"{w8a8_kernel(m, k)}")
         # exact s32 sums and the same epilogue: bit-equal expected
         erra = check("w8a8_matmul", f"{label} bit_equal={bit_equal}", got,
                      ref, 1e-6)
+        if not bit_equal:
+            raise AssertionError(f"w8a8_matmul {label}: not bit-equal to "
+                                 "its plain version")
         if not timed:
             return
         el = x.element_size()
@@ -549,7 +594,8 @@ def check_quant(records, dev):
             f"torch._int_mm {lib_ms} ms, bound {bms:.4f} ms ({by})")
         rows["w8a8_matmul"].append(dict(
             case=label, max_abs_err=erra, bit_equal=bit_equal, ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            kernels=ran))
 
     for m, k, n in QUANT_DECODE:
         case(m, k, n, bf16, timed=True)
@@ -560,6 +606,9 @@ def check_quant(records, dev):
         case(m, k, n, bf16, timed=True)
     # the w8a8 yardstick needs M > 16
     case(32, 4096, 11008, bf16, timed=True)
+    for m, k, n in QUANT_W8A8:
+        case(m, k, n, bf16, timed=m == 32)
+        case(m, k, n, f32, timed=False)
     for m, k, n in QUANT_ODD:
         for dtype in (bf16, f32):
             case(m, k, n, dtype, timed=False)
@@ -1107,6 +1156,14 @@ def check_flashmask(records, dev):
         out, lse = fm.flashmask_fwd_cuda(q, k, v, se, causal)
         got = fm.flashmask_attention_backward(q, k, v, out, lse, do, se,
                                               causal)
+        # bf16 dK/dV on the tensor cores, f32 on the CUDA cores
+        dkv = ("flashmask_bwd_dkv_wgmma_kernel" if dtype == torch.bfloat16
+               else "flashmask_bwd_dkv_kernel")
+        ran = kernels_of(lambda: fm.flashmask_attention_backward(
+            q, k, v, out, lse, do, se, causal))
+        if not any(n.startswith(dkv) for n in ran):
+            raise AssertionError(f"flashmask {label}: the backward ran "
+                                 f"{ran}, not {dkv}")
         ref, ref_lse = fm.flashmask_attention_plain(q, k, v, se, causal)
         want = fm.flashmask_attention_backward_plain(q, k, v, out, lse, do,
                                                      se, causal)
@@ -1222,6 +1279,36 @@ def check_flashmask(records, dev):
     case(f"doc_causal b1 s{FM_S} 32/32 d{FM_D} bf16", bf16, 32, 32, FM_S,
          FM_D, "doc_causal", True, docs=(128, 2048), timed=True)
 
+    # no fallback: without its kernel library F.flashmask_attention raises,
+    # forward and backward
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.ops import _build
+
+    def unbuildable(name):
+        raise _build.KernelBuildError(f"nvcc failed on {name}.cu "
+                                      "(simulated)")
+
+    q, k, v = (torch.randn(1, 128, 4, 64, generator=gen, device=dev)
+               .to(bf16).requires_grad_() for _ in range(3))
+    se = fm_intervals("doc_causal", 128, rng, dev, docs=(16, 64))
+    out = TF.flashmask_attention(q, k, v, se, causal=True)
+    real_load, _build.load = _build.load, unbuildable
+    try:
+        for what, fn in (("forward", lambda: TF.flashmask_attention(
+                q, k, v, se, causal=True)),
+                         ("backward", lambda: out.backward(
+                             torch.ones_like(out)))):
+            try:
+                fn()
+            except _build.KernelBuildError:
+                continue
+            raise AssertionError(f"F.flashmask_attention {what} did not "
+                                 "raise without its kernel library")
+    finally:
+        _build.load = real_load
+    log("  no fallback: without its kernel library F.flashmask_attention "
+        "raises KernelBuildError (forward and backward)")
+
 
 def event_ms(fn):
     """Milliseconds of one synchronized call of ``fn``, by CUDA events."""
@@ -1312,13 +1399,38 @@ def flashmask_phase(seed, dev, card, reps=5):
             "fwd_bwd_calls": n_fb, "fwd_calls": reps}
         log(f"flashmask {name}: " + json.dumps(rec[name]))
         if name == "causal_full":
-            full = (q, k, v, dout, out)
+            full = (q, k, v, dout, out, se)
     launches = {n: fn.launches for n, fn in kernels.items()}
 
     # the port's causal flash kernels on causal_full's inputs, uncounted
     from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
-    q, k, v, dout, out = full
+    q, k, v, dout, out, se = full
     grads_fm = [t.grad.clone() for t in (q, k, v)]
+
+    # dK/dV alone on these inputs, FlashMask's kernel beside the flash one
+    from paddle_tpu_torch.ops import flash_attention as fa
+    qt, kt, vt, dot = (t.detach().transpose(1, 2) for t in (q, k, v, dout))
+    _, lse = fm.flashmask_fwd_cuda(qt, kt, vt, se, True)
+    delta = (out.transpose(1, 2).float() * dot.float()).sum(-1).contiguous()
+    skip = fm.flashmask_skip_table(se, FM_S, True)
+    bufs = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+            for t in (qt, kt, vt)]
+    rec["causal_full"]["dkv_ms"] = cuda_ms(lambda: fm.flashmask_bwd_dkv_cuda(
+        qt, kt, vt, dot, lse, delta, se, bufs[1], bufs[2], True, skip=skip))
+    rec["causal_full"]["flash_dkv_ms"] = cuda_ms(
+        lambda: fa.flash_attention_bwd_dkv_cuda(
+            qt, kt, vt, dot, lse, delta, *bufs, True, FM_D ** -0.5))
+    full_rec = rec["causal_full"]
+    # 8d operations per kept (q, k) pair of every head
+    pairs = int(fm_keep(se, FM_S, True).sum()) * qt.shape[1]
+    full_rec["dkv_bound_ms"], _ = bound_ms(0, 8 * FM_D * pairs,
+                                           BF16_FLOP_S)
+    log(f"flashmask causal_full dK/dV alone: {full_rec['dkv_ms']:.4f} ms, "
+        f"the flash dK/dV kernel on the same inputs "
+        f"{full_rec['flash_dkv_ms']:.4f} ms, bound "
+        f"{full_rec['dkv_bound_ms']:.4f} ms (operations, {pairs} kept "
+        "pairs)")
+    del qt, kt, vt, dot, lse, delta, skip, bufs
 
     def flash_fwd():
         return flash_attention_bshd(q, k, v, causal=True)
@@ -1581,21 +1693,30 @@ def prefill_logits(model, ids, quantize=None, kv_quant=None):
     return torch.as_tensor(got[0], device=ref.device), ref, replay
 
 
-def w8_prefill_window(model, ids):
-    """One bf16 w8 prefill of ``ids`` (1, s) in a ``torch.profiler``
-    window: every quantized Linear there has more than 16 rows, so the
-    window must show ``wo_wgmma_kernel`` and not the mma.sync tiles."""
+# the tensor-core kernel a bf16 prefill's quantized Linears must take (every
+# one has more than 16 rows and K % 16 == 0), and the mma.sync tiles it
+# must not
+QUANT_PREFILL_KERNEL = {"w8": ("wo_wgmma_kernel", "wo_mma_tiled_kernel"),
+                        "w8a8": ("w8a8_wgmma_kernel",
+                                 "w8a8_mma_tiled_kernel")}
+
+
+def quant_prefill_window(model, ids, quantize):
+    """One bf16 quantized prefill of ``ids`` (1, s) in a ``torch.profiler``
+    window, which must show the mode's tensor-core kernel
+    (``QUANT_PREFILL_KERNEL``) and not its mma.sync tiles."""
     from paddle_tpu_torch.inference.paged import PagedDecoder
     from paddle_tpu_torch.ops.paged_attention import PagedKVCache
     cache = PagedKVCache.from_model(model, total_pages=32, page_size=16)
+    want, refuse = QUANT_PREFILL_KERNEL[quantize]
     with torch.no_grad():
-        decoder = PagedDecoder(model, quantize="w8")
+        decoder = PagedDecoder(model, quantize=quantize)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
             decoder.prefill(cache, [0], ids.cpu().numpy())
             torch.cuda.synchronize()
-    return device_kernels_seen(prof, "w8 prefill", ("wo_wgmma_kernel",),
-                               ("wo_mma_tiled_kernel",))
+    return device_kernels_seen(prof, f"{quantize} prefill", (want,),
+                               (refuse,))
 
 
 def check_small():
@@ -2253,13 +2374,15 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
     # wgmma instructions in the tensor-core kernels' machine code
     hgmma = {}
-    for name in ("flash_attention", "flash_attention_bwd", "quant_matmul"):
+    for name in ("flash_attention", "flash_attention_bwd", "quant_matmul",
+                 "flashmask_attention"):
         hgmma.update(sass_counts(libs[name]))
-    log("  HGMMA per kernel: " + json.dumps(hgmma))
+    log("  HGMMA/IGMMA per kernel: " + json.dumps(hgmma))
     tensor_core = {k: c for k, c in hgmma.items() if "wgmma" in k}
     if sorted({k.split("<")[0] for k in tensor_core}) != [
             "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-            "flash_fwd_wgmma_kernel", "wo_wgmma_kernel"] \
+            "flash_fwd_wgmma_kernel", "flashmask_bwd_dkv_wgmma_kernel",
+            "w8a8_wgmma_kernel", "wo_wgmma_kernel"] \
             or min(tensor_core.values()) == 0:
         raise AssertionError(f"the tensor-core kernels hold no wgmma: "
                              f"{hgmma}")
@@ -2273,7 +2396,9 @@ def main():
     for name, prefix in (("flash_attention_forward", "flash_fwd"),
                          ("flash_attention_bwd_dkv", "flash_bwd_dkv"),
                          ("flash_attention_bwd_dq", "flash_bwd_dq"),
-                         ("weight_only_matmul", "wo_")):
+                         ("weight_only_matmul", "wo_"),
+                         ("w8a8_matmul", "w8a8_"),
+                         ("flashmask_bwd_dkv", "flashmask_bwd_dkv")):
         records[name]["hgmma"] = {k: c for k, c in hgmma.items()
                                   if k.startswith(prefix)}
     gc.collect()
@@ -2408,8 +2533,10 @@ def main():
     device_kernels_seen(prof, "serve prefill", ("flash_fwd_wgmma_kernel",),
                         ("flash_fwd_kernel",))
     log("serve: the bf16 prefill ran flash_fwd_wgmma_kernel (profiler)")
-    w8_prefill_window(model, ids)
-    log("serve: the bf16 w8 prefill ran wo_wgmma_kernel (profiler)")
+    for quant in ("w8", "w8a8"):
+        quant_prefill_window(model, ids, quant)
+        log(f"serve: the bf16 {quant} prefill ran "
+            f"{QUANT_PREFILL_KERNEL[quant][0]} (profiler)")
     gc.collect()
     model.float()
     got32, ref32, _ = prefill_logits(model, ids)
@@ -2491,7 +2618,8 @@ def main():
         "peak_memory_gb", "device_idle_share", "launches", "logits_rel_l2")}
     fm_line = {c[0]: {k: fm_rec[c[0]][k] for k in fm_rec[c[0]] if k in (
         "fwd_ms_p50", "fwd_bwd_ms_p50", "tokens_per_s", "peak_memory_gb",
-        "tiles_skipped_share", "flash_fwd_ms_p50", "flash_fwd_bwd_ms_p50")}
+        "tiles_skipped_share", "flash_fwd_ms_p50", "flash_fwd_bwd_ms_p50",
+        "dkv_ms", "flash_dkv_ms", "dkv_bound_ms")}
         for c in FM_CASES}
     print(json.dumps({"kernels": out, "serve": serve_line,
                       "train": train_line, "moe": moe_line,

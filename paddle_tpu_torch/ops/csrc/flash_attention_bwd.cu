@@ -65,11 +65,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bwd_wgmma.cuh"
 #include "hopper_wgmma.cuh"
 
 namespace {
 
-constexpr int kB = 64;          // rows of a q tile and of a kv tile
+constexpr int kB = hopper::kAttnRows;   // rows of a q tile and of a kv tile
 constexpr int kThreads = 256;   // tx = tid % 16, ty = tid / 16
 constexpr int kR = 4;           // tile rows per thread: ty * 4 + i
 constexpr int kC = kB / 16;     // tile columns per thread: tx + 16 * j
@@ -269,6 +270,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- wgmma
+// the products, the tile loads and the store are attention_bwd_wgmma.cuh's
+// (shared with FlashMask's dK/dV kernel; dQ below uses its tile loads)
 template <int D>
 __global__ void __launch_bounds__(128, 1)
 flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -282,7 +285,6 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            int group, int sq, int sk, Strides st, int causal,
                            float scale) {
   using namespace hopper;
-  constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int TILE = kB * D * 2;        // one 64-row bf16 tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -298,16 +300,8 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = blockIdx.y, b = blockIdx.z;
   const int offset = sk - sq;
 
-  for (int idx = tid; idx < kB * CH; idx += 128) {
-    const int r = idx / CH, c = idx % CH;
-    const int row = k0 + r;
-    const bool ok = row < sk;
-    const int64_t at = ok ? row : 0;
-    cp_async16(ks + swizzled(r, c, kB),
-               k + b * st.kb + hk * st.kh + at * st.ks + c * 8, ok);
-    cp_async16(vs + swizzled(r, c, kB),
-               v + b * st.vb + hk * st.vh + at * st.vs + c * 8, ok);
-  }
+  cp_tiles64<D>(ks, k + b * st.kb + hk * st.kh, st.ks, vs,
+                v + b * st.vb + hk * st.vh, st.vs, k0, sk, tid);
 
   // q tiles wholly above the diagonal see none of this kv tile
   int q_begin = 0;
@@ -320,16 +314,8 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int hq = hk * group + t / n_qt;
     const int q0 = q_begin + (t % n_qt) * kB;
     const uint32_t qs = ring + stage * 2 * TILE, dos = qs + TILE;
-    for (int idx = tid; idx < kB * CH; idx += 128) {
-      const int r = idx / CH, c = idx % CH;
-      const int row = q0 + r;
-      const bool ok = row < sq;
-      const int64_t at = ok ? row : 0;
-      cp_async16(qs + swizzled(r, c, kB),
-                 q + b * st.qb + hq * st.qh + at * st.qs + c * 8, ok);
-      cp_async16(dos + swizzled(r, c, kB),
-                 dout + b * st.ob + hq * st.oh + at * st.os + c * 8, ok);
-    }
+    cp_tiles64<D>(qs, q + b * st.qb + hq * st.qh, st.qs, dos,
+                  dout + b * st.ob + hq * st.oh, st.os, q0, sq, tid);
     const int r = tid % kB;
     const bool ok = q0 + r < sq;
     const int64_t at = ((int64_t)b * heads + hq) * sq + (ok ? q0 + r : 0);
@@ -359,25 +345,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // S^T = K Q^T and dP^T = V dO^T: kv rows x q columns
     float p[32], ds[32];
-#pragma unroll
-    for (int x = 0; x < 32; ++x) p[x] = ds[x] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t at = (kk / 4) * kB * 128 + (kk % 4) * 32;
-      wgmma_ss_n64(p, desc_sw128(ks + at, 16, 1024),
-                   desc_sw128(qs + at, 16, 1024), 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t at = (kk / 4) * kB * 128 + (kk % 4) * 32;
-      wgmma_ss_n64(ds, desc_sw128(vs + at, 16, 1024),
-                   desc_sw128(dos + at, 16, 1024), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(p);
-    fence_operand(ds);
+    dkv_scores<D>(p, ds, ks, vs, qs, dos);
 
     // p = where(mask, exp(s * scale - lse), 0); ds = p (dp - delta) scale.
     // Only tiles on a ragged edge or the causal diagonal need the compares
@@ -401,44 +369,14 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
           ds[x] = p[x] * (ds[x] - dls[c]) * scale;
         }
     }
-    uint32_t pa[kB / 16][4], dsa[kB / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < kB / 16; ++kc) {
-      a_slice(p, kc, pa[kc]);
-      a_slice(ds, kc, dsa[kc]);
-    }
 
     // dV += P^T dO and dK += dS^T Q, dO and Q MN-major
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < kB / 16; ++kc) {
-      wgmma_rs<D>(dva, pa[kc], desc_sw128(dos + kc * 16 * 128, kB * 128,
-                                          1024), 1);
-      wgmma_rs<D>(dka, dsa[kc], desc_sw128(qs + kc * 16 * 128, kB * 128,
-                                           1024), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(dva);
-    fence_operand(dka);
+    dkv_accumulate<D>(dva, dka, p, ds, qs, dos);
   }
   cp_async_wait<0>();
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = k0 + 16 * warp + lane / 4 + 8 * h;
-    if (row >= sk) continue;
-    __nv_bfloat16* kout = dk + b * st.dkb + hk * st.dkh + row * st.dks;
-    __nv_bfloat16* vout = dv + b * st.dvb + hk * st.dvh + row * st.dvs;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(kout + c) =
-          __floats2bfloat162_rn(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vout + c) =
-          __floats2bfloat162_rn(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
-    }
-  }
+  dkv_store<D>(dka, dva, dk + b * st.dkb + hk * st.dkh, st.dks,
+               dv + b * st.dvb + hk * st.dvh, st.dvs, k0, sk, tid);
 }
 
 // dQ on the tensor cores: the dK/dV kernel above with the roles of the q
@@ -459,7 +397,6 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                           int group, int sq, int sk, Strides st, int causal,
                           float scale) {
   using namespace hopper;
-  constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int TILE = kB * D * 2;        // one 64-row bf16 tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -473,16 +410,8 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = hq / group;
   const int offset = sk - sq;
 
-  for (int idx = tid; idx < kB * CH; idx += 128) {
-    const int r = idx / CH, c = idx % CH;
-    const int row = q0 + r;
-    const bool ok = row < sq;
-    const int64_t at = ok ? row : 0;
-    cp_async16(qs + swizzled(r, c, kB),
-               q + b * st.qb + hq * st.qh + at * st.qs + c * 8, ok);
-    cp_async16(dos + swizzled(r, c, kB),
-               dout + b * st.ob + hq * st.oh + at * st.os + c * 8, ok);
-  }
+  cp_tiles64<D>(qs, q + b * st.qb + hq * st.qh, st.qs, dos,
+                dout + b * st.ob + hq * st.oh, st.os, q0, sq, tid);
   // this thread's two accumulator rows: lse * log2(e) and delta
   float lr[2], dr[2];
 #pragma unroll
@@ -499,16 +428,8 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto load_kv = [&](int t) {
     const uint32_t ks = ring + (t % kStages) * 2 * TILE, vs = ks + TILE;
-    for (int idx = tid; idx < kB * CH; idx += 128) {
-      const int r = idx / CH, c = idx % CH;
-      const int row = t * kB + r;
-      const bool ok = row < sk;
-      const int64_t at = ok ? row : 0;
-      cp_async16(ks + swizzled(r, c, kB),
-                 k + b * st.kb + hk * st.kh + at * st.ks + c * 8, ok);
-      cp_async16(vs + swizzled(r, c, kB),
-                 v + b * st.vb + hk * st.vh + at * st.vs + c * 8, ok);
-    }
+    cp_tiles64<D>(ks, k + b * st.kb + hk * st.kh, st.ks, vs,
+                  v + b * st.vb + hk * st.vh, st.vs, t * kB, sk, tid);
   };
 
   float dqa[D / 2];

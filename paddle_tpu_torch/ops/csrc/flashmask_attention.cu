@@ -24,10 +24,14 @@
 // forward does 4d operations (q.k, p.v), the dK/dV pass 8d (s, dp, dv,
 // dk) and the dQ pass 6d (s, dp, dq), against (sq + sk) * d elements
 // per head moved and ncol ints per column, so all three are bound by
-// operations, counted over the pairs the mask keeps.  This first version
-// computes the products in f32 on the CUDA cores, not the tensor cores
-// (moving them onto wgmma is later work), so it runs far below the bf16
-// tensor-core peak.  What its design does about that:
+// operations, counted over the pairs the mask keeps.  bf16 dK/dV runs on
+// the tensor cores (`flashmask_bwd_dkv_wgmma_kernel`, below the CUDA-core
+// kernels: the flash dK/dV kernel's wgmma design with the tile skip and
+// the interval mask; it rounds P and dS to bf16 before their products,
+// where the JAX kernel takes them in f32).  The forward, dQ and every
+// f32 call compute the products in f32 on the CUDA cores (moving the
+// forward and dQ onto wgmma is later work), far below the bf16
+// tensor-core peak.  What the design does about that:
 //
 // - Tile skip.  A (batch, mask head, q tile, kv tile) int32 table, made
 //   beside the kernels by torch ops on the device at these kernels' own
@@ -41,10 +45,11 @@
 // - The mask of a tile that runs is built per element from its columns'
 //   bands, staged once per tile in shared memory as (lo1, hi1, lo2, hi2):
 //   two compares per band, no dense mask in memory.
-// - The products as in the port's flash kernels: the forward keeps a
-//   64-row query tile resident and streams 32-column K/V tiles, every
-//   thread accumulating a 4x4 score tile and a 4x(d/8) output tile in
-//   registers; dK/dV keeps a 64-row kv tile and its dK, dV sums resident
+// - The CUDA-core products as in the port's f32 flash kernels: the
+//   forward keeps a 64-row query tile resident and streams 32-column K/V
+//   tiles, every thread accumulating a 4x4 score tile and a 4x(d/8)
+//   output tile in registers; dK/dV keeps a 64-row kv tile and its dK, dV
+//   sums resident
 //   while it walks the q tiles of every q head of its GQA group (the
 //   group summed in registers, no atomics); dQ keeps a 64-row q tile with
 //   its dO, lse and delta and streams the kv tiles.  Shared rows are
@@ -56,6 +61,9 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_bwd_wgmma.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -72,7 +80,7 @@ constexpr int kFR = 4;           // query rows per thread: ty * 4 + i
 constexpr int kFC = kFK / 8;     // score columns per thread: tx + 8 * j
 
 // backward
-constexpr int kB = 64;           // rows of a q tile and of a kv tile
+constexpr int kB = hopper::kAttnRows;   // q and kv tile rows
 constexpr int kThreads = 256;    // tx = tid % 16, ty = tid / 16
 constexpr int kR = 4;            // tile rows per thread: ty * 4 + i
 constexpr int kC = kB / 16;      // tile columns per thread: tx + 16 * j
@@ -565,6 +573,198 @@ flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ backward, bf16, wgmma
+// dK/dV on the tensor cores: flash_bwd_dkv_wgmma_kernel's design
+// (attention_bwd_wgmma.cuh: one warpgroup per (batch, kv head, 64-row kv
+// tile), K and V resident, the four products on wgmma with P^T and dS^T
+// rounded to bf16, dK and dV summed over the GQA group in registers) with
+// FlashMask's tile skip and mask:
+// - the block walks the (q head of its group, q tile) pairs, q head
+//   major; before any load it lists, in shared memory, the pairs whose
+//   skip-table entry (under the pair's mask head) is 0, so the ring
+//   (stages of Q, dO, lse, delta and the kv columns' intervals, filled
+//   by cp.async one tile ahead) carries only tiles that run.  The list
+//   holds kList pairs; longer walks go in passes of kList;
+// - two stages, not the flash kernel's three: at d128 a block then takes
+//   110.6 KB of shared memory and 240 registers a thread, so two blocks
+//   share an SM and one's loads, list, mask and epilogue overlap the
+//   other's products (about 1.5x faster on an H100 than three stages at
+//   s8192 under doc_causal, where a block runs about ten tiles, and
+//   under causal_full);
+// - each thread's accumulator rows are two kv columns; from their
+//   intervals under the tile's mask head (staged with the tile) it builds
+//   a 64-bit keep mask over the tile's q rows (not in a band, below sq,
+//   and under `causal` not above the top-left diagonal), and selects the
+//   exponent's argument by it, -inf where masked: exp is never taken of
+//   s - lse at a masked pair, so a fully masked row's lse
+//   (DEFAULT_MASK_VALUE) gives p = 0, not inf * 0.
+constexpr int kStages = 2;       // ring depth: two blocks an SM at d128
+constexpr int kList = 4096;      // listed (q head, q tile) pairs per pass
+
+// bits [0, n) of 64, n clamped to [0, 64]
+__device__ __forceinline__ uint64_t below64(int n) {
+  return n <= 0 ? 0ull : n >= 64 ? ~0ull : (1ull << n) - 1ull;
+}
+
+// the rows q0 .. q0 + 63 that column `col` keeps, as bits, from its ncol
+// intervals `c`: outside its bands, below sq, and with `causal` not above
+// the top-left diagonal (row >= col); no row of a column at or past sk
+__device__ __forceinline__ uint64_t keep_bits(const int* c, int col, int q0,
+                                              const Dims& dm, int causal) {
+  if (col >= dm.sk) return 0ull;
+  uint64_t masked = ~below64(dm.sq - q0);
+  if (dm.ncol == 1)
+    masked |= ~below64(c[0] - q0);
+  else
+    masked |= below64(c[1] - q0) & ~below64(c[0] - q0);
+  if (dm.ncol == 4) masked |= below64(c[3] - q0) & ~below64(c[2] - q0);
+  if (causal) masked |= below64(col - q0);
+  return ~masked;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flashmask_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ se,
+                               const int* __restrict__ skip,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, Dims dm,
+                               Strides st, float scale, int causal) {
+  using namespace hopper;
+  constexpr int TILE = kB * D * 2;        // one 64-row bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw0 = smem_u32(smem_raw);
+  const uint32_t base = (raw0 + 1023) & ~1023u;
+  const uint32_t ks = base, vs = base + TILE;
+  const uint32_t ring = base + 2 * TILE;  // stage s: Q, then dO
+  // per stage: lse 64, delta 64; the kv columns' intervals, 64 x ncol
+  float* const rows_f32 = reinterpret_cast<float*>(
+      smem_raw + (ring + kStages * 2 * TILE - raw0));
+  int* const cols = reinterpret_cast<int*>(rows_f32 + kStages * 2 * kB);
+  uint16_t* const list = reinterpret_cast<uint16_t*>(cols + kStages * kB * 4);
+  int* const warp_n = reinterpret_cast<int*>(list + kList);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kt = blockIdx.x, k0 = kt * kB;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = dm.heads / dm.kv_heads;
+  const int per_mask = dm.heads / dm.mask_heads;
+  const int n_q = (dm.sq + kB - 1) / kB;
+  const int n_kv = (dm.sk + kB - 1) / kB;
+  // pair e: q head hk * group + e / n_q, q tile e % n_q
+  const int total = group * n_q;
+
+  cp_tiles64<D>(ks, k + b * st.kb + hk * st.kh, st.ks, vs,
+                v + b * st.vb + hk * st.vh, st.vs, k0, dm.sk, tid);
+  cp_async_commit();
+
+  auto mask_head = [&](int e) {
+    return (int64_t)b * dm.mask_heads + (hk * group + e / n_q) / per_mask;
+  };
+  auto load_q = [&](int e, int stage) {
+    const int hq = hk * group + e / n_q, q0 = (e % n_q) * kB;
+    const uint32_t qs = ring + stage * 2 * TILE, dos = qs + TILE;
+    cp_tiles64<D>(qs, q + b * st.qb + hq * st.qh, st.qs, dos,
+                  dout + b * st.ob + hq * st.oh, st.os, q0, dm.sq, tid);
+    const int r = tid % kB;
+    const bool ok = q0 + r < dm.sq;
+    const int64_t at = ((int64_t)b * dm.heads + hq) * dm.sq
+                       + (ok ? q0 + r : 0);
+    float* dst = rows_f32 + stage * 2 * kB + (tid / kB) * kB + r;
+    cp_async4(smem_u32(dst), (tid < kB ? lse : delta) + at, ok);
+    const int* src = se + (mask_head(e) * dm.sk + k0) * dm.ncol;
+    const int valid = min(kB, dm.sk - k0) * dm.ncol;
+    int* cdst = cols + stage * kB * 4;
+    for (int i = tid; i < kB * dm.ncol; i += 128)
+      cp_async4(smem_u32(cdst + i), src + (i < valid ? i : 0), i < valid);
+  };
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int w0 = 0; w0 < total; w0 += kList) {
+    const int w1 = min(total, w0 + kList);
+    // list the pairs of this pass that run, in order
+    int n_run = 0;
+    for (int c0 = w0; c0 < w1; c0 += 128) {
+      const int e = c0 + tid;
+      const bool run = e < w1
+          && !skip[(mask_head(e) * n_q + e % n_q) * n_kv + kt];
+      const unsigned ballot = __ballot_sync(0xffffffffu, run);
+      if (lane == 0) warp_n[warp] = __popc(ballot);
+      __syncthreads();
+      int at = n_run;
+      for (int w = 0; w < warp; ++w) at += warp_n[w];
+      if (run) list[at + __popc(ballot & ((1u << lane) - 1u))] = e - w0;
+      n_run += warp_n[0] + warp_n[1] + warp_n[2] + warp_n[3];
+      __syncthreads();    // warp_n is read; the list is complete
+    }
+
+    // groups in flight: (K, V,) run tiles 0 .. kStages - 2 (each may be
+    // empty)
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (i < n_run) load_q(w0 + list[i], i);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_run; ++t) {
+      cp_async_wait<kStages - 2>();   // K, V and run tile t have landed
+      fence_proxy_async();
+      __syncthreads();      // ... for every thread; run tile t - 1 is read
+      const int ahead = t + kStages - 1;   // into run tile t - 1's stage
+      if (ahead < n_run) load_q(w0 + list[ahead], ahead % kStages);
+      cp_async_commit();
+      const int q0 = ((w0 + list[t]) % n_q) * kB;
+      const int stage = t % kStages;
+      const uint32_t qs = ring + stage * 2 * TILE, dos = qs + TILE;
+      const float* ls = rows_f32 + stage * 2 * kB;
+      const float* dls = ls + kB;
+      const int* cl = cols + stage * kB * 4;
+
+      // this thread's kv columns r, r + 8: keep bits of the tile's rows,
+      // shifted so that bit 8 j + e is its element column 8 j + 2 q + e
+      uint32_t keep[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 16 * warp + lane / 4 + 8 * h;
+        const uint64_t bits = keep_bits(cl + c * dm.ncol, k0 + c, q0, dm,
+                                        causal) >> (2 * (lane % 4));
+        keep[h][0] = static_cast<uint32_t>(bits);
+        keep[h][1] = static_cast<uint32_t>(bits >> 32);
+      }
+
+      float p[32], ds[32];
+      dkv_scores<D>(p, ds, ks, vs, qs, dos);
+      // p = where(keep, exp(s * scale - lse), 0); ds = p (dp - delta) scale
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * (lane % 4) + e;
+            const int x = 4 * j + 2 * h + e;
+            const bool kp = (keep[h][j / 4] >> (8 * (j % 4) + e)) & 1u;
+            p[x] = ex2(kp ? fmaf(p[x], sl2, -ls[c] * kLog2e) : -INFINITY);
+            ds[x] = p[x] * (ds[x] - dls[c]) * scale;
+          }
+      dkv_accumulate<D>(dva, dka, p, ds, qs, dos);
+    }
+    cp_async_wait<0>();
+    __syncthreads();      // the pass's list and ring are no longer read
+  }
+
+  dkv_store<D>(dka, dva, dk + b * st.gb + hk * st.gh, st.gs,
+               dv + b * st.hb + hk * st.hh, st.hs, k0, dm.sk, tid);
+}
+
 // ------------------------------------------------------------- launches
 Strides unpack(const int64_t* s, int n) {
   int64_t a[18] = {0};
@@ -616,6 +816,32 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, se,
       skip, static_cast<T*>(dk), static_cast<T*>(dv), dm, unpack(st, 18),
       scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, const int* se,
+                             const int* skip, void* dk, void* dv, int batch,
+                             Dims dm, const int64_t* st, int causal,
+                             float scale, cudaStream_t stream) {
+  // K, V, a ring of Q and dO, per stage lse, delta and 64 x 4 intervals;
+  // the run list and its per-warp counts
+  constexpr int smem = 1024 + (2 + 2 * kStages) * kB * D * 2
+                       + kStages * (2 * kB + 4 * kB) * 4 + kList * 2 + 16;
+  cudaError_t err = cudaFuncSetAttribute(
+      flashmask_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((dm.sk + kB - 1) / kB, dm.kv_heads, batch);
+  flashmask_bwd_dkv_wgmma_kernel<D><<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, se, skip,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), dm,
+      unpack(st, 18), scale, causal);
   return cudaGetLastError();
 }
 
@@ -683,13 +909,26 @@ int flashmask_bwd_dkv(const void* q, const void* k, const void* v,
                       const int64_t* strides, int causal, float scale,
                       int dtype, void* stream) {
   const Dims dm{heads, kv_heads, mask_heads, sq, sk, ncol};
-  FLASHMASK_DISPATCH(launch_dkv, q, k, v, dout,
-                     static_cast<const float*>(lse),
-                     static_cast<const float*>(delta),
-                     static_cast<const int*>(se),
-                     static_cast<const int*>(skip), dk, dv, batch, dm,
-                     strides, causal, scale,
-                     static_cast<cudaStream_t>(stream));
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int* sei = static_cast<const int*>(se);
+  const int* sk_ = static_cast<const int*>(skip);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // bf16 on the tensor cores, f32 on the CUDA cores
+  if (dtype == 1 && head_dim == 128)
+    return (int)launch_dkv_wgmma<128>(q, k, v, dout, l, dl, sei, sk_, dk, dv,
+                                      batch, dm, strides, causal, scale, s);
+  if (dtype == 1 && head_dim == 64)
+    return (int)launch_dkv_wgmma<64>(q, k, v, dout, l, dl, sei, sk_, dk, dv,
+                                     batch, dm, strides, causal, scale, s);
+  if (dtype == 0 && head_dim == 128)
+    return (int)launch_dkv<float, 128>(q, k, v, dout, l, dl, sei, sk_, dk,
+                                       dv, batch, dm, strides, causal, scale,
+                                       s);
+  if (dtype == 0 && head_dim == 64)
+    return (int)launch_dkv<float, 64>(q, k, v, dout, l, dl, sei, sk_, dk, dv,
+                                      batch, dm, strides, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int flashmask_bwd_dq(const void* q, const void* k, const void* v,

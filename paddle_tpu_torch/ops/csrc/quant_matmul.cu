@@ -33,14 +33,21 @@
 //   - M > 16 and K % 16 != 0 (weight rows TMA cannot copy: its rows must
 //     be 16-byte aligned): mma.sync 128 x 128 tiles staged element by
 //     element.
-//   w8a8 runs mma.sync m16n8k32 s8 -> s32 (the int8 bytes are the
-//   fragments): the skinny blocking at M <= 16, 128 x 128 tiles above.
+//   w8a8 (either output type: it changes only the epilogue) runs on the
+//   tensor cores with no conversion, chosen by shape (`launch_w8a8`):
+//   - M <= 16: mma.sync m16n8k32 s8 -> s32, the skinny blocking above
+//     (the int8 bytes are the fragments), bound by the weight's bytes;
+//   - M > 16 and K % 16 == 0: wgmma m64nTk32 s8 -> s32,
+//     `w8a8_wgmma_kernel`, bound by operations at prefill: 128-feature x
+//     T-token tiles, T by M, both int8 operands by TMA through a ring
+//     that a producer warp keeps full, one product group in flight, K
+//     split over blocks where the tiles are few;
+//   - M > 16 and K % 16 != 0: mma.sync 128 x 128 tiles staged element by
+//     element.
 //
 //   w8 with f32 x runs on the CUDA cores (the tensor cores have no f32
 //   product), 128 x 128 tiles of f32 FMAs, 8 x 8 outputs per thread, at
 //   every M: no serving workload runs f32, so its decode is not tuned.
-//
-// w8a8's tiles are not pipelined yet (later work).
 #include <cuda.h>            // CUtensorMap (the encoder comes from the runtime)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -638,8 +645,10 @@ wo_splitk_reduce_kernel(const float* __restrict__ part,
 // int8 bytes themselves.  Skinny (M <= 16): lane (g, t) loads 16 bytes of
 // weight row g of each n8 tile and of x rows g, g + 8 at k = kb + 16 t;
 // step j of a 64-block takes words 2 j and 2 j + 1 of them, the same k
-// permutation for both operands.  Tiled (M > 16): 128 x 128 tiles, k
-// tiles of 64 bytes in shared memory (rows of 80 bytes: conflict-free).
+// permutation for both operands.  Tiled (M > 16 with K % 16 != 0, rows
+// that TMA cannot copy; every other call above 16 rows takes
+// w8a8_wgmma_kernel): 128 x 128 tiles, k tiles of 64 bytes staged
+// element by element in shared memory (rows of 80 bytes: conflict-free).
 __device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
                                        uint32_t b1) {
@@ -717,7 +726,7 @@ w8a8_mma_skinny_kernel(const int8_t* __restrict__ xq,
     }
 }
 
-template <typename T, bool VEC>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 w8a8_mma_tiled_kernel(const int8_t* __restrict__ xq,
                       const float* __restrict__ xscale,
@@ -746,10 +755,10 @@ w8a8_mma_tiled_kernel(const int8_t* __restrict__ xq,
     for (int h = 0; h < 2; ++h) {
       const int p = tid + h * kThreads, r = p >> 2, c = (p & 3) * 16;
       xr[h] = m0 + r < M
-          ? load_i8x16<VEC>(xq + (size_t)(m0 + r) * K, k0 + c, K)
+          ? load_i8x16<false>(xq + (size_t)(m0 + r) * K, k0 + c, K)
           : make_uint4(0u, 0u, 0u, 0u);
       wr[h] = n0 + r < N
-          ? load_i8x16<VEC>(w + (size_t)(n0 + r) * K, k0 + c, K)
+          ? load_i8x16<false>(w + (size_t)(n0 + r) * K, k0 + c, K)
           : make_uint4(0u, 0u, 0u, 0u);
     }
     __syncthreads();   // the previous tile's readers are done
@@ -804,6 +813,162 @@ w8a8_mma_tiled_kernel(const int8_t* __restrict__ xq,
                 static_cast<float>(d[i][j][2 * h + c]) * xsm * scale[n]);
         }
     }
+}
+
+// ------------------------------------------------------ w8a8, s8 wgmma
+// M > 16 with K % 16 == 0 (every Linear of a prefill, a chunked prefill
+// or a ragged step above 16 rows): wgmma m64 x nT x k32 s8 x s8 -> s32,
+// computing Y^T = W X^T as wo_wgmma_kernel does, the weight's features
+// wgmma's M (the A operand) and the tokens its N (the B operand), both
+// K-major straight from TMA's 128-byte-swizzled tiles; no conversion and
+// no register operand:
+// - a block owns 128 features x T tokens, T = 32, 64, 128 or 256 by M
+//   (`w8a8_tile`), so 17-64-row calls do not multiply padding and 1024-row
+//   prefill takes the widest product (m64n256k32 reads 80 bytes of shared
+//   memory per 128 cycles of the tensor cores, m64n128k32 96);
+// - a producer warp (warp 8; one lane issues) keeps a ring of S stages of
+//   128 k (128 bytes of every weight and token row) in flight by TMA,
+//   each stage guarded by a full and an empty mbarrier; S as deep as 227
+//   KB of shared memory allows (4 at T = 256, 8 at T <= 64);
+// - two consumer warpgroups each own 64 features and a 64 x T s32
+//   accumulator in registers; per stage they issue four k32 products,
+//   commit them, and wait only for the previous stage's group
+//   (wgmma_wait<1>), then release that stage: no register changes under
+//   an issued product, so one group stays in flight across the loop;
+// - where the output tiles fill less than half of the SMs (short prompts
+//   at N 4096), K is split over gridDim.z (`w8a8_splits`); each split
+//   writes its exact s32 sums to a workspace and
+//   w8a8_splitk_reduce_kernel adds them (integer sums: any order is
+//   exact) and applies the one epilogue.
+// TMA zero-fills tokens past M, features past N and k past K (zeros add
+// nothing to an integer sum); it needs 16-byte rows (K % 16 == 0).  The
+// epilogue is float(acc) * xs[m] * scale[n] in that order, as the plain
+// version, so the result is bit-equal to it split or not.
+constexpr int kQF = 128;                   // features of a block
+constexpr int kQK = 128;                   // k (bytes) of a stage
+constexpr int kQThreads = 288;             // two consumer warpgroups + a warp
+
+template <int T>
+struct W8a8Tile {
+  static constexpr int kStages = T == 256 ? 4 : T == 128 ? 6 : 8;
+  static constexpr int kW = kQF * kQK;      // weight stage, bytes
+  static constexpr int kX = T * kQK;        // token stage, bytes
+  static constexpr int kSmem = 1024 + kStages * (kW + kX) + 2 * kStages * 8;
+};
+
+template <typename T, int TT>
+__global__ void __launch_bounds__(kQThreads, 1)
+w8a8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
+                  __grid_constant__ const CUtensorMap w_map,
+                  const float* __restrict__ xscale,
+                  const float* __restrict__ scale, T* __restrict__ y,
+                  int* __restrict__ part, int M, int N, int K) {
+  using namespace hopper;
+  using C = W8a8Tile<TT>;
+  constexpr int S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ws = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xs = ws + S * C::kW;
+  const uint32_t bars = xs + S * C::kX;
+  // full[s]: stage s landed; empty[s]: both warpgroups multiplied it
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  // token tiles along x: the blocks that share a weight tile run side by
+  // side, so the weight (the bytes that bound the call at small M) comes
+  // from device memory once and the few-MB activations stay in L2
+  const int m0 = blockIdx.x * TT, n0 = blockIdx.y * kQF;
+  // this block's K steps (all of them unless K is split over blockIdx.z)
+  const int steps = (K + kQK - 1) / kQK;
+  const int kt0 = blockIdx.z * steps / gridDim.z;
+  const int nk = (blockIdx.z + 1) * steps / gridDim.z - kt0;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {                 // the producer warp
+    if (tid == 2 * 128) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty(s), (t / S - 1) & 1);
+        mbar_arrive_expect_tx(full(s), C::kW + C::kX);
+        const int k = (kt0 + t) * kQK;
+        tma_load_2d(ws + s * C::kW, &w_map, full(s), k, n0);
+        tma_load_2d(xs + s * C::kX, &x_map, full(s), k, m0);
+      }
+    }
+    return;
+  }
+
+  uint32_t acc[TT / 2];
+#pragma unroll
+  for (int i = 0; i < TT / 2; ++i) acc[i] = 0u;
+  fence_operand(acc);
+  const uint32_t wa = ws + wg * 64 * kQK;   // this warpgroup's 64 features
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % S;
+    mbar_wait(full(s), (t / S) & 1);
+    const uint32_t a = wa + s * C::kW, b = xs + s * C::kX;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kQK / 32; ++kc)
+      wgmma_ss_s8<TT>(acc, desc_sw128(a + 32 * kc, 16, 1024),
+                      desc_sw128(b + 32 * kc, 16, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();             // the products of step t - 1 are done
+    if (t > 0 && tid % 128 == 0) mbar_arrive(empty((t - 1) % S));
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+
+  // acc[4 j + 2 h + e]: feature r + 8 h, token 8 j + 2 q + e.  A split
+  // block writes its s32 sums, which w8a8_splitk_reduce_kernel adds
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r = 64 * wg + 16 * warp + lane / 4, q = lane % 4;
+  int* const out = part ? part + (size_t)blockIdx.z * M * N : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + r + 8 * h;
+    if (n >= N) continue;
+    const float sc = scale[n];
+#pragma unroll
+    for (int j = 0; j < TT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * q + e;
+        if (m >= M) continue;
+        const int v = static_cast<int>(acc[4 * j + 2 * h + e]);
+        if (out)
+          out[(size_t)m * N + n] = v;
+        else
+          y[(size_t)m * N + n] =
+              from_float<T>(static_cast<float>(v) * xscale[m] * sc);
+      }
+  }
+}
+
+// y = T(float(sum of the splits' s32 sums) * xs[m] * scale[n]); the
+// integer sum is exact in any order
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+w8a8_splitk_reduce_kernel(const int* __restrict__ part,
+                          const float* __restrict__ xscale,
+                          const float* __restrict__ scale, T* __restrict__ y,
+                          int M, int N, int splits) {
+  const size_t total = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * kThreads) {
+    int v = 0;
+    for (int z = 0; z < splits; ++z) v += part[z * total + i];
+    y[i] = from_float<T>(static_cast<float>(v) * xscale[i / N]
+                         * scale[i % N]);
+  }
 }
 
 // ------------------------------------------------------- activation quant
@@ -961,10 +1126,69 @@ cudaError_t launch_wo_f32(const float* x, const int8_t* w, const float* scale,
   return cudaGetLastError();
 }
 
+// token tile of w8a8_wgmma_kernel: the narrowest that holds M, up to 256
+int w8a8_tile(int M) {
+  return M <= 32 ? 32 : M <= 64 ? 64 : M <= 128 ? 128 : 256;
+}
+
+// K splits of w8a8_wgmma_kernel, by wo_splits' rule: enough to give about
+// every SM a block where the output tiles fill less than half of them,
+// each split at least 4 K steps; 1 otherwise
+cudaError_t w8a8_splits(int M, int N, int K, int* splits) {
+  *splits = 1;
+  if (M <= 16 || K % 16 != 0 || K == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tt = w8a8_tile(M);
+  const int tiles = (N + kQF - 1) / kQF * ((M + tt - 1) / tt);
+  const int most = (K + kQK - 1) / kQK / 4;
+  if (2 * tiles <= sms && most > 1)
+    *splits = sms / tiles < most ? sms / tiles : most;
+  return cudaSuccess;
+}
+
+template <typename T, int TT>
+cudaError_t launch_w8a8_wgmma(const int8_t* xq, const float* xscale,
+                              const int8_t* w, const float* scale, T* y,
+                              int* part, int M, int N, int K, int splits,
+                              cudaStream_t s) {
+  using C = W8a8Tile<TT>;
+  CUtensorMap x_map, w_map;
+  cudaError_t err = tensor_map_2d(
+      &x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, K, M, K, kQK, TT,
+      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, K,
+                        kQK, kQF, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(w8a8_wgmma_kernel<T, TT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + TT - 1) / TT, (N + kQF - 1) / kQF, splits);
+  w8a8_wgmma_kernel<T, TT><<<grid, kQThreads, C::kSmem, s>>>(
+      x_map, w_map, xscale, scale, y, splits > 1 ? part : nullptr, M, N, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t blocks = ((size_t)M * N + kThreads - 1) / kThreads;
+  w8a8_splitk_reduce_kernel<T><<<blocks < 1024 ? (int)blocks : 1024,
+                                 kThreads, 0, s>>>(part, xscale, scale, y,
+                                                   M, N, splits);
+  return cudaGetLastError();
+}
+
+// the kernel is chosen by shape alone:
+//   M <= 16               w8a8_mma_skinny_kernel (decode: split K, bytes)
+//   M > 16, K % 16 == 0   w8a8_wgmma_kernel (TMA needs 16-byte rows), K
+//                         split over blocks where the tiles are few
+//   M > 16, K % 16 != 0   w8a8_mma_tiled_kernel (element-wise staging)
 template <typename T>
 cudaError_t launch_w8a8(const int8_t* xq, const float* xscale,
-                        const int8_t* w, const float* scale, void* y, int M,
-                        int N, int K, cudaStream_t s) {
+                        const int8_t* w, const float* scale, void* y,
+                        int* part, int M, int N, int K, cudaStream_t s) {
   T* yt = static_cast<T*>(y);
   const bool vec = K % 16 == 0;
   if (M <= 16) {
@@ -975,15 +1199,31 @@ cudaError_t launch_w8a8(const int8_t* xq, const float* xscale,
     else
       w8a8_mma_skinny_kernel<T, false><<<grid, kThreads, 0, s>>>(
           xq, xscale, w, scale, yt, M, N, K);
-  } else {
-    dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    if (vec)
-      w8a8_mma_tiled_kernel<T, true><<<grid, kThreads, 0, s>>>(
-          xq, xscale, w, scale, yt, M, N, K);
-    else
-      w8a8_mma_tiled_kernel<T, false><<<grid, kThreads, 0, s>>>(
-          xq, xscale, w, scale, yt, M, N, K);
+    return cudaGetLastError();
   }
+  if (vec && K > 0) {
+    int splits = 1;
+    cudaError_t err = w8a8_splits(M, N, K, &splits);
+    if (err != cudaSuccess) return err;
+    if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+    switch (w8a8_tile(M)) {
+      case 32:
+        return launch_w8a8_wgmma<T, 32>(xq, xscale, w, scale, yt, part, M,
+                                        N, K, splits, s);
+      case 64:
+        return launch_w8a8_wgmma<T, 64>(xq, xscale, w, scale, yt, part, M,
+                                        N, K, splits, s);
+      case 128:
+        return launch_w8a8_wgmma<T, 128>(xq, xscale, w, scale, yt, part, M,
+                                         N, K, splits, s);
+      default:
+        return launch_w8a8_wgmma<T, 256>(xq, xscale, w, scale, yt, part, M,
+                                         N, K, splits, s);
+    }
+  }
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  w8a8_mma_tiled_kernel<T><<<grid, kThreads, 0, s>>>(
+      xq, xscale, w, scale, yt, M, N, K);
   return cudaGetLastError();
 }
 
@@ -1020,20 +1260,32 @@ int weight_only_matmul_fwd(const void* x, const void* w, const void* scale,
   return (int)cudaErrorInvalidValue;
 }
 
+// s32 elements of scratch that w8a8_matmul_fwd needs for these shapes
+// (the K splits' sums; 0: none), or -1 on a CUDA error
+long long w8a8_matmul_workspace(int M, int N, int K) {
+  int splits = 1;
+  if (w8a8_splits(M, N, K, &splits) != cudaSuccess) return -1;
+  return splits > 1 ? (long long)splits * M * N : 0;
+}
+
 // dtype 0 = f32, 1 = bf16 (of y).  xq (M, K) int8, xscale (M,) f32,
-// w (N, K) int8, scale (N,) f32, y (M, N).
+// w (N, K) int8, scale (N,) f32, y (M, N); every tensor contiguous,
+// 16-byte aligned; `workspace` s32 of w8a8_matmul_workspace's size (NULL
+// if 0).
 int w8a8_matmul_fwd(const void* xq, const void* xscale, const void* w,
                     const void* scale, void* y, int M, int N, int K,
-                    int dtype, void* stream) {
+                    int dtype, void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xi = static_cast<const int8_t*>(xq);
   const float* xs = static_cast<const float*>(xscale);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
+  int* part = static_cast<int*>(workspace);
   if (dtype == 0)
-    return (int)launch_w8a8<float>(xi, xs, wq, sc, y, M, N, K, s);
+    return (int)launch_w8a8<float>(xi, xs, wq, sc, y, part, M, N, K, s);
   if (dtype == 1)
-    return (int)launch_w8a8<__nv_bfloat16>(xi, xs, wq, sc, y, M, N, K, s);
+    return (int)launch_w8a8<__nv_bfloat16>(xi, xs, wq, sc, y, part, M, N, K,
+                                           s);
   return (int)cudaErrorInvalidValue;
 }
 

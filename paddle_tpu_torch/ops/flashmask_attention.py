@@ -20,7 +20,10 @@ left to underflow, and a row that every column masks gives out 0 and lse
 a row's scores all equal, gives the mean of v there instead).
 
 The forward and the two FA2 backward kernels (dK/dV and dQ) live in
-``csrc/flashmask_attention.cu``; its header says what bounds them.  They
+``csrc/flashmask_attention.cu``; its header says what bounds them.  bf16
+dK/dV runs on the tensor cores (wgmma, the flash dK/dV design of
+``csrc/attention_bwd_wgmma.cuh``); the forward, dQ and f32 dK/dV on the
+CUDA cores.  They
 skip tiles that the mask covers whole, from a table computed here by
 torch ops on the device (``flashmask_skip_table``, the port of
 ``_skip_table``) at the kernels' own 64 x 64 tiles.  Every public
@@ -336,8 +339,10 @@ def _bwd_operands(what, q, k, v, do, lse, delta, startend_row_indices,
 
 def flashmask_bwd_dkv_cuda(q, k, v, do, lse, delta, startend_row_indices,
                            dk, dv, causal=False, scale=None, skip=None):
-    """Launch the dK/dV kernel: writes ``dk``, ``dv`` (b, kv_h, sk, d),
-    the GQA group summed in f32 before one cast."""
+    """Launch the dK/dV kernel (bf16: the tensor-core kernel, P and dS
+    rounded to bf16 before their products; f32: the CUDA-core kernel):
+    writes ``dk``, ``dv`` (b, kv_h, sk, d), the GQA group summed in f32
+    before one cast."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     se, skip, shape, strides = _bwd_operands(

@@ -82,8 +82,10 @@ def _lib():
         lib.weight_only_matmul_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32,
                                                i32, vp, vp]
         lib.weight_only_matmul_fwd.restype = i32
+        lib.w8a8_matmul_workspace.argtypes = [i32, i32, i32]
+        lib.w8a8_matmul_workspace.restype = ctypes.c_longlong
         lib.w8a8_matmul_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                        i32, vp]
+                                        i32, vp, vp]
         lib.w8a8_matmul_fwd.restype = i32
         lib.dynamic_act_quant_fwd.argtypes = [vp, vp, vp, i32, i32, i32, vp]
         lib.dynamic_act_quant_fwd.restype = i32
@@ -181,7 +183,10 @@ weight_only_matmul_cuda.launches = 0
 
 def w8a8_matmul_cuda(x_q, x_scale, w_q, scale, out_dtype):
     """Launch the CUDA w8a8 kernel: x_q [M, K] int8, x_scale [M, 1] f32,
-    w_q [N, K] int8, scale [N] f32 -> [M, N] ``out_dtype`` (f32/bf16)."""
+    w_q [N, K] int8, scale [N] f32 -> [M, N] ``out_dtype`` (f32/bf16),
+    bit-equal to ``w8a8_matmul_plain``.  The kernel is chosen by shape
+    (M <= 16: mma.sync; above with K % 16 == 0: s8 wgmma, K split over
+    blocks where the output tiles are few; else mma.sync tiles)."""
     _check("w8a8_matmul_cuda", x_q, w_q, scale, (x_scale, w_q, scale))
     M, K = x_q.shape
     if x_q.dtype != torch.int8 or x_scale.dtype != torch.float32 \
@@ -197,9 +202,16 @@ def w8a8_matmul_cuda(x_q, x_scale, w_q, scale, out_dtype):
     x_q, x_scale = _aligned(x_q), _aligned(x_scale)
     w_q, scale = _aligned(w_q), _aligned(scale)
     lib = _lib()
+    # the kernel's scratch: s32 sums of each K split where it splits K
+    n_ws = lib.w8a8_matmul_workspace(M, N, K)
+    if n_ws < 0:
+        raise RuntimeError("w8a8_matmul: the CUDA device query failed")
+    ws = torch.empty(n_ws, dtype=torch.int32, device=x_q.device) \
+        if n_ws else None
     _raise_on(lib.w8a8_matmul_fwd(
         x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
         out.data_ptr(), M, N, K, _DTYPES[out_dtype],
+        ws.data_ptr() if ws is not None else None,
         _build.stream_ptr(x_q.device)), lib, "w8a8_matmul")
     w8a8_matmul_cuda.launches += 1
     return out

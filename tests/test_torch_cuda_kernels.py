@@ -91,6 +91,16 @@ def test_rms_norm_and_rope_match_plain(dev, dt):
         _close(got, want, tol)
 
 
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs (profiler)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
 def test_launch_counters_count_kernel_launches(dev):
     x = torch.randn(2, 4096, device=dev)
     before = nr.rms_norm_triton.launches
@@ -342,6 +352,46 @@ def test_w8a8_matmul_bit_equal_to_plain(dev, dt, m, k, n):
     assert torch.equal(got, qm.w8a8_matmul_plain(xq, xs, w, s, dtype))
 
 
+# w8a8 at M > 16 with K % 16 == 0: the s8 wgmma kernel.  Its token tiles
+# (32 for 17 and 32 rows, 64, 256 for 130 and 1024), K split where the
+# output tiles are few (N 4096 at 17-64 rows, N 384 and 200), and N that
+# is not a multiple of the 128-feature tile
+W8A8_WGMMA_MS = (17, 32, 64, 130, 1024)
+W8A8_WGMMA_KN = ((4096, 11008), (11008, 4096), (512, 384), (4096, 200))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("m", W8A8_WGMMA_MS)
+@pytest.mark.parametrize("k,n", W8A8_WGMMA_KN)
+def test_w8a8_wgmma_bit_equal_to_plain(dev, dt, m, k, n):
+    """The s8 wgmma kernel's s32 sums are exact, split or not, and its
+    epilogue multiplies in the plain version's order: bit-equal to
+    ``w8a8_matmul_plain``, one launch counted."""
+    dtype, _ = DTYPES[dt]
+    x, w, s = _quant_inputs(dev, m, k, n, dtype, 15)
+    xq, xs = qm.dynamic_act_quant(x)
+    before = qm.w8a8_matmul_cuda.launches
+    got = qm.w8a8_matmul_cuda(xq, xs, w, s, dtype)
+    assert qm.w8a8_matmul_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, qm.w8a8_matmul_plain(xq, xs, w, s, dtype))
+
+
+@pytest.mark.parametrize("m,k,kernel", [
+    (17, 512, "w8a8_wgmma_kernel"), (1024, 4096, "w8a8_wgmma_kernel"),
+    (16, 512, "w8a8_mma_skinny_kernel"), (40, 264, "w8a8_mma_tiled_kernel")])
+def test_w8a8_kernel_chosen_by_shape(dev, m, k, kernel):
+    """M <= 16 takes the skinny mma.sync kernel, M > 16 the wgmma kernel
+    where K % 16 == 0 (TMA's 16-byte rows) and the mma.sync tiles
+    otherwise, in bf16 and f32 alike."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, s = _quant_inputs(dev, m, k, 384, dtype, 16)
+        xq, xs = qm.dynamic_act_quant(x)
+        names = _device_kernels(
+            lambda: qm.w8a8_matmul_cuda(xq, xs, w, s, dtype))
+        assert any(kernel in n for n in names), names
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(8, 4096), (130, 300), (3, 5, 2, 128)])
 def test_dynamic_act_quant_bit_equal_to_plain(dev, dt, shape):
@@ -559,3 +609,78 @@ def test_flashmask_functional_grads_match_cpu(dev, dt):
     limit = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(*grads):
         assert _rel_l2(a, b) <= limit
+
+
+# bf16 FlashMask dK/dV: the tensor-core kernel.  (kind, causal, b, h, kvh,
+# hm, sq, sk, d, bshd): every FLASHMASK_CASES case, one on transposed views
+# of (b, s, h, d) buffers, and 2 mask heads under GQA 8/2 with sq != sk
+FLASHMASK_DKV_CASES = [c + (False,) for c in FLASHMASK_CASES] + [
+    ("1col", True, 2, 8, 2, 1, 190, 190, 64, True),
+    ("2col", True, 1, 8, 2, 2, 300, 260, 128, False)]
+
+
+@pytest.mark.parametrize("kind,causal,b,h,kvh,hm,sq,sk,d,bshd",
+                         FLASHMASK_DKV_CASES)
+def test_flashmask_dkv_wgmma_matches_plain(dev, kind, causal, b, h, kvh, hm,
+                                           sq, sk, d, bshd):
+    """The bf16 FlashMask dK/dV kernel alone (P^T and dS^T rounded to bf16
+    before their products) against the plain backward's dk and dv at
+    relative L2 1e-2, one launch; finite where rows are fully masked."""
+    q, k, v, do = _wgmma_inputs(dev, b, sq, sk, h, kvh, d, 16, bshd)
+    se = _fm_intervals(kind, b, hm, sq, sk, 10).to(dev)
+    out, lse = fm.flashmask_attention_forward(q, k, v, se, causal)
+    delta = (out.float() * do.float()).sum(-1).contiguous()
+
+    def buffer():
+        if bshd:
+            return torch.full((b, sk, kvh, d), float("nan"), device=dev) \
+                .bfloat16().transpose(1, 2)
+        return torch.full(k.shape, float("nan"), device=dev).bfloat16()
+    dk, dv = buffer(), buffer()
+    before = fm.flashmask_bwd_dkv_cuda.launches
+    fm.flashmask_bwd_dkv_cuda(q, k, v, do, lse, delta, se, dk, dv, causal)
+    assert fm.flashmask_bwd_dkv_cuda.launches == before + 1
+    want = fm.flashmask_attention_backward_plain(q, k, v, out, lse, do, se,
+                                                 causal)
+    for got, ref in zip((dk, dv), want[1:]):
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flashmask_dkv_kernel_chosen_by_dtype(dev, dt):
+    """A bf16 backward runs the tensor-core dK/dV kernel, an f32 one the
+    CUDA-core kernel; each exactly one of them."""
+    dtype, _ = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, do = (torch.randn(1, 4, 200, 64, generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    se = _fm_intervals("1col", 1, 1, 200, 200, 10).to(dev)
+    out, lse = fm.flashmask_attention_forward(q, k, v, se, True)
+    names = _device_kernels(lambda: fm.flashmask_attention_backward(
+        q, k, v, out, lse, do, se, True))
+    wgmma = [n for n in names if "flashmask_bwd_dkv_wgmma_kernel" in n]
+    plain = [n for n in names if "flashmask_bwd_dkv_kernel" in n]
+    assert (len(wgmma), len(plain)) == ((1, 0) if dt == "bf16" else (0, 1))
+
+
+def test_flashmask_raises_without_its_kernel(dev, monkeypatch):
+    """No fallback: with the kernel library unbuildable,
+    ``F.flashmask_attention`` raises KernelBuildError on the card, forward
+    and backward."""
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.ops import _build
+
+    def broken(name):
+        raise _build.KernelBuildError(f"nvcc failed on {name}.cu")
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    q, k, v = (torch.randn(1, 128, 4, 64, generator=g, device=dev)
+               .bfloat16().requires_grad_() for _ in range(3))
+    se = _fm_intervals("1col", 1, 1, 128, 128, 10).to(dev)
+    out = TF.flashmask_attention(q, k, v, se, causal=True)
+    monkeypatch.setattr(_build, "load", broken)
+    with pytest.raises(_build.KernelBuildError):
+        TF.flashmask_attention(q, k, v, se, causal=True)
+    with pytest.raises(_build.KernelBuildError):
+        out.backward(torch.ones_like(out))

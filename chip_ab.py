@@ -15,9 +15,9 @@ side.  Phases: ``flash`` times the flash forward (serve, train and MoE
 decode shapes), dK/dV and dQ (train shape) kernels through their public
 wrappers on the same seeded inputs; ``quant`` times the bf16 weight-only
 (w8) and w8a8 int8 matmuls at llama_7b's four prefill widths (1024 rows)
-and at 32 rows the same way; ``flashmask`` times FlashMask's dK/dV kernel
-at the flashmask phase's doc_causal and causal_full cases (b 1 x 8192,
-32 heads x 128, bf16); ``serve`` serves chip_smoke.py's 8 requests on
+and at 32 rows the same way; ``flashmask`` times FlashMask's forward,
+dK/dV and dQ kernels at the flashmask phase's doc_causal and causal_full
+cases (b 1 x 8192, 32 heads x 128, bf16); ``serve`` serves chip_smoke.py's 8 requests on
 llama_7b (bf16 weights from ``--seed``) with ``w8`` and ``w8a8`` weights
 and int8 KV pages and times one 1024-token quantized prefill of each
 mode (host wall clock, synchronized, and device busy time in a
@@ -52,14 +52,17 @@ FLASH_CASES = (("fwd serve s2048 32/32 d128", "fwd", 1, 32, 32, 2048, 2048,
 # each through the w8 and the w8a8 kernel
 QUANT_CASES = ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
                (1024, 4096, 32000), (32, 4096, 11008))
-# the FlashMask dK/dV cases: chip_smoke.py's flashmask phase masks
+# the FlashMask cases: chip_smoke.py's flashmask phase masks, each through
+# the forward, dK/dV and dQ kernels
 FLASHMASK_CASES = ("doc_causal", "causal_full")
+FLASHMASK_KERNELS = ("fwd", "dkv", "dq")
 METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
            "quant": tuple(f"{mode} M{m} K{k} N{n}"
                           for mode in ("w8", "w8a8", "torch._int_mm")
                           for m, k, n in QUANT_CASES),
-           "flashmask": tuple(f"dkv {c} b1 s8192 32/32 d128"
-                              for c in FLASHMASK_CASES),
+           "flashmask": tuple(f"{kern} {c} b1 s8192 32/32 d128"
+                              for c in FLASHMASK_CASES
+                              for kern in FLASHMASK_KERNELS),
            "serve": tuple(f"{mode} {m}" for mode in ("w8", "w8a8") for m in (
                "ttft_p50_s", "tpot_p50_s", "prefill1024_wall_ms",
                "prefill1024_device_ms")),
@@ -121,25 +124,34 @@ def quant(cs, seed, dev):
 
 
 def flashmask(cs, seed, dev):
-    """{case: device ms per call} of FlashMask's dK/dV kernel on the
-    flashmask phase's intervals (``cs.fm_intervals``), given its skip
-    table and delta, timed with the side's own ``cuda_ms``."""
+    """{case: device ms per call} of FlashMask's forward, dK/dV and dQ
+    kernels on the flashmask phase's intervals (``cs.fm_intervals``),
+    given the skip table (and, for the backward, delta), timed with the
+    side's own ``cuda_ms``."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops import flashmask_attention as fm
     gen = torch.Generator(device=dev).manual_seed(seed)
     s, d = 8192, 128
     out = {}
-    for name, kind in zip(METRICS["flashmask"], FLASHMASK_CASES):
+    for kind in FLASHMASK_CASES:
         se = cs.fm_intervals(kind, s, np.random.default_rng(0), dev)
         q, k, v, do = (torch.randn(1, 32, s, d, generator=gen,
                                    device=dev).bfloat16() for _ in range(4))
         o, lse = fm.flashmask_fwd_cuda(q, k, v, se, True)
         delta = (o.float() * do.float()).sum(-1).contiguous()
         skip = fm.flashmask_skip_table(se, s, True)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        out[name] = cs.cuda_ms(lambda: fm.flashmask_bwd_dkv_cuda(
-            q, k, v, do, lse, delta, se, dk, dv, True, skip=skip))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        launch = {
+            "fwd": lambda: fm.flashmask_fwd_cuda(q, k, v, se, True, out=o,
+                                                 skip=skip),
+            "dkv": lambda: fm.flashmask_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, se, dk, dv, True, skip=skip),
+            "dq": lambda: fm.flashmask_bwd_dq_cuda(
+                q, k, v, do, lse, delta, se, dq, True, skip=skip)}
+        for kern in FLASHMASK_KERNELS:
+            out[f"{kern} {kind} b1 s8192 32/32 d128"] = cs.cuda_ms(
+                launch[kern])
     return out
 
 

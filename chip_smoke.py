@@ -14,7 +14,8 @@ failure:
             instructions (HGMMA, and IGMMA for s8) of each flash,
             FlashMask and int8 matmul kernel in ``cuobjdump -sass`` of
             its library: the tensor-core flash forward, dK/dV and dQ, the
-            FlashMask dK/dV and the w8 and w8a8 kernels must hold some.
+            FlashMask forward, dK/dV and dQ and the w8 and w8a8 kernels
+            must hold some.
 2. kernels — run each hand-written kernel (paged attention in its bf16,
             f32 and int8-page modes, the w8 and w8a8 matmuls at llama_7b's
             decode shapes, every prefill width (the head's included) and
@@ -37,8 +38,9 @@ failure:
             plain versions (1, 2 and 4 interval columns, causal on and
             off, 32 heads x 128 at s 2048, MHA and 32/8 GQA, bf16 and f32,
             a ragged s 1000 with 2 mask heads, fully masked rows exactly
-            0; each backward's dK/dV kernel read from a profiler window:
-            bf16 on the tensor cores, f32 on the CUDA cores), timed at
+            0; each case's forward and backward kernels read from
+            profiler windows: bf16 on the tensor cores, f32 on the CUDA
+            cores), timed at
             the flashmask phase's doc_causal case beside
             ``scaled_dot_product_attention`` with the same dense mask;
             without its kernel library ``F.flashmask_attention`` must
@@ -59,13 +61,16 @@ failure:
             dim 128, five masks: doc_causal (32/32 and 32/8 heads),
             sliding_window (4096), doc_bidirectional and causal_full
             (timed beside the causal flash kernels and held against
-            them, its dK/dV kernel alone beside the flash dK/dV kernel
-            and its bound); launch counters zeroed just before and read
-            just
-            after: one launch of each FlashMask kernel per forward +
-            backward, no other kernel.  Prints forward and
-            forward+backward ms p50, tokens/s, peak memory and the share
-            of 64 x 64 tiles skipped.
+            them; its forward, dK/dV and dQ kernels alone beside the
+            flash forward, dK/dV and dQ kernels, their bounds, their
+            plain versions and ``scaled_dot_product_attention`` with
+            ``is_causal``); launch counters zeroed just before and read
+            just after: one launch of each FlashMask kernel per forward
+            + backward, no other kernel; then one profiler window over a
+            bf16 forward + backward must show the three tensor-core
+            FlashMask kernels and none of the CUDA-core ones.  Prints
+            forward and forward+backward ms p50, tokens/s, peak memory
+            and the share of 64 x 64 tiles skipped.
 3. small   — a small f32 model served on the card (kernels) and on the
             CPU (plain versions) from the same weights, unquantized and
             with int8 weights (w8, w8a8) and int8 KV pages: the greedy
@@ -1156,14 +1161,23 @@ def check_flashmask(records, dev):
         out, lse = fm.flashmask_fwd_cuda(q, k, v, se, causal)
         got = fm.flashmask_attention_backward(q, k, v, out, lse, do, se,
                                               causal)
-        # bf16 dK/dV on the tensor cores, f32 on the CUDA cores
-        dkv = ("flashmask_bwd_dkv_wgmma_kernel" if dtype == torch.bfloat16
-               else "flashmask_bwd_dkv_kernel")
-        ran = kernels_of(lambda: fm.flashmask_attention_backward(
-            q, k, v, out, lse, do, se, causal))
-        if not any(n.startswith(dkv) for n in ran):
-            raise AssertionError(f"flashmask {label}: the backward ran "
-                                 f"{ran}, not {dkv}")
+        # bf16 on the tensor cores, f32 on the CUDA cores: each pass runs
+        # exactly its own FlashMask kernels
+        tc = "_wgmma" if dtype == torch.bfloat16 else ""
+        for what, fn, want in (
+                ("forward", lambda: fm.flashmask_fwd_cuda(q, k, v, se,
+                                                          causal),
+                 {f"flashmask_fwd{tc}_kernel"}),
+                ("backward", lambda: fm.flashmask_attention_backward(
+                    q, k, v, out, lse, do, se, causal),
+                 {f"flashmask_bwd_dkv{tc}_kernel",
+                  f"flashmask_bwd_dq{tc}_kernel"})):
+            ran = kernels_of(fn)
+            seen = {n.split("<")[0] for n in ran
+                    if n.startswith("flashmask_")}
+            if seen != want:
+                raise AssertionError(f"flashmask {label}: the {what} ran "
+                                     f"{ran}, not {sorted(want)}")
         ref, ref_lse = fm.flashmask_attention_plain(q, k, v, se, causal)
         want = fm.flashmask_attention_backward_plain(q, k, v, out, lse, do,
                                                      se, causal)
@@ -1328,10 +1342,15 @@ def flashmask_phase(seed, dev, card, reps=5):
     one case per mask (``FM_CASES``).  The launch counters are zeroed
     just before the cases and read just after them: each forward launches
     the forward kernel once, each backward the dK/dV and dQ kernels once,
-    and no other kernel launches.  Then the flash kernels on causal_full's
-    inputs, timed beside it (the same mask, bottom-right and top-left
-    alike at sq = sk), outputs and gradients held against FlashMask's.
-    Returns the phase's record and its launch counts."""
+    and no other kernel launches.  Then, uncounted: a profiler window
+    over one forward + backward, which must run the three tensor-core
+    FlashMask kernels and no CUDA-core one; each FlashMask kernel alone on
+    causal_full's inputs beside the flash kernel for the same function
+    (bottom-right and top-left causal alike at sq = sk), its bound, its
+    plain version and SDPA with ``is_causal``; and the flash kernels'
+    forward + backward timed beside causal_full's, outputs and gradients
+    held against FlashMask's.  Returns the phase's record and its launch
+    counts."""
     from paddle_tpu_torch.nn import functional as TF
     from paddle_tpu_torch.ops import flashmask_attention as fm
     kernels = counters()
@@ -1407,30 +1426,87 @@ def flashmask_phase(seed, dev, card, reps=5):
     q, k, v, dout, out, se = full
     grads_fm = [t.grad.clone() for t in (q, k, v)]
 
-    # dK/dV alone on these inputs, FlashMask's kernel beside the flash one
+    # a bf16 forward + backward runs the three tensor-core FlashMask
+    # kernels and none of the CUDA-core ones
+    def fm_fwd_bwd():
+        for t in (q, k, v):
+            t.grad = None
+        TF.flashmask_attention(q, k, v, se, causal=True).backward(dout)
+
+    fm_fwd_bwd()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+        fm_fwd_bwd()
+        torch.cuda.synchronize()
+    names = ("flashmask_fwd", "flashmask_bwd_dkv", "flashmask_bwd_dq")
+    rec["kernels_seen"] = device_kernels_seen(
+        prof, "flashmask causal_full forward + backward",
+        [f"{n}_wgmma_kernel" for n in names], [f"{n}_kernel" for n in names])
+    log("flashmask: a bf16 forward + backward ran "
+        f"{rec['kernels_seen']} and no CUDA-core FlashMask kernel")
+
+    # each kernel alone on these inputs, FlashMask's beside the flash one
+    # (the same function at sq = sk), with its bound over the kept pairs,
+    # its plain version and SDPA with is_causal (a yardstick only)
     from paddle_tpu_torch.ops import flash_attention as fa
     qt, kt, vt, dot = (t.detach().transpose(1, 2) for t in (q, k, v, dout))
+    ot = out.transpose(1, 2)
     _, lse = fm.flashmask_fwd_cuda(qt, kt, vt, se, True)
-    delta = (out.transpose(1, 2).float() * dot.float()).sum(-1).contiguous()
+    delta = (ot.float() * dot.float()).sum(-1).contiguous()
     skip = fm.flashmask_skip_table(se, FM_S, True)
     bufs = [torch.empty(t.shape, dtype=t.dtype, device=dev)
             for t in (qt, kt, vt)]
-    rec["causal_full"]["dkv_ms"] = cuda_ms(lambda: fm.flashmask_bwd_dkv_cuda(
-        qt, kt, vt, dot, lse, delta, se, bufs[1], bufs[2], True, skip=skip))
-    rec["causal_full"]["flash_dkv_ms"] = cuda_ms(
-        lambda: fa.flash_attention_bwd_dkv_cuda(
-            qt, kt, vt, dot, lse, delta, *bufs, True, FM_D ** -0.5))
+    scale = FM_D ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     full_rec = rec["causal_full"]
-    # 8d operations per kept (q, k) pair of every head
+    full_rec.update(
+        fwd_ms=cuda_ms(lambda: fm.flashmask_fwd_cuda(
+            qt, kt, vt, se, True, skip=skip)),
+        flash_fwd_ms=cuda_ms(lambda: fa.flash_attention_cuda(
+            qt, kt, vt, causal=True)),
+        dkv_ms=cuda_ms(lambda: fm.flashmask_bwd_dkv_cuda(
+            qt, kt, vt, dot, lse, delta, se, bufs[1], bufs[2], True,
+            skip=skip)),
+        flash_dkv_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            qt, kt, vt, dot, lse, delta, *bufs, True, scale)),
+        dq_ms=cuda_ms(lambda: fm.flashmask_bwd_dq_cuda(
+            qt, kt, vt, dot, lse, delta, se, bufs[0], True, skip=skip)),
+        flash_dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+            qt, kt, vt, dot, lse, delta, *bufs, True, scale)),
+        plain_fwd_ms=cuda_ms(lambda: fm.flashmask_attention_plain(
+            qt, kt, vt, se, True), reps=3),
+        plain_bwd_ms=cuda_ms(lambda: fm.flashmask_attention_backward_plain(
+            qt, kt, vt, ot, lse, dot, se, True), reps=3),
+        sdpa_fwd_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True)))
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (qt, kt, vt))
+    lout = sdpa(lq, lk, lv, is_causal=True)
+    full_rec["sdpa_bwd_ms"] = profiled_ms(lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), dot, retain_graph=True))
+    del lq, lk, lv, lout
+    # operations per kept (q, k) pair of every head: 4d forward, 8d dK/dV,
+    # 6d dQ; bytes as check_flashmask counts them
     pairs = int(fm_keep(se, FM_S, True).sum()) * qt.shape[1]
-    full_rec["dkv_bound_ms"], _ = bound_ms(0, 8 * FM_D * pairs,
-                                           BF16_FLOP_S)
-    log(f"flashmask causal_full dK/dV alone: {full_rec['dkv_ms']:.4f} ms, "
-        f"the flash dK/dV kernel on the same inputs "
-        f"{full_rec['flash_dkv_ms']:.4f} ms, bound "
-        f"{full_rec['dkv_bound_ms']:.4f} ms (operations, {pairs} kept "
-        "pairs)")
-    del qt, kt, vt, dot, lse, delta, skip, bufs
+    el, rows, ints = qt.element_size(), qt.shape[1] * FM_S * 4, se.numel() * 4
+    for name, n_ops, n_bytes in (
+            ("fwd", 4, (2 * qt.numel() + kt.numel() + vt.numel()) * el
+             + rows + ints),
+            ("dkv", 8, (2 * qt.numel() + 4 * kt.numel()) * el + 2 * rows
+             + ints),
+            ("dq", 6, (3 * qt.numel() + 2 * kt.numel()) * el + 2 * rows
+             + ints)):
+        full_rec[f"{name}_bound_ms"], full_rec[f"{name}_bound_by"] = \
+            bound_ms(n_bytes, n_ops * FM_D * pairs, BF16_FLOP_S)
+        log(f"flashmask causal_full {name} alone: "
+            f"{full_rec[f'{name}_ms']:.4f} ms, the flash kernel on the same "
+            f"inputs {full_rec[f'flash_{name}_ms']:.4f} ms, bound "
+            f"{full_rec[f'{name}_bound_ms']:.4f} ms "
+            f"({full_rec[f'{name}_bound_by']}, {pairs} kept pairs)")
+    log(f"flashmask causal_full plain forward "
+        f"{full_rec['plain_fwd_ms']:.4f} ms, backward (dq+dk+dv) "
+        f"{full_rec['plain_bwd_ms']:.4f} ms; sdpa is_causal forward "
+        f"{full_rec['sdpa_fwd_ms']:.4f} ms, backward (dq+dk+dv, profiler) "
+        f"{full_rec['sdpa_bwd_ms']} ms")
+    del qt, kt, vt, dot, ot, lse, delta, skip, bufs
 
     def flash_fwd():
         return flash_attention_bshd(q, k, v, causal=True)
@@ -2382,6 +2458,7 @@ def main():
     if sorted({k.split("<")[0] for k in tensor_core}) != [
             "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
             "flash_fwd_wgmma_kernel", "flashmask_bwd_dkv_wgmma_kernel",
+            "flashmask_bwd_dq_wgmma_kernel", "flashmask_fwd_wgmma_kernel",
             "w8a8_wgmma_kernel", "wo_wgmma_kernel"] \
             or min(tensor_core.values()) == 0:
         raise AssertionError(f"the tensor-core kernels hold no wgmma: "
@@ -2398,7 +2475,9 @@ def main():
                          ("flash_attention_bwd_dq", "flash_bwd_dq"),
                          ("weight_only_matmul", "wo_"),
                          ("w8a8_matmul", "w8a8_"),
-                         ("flashmask_bwd_dkv", "flashmask_bwd_dkv")):
+                         ("flashmask_fwd", "flashmask_fwd"),
+                         ("flashmask_bwd_dkv", "flashmask_bwd_dkv"),
+                         ("flashmask_bwd_dq", "flashmask_bwd_dq")):
         records[name]["hgmma"] = {k: c for k, c in hgmma.items()
                                   if k.startswith(prefix)}
     gc.collect()
@@ -2619,7 +2698,9 @@ def main():
     fm_line = {c[0]: {k: fm_rec[c[0]][k] for k in fm_rec[c[0]] if k in (
         "fwd_ms_p50", "fwd_bwd_ms_p50", "tokens_per_s", "peak_memory_gb",
         "tiles_skipped_share", "flash_fwd_ms_p50", "flash_fwd_bwd_ms_p50",
-        "dkv_ms", "flash_dkv_ms", "dkv_bound_ms")}
+        "fwd_ms", "dkv_ms", "dq_ms", "flash_fwd_ms", "flash_dkv_ms",
+        "flash_dq_ms", "fwd_bound_ms", "dkv_bound_ms", "dq_bound_ms",
+        "plain_fwd_ms", "plain_bwd_ms", "sdpa_fwd_ms", "sdpa_bwd_ms")}
         for c in FM_CASES}
     print(json.dumps({"kernels": out, "serve": serve_line,
                       "train": train_line, "moe": moe_line,

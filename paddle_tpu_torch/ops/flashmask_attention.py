@@ -20,12 +20,16 @@ left to underflow, and a row that every column masks gives out 0 and lse
 a row's scores all equal, gives the mean of v there instead).
 
 The forward and the two FA2 backward kernels (dK/dV and dQ) live in
-``csrc/flashmask_attention.cu``; its header says what bounds them.  bf16
-dK/dV runs on the tensor cores (wgmma, the flash dK/dV design of
-``csrc/attention_bwd_wgmma.cuh``); the forward, dQ and f32 dK/dV on the
-CUDA cores.  They
-skip tiles that the mask covers whole, from a table computed here by
-torch ops on the device (``flashmask_skip_table``, the port of
+``csrc/flashmask_attention.cu``; its header says what bounds them.  Every
+bf16 call runs on the tensor cores (wgmma: the flash kernels' designs,
+``flashmask_fwd_wgmma_kernel``, ``flashmask_bwd_dkv_wgmma_kernel`` and
+``flashmask_bwd_dq_wgmma_kernel``), every f32 call on the CUDA cores
+(``flashmask_fwd_kernel``, ``flashmask_bwd_dkv_kernel``,
+``flashmask_bwd_dq_kernel``); the dtype alone picks the kernel.  The bf16
+backward kernels round P and dS to bf16 before their products (dQ: dS
+before dQ += dS K), where the JAX kernels take them in f32.  They skip
+tiles that the mask covers whole, from a table computed here by torch
+ops on the device (``flashmask_skip_table``, the port of
 ``_skip_table``) at the kernels' own 64 x 64 tiles.  Every public
 function takes the plain version for CPU tensors and launches the
 kernels for CUDA tensors.  ``flashmask_attention_bshd`` is
@@ -291,8 +295,9 @@ def _launch(lib, fn, what, args, shape, strides, causal, scale, dtype,
 
 def flashmask_fwd_cuda(q, k, v, startend_row_indices, causal=False,
                        scale=None, out=None, skip=None):
-    """Launch the FlashMask forward kernel on (b, h, s, d) tensors (any
-    strides with a contiguous last dim, 16-byte aligned rows).  Returns
+    """Launch the FlashMask forward kernel (bf16: the tensor-core kernel;
+    f32: the CUDA-core kernel) on (b, h, s, d) tensors (any strides with
+    a contiguous last dim, 16-byte aligned rows).  Returns
     (out, lse f32 (b, h, sq)); ``out`` may be passed in, e.g. as a
     transposed view of a (b, s, h, d) buffer, and so may the skip
     table."""
@@ -367,7 +372,9 @@ flashmask_bwd_dkv_cuda.launches = 0
 
 def flashmask_bwd_dq_cuda(q, k, v, do, lse, delta, startend_row_indices,
                           dq, causal=False, scale=None, skip=None):
-    """Launch the dQ kernel: writes ``dq`` (b, h, sq, d)."""
+    """Launch the dQ kernel (bf16: the tensor-core kernel, dS rounded to
+    bf16 before dQ += dS K; f32: the CUDA-core kernel): writes ``dq`` (b,
+    h, sq, d) once per element, in q's type."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     se, skip, shape, strides = _bwd_operands(

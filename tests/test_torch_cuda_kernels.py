@@ -4,6 +4,8 @@ they skip.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -619,6 +621,75 @@ FLASHMASK_DKV_CASES = [c + (False,) for c in FLASHMASK_CASES] + [
     ("2col", True, 1, 8, 2, 2, 300, 260, 128, False)]
 
 
+def _nan_buffer(dev, b, heads, s, d, bshd):
+    """A NaN-filled bf16 (b, heads, s, d) output buffer; with ``bshd``, a
+    transposed view of a (b, s, heads, d) one."""
+    if bshd:
+        return torch.full((b, s, heads, d), float("nan"), device=dev) \
+            .bfloat16().transpose(1, 2)
+    return torch.full((b, heads, s, d), float("nan"), device=dev).bfloat16()
+
+
+def _fm_seen(se, h, sq, causal):
+    """(b, h, sq) bool: the rows that keep at least one column."""
+    rows = torch.arange(sq, device=se.device)[:, None]
+    cols = torch.arange(se.shape[2], device=se.device)[None, :]
+    keep = fm._keep(se, rows, cols, se.shape[-1], causal)
+    return keep.any(-1).repeat_interleave(h // se.shape[1], 1)
+
+
+@pytest.mark.parametrize("kind,causal,b,h,kvh,hm,sq,sk,d,bshd",
+                         FLASHMASK_DKV_CASES)
+def test_flashmask_fwd_wgmma_matches_plain(dev, kind, causal, b, h, kvh, hm,
+                                           sq, sk, d, bshd):
+    """The bf16 FlashMask forward kernel alone (P rounded to bf16 before it
+    meets V, as the JAX kernel casts it) against the plain forward, one
+    launch into a NaN-filled buffer: out within 2e-2 of max(1, max |ref|)
+    and relative L2 2e-2, lse within 1e-4 on the rows that keep a column;
+    rows that every column masks give out 0 and lse DEFAULT_MASK_VALUE
+    exactly."""
+    q, k, v, _ = _wgmma_inputs(dev, b, sq, sk, h, kvh, d, 19, bshd)
+    se = _fm_intervals(kind, b, hm, sq, sk, 10).to(dev)
+    out = _nan_buffer(dev, b, h, sq, d, bshd)
+    before = fm.flashmask_fwd_cuda.launches
+    _, lse = fm.flashmask_fwd_cuda(q, k, v, se, causal, out=out)
+    assert fm.flashmask_fwd_cuda.launches == before + 1
+    ref, ref_lse = fm.flashmask_attention_plain(q, k, v, se, causal)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _close(out, ref, 2e-2)
+    assert _rel_l2(out, ref) <= 2e-2
+    seen = _fm_seen(se, h, sq, causal)
+    _close(lse[seen], ref_lse[seen], 1e-4)
+    if not seen.all():
+        assert float(out[~seen].float().abs().max()) == 0.0
+        assert bool((lse[~seen] == fa.DEFAULT_MASK_VALUE).all())
+
+
+@pytest.mark.parametrize("kind,causal,b,h,kvh,hm,sq,sk,d,bshd",
+                         FLASHMASK_DKV_CASES)
+def test_flashmask_dq_wgmma_matches_plain(dev, kind, causal, b, h, kvh, hm,
+                                          sq, sk, d, bshd):
+    """The bf16 FlashMask dQ kernel alone (dS rounded to bf16 before
+    dQ += dS K) against the plain backward's dq at relative L2 1e-2, one
+    launch into a NaN-filled buffer: finite, and exactly 0 on the rows
+    that every column masks."""
+    q, k, v, do = _wgmma_inputs(dev, b, sq, sk, h, kvh, d, 20, bshd)
+    se = _fm_intervals(kind, b, hm, sq, sk, 10).to(dev)
+    out, lse = fm.flashmask_attention_forward(q, k, v, se, causal)
+    delta = (out.float() * do.float()).sum(-1).contiguous()
+    dq = _nan_buffer(dev, b, h, sq, d, bshd)
+    before = fm.flashmask_bwd_dq_cuda.launches
+    fm.flashmask_bwd_dq_cuda(q, k, v, do, lse, delta, se, dq, causal)
+    assert fm.flashmask_bwd_dq_cuda.launches == before + 1
+    want = fm.flashmask_attention_backward_plain(q, k, v, out, lse, do, se,
+                                                 causal)[0]
+    assert torch.isfinite(dq).all()
+    assert _rel_l2(dq, want) <= 1e-2
+    seen = _fm_seen(se, h, sq, causal)
+    if not seen.all():
+        assert float(dq[~seen].float().abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("kind,causal,b,h,kvh,hm,sq,sk,d,bshd",
                          FLASHMASK_DKV_CASES)
 def test_flashmask_dkv_wgmma_matches_plain(dev, kind, causal, b, h, kvh, hm,
@@ -630,13 +701,7 @@ def test_flashmask_dkv_wgmma_matches_plain(dev, kind, causal, b, h, kvh, hm,
     se = _fm_intervals(kind, b, hm, sq, sk, 10).to(dev)
     out, lse = fm.flashmask_attention_forward(q, k, v, se, causal)
     delta = (out.float() * do.float()).sum(-1).contiguous()
-
-    def buffer():
-        if bshd:
-            return torch.full((b, sk, kvh, d), float("nan"), device=dev) \
-                .bfloat16().transpose(1, 2)
-        return torch.full(k.shape, float("nan"), device=dev).bfloat16()
-    dk, dv = buffer(), buffer()
+    dk, dv = (_nan_buffer(dev, b, kvh, sk, d, bshd) for _ in range(2))
     before = fm.flashmask_bwd_dkv_cuda.launches
     fm.flashmask_bwd_dkv_cuda(q, k, v, do, lse, delta, se, dk, dv, causal)
     assert fm.flashmask_bwd_dkv_cuda.launches == before + 1
@@ -649,19 +714,30 @@ def test_flashmask_dkv_wgmma_matches_plain(dev, kind, causal, b, h, kvh, hm,
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_flashmask_dkv_kernel_chosen_by_dtype(dev, dt):
-    """A bf16 backward runs the tensor-core dK/dV kernel, an f32 one the
-    CUDA-core kernel; each exactly one of them."""
+    """A bf16 forward + backward runs exactly the three tensor-core
+    FlashMask kernels, an f32 one exactly the three CUDA-core kernels;
+    each launched once."""
     dtype, _ = DTYPES[dt]
     g = torch.Generator(device=dev).manual_seed(17)
     q, k, v, do = (torch.randn(1, 4, 200, 64, generator=g, device=dev)
                    .to(dtype) for _ in range(4))
     se = _fm_intervals("1col", 1, 1, 200, 200, 10).to(dev)
-    out, lse = fm.flashmask_attention_forward(q, k, v, se, True)
-    names = _device_kernels(lambda: fm.flashmask_attention_backward(
-        q, k, v, out, lse, do, se, True))
-    wgmma = [n for n in names if "flashmask_bwd_dkv_wgmma_kernel" in n]
-    plain = [n for n in names if "flashmask_bwd_dkv_kernel" in n]
-    assert (len(wgmma), len(plain)) == ((1, 0) if dt == "bf16" else (0, 1))
+    wrappers = (fm.flashmask_fwd_cuda, fm.flashmask_bwd_dkv_cuda,
+                fm.flashmask_bwd_dq_cuda)
+
+    def fwd_bwd():
+        out, lse = fm.flashmask_attention_forward(q, k, v, se, True)
+        fm.flashmask_attention_backward(q, k, v, out, lse, do, se, True)
+    fwd_bwd()       # the shapes' first call stays out of the window
+    before = [w.launches for w in wrappers]
+    names = _device_kernels(fwd_bwd)
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [1, 1, 1]
+    ran = {m.group(1) for n in names
+           for m in [re.search(r"(flashmask_\w+_kernel)", n)] if m}
+    kinds = ("fwd", "bwd_dkv", "bwd_dq")
+    want = {f"flashmask_{x}_wgmma_kernel" if dt == "bf16"
+            else f"flashmask_{x}_kernel" for x in kinds}
+    assert ran == want
 
 
 def test_flashmask_raises_without_its_kernel(dev, monkeypatch):

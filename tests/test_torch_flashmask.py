@@ -142,6 +142,55 @@ def test_plain_backward_matches_pallas_interpret(name):
         assert float(got[0][:, :, 40:90].abs().max()) == 0.0
 
 
+# (kind, hm, causal): 1-, 2- and 4-column masks at s 200, GQA 4 over 2
+DS_BF16_CASES = [("1col", 1, True), ("2col", 2, False), ("4col", 2, True)]
+
+
+def _dq_bf16_ds(q, k, v, out, lse, do, idx, causal):
+    """dq of the plain backward with dS rounded to bf16 before dQ += dS K,
+    as the bf16 tensor-core dQ kernel takes it (the JAX kernel takes that
+    product in f32).  Layout (b, h, s, d), GQA through kv head h / group."""
+    h, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    kf, vf = TFM._repeat_kv(k, v, h)
+    rows = torch.arange(sq)[:, None]
+    cols = torch.arange(k.shape[2])[None, :]
+    keep = TFM._keep(TFM._heads(idx, h), rows, cols, idx.shape[-1], causal)
+    scale = d ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kf) * scale
+    p = torch.exp(torch.where(keep, s - lse[..., None], -np.inf))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    delta = (out * do).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+
+
+@pytest.mark.parametrize("kind,hm,causal", DS_BF16_CASES)
+def test_bf16_ds_in_dq_stays_near_pallas_dq(kind, hm, causal):
+    """The size of the bf16 dQ kernel's one divergence: rounding dS to
+    bf16 before dQ += dS K moves dq by well under relative L2 1e-2 from
+    the Pallas ``_bwd_dq_kernel`` (interpret mode; K/V repeated to the q
+    heads, as the Pallas kernels take no GQA), and by more than the f32
+    plain backward, which holds 1e-4."""
+    b, h, kvh, s, d = 1, 4, 2, 200, 64
+    q, k, v, do = _qkv(b, h, kvh, s, s, d, seed=3)
+    idx = _intervals(kind, b, hm, s, s, seed=4)
+    out, lse = TFM.flashmask_attention_plain(*_t(q, k, v, idx), causal)
+    want = JFM.flashmask_attention_backward(
+        *(jnp.asarray(a) for a in (q, np.repeat(k, h // kvh, 1),
+                                   np.repeat(v, h // kvh, 1), out.numpy(),
+                                   lse.numpy(), do, idx)),
+        causal, block_q=128, block_kv=128, interpret=True)[0]
+    want = torch.from_numpy(np.array(want))
+    got = _dq_bf16_ds(*_t(q, k, v), out, lse, *_t(do, idx), causal)
+    exact = TFM.flashmask_attention_backward_plain(
+        *_t(q, k, v), out, lse, *_t(do, idx), causal)[0]
+    rel = float((got - want).norm() / want.norm())
+    rel_exact = float((exact - want).norm() / want.norm())
+    assert torch.isfinite(got).all()
+    assert rel <= 1e-2
+    assert rel_exact < 1e-5 < rel
+
+
 # name: (b, h, kvh, hm, sq, sk, d, kind, causal); every row keeps a
 # column, since the JAX dense path differs from the kernels on a fully
 # masked row (the mean of v there, not zeros)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 chip_ab.py BASE_DIR [--phases flash,quant,flashmask,serve,train,moe]
-                       [--seed N]
+    python3 chip_ab.py BASE_DIR
+        [--phases flash,quant,flashmask,paged,serve,train,moe] [--seed N]
 
 BASE_DIR is a checkout inside this one, in a directory that
 ``.gitignore`` lists, e.g. one unpacked with
@@ -17,18 +17,23 @@ wrappers on the same seeded inputs; ``quant`` times the bf16 weight-only
 (w8) and w8a8 int8 matmuls at llama_7b's four prefill widths (1024 rows)
 and at 32 rows the same way; ``flashmask`` times FlashMask's forward,
 dK/dV and dQ kernels at the flashmask phase's doc_causal and causal_full
-cases (b 1 x 8192, 32 heads x 128, bf16); ``serve`` serves chip_smoke.py's 8 requests on
-llama_7b (bf16 weights from ``--seed``) with ``w8`` and ``w8a8`` weights
+cases (b 1 x 8192, 32 heads x 128, bf16); ``paged`` times the paged
+attention kernel(s) of one ``paged_attention_cuda`` call (32 heads x 128,
+bf16, 16-token pages) at decode b8 with contexts up to 1056 (bf16 and
+int8 pages), decode b8 at context 2048, decode b1 at context 4000 and the
+chunked256 mix (a 256-token chunk row beside 7 decode rows), the pools
+read cold; ``serve`` serves chip_smoke.py's 8 requests on llama_7b (bf16
+weights from ``--seed``) with ``w8`` and ``w8a8`` weights
 and int8 KV pages and times one 1024-token quantized prefill of each
 mode (host wall clock, synchronized, and device busy time in a
 profiler window); ``train`` and ``moe`` run
 ``chip_smoke.py``'s end-to-end phases (llama_small training steps; the
 Mixtral-width MoE generate).  Each side's ``chip_smoke.py`` must provide
-``cuda_ms(fn)``, ``profiled_ms(fn)``, ``serve(...)``, ``serve_stats``,
-``fm_intervals``, ``train(seed, dev, card)`` and ``moe_generate(seed,
-dev, card)`` as this one does.  Prints one JSON line per run, then a summary
-line with each side's two runs of every metric.  Needs one CUDA card;
-exits nonzero if any run fails.
+``cuda_ms(fn)``, ``profiled_ms(fn)``, ``cold_inputs(t)``, ``serve(...)``,
+``serve_stats``, ``fm_intervals``, ``train(seed, dev, card)`` and
+``moe_generate(seed, dev, card)`` as this one does.  Prints one JSON
+line per run, then a summary line with each side's two runs of every
+metric.  Needs one CUDA card; exits nonzero if any run fails.
 """
 import argparse
 import json
@@ -56,6 +61,15 @@ QUANT_CASES = ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
 # the forward, dK/dV and dQ kernels
 FLASHMASK_CASES = ("doc_causal", "causal_full")
 FLASHMASK_KERNELS = ("fwd", "dkv", "dq")
+# the paged cases: (name, spans, contexts, int8 pages), 32/32 heads d128
+PAGED_DECODE_CTX = [148, 1052, 703, 96, 881, 420, 1006, 263]
+PAGED_CASES = (
+    ("decode b8 ctx<=1056", [1] * 8, PAGED_DECODE_CTX, False),
+    ("int8 decode b8 ctx<=1056", [1] * 8, PAGED_DECODE_CTX, True),
+    ("decode b8 ctx2048", [1] * 8, [2048] * 8, False),
+    ("decode b1 ctx4000", [1], [3999], False),
+    ("chunked256 mix ctx<=1024", [256] + [1] * 7,
+     [717, 1011, 84, 530, 966, 311, 12, 640], False))
 METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
            "quant": tuple(f"{mode} M{m} K{k} N{n}"
                           for mode in ("w8", "w8a8", "torch._int_mm")
@@ -63,6 +77,7 @@ METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
            "flashmask": tuple(f"{kern} {c} b1 s8192 32/32 d128"
                               for c in FLASHMASK_CASES
                               for kern in FLASHMASK_KERNELS),
+           "paged": tuple(c[0] for c in PAGED_CASES),
            "serve": tuple(f"{mode} {m}" for mode in ("w8", "w8a8") for m in (
                "ttft_p50_s", "tpot_p50_s", "prefill1024_wall_ms",
                "prefill1024_device_ms")),
@@ -155,6 +170,51 @@ def flashmask(cs, seed, dev):
     return out
 
 
+def paged(cs, seed, dev):
+    """{case: device ms per call} of ``paged_attention_cuda`` (every
+    kernel one call launches) on seeded pages and page tables, timed with
+    the side's own ``cuda_ms``, the pools read cold (from device memory,
+    not the L2)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, spans, ctxs, int8 in PAGED_CASES:
+        lens = np.asarray(ctxs) + np.asarray(spans)
+        need = [-(-int(n) // 16) for n in lens]
+        width = 1 << (max(need) - 1).bit_length()
+        perm = rng.permutation(sum(need))
+        tables = np.zeros((len(spans), width), np.int32)
+        at = 0
+        for i, n in enumerate(need):
+            tables[i, :n] = perm[at:at + n]
+            at += n
+        kp, vp = (torch.randn(32, sum(need), 16, 128, generator=gen,
+                              device=dev) for _ in range(2))
+        sc = {}
+        if int8:
+            kp, ks = pa.quantize_kv(kp)
+            vp, vs = pa.quantize_kv(vp)
+            sc = dict(k_scales=ks, v_scales=vs)
+        else:
+            kp, vp = kp.bfloat16(), vp.bfloat16()
+        q = torch.randn(len(spans), max(spans), 32, 128, generator=gen,
+                        device=dev).bfloat16()
+        meta = [torch.as_tensor(x, dtype=torch.int32, device=dev)
+                for x in (lens, spans, tables)]
+        # each call reads its pages from device memory, not the L2
+        pools = [cs.cold_inputs(t) for t in (kp, vp, *sc.values())]
+
+        def call():
+            k_, v_, *s_ = (next(p) for p in pools)
+            return pa.paged_attention_cuda(q, k_, v_, *meta,
+                                           **dict(zip(sc, s_)))
+        out[name] = cs.cuda_ms(call)
+    return out
+
+
 def serve(cs, seed, dev):
     """llama_7b with int8 weights (w8, w8a8): one 1024-token quantized
     prefill alone, its synchronized wall milliseconds (median of 3 after
@@ -214,7 +274,7 @@ def serve(cs, seed, dev):
 
 
 KERNEL_PHASES = {"flash": flash, "quant": quant, "flashmask": flashmask,
-                 "serve": serve}
+                 "paged": paged, "serve": serve}
 
 
 def child(phases, seed):
@@ -248,7 +308,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base")
     ap.add_argument("--phases",
-                    default="flash,quant,flashmask,serve,train,moe")
+                    default="flash,quant,flashmask,paged,serve,train,moe")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -27,7 +27,10 @@ failure:
             call computes the same function, that call (a yardstick the
             port never uses), each as device time per call from CUDA
             graph replays; compute each kernel's bound from the bytes
-            and operations of its inputs.
+            and operations of its inputs.  Each paged case's context
+            splits are read from its launch grid and held against the
+            plan; the paged planner's constants are timed beside other
+            values (logged only).
    The top-k MoE gating kernel is held against its plain version
             (``torch.softmax`` and the routing oracle) on the same logits:
             routing identical, weights, balance loss and the backward's
@@ -147,6 +150,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 T_START = time.perf_counter()   # before torch's import, which takes seconds
@@ -219,6 +223,16 @@ MAIN_PATH.update(flash_attention_bwd_dkv="train",
                  dynamic_act_quant="w8a8_int8kv", topk_gating="moe",
                  flashmask_fwd="flashmask", flashmask_bwd_dkv="flashmask",
                  flashmask_bwd_dq="flashmask")
+# the paged kernel's timed long-context and chunk cases, llama_7b's 32
+# heads x 128 in bf16: (label, spans, contexts, record key); chip_ab.py's
+# paged phase times the same cases; the planner sweep's decode batch
+PAGED_DECODE_CTX = [148, 1052, 703, 96, 881, 420, 1006, 263]
+PAGED_TIMED = (
+    ("decode b8 32/32 d128 bf16 ctx2048", [1] * 8, [2048] * 8, "ctx2048"),
+    ("decode b1 32/32 d128 bf16 ctx4000", [1], [3999], "b1_ctx4000"),
+    ("chunked256 mix: a 256-token chunk + 7 decode rows, ctx<=1024",
+     [256] + [1] * 7, [717, 1011, 84, 530, 966, 311, 12, 640],
+     "chunked256_mix"))
 # the serve passes: (label, prefill chunk, quantize, kv_quant)
 SERVE_PASSES = (("unchunked", None, None, None),
                 ("chunked256", 256, None, None),
@@ -321,20 +335,24 @@ def check(name, case, out, ref, tol):
 
 def sass_counts(lib_path, opcodes=("HGMMA", "IGMMA")):
     """{kernel: number of ``opcodes`` instructions} of each flash,
-    FlashMask and int8 matmul kernel in a built library, from ``cuobjdump
-    -sass`` (beside nvcc).  HGMMA (bf16) and IGMMA (s8) are wgmma in SASS,
-    so a tensor-core kernel with none was not built as one."""
+    FlashMask, int8 matmul and paged-attention kernel in a built library,
+    from ``cuobjdump -sass`` (beside nvcc).  HGMMA (bf16) and IGMMA (s8)
+    are wgmma in SASS, HMMA mma.sync, so a tensor-core kernel with none
+    was not built as one."""
     from paddle_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        fn = re.search(r"Function : \S*?((?:flashmask|flash|wo|w8a8)_"
-                       r"[a-z_]+?_kernel)(?:I(\w+?)EEv)?", line)
+        fn = re.search(r"Function : \S*?((?:flashmask|flash|wo|w8a8|"
+                       r"paged_attention)_[a-z_]+?_kernel)(?:I(\w+?)EEv)?",
+                       line)
         if fn:
             targs = fn.group(2) or ""
             args = re.findall(r"Li(\d+)E", targs)
+            if re.match(r"(13__nv_bfloat16|f)?a", targs):
+                args.insert(0, "i8")     # int8 pages (type code a)
             if "bfloat16" in targs:
                 args.insert(0, "bf16")
             elif targs.startswith("f"):
@@ -361,19 +379,40 @@ def device_kernels_seen(prof, where, want, refuse):
     return want
 
 
-def kernels_of(fn):
+def kernels_of(fn, grids=False):
     """Short names (``name<template args>``) of the device kernels that one
-    call of ``fn`` runs, from a ``torch.profiler`` window."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
-        fn()
+    call of ``fn`` runs, from a ``torch.profiler`` window.  A window that
+    records no device activity at all says nothing of the call (CUPTI
+    now and then hands back an empty one; every call here launches a
+    kernel), so it is opened once more, and that is logged.  With
+    ``grids``, also {short name without template args: launch grid}, as
+    the window's exported trace records each kernel launch."""
+    for _ in range(2):
         torch.cuda.synchronize()
-    names = set()
-    for e in prof.key_averages():
-        if _device_us(e) > 0:
-            m = re.search(r"(\w+_kernel)(<[^(]*>)?", e.key)
-            names.add(m.group(0).replace(" ", "") if m else e.key)
-    return sorted(names)
+        with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = set()
+        for e in prof.key_averages():
+            if _device_us(e) > 0:
+                m = re.search(r"(\w+_kernel)(<[^(]*>)?", e.key)
+                names.add(m.group(0).replace(" ", "") if m else e.key)
+        if names:
+            break
+        log("  kernels_of: an empty profiler window, opened again")
+    if not grids:
+        return sorted(names)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    launch = {}
+    for e in events:
+        m = re.search(r"(\w+_kernel)", e.get("name", ""))
+        if e.get("cat") == "kernel" and m and "grid" in e.get("args", {}):
+            launch[m.group(1)] = list(e["args"]["grid"])
+    return sorted(names), launch
 
 
 def w8a8_kernel(m, k):
@@ -403,84 +442,199 @@ def rope_bytes(q, k, positions, table_rows):
 
 
 # ------------------------------------------------------------- kernels
+def paged_kernels(pa, q, kv_heads, width, dtype, sms):
+    """The plan of a paged call of these shapes: the device kernels it
+    must run (the tensor-core kernel for bf16 blocks of 16 or more rows,
+    else the CUDA-core one, and the combine where the context is split)
+    and its number of context splits."""
+    b, max_q, q_heads, d = q.shape
+    per_block = pa.block_rows(dtype, max_q * (q_heads // kv_heads))
+    _split, n_split = pa.plan_splits(b, max_q, q_heads, kv_heads, d, width,
+                                     16, per_block, sms)
+    want = {"paged_attention_mma_kernel" if per_block == 64
+            else "paged_attention_decode_kernel"}
+    if n_split > 1:
+        want.add("paged_attention_combine_kernel")
+    return want, n_split
+
+
+def paged_inputs(pa, gen, rng, dev, dtype, q_heads, kv_heads, d, spans,
+                 ctxs, int8=False, page=16):
+    """One ragged paged call's inputs: row i holds ``spans[i]`` queries
+    after ``ctxs[i]`` cached tokens, its pages drawn at random from one
+    pool, its table padded to a power of two as the ragged step pads it.
+    Returns ((q, k_pages, v_pages, lengths, q_lens, tables), the int8
+    scales as keywords, the lengths on the host)."""
+    lens = np.asarray(ctxs, np.int64) + np.asarray(spans)
+    need = [-(-int(n) // page) for n in lens]
+    total = sum(need) + 1
+    width = 1 << (max(need) - 1).bit_length()
+    perm = rng.permutation(total)
+    tables = np.zeros((len(spans), width), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    kp, vp = (torch.randn(kv_heads, total, page, d, generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    sc = {}
+    if int8:       # int8 pages with their per-slot scales
+        kp, ks = pa.quantize_kv(kp)
+        vp, vs = pa.quantize_kv(vp)
+        sc = dict(k_scales=ks, v_scales=vs)
+    q = torch.randn(len(spans), max(spans), q_heads, d, generator=gen,
+                    device=dev).to(dtype)
+    meta = [torch.as_tensor(x, dtype=torch.int32, device=dev)
+            for x in (lens, spans, tables)]
+    return (q, kp, vp, *meta), sc, lens
+
+
+def paged_cold_call(pa, args, sc):
+    """A paged call that reads its pools from cycles of copies larger
+    than the L2 (``cold_inputs``), for timing."""
+    q, kp, vp, *meta = args
+    pools = [cold_inputs(t) for t in (kp, vp, *sc.values())]
+
+    def call():
+        k_, v_, *s_ = (next(p) for p in pools)
+        return pa.paged_attention_cuda(q, k_, v_, *meta,
+                                       **dict(zip(sc, s_)))
+    return call
+
+
+def paged_plan_sweep(pa, gen, rng, dev):
+    """The paged planner's constants (``SPLIT_TOKENS``, ``BLOCKS_PER_SM``,
+    ``CHUNK_QUERIES``) and the one-row decode block, each timed beside
+    other values on the cases that decide it: 32 heads x 128 in bf16 (the
+    verify case over 8 kv heads; int8 pages where named), 16-token pages,
+    pools read cold.  Each value is timed twice, in turns (a, b, c, c, b,
+    a); the readings are logged with the number of splits each value
+    plans, and no record keeps them."""
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk_ctx = PAGED_TIMED[2][2]
+    cases = {"decode b8 ctx<=1056": ([1] * 8, PAGED_DECODE_CTX, 32),
+             "int8 decode b8 ctx<=1056": ([1] * 8, PAGED_DECODE_CTX, 32),
+             "decode b8 ctx512": ([1] * 8, [512] * 8, 32),
+             "decode b8 ctx2048": ([1] * 8, [2048] * 8, 32),
+             "decode b1 ctx4000": ([1], [3999], 32),
+             "chunked256 mix": ([256] + [1] * 7, chunk_ctx, 32),
+             "chunked64 mix": ([64] + [1] * 7, chunk_ctx, 32),
+             "verify b8 x5 gqa 32/8": ([5] * 8, [1500, 700, 2000, 100, 1800,
+                                                 900, 1200, 300], 8)}
+    one_row = pa.block_rows
+
+    def four_rows(dtype, rows):
+        return 4 if rows == 1 else one_row(dtype, rows)
+    decode = ("decode b8 ctx<=1056", "int8 decode b8 ctx<=1056",
+              "decode b8 ctx2048", "decode b1 ctx4000")
+    sweeps = (
+        ("SPLIT_TOKENS", (256, 128, 512),
+         decode + ("decode b8 ctx512", "verify b8 x5 gqa 32/8")),
+        ("BLOCKS_PER_SM", (16, 8, 32),
+         ("decode b8 ctx<=1056", "decode b8 ctx2048")),
+        ("CHUNK_QUERIES", (64, 5, 1 << 30),
+         ("chunked256 mix", "chunked64 mix", "verify b8 x5 gqa 32/8")),
+        ("block_rows", (one_row, four_rows), decode))
+    calls = {}
+    for attr, values, keys in sweeps:
+        for key in keys:
+            spans, ctxs, kvh = cases[key]
+            if key not in calls:
+                args, sc, _ = paged_inputs(pa, gen, rng, dev, bf16, 32, kvh,
+                                           128, spans, ctxs,
+                                           int8=key.startswith("int8"))
+                calls[key] = (args, paged_cold_call(pa, args, sc))
+            args, call = calls[key]
+            order = list(range(len(values)))
+            times, plans = [[] for _ in values], [None] * len(values)
+            for i in order + order[::-1]:
+                setattr(pa, attr, values[i])
+                try:
+                    times[i].append(cuda_ms(call))
+                    plans[i] = paged_kernels(pa, args[0], kvh,
+                                             args[5].shape[1], bf16, sms)[1]
+                finally:
+                    setattr(pa, attr, values[0])
+            shown = ["1-row" if v is one_row else "4-row"
+                     if v is four_rows else str(v) for v in values]
+            log(f"  paged sweep {attr} {key}: " + "; ".join(
+                f"{s} ({n} split(s)) {t[0]:.4f}, {t[1]:.4f} ms"
+                for s, n, t in zip(shown, plans, times)))
+
+
 def check_paged(records, dev):
     from paddle_tpu_torch.ops import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(1)
     rng = np.random.default_rng(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec_all = records["paged_attention"] = {}
 
-    def case(label, dtype, q_heads, kv_heads, d, spans, ctxs, timed=False,
+    def case(label, dtype, q_heads, kv_heads, d, spans, ctxs, timed=None,
              int8=False):
-        b = len(spans)
-        max_q = max(spans)
-        lens = np.asarray(ctxs, np.int64) + np.asarray(spans)
-        page = 16
-        need = [-(-int(n) // page) for n in lens]
-        total = sum(need) + 1
-        width = 1
-        while width < max(need):
-            width *= 2
-        perm = rng.permutation(total)
-        tables = np.zeros((b, width), np.int32)
-        at = 0
-        for i, n in enumerate(need):
-            tables[i, :n] = perm[at:at + n]
-            at += n
-        kp = torch.randn(kv_heads, total, page, d, generator=gen,
-                         device=dev).to(dtype)
-        vp = torch.randn(kv_heads, total, page, d, generator=gen,
-                         device=dev).to(dtype)
-        sc = {}
-        if int8:       # int8 pages with their per-slot scales
-            kp, ks = pa.quantize_kv(kp)
-            vp, vs = pa.quantize_kv(vp)
-            sc = dict(k_scales=ks, v_scales=vs)
-        q = torch.randn(b, max_q, q_heads, d, generator=gen,
-                        device=dev).to(dtype)
-        lens_t = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        ql_t = torch.as_tensor(spans, dtype=torch.int32, device=dev)
-        tab_t = torch.as_tensor(tables, device=dev)
-        out = pa.paged_attention_cuda(q, kp, vp, lens_t, ql_t, tab_t, **sc)
-        ref = pa._ragged_plain(q, kp, vp, lens_t, ql_t, tab_t,
-                               1.0 / d ** 0.5, **sc)
+        args, sc, lens = paged_inputs(pa, gen, rng, dev, dtype, q_heads,
+                                      kv_heads, d, spans, ctxs, int8)
+        q, ql_t = args[0], args[4]
+
+        def call():
+            return pa.paged_attention_cuda(*args, **sc)
+        out = call()
+        ref = pa._ragged_plain(*args, 1.0 / d ** 0.5, **sc)
         torch.cuda.synchronize()
         # positions past a row's span are bucket padding: the plain
         # version computes discarded values there, the kernel zeros
-        real = (torch.arange(max_q, device=dev)[None, :]
+        real = (torch.arange(q.shape[1], device=dev)[None, :]
                 < ql_t[:, None])[:, :, None, None]
         if float((out.float() * ~real).abs().max()) != 0.0:
             raise AssertionError(f"paged_attention {label}: bucket pad "
                                  "positions are not zero")
         err = check("paged_attention", label, out * real, ref * real,
                     2e-2 if dtype == torch.bfloat16 else 1e-4)
+        # the device kernels the call ran and the paged kernel's launch
+        # grid, (row tiles, context splits, rows x kv heads), from an
+        # uncounted profiler window, against the plan
+        want, plan = paged_kernels(pa, q, kv_heads, args[5].shape[1], dtype,
+                                   sms)
+        ran, grids = kernels_of(call, grids=True)
+        main = [g for n, g in grids.items()
+                if n != "paged_attention_combine_kernel"]
+        n_split = main[0][1] if len(main) == 1 else None
+        log(f"  paged_attention {label}: device kernels {ran}, launch grids "
+            f"{grids}: {n_split} context split(s) (plan {plan})")
+        short = {n.split("<")[0] for n in ran}
+        if short != want or n_split != plan:
+            raise AssertionError(f"paged_attention {label}: ran {ran} with "
+                                 f"grids {grids}, expected {sorted(want)} "
+                                 f"and {plan} split(s)")
         if not timed:
             return
-        ms = cuda_ms(lambda: pa.paged_attention_cuda(
-            q, kp, vp, lens_t, ql_t, tab_t, **sc))
+        ms = cuda_ms(paged_cold_call(pa, args, sc))
         plain_ms = cuda_ms(lambda: pa._ragged_plain(
-            q, kp, vp, lens_t, ql_t, tab_t, 1.0 / d ** 0.5, **sc), reps=3)
+            *args, 1.0 / d ** 0.5, **sc), reps=3)
         el = q.element_size()
         # K/V of every row's context, read once per kv head (int8: one
         # byte each plus an f32 scale per slot and head); q and out
-        per_slot = d * kp.element_size() + (4 if int8 else 0)
+        per_slot = d * args[1].element_size() + (4 if int8 else 0)
         n_bytes = (int(lens.sum()) * kv_heads * per_slot * 2
                    + 2 * int(sum(spans)) * q_heads * d * el)
         visible = sum(int(min(n, n - s + 1 + j))
                       for n, s in zip(lens, spans) for j in range(s))
         n_ops = 4 * visible * q_heads * d
         bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
-        log(f"  paged_attention {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bms:.4f} ms ({by})")
+        log(f"  paged_attention {label}: {ms:.4f} ms (pools read cold), "
+            f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=None, case=label)
-        if int8:
-            records["paged_attention"]["int8"] = rec
+                   bound_by=by, library_ms=None, case=label,
+                   n_split=n_split, device_kernels=ran)
+        if timed == "main":
+            rec_all.update(rec)
         else:
-            records["paged_attention"] = rec
+            rec_all[timed] = rec
 
     bf16, f32 = torch.bfloat16, torch.float32
     decode_ctx = list(rng.integers(64, 1056, 8))
     case("decode b8 32/32 d128 bf16 ctx<=1056", bf16, 32, 32, 128,
-         [1] * 8, decode_ctx, timed=True)
+         [1] * 8, decode_ctx, timed="main")
     mix_spans = [1, 7, 64, 1, 7, 64, 1, 1]
     mix_ctx = list(rng.integers(0, 1984, 8))
     case("ragged spans 1/7/64 32/32 d128 bf16 ctx<=2048", bf16, 32, 32,
@@ -493,7 +647,7 @@ def check_paged(records, dev):
     # the int8 KV mode, at the same tolerances (both sides attend the
     # same dequantized values)
     case("int8 decode b8 32/32 d128 bf16 ctx<=1056", bf16, 32, 32, 128,
-         [1] * 8, decode_ctx, timed=True, int8=True)
+         [1] * 8, decode_ctx, timed="int8", int8=True)
     case("int8 ragged spans 1/7/64 32/32 d128 bf16", bf16, 32, 32, 128,
          mix_spans, mix_ctx, int8=True)
     case("int8 ragged gqa 32/8 d128 bf16", bf16, 32, 8, 128, mix_spans,
@@ -502,6 +656,11 @@ def check_paged(records, dev):
          int8=True)
     case("int8 verify full spans gqa 8/2 d64 bf16", bf16, 8, 2, 64, [5] * 4,
          [100, 700, 1500, 3], int8=True)
+    # long contexts (many splits) and the chunked256 pass's mix: one
+    # 256-token chunk row beside 7 decode rows (the tensor-core kernel)
+    for label, spans, ctxs, key in PAGED_TIMED:
+        case(label, bf16, 32, 32, 128, spans, ctxs, timed=key)
+    paged_plan_sweep(pa, gen, rng, dev)
 
 
 # llama_7b's quantized Linears: (M, K, N) at decode (the ragged step's 8
@@ -2463,6 +2622,14 @@ def main():
             or min(tensor_core.values()) == 0:
         raise AssertionError(f"the tensor-core kernels hold no wgmma: "
                              f"{hgmma}")
+    # mma.sync in the paged kernels: the tensor-core kernel has it, the
+    # CUDA-core (decode) and combine kernels not
+    hmma = sass_counts(libs["paged_attention"], opcodes=("HMMA",))
+    log("  HMMA per paged kernel: " + json.dumps(hmma))
+    if not any("mma_kernel" in k for k in hmma) or any(
+            ("mma_kernel" in k) != (c > 0) for k, c in hmma.items()):
+        raise AssertionError(f"paged_attention_mma_kernel must hold HMMA "
+                             f"and the CUDA-core kernels none: {hmma}")
     lap("build")
 
     # 2. kernels against their plain versions
@@ -2480,6 +2647,7 @@ def main():
                          ("flashmask_bwd_dq", "flashmask_bwd_dq")):
         records[name]["hgmma"] = {k: c for k, c in hgmma.items()
                                   if k.startswith(prefix)}
+    records["paged_attention"]["hmma"] = hmma
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -2,10 +2,12 @@
 
 Port of paddle_tpu/ops/pallas/paged_attention.py without the
 tensor-parallel mesh.  ``paged_attention``, ``paged_attention_multi`` and
-``paged_attention_ragged`` share one CUDA kernel
-(``csrc/paged_attention.cu``; its header says what it replaces, what
-bounds it and how it is laid out) and take their plain twins of the JAX
-package's XLA oracles for CPU tensors.  Each takes ``k_scales`` and
+``paged_attention_ragged`` share the CUDA kernels of
+``csrc/paged_attention.cu`` (its header says what they replace, what
+bounds them and how they are laid out), split over the context by
+:func:`plan_splits`, and take their plain twins of the JAX package's XLA
+oracles for CPU tensors.  ``_split_plain`` is the twin of the kernels'
+split-and-merge arithmetic, for the tests.  Each takes ``k_scales`` and
 ``v_scales`` for the int8 KV mode: pages of int8 values with one f32
 scale per slot and head, dequantized by :func:`dequantize_kv`.
 
@@ -131,8 +133,107 @@ def _ragged_plain(q, k_pages, v_pages, lengths, q_lens, page_tables,
                            scale)
 
 
+def _split_plain(q, k_pages, v_pages, lengths, q_lens, page_tables, scale,
+                 split_tokens, k_scales=None, v_scales=None):
+    """Twin of the kernel's split-KV algebra, for the tests: the columns
+    ``[0, W * page_size)`` cut into splits of ``split_tokens``; each split
+    keeps (m, l, acc) over its visible columns (m = -inf and l = 0 where
+    it sees none, p rounded to the compute type before p @ v), and the
+    partials merge split by split in order, each weighted by
+    exp(m - max m).  Pad queries (j >= q_len) and rows with len == 0 come
+    back as zeros, as from the kernel; q (b, max_q, q_heads, d)."""
+    n_query = q.shape[1]
+    k, v = _gathered_kv(q.shape[2], k_pages, v_pages, page_tables, q.dtype,
+                        k_scales, v_scales)
+    s = torch.einsum("bhsd,bhtd->bhst", q.transpose(1, 2).float(),
+                     k.float()) * scale
+    qpos = torch.arange(n_query, device=q.device)[None, None, :, None]
+    kv = lengths.long()[:, None, None, None]
+    ql = q_lens.long()[:, None, None, None]
+    limit = torch.minimum(kv, kv - ql + 1 + qpos)
+    cols = torch.arange(k.shape[2], device=q.device)
+    parts = []
+    for lo in range(0, k.shape[2], split_tokens):
+        hi = min(lo + split_tokens, k.shape[2])
+        si = torch.where(cols[lo:hi] < limit, s[..., lo:hi], -math.inf)
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.exp(si - torch.where(m == -math.inf, 0.0, m))
+        acc = torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype).float(),
+                           v[:, :, lo:hi].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    top = torch.where(top == -math.inf, 0.0, top)
+    l_sum = torch.zeros_like(parts[0][1])
+    a_sum = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+        l_sum = l_sum + f * l
+        a_sum = a_sum + f * acc
+    out = torch.where(l_sum == 0, 0.0, a_sum / torch.where(l_sum == 0, 1.0,
+                                                            l_sum))
+    real = (qpos < ql) & (kv > 0)
+    return torch.where(real, out, 0.0).transpose(1, 2).to(q.dtype)
+
+
 # ------------------------------------------------------------- the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: columns a context split covers, before the planner stretches it
+SPLIT_TOKENS = 256
+#: the most pages a split covers: a block keeps its split's table
+#: entries in shared memory
+MAX_SPLIT_PAGES = 2048
+#: blocks an SM past which the planner stops splitting
+BLOCKS_PER_SM = 16
+#: a bucket of this many queries or more (a prefill chunk) takes one
+#: split
+CHUNK_QUERIES = 64
+_SM_COUNT: Dict[int, int] = {}
+
+
+def block_rows(dtype, rows):
+    """Query rows of one kernel block, from the rows of a (row, kv head)
+    pair (``max_q * group``): bf16 takes the tensor-core kernel (64 rows)
+    from 16 rows, below that the CUDA-core kernel of 1 or 4 rows (eight
+    lanes a token) or 16; f32 always the 16-row CUDA-core kernel."""
+    if dtype != torch.bfloat16:
+        return 16
+    if rows >= 16:
+        return 64
+    return 1 if rows == 1 else 4 if rows <= 4 else 16
+
+
+def plan_splits(batch, max_q, q_heads, kv_heads, head_dim, table_width,
+                page_size, rows_per_block, sm_count):
+    """(split_tokens, n_split) of a call, from its shapes alone (never
+    the lengths, so the wrapper reads nothing back from the device).
+
+    Splits of ``SPLIT_TOKENS`` columns (a multiple of ``page_size``) cover
+    the table's ``table_width * page_size`` columns, so a decode batch of a
+    few rows still gives every SM blocks.  Where the query rows alone
+    already give the grid ``BLOCKS_PER_SM`` blocks an SM the splits grow
+    (fewer, longer), and a bucket of ``CHUNK_QUERIES`` queries or more
+    takes one split: no partials, no combine.  So the f32 partials (one
+    row of head_dim per split, row and head) never pass those of about
+    ``2 * BLOCKS_PER_SM * sm_count`` blocks."""
+    split = -(-SPLIT_TOKENS // page_size)           # in pages
+    n = -(-table_width // split)
+    rows = max_q * (q_heads // kv_heads)
+    blocks = batch * kv_heads * -(-rows // rows_per_block)
+    n_use = 1 if max_q >= CHUNK_QUERIES else min(
+        n, -(-BLOCKS_PER_SM * sm_count // blocks))
+    n_use = max(n_use, -(-table_width // MAX_SPLIT_PAGES))
+    if n_use < n:
+        split = -(-table_width // n_use)
+        n = -(-table_width // split)
+    return split * page_size, n
+
+
+def _sm_count(dev):
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _lib():
@@ -141,8 +242,8 @@ def _lib():
         vp = ctypes.c_void_p
         i32 = ctypes.c_int
         lib.paged_attention_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-            i32, i32, ctypes.c_float, i32, i32, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+            i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, i32, vp]
         lib.paged_attention_fwd.restype = i32
         lib.paged_attention_error_string.argtypes = [i32]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -162,7 +263,8 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
     j); positions j >= q_len are bucket padding and come back as zeros.
     Every real row needs ``lengths[b] <= W * page_size`` and table
     entries below ``total_pages``: the kernel reads what the table
-    names."""
+    names.  The context splits come from :func:`plan_splits`; nothing is
+    read back to the host."""
     dev = q.device
     quant = k_scales is not None
     scales = (k_scales, v_scales) if quant else ()
@@ -187,7 +289,8 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
     b, max_q, q_heads, d = q.shape
     kv_heads, total_pages, page_size, _d = k_pages.shape
     if d not in (64, 128) or _d != d or v_pages.shape != k_pages.shape \
-            or q_heads % kv_heads or page_tables.shape[0] != b:
+            or q_heads % kv_heads or page_tables.shape[0] != b \
+            or b * kv_heads > 65535:
         raise ValueError(f"paged_attention_cuda: unsupported shapes q "
                          f"{tuple(q.shape)} pages {tuple(k_pages.shape)} "
                          "(head_dim 64 or 128)")
@@ -201,13 +304,25 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, q_lens, page_tables,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    width = tabs.shape[1]
+    rows = max_q * (q_heads // kv_heads)
+    per_block = block_rows(q.dtype, rows)
+    split_tokens, n_split = plan_splits(b, max_q, q_heads, kv_heads, d,
+                                        width, page_size, per_block,
+                                        _sm_count(dev))
+    part_acc = part_ml = out        # unused with one split
+    if n_split > 1:
+        n = n_split * b * kv_heads * rows
+        part_acc = torch.empty(n * d, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(2 * n, dtype=torch.float32, device=dev)
     lib = _lib()
     status = lib.paged_attention_fwd(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), lens.data_ptr(), qls.data_ptr(), tabs.data_ptr(),
-        out.data_ptr(), b, max_q, q_heads, kv_heads, d, page_size,
-        total_pages, tabs.shape[1], float(scale), _DTYPES[q.dtype],
-        int(quant), _build.stream_ptr(dev))
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, max_q,
+        q_heads, kv_heads, d, page_size, total_pages, width, split_tokens,
+        n_split, float(scale), _DTYPES[q.dtype], int(quant), per_block,
+        _build.stream_ptr(dev))
     if status:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(status)

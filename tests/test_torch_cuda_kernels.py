@@ -35,6 +35,15 @@ def _close(got, want, tol):
     assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
+def _close_l2(got, want, tol):
+    """``_close``, and the relative L2 difference ||got - want|| / ||want||
+    within ``tol``: attention outputs lie far below 1, where a dropped or
+    doubled context split would stay under the absolute limit."""
+    _close(got, want, tol)
+    diff = (got.float() - want.float()).norm()
+    assert float(diff / want.float().norm().clamp_min(1e-30)) <= tol
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("causal,sq,sk,h,kvh,d", [
     (True, 200, 200, 4, 4, 128), (True, 70, 300, 4, 2, 64),
@@ -68,11 +77,11 @@ def test_paged_ragged_matches_plain(dev, dt, qh, kvh, d):
     ref = pa._ragged_plain(q, kp, vp, lens, ql, tables, d ** -0.5)
     real = (torch.arange(16, device=dev)[None] < ql[:, None])[..., None,
                                                                None]
-    _close(out * real, ref * real, tol)
+    _close_l2(out * real, ref * real, tol)
     assert float((out.float() * ~real).abs().max()) == 0.0
     dec = pa.paged_attention(q[:, 0], kp, vp, lens, tables)
-    _close(dec, pa._decode_plain(q[:, 0], kp, vp, lens, tables, d ** -0.5),
-           tol)
+    _close_l2(dec, pa._decode_plain(q[:, 0], kp, vp, lens, tables,
+                                    d ** -0.5), tol)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -760,3 +769,171 @@ def test_flashmask_raises_without_its_kernel(dev, monkeypatch):
         TF.flashmask_attention(q, k, v, se, causal=True)
     with pytest.raises(_build.KernelBuildError):
         out.backward(torch.ones_like(out))
+
+
+# ---------------------------------------------- paged attention, split-KV
+def _paged_inputs(dev, dtype, qh, kvh, d, spans, ctxs, int8, seed,
+                  width=None, page=16):
+    """One ragged call: row i holds ``spans[i]`` queries after
+    ``ctxs[i]`` cached tokens, its pages drawn at random from one pool;
+    ``width`` pads the tables past the longest row."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = np.asarray(ctxs) + np.asarray(spans)
+    need = [-(-int(n) // page) for n in lens]
+    total = sum(need) + 1
+    width = width or max(need)
+    perm = rng.permutation(total)
+    tables = np.zeros((len(spans), width), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    kp = torch.randn(kvh, total, page, d, generator=g, device=dev)
+    vp = torch.randn(kvh, total, page, d, generator=g, device=dev)
+    sc = {}
+    if int8:
+        kp, ks = pa.quantize_kv(kp)
+        vp, vs = pa.quantize_kv(vp)
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q = torch.randn(len(spans), max(spans), qh, d, generator=g,
+                    device=dev).to(dtype)
+    meta = [torch.as_tensor(x, dtype=torch.int32, device=dev)
+            for x in (lens, spans)] + [torch.as_tensor(tables, device=dev)]
+    return (q, kp, vp, *meta), sc
+
+
+# (label, q heads, kv heads, head dim, spans, contexts, table width):
+# a long b1 decode (16 splits), contexts one below, at and one above
+# split edges, splits mostly past every row, a 256-token chunk row among
+# decode rows (the tensor-core kernel), GQA 32/8 and 8/2 at d64
+PAGED_SPLIT_CASES = [
+    ("b1_ctx4000", 32, 32, 128, [1], [3999], None),
+    ("split_edges", 32, 32, 128, [1] * 6, [254, 255, 256, 510, 511, 512],
+     None),
+    ("mostly_empty", 32, 32, 128, [1] * 4, [5, 40, 90, 3], 256),
+    ("chunk_mix", 32, 32, 128, [256, 1, 1, 1], [700, 300, 1000, 30], None),
+    ("gqa32_8", 32, 8, 128, [1, 5, 17, 1], [600, 255, 1000, 0], None),
+    ("gqa8_2_d64", 8, 2, 64, [3, 1, 9, 2], [500, 256, 40, 1023], None),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("label,qh,kvh,d,spans,ctxs,width",
+                         PAGED_SPLIT_CASES,
+                         ids=[c[0] for c in PAGED_SPLIT_CASES])
+def test_paged_split_matches_plain(dev, dt, int8, label, qh, kvh, d, spans,
+                                   ctxs, width):
+    """The split-KV kernels against ``_ragged_plain`` and the split twin
+    ``_split_plain`` (at the call's planned split) at real positions
+    (bf16 2e-2, f32 1e-4: the largest difference times max(1, max |ref|)
+    and the relative L2 difference); pad positions exactly 0; two calls
+    bit-identical."""
+    dtype, tol = DTYPES[dt]
+    args, sc = _paged_inputs(dev, dtype, qh, kvh, d, spans, ctxs, int8,
+                             seed=len(label), width=width)
+    q, ql = args[0], args[4]
+    real = (torch.arange(q.shape[1], device=dev)[None]
+            < ql[:, None])[..., None, None]
+    out = pa.paged_attention_cuda(*args, **sc)
+    assert torch.equal(out, pa.paged_attention_cuda(*args, **sc))
+    assert float((out.float() * ~real).abs().max()) == 0.0
+    _close_l2(out * real, pa._ragged_plain(*args, d ** -0.5, **sc) * real,
+              tol)
+    split, _n = pa.plan_splits(
+        q.shape[0], q.shape[1], qh, kvh, d, args[5].shape[1], 16,
+        pa.block_rows(dtype, q.shape[1] * (qh // kvh)),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    twin = pa._split_plain(*args, d ** -0.5, split, **sc)
+    _close_l2(out * real, twin * real, tol)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_paged_routing_contracts_bit_exact(dev, dt, int8):
+    """On the card, a full-span ragged row equals verify bit for bit (one
+    kernel, one plan), and a ``max_q == 1`` ragged call equals decode."""
+    dtype, _ = DTYPES[dt]
+    args, sc = _paged_inputs(dev, dtype, 32, 8, 128, [5] * 4,
+                             [100, 700, 1500, 3], int8, seed=21)
+    q, kp, vp, lens, _ql, tabs = args
+    full = torch.full_like(lens, 5)
+    ragged = pa.paged_attention_ragged(q, kp, vp, lens, full, tabs, **sc)
+    verify = pa.paged_attention_multi(q, kp, vp, lens, tabs, **sc)
+    assert torch.equal(ragged, verify)
+    # a full row beside shorter ones: its outputs do not move
+    mixed = torch.tensor([5, 1, 3, 5], dtype=torch.int32, device=dev)
+    part = pa.paged_attention_ragged(q, kp, vp, lens, mixed, tabs, **sc)
+    assert torch.equal(part[[0, 3]], verify[[0, 3]])
+    ones = torch.ones_like(lens)
+    ragged1 = pa.paged_attention_ragged(q[:, :1], kp, vp, lens, ones, tabs,
+                                        **sc)
+    decode = pa.paged_attention(q[:, 0], kp, vp, lens, tabs, **sc)
+    assert torch.equal(ragged1[:, 0], decode)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_paged_kernels_chosen_by_dtype_and_rows(dev, dt):
+    """A bf16 call with multi-row blocks runs the tensor-core kernel, an
+    f32 one the CUDA-core kernel; a decode call the CUDA-core kernel;
+    split calls add the combine kernel; one counted launch a call."""
+    dtype, _ = DTYPES[dt]
+    multi, _ = _paged_inputs(dev, dtype, 32, 32, 128, [64, 1, 1, 1],
+                             [300, 100, 900, 20], False, seed=5)
+    single, _ = _paged_inputs(dev, dtype, 32, 32, 128, [1] * 2, [3000, 9],
+                              False, seed=6)
+
+    def names(args):
+        pa.paged_attention_cuda(*args)     # first call outside the window
+        before = pa.paged_attention_cuda.launches
+        ran = _device_kernels(lambda: pa.paged_attention_cuda(*args))
+        assert pa.paged_attention_cuda.launches == before + 1
+        return {m.group(1) for n in ran
+                for m in [re.search(r"(paged_attention_\w+_kernel)", n)] if m}
+
+    want_multi = ("paged_attention_mma_kernel" if dt == "bf16"
+                  else "paged_attention_decode_kernel")
+    got = names(multi)
+    assert want_multi in got
+    assert ("paged_attention_mma_kernel" in got) == (dt == "bf16")
+    got = names(single)
+    assert got == {"paged_attention_decode_kernel",
+                   "paged_attention_combine_kernel"}
+
+
+def test_paged_attention_captures_in_a_cuda_graph(dev):
+    """The wrapper reads nothing back to the host: a call captures in a
+    CUDA graph, and the replay equals the eager call."""
+    args, _ = _paged_inputs(dev, torch.bfloat16, 32, 32, 128, [1] * 8,
+                            [1000, 30, 511, 256, 2000, 7, 64, 900], False,
+                            seed=9)
+    eager = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention_cuda(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_paged_attention_raises_without_its_kernel(dev, monkeypatch):
+    """No fallback: with the kernel library unbuildable, decode, verify
+    and ragged calls on the card raise KernelBuildError."""
+    from paddle_tpu_torch.ops import _build
+
+    def broken(name):
+        raise _build.KernelBuildError(f"nvcc failed on {name}.cu")
+
+    monkeypatch.setattr(_build, "load", broken)
+    args, _ = _paged_inputs(dev, torch.bfloat16, 8, 2, 64, [3, 1], [40, 9],
+                            False, seed=4)
+    q, kp, vp, lens, ql, tabs = args
+    for call in (lambda: pa.paged_attention(q[:, 0], kp, vp, lens, tabs),
+                 lambda: pa.paged_attention_multi(q, kp, vp, lens, tabs),
+                 lambda: pa.paged_attention_ragged(*args)):
+        with pytest.raises(_build.KernelBuildError):
+            call()

@@ -2,7 +2,8 @@
 """Compare two checkouts of the port on one card, in turns.
 
     python3 chip_ab.py BASE_DIR
-        [--phases flash,quant,flashmask,paged,serve,train,moe] [--seed N]
+        [--phases flash,quant,flashmask,paged,serve,gating,train,moe]
+        [--seed N]
 
 BASE_DIR is a checkout inside this one, in a directory that
 ``.gitignore`` lists, e.g. one unpacked with
@@ -15,9 +16,14 @@ side.  Phases: ``flash`` times the flash forward (serve, train and MoE
 decode shapes), dK/dV and dQ (train shape) kernels through their public
 wrappers on the same seeded inputs; ``quant`` times the bf16 weight-only
 (w8) and w8a8 int8 matmuls at llama_7b's four prefill widths (1024 rows)
-and at 32 rows the same way; ``flashmask`` times FlashMask's forward,
-dK/dV and dQ kernels at the flashmask phase's doc_causal and causal_full
-cases (b 1 x 8192, 32 heads x 128, bf16); ``paged`` times the paged
+and at 32 rows the same way, the activation quantizer at the serving
+passes' row shapes (inputs read cold), w8a8 at 8 and 1024 rows as each
+side serves q|k|v and gate|up (one quantizer + matmul a Linear, or one on
+the fused twin) and quantizer + w8a8 at the four decode (K, N);
+``gating`` times the top-k MoE gating kernel at T 8, 4096 and 8192 (E 8,
+top-2); ``flashmask`` times FlashMask's forward, dK/dV and dQ kernels
+at the flashmask phase's doc_causal and causal_full cases (b 1 x 8192,
+32 heads x 128, bf16); ``paged`` times the paged
 attention kernel(s) of one ``paged_attention_cuda`` call (32 heads x 128,
 bf16, 16-token pages) at decode b8 with contexts up to 1056 (bf16 and
 int8 pages), decode b8 at context 2048, decode b1 at context 4000 and the
@@ -57,6 +63,27 @@ FLASH_CASES = (("fwd serve s2048 32/32 d128", "fwd", 1, 32, 32, 2048, 2048,
 # each through the w8 and the w8a8 kernel
 QUANT_CASES = ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
                (1024, 4096, 32000), (32, 4096, 11008))
+# the activation quantizer's cases: (label, shape, misaligned), bf16 but
+# the f32 one, chip_smoke.py's ACT_QUANT_CASES
+ACT_QUANT_CASES = (("8 x 4096", (8, 4096), False),
+                   ("8 x 11008", (8, 11008), False),
+                   ("1024 x 4096", (1024, 4096), False),
+                   ("1024 x 11008", (1024, 11008), False),
+                   ("256 x 128", (256, 128), False),
+                   ("32768 x 128", (32768, 128), False),
+                   ("77 x 300 f32", (77, 300), False),
+                   ("1024 x 4096 misaligned", (1024, 4096), True))
+# llama_7b's decode Linears at 8 rows, (label, K, widths of the Linears
+# that read one activation): w8a8 as each side serves them (the parent one
+# quantizer + matmul a Linear, this tree one quantizer and one matmul on
+# the fused twin), and quantizer + matmul at each (K, N) a decode w8a8
+# call has (fused widths included)
+W8A8_SERVED = (("q|k|v", 4096, (4096, 4096, 4096)),
+               ("gate|up", 4096, (11008, 11008)))
+W8A8_SERVED_ROWS = (8, 1024)          # a decode step's rows, a prefill's
+W8A8_DECODE_KN = ((4096, 12288), (4096, 22016), (4096, 4096), (11008, 4096))
+# the gating kernel's timed calls: Mixtral-width decode and prefill
+GATING_CASES = ((8, 8, 2, 5), (4096, 8, 2, 2458), (8192, 8, 2, 4916))
 # the FlashMask cases: chip_smoke.py's flashmask phase masks, each through
 # the forward, dK/dV and dQ kernels
 FLASHMASK_CASES = ("doc_causal", "causal_full")
@@ -73,7 +100,14 @@ PAGED_CASES = (
 METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
            "quant": tuple(f"{mode} M{m} K{k} N{n}"
                           for mode in ("w8", "w8a8", "torch._int_mm")
-                          for m, k, n in QUANT_CASES),
+                          for m, k, n in QUANT_CASES)
+           + tuple(f"act_quant {c[0]}" for c in ACT_QUANT_CASES)
+           + tuple(f"w8a8 served M{m} {c[0]}" for m in W8A8_SERVED_ROWS
+                   for c in W8A8_SERVED)
+           + tuple(f"act_quant+w8a8 M8 K{k} N{n}"
+                   for k, n in W8A8_DECODE_KN),
+           "gating": tuple(f"topk_gating T{t} E{e} k{k} C{c}"
+                           for t, e, k, c in GATING_CASES),
            "flashmask": tuple(f"{kern} {c} b1 s8192 32/32 d128"
                               for c in FLASHMASK_CASES
                               for kern in FLASHMASK_KERNELS),
@@ -117,7 +151,12 @@ def flash(cs, seed, dev):
 def quant(cs, seed, dev):
     """{case: device ms per call} of the bf16 w8 and w8a8 kernels, timed
     with the side's own ``cuda_ms``, and of ``torch._int_mm`` on the w8a8
-    call's int8 operands (the yardstick; the port never calls it)."""
+    call's int8 operands (the yardstick; the port never calls it); the
+    activation quantizer at its row shapes; w8a8 at decode and prefill
+    rows as each side serves q|k|v and gate|up; quantizer + w8a8 at the
+    decode (K, N)."""
+    import itertools
+    import numpy as np
     import torch
     from paddle_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -135,6 +174,60 @@ def quant(cs, seed, dev):
         wt = w.t()
         out[f"torch._int_mm M{m} K{k} N{n}"] = cs.cuda_ms(
             lambda: torch._int_mm(xq, wt))
+    # the quantizer alone, its inputs read cold (copies past the L2)
+    for label, shape, misaligned in ACT_QUANT_CASES:
+        dtype = torch.float32 if "f32" in label else torch.bfloat16
+        n = int(np.prod(shape))
+        base = (torch.randn(n + misaligned, generator=gen, device=dev)
+                * 3).to(dtype)
+        copies = max(2, -(-2 * (50 << 20) // (base.numel()
+                                              * base.element_size())))
+        xs_ = itertools.cycle([base.clone()[int(misaligned):].view(*shape)
+                               for _ in range(copies)])
+        out[f"act_quant {label}"] = cs.cuda_ms(
+            lambda: qm.dynamic_act_quant_cuda(next(xs_)), 100)
+    # w8a8 as each side serves the Linears that read one activation:
+    # fused twins where the side has them (the module names its group),
+    # else one quantizer + matmul a Linear
+    from paddle_tpu_torch.models.llama import LlamaAttention
+    fused = hasattr(LlamaAttention, "quant_fused")
+    for m, (label, k, widths) in itertools.product(W8A8_SERVED_ROWS,
+                                                   W8A8_SERVED):
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        ws = [torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                            dtype=torch.int8) for n in widths]
+        ss = [torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+              for n in widths]
+        if fused:
+            w_cat, s_cat = torch.cat(ws), torch.cat(ss)
+            served = lambda: qm.w8a8_matmul(x, w_cat, s_cat)  # noqa: E731
+        else:
+            served = lambda: [qm.w8a8_matmul(x, w, sc)  # noqa: E731
+                              for w, sc in zip(ws, ss)]
+        out[f"w8a8 served M{m} {label}"] = cs.cuda_ms(served)
+    for k, n in W8A8_DECODE_KN:
+        x = torch.randn(8, k, generator=gen, device=dev).bfloat16()
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sc = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        out[f"act_quant+w8a8 M8 K{k} N{n}"] = cs.cuda_ms(
+            lambda: qm.w8a8_matmul(x, w, sc))
+    return out
+
+
+def gating(cs, seed, dev):
+    """{case: device ms per call} of the top-k gating kernel at the MoE
+    pass's decode and prefill calls (f32 logits of standard deviation
+    1.4, as the Mixtral-width gate gives), timed with the side's own
+    ``cuda_ms``."""
+    import torch
+    from paddle_tpu_torch.ops import moe_gating as mg
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for T, E, k, cap in GATING_CASES:
+        x = torch.randn(T, E, generator=gen, device=dev) * 1.4
+        out[f"topk_gating T{T} E{E} k{k} C{cap}"] = cs.cuda_ms(
+            lambda: mg.topk_gating_cuda(x, k, cap), 100)
     return out
 
 
@@ -274,7 +367,7 @@ def serve(cs, seed, dev):
 
 
 KERNEL_PHASES = {"flash": flash, "quant": quant, "flashmask": flashmask,
-                 "paged": paged, "serve": serve}
+                 "paged": paged, "serve": serve, "gating": gating}
 
 
 def child(phases, seed):
@@ -308,7 +401,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base")
     ap.add_argument("--phases",
-                    default="flash,quant,flashmask,paged,serve,train,moe")
+                    default="flash,quant,flashmask,paged,serve,gating,train,"
+                            "moe")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -20,7 +20,11 @@ failure:
             f32 and int8-page modes, the w8 and w8a8 matmuls at llama_7b's
             decode shapes, every prefill width (the head's included) and
             32 rows; w8a8 bit-equal, also at 17 and 130 rows and with K
-            split, each case's kernel read from a profiler window) at the
+            split, each case's kernel read from a profiler window, and a
+            call on fused twins bit-equal to the separate calls; the
+            activation quantizer bit-equal at the activation and K/V row
+            shapes of the serving passes and a misaligned view, its
+            kernel and launch grid read from the trace) at the
             serving path's shapes
             against its plain PyTorch version on the card, with a stated
             tolerance; time kernel, plain version and, where one PyTorch
@@ -36,7 +40,9 @@ failure:
             routing identical, weights, balance loss and the backward's
             logit gradient within stated limits, at the MoE pass's decode
             and prefill shapes and at odd, drop-heavy, top-1 and top-3
-            ones.
+            ones; two calls bit-identical; the path (one warp up to 32
+            tokens, the multi-block chunk kernel above) and its launch
+            grid read from the trace.
    The FlashMask forward, dK/dV and dQ kernels are held against their
             plain versions (1, 2 and 4 interval columns, causal on and
             off, 32 heads x 128 at s 2048, MHA and 32/8 GQA, bf16 and f32,
@@ -89,7 +95,10 @@ failure:
             ``kv_quant="int8"``).  The kernels' launch counters are
             zeroed just before each pass and read just after it; every
             kernel of a pass's path must have launched (a quantized pass:
-            its matmul once per Linear of every forward), every request
+            in w8 its matmul once a Linear of every forward, in w8a8 once
+            a distinct activation, q|k|v and gate|up fused, 4 a layer and
+            the head; the quantizer once a w8a8 matmul and twice a layer
+            for int8 K/V), every request
             must complete, and one request's prefill logits must agree
             with a plain forward of the same model on the card (in f32,
             and in bf16 relative to the plain bf16 forward's own
@@ -366,40 +375,82 @@ def sass_counts(lib_path, opcodes=("HGMMA", "IGMMA")):
     return counts
 
 
-def device_kernels_seen(prof, where, want, refuse):
-    """Fail unless the profiler window ``prof`` ran every kernel whose name
-    holds a string of ``want`` and none holding one of ``refuse`` (the
-    bf16 paths must take the tensor-core kernels)."""
-    names = [e.key for e in prof.key_averages() if _device_us(e) > 0]
-    missing = [w for w in want if not any(w in n for n in names)]
-    stray = [r for r in refuse if any(r in n for n in names)]
-    if missing or stray:
-        raise AssertionError(f"{where}: device kernels {missing} never ran, "
-                             f"{stray} ran off the path")
-    return want
+WINDOW_TRIES = 6
 
 
-def kernels_of(fn, grids=False):
-    """Short names (``name<template args>``) of the device kernels that one
-    call of ``fn`` runs, from a ``torch.profiler`` window.  A window that
-    records no device activity at all says nothing of the call (CUPTI
-    now and then hands back an empty one; every call here launches a
-    kernel), so it is opened once more, and that is logged.  With
-    ``grids``, also {short name without template args: launch grid}, as
-    the window's exported trace records each kernel launch."""
-    for _ in range(2):
+def _short_kernel(key):
+    """``name<template args>`` of a profiler kernel entry's signature."""
+    m = re.search(r"(\w+_kernel)(<[^(]*>)?", key)
+    return m.group(0).replace(" ", "") if m else key
+
+
+def profiler_window(fn, lacks, where):
+    """A ``torch.profiler`` window around one call of ``fn``, opened again
+    while ``lacks(names)`` (the device kernel entries the window
+    recorded) returns what it misses.  CUPTI now and then drops the
+    kernel records of a window in which it asks for a new activity
+    buffer: the window then holds an "Activity Buffer Request" span
+    inside a launch and lacks that launch's kernel (or the ones before
+    it), at times in several windows in a row.  The kernels a call takes
+    are fixed by its shapes and types, so such a window is opened again,
+    after a pause that doubles each time, up to ``WINDOW_TRIES`` windows,
+    each logged.  Returns (the last window, its names, what it lacks)."""
+    for i in range(WINDOW_TRIES):
+        if i:
+            time.sleep(0.05 * 2 ** i)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
             fn()
             torch.cuda.synchronize()
-        names = set()
-        for e in prof.key_averages():
-            if _device_us(e) > 0:
-                m = re.search(r"(\w+_kernel)(<[^(]*>)?", e.key)
-                names.add(m.group(0).replace(" ", "") if m else e.key)
-        if names:
+        events = prof.key_averages()
+        names = [e.key for e in events if _device_us(e) > 0]
+        missing = lacks(names)
+        if not missing:
             break
-        log("  kernels_of: an empty profiler window, opened again")
+        asked = any(e.key == "Activity Buffer Request" for e in events)
+        log(f"  {where}: profiler window {i + 1} of {WINDOW_TRIES} "
+            f"recorded {len(names)} kernels, not {missing}"
+            + (" (CUPTI asked for an activity buffer in it)" if asked
+               else "")
+            + ("; opened again" if i + 1 < WINDOW_TRIES else ""))
+    return prof, names, missing
+
+
+def window_seeing(fn, where, want, refuse):
+    """A ``profiler_window`` around one call of ``fn`` in which every
+    kernel whose name holds a string of ``want`` ran and none holding one
+    of ``refuse`` (the bf16 paths must take the tensor-core kernels).  A
+    refused kernel in any window fails at once, and so does a wanted one
+    missing from every window."""
+    def lacks(names):
+        stray = [r for r in refuse if any(r in n for n in names)]
+        if stray:
+            raise AssertionError(f"{where}: device kernels {stray} ran off "
+                                 "the path")
+        return [w for w in want if not any(w in n for n in names)]
+
+    prof, _names, missing = profiler_window(fn, lacks, where)
+    if missing:
+        raise AssertionError(f"{where}: device kernels {missing} never ran "
+                             f"in {WINDOW_TRIES} profiler windows")
+    return prof
+
+
+def kernels_of(fn, grids=False, want=()):
+    """Short names (``name<template args>``) of the device kernels that one
+    call of ``fn`` runs, from a ``profiler_window``, opened again while it
+    recorded no kernel at all (every call here launches one) or none
+    named by a prefix in ``want``; the caller holds the names against its
+    plan.  With ``grids``, also {short name without template args:
+    (launch grid, block)}, as the window's exported trace records each
+    kernel launch."""
+    def lacks(names):
+        short = [_short_kernel(n) for n in names]
+        return [w for w in want if not any(n.startswith(w) for n in short)] \
+            or ([] if names else ["any kernel"])
+
+    prof, names, _missing = profiler_window(fn, lacks, "kernels_of")
+    names = {_short_kernel(n) for n in names}
     if not grids:
         return sorted(names)
     with tempfile.TemporaryDirectory() as tmp:
@@ -411,7 +462,8 @@ def kernels_of(fn, grids=False):
     for e in events:
         m = re.search(r"(\w+_kernel)", e.get("name", ""))
         if e.get("cat") == "kernel" and m and "grid" in e.get("args", {}):
-            launch[m.group(1)] = list(e["args"]["grid"])
+            launch[m.group(1)] = (list(e["args"]["grid"]),
+                                  list(e["args"].get("block", [])))
     return sorted(names), launch
 
 
@@ -563,6 +615,43 @@ def paged_plan_sweep(pa, gen, rng, dev):
                 for s, n, t in zip(shown, plans, times)))
 
 
+def act_quant_plan_sweep(qm, gen, dev):
+    """The quantizer plan's constants, each timed beside other values on
+    the shapes that decide them, bf16, inputs read cold: the row kernel's
+    thread target ``ACT_ROW_THREADS`` (256; 128 and 512 give a 4096-wide
+    row 4 or 1 vectors a thread) and the group kernel's two-vector rule
+    (``ACT_GROUP_BLOCKS_PER_SM``: 16, or never).  Each value is timed
+    twice, in turns (a, b, c, c, b, a); the readings are logged with the
+    launch each value plans, and no record keeps them."""
+    sms = qm._sms(dev)
+    sweeps = (("ACT_ROW_THREADS", (256, 128, 512),
+               ((1024, 4096), (8, 4096))),
+              ("ACT_GROUP_BLOCKS_PER_SM", (16, 1 << 30),
+               ((32768, 128), (256, 128))))
+    for attr, values, shapes in sweeps:
+        for shape in shapes:
+            n = shape[0] * shape[1]
+            base = (torch.randn(n, generator=gen, device=dev)
+                    * 3).bfloat16()
+            copies = max(2, -(-2 * (50 << 20) // (n * 2)))
+            cold = itertools.cycle([base.clone().view(*shape)
+                                    for _ in range(copies)])
+            order = list(range(len(values)))
+            times, plans = [[] for _ in values], [None] * len(values)
+            for i in order + order[::-1]:
+                setattr(qm, attr, values[i])
+                try:
+                    times[i].append(cuda_ms(
+                        lambda: qm.dynamic_act_quant_cuda(next(cold)), 100))
+                    plans[i] = qm.act_quant_plan(*shape, torch.bfloat16,
+                                                 True, sms)
+                finally:
+                    setattr(qm, attr, values[0])
+            log(f"  dynamic_act_quant sweep {attr} {shape}: " + "; ".join(
+                f"{v} ({p[0]} {p[1]} x {p[2]}, param {p[3]}) {t[0]:.4f}, "
+                f"{t[1]:.4f} ms" for v, p, t in zip(values, plans, times)))
+
+
 def check_paged(records, dev):
     from paddle_tpu_torch.ops import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -595,8 +684,8 @@ def check_paged(records, dev):
         # uncounted profiler window, against the plan
         want, plan = paged_kernels(pa, q, kv_heads, args[5].shape[1], dtype,
                                    sms)
-        ran, grids = kernels_of(call, grids=True)
-        main = [g for n, g in grids.items()
+        ran, grids = kernels_of(call, grids=True, want=want)
+        main = [g for n, (g, _block) in grids.items()
                 if n != "paged_attention_combine_kernel"]
         n_split = main[0][1] if len(main) == 1 else None
         log(f"  paged_attention {label}: device kernels {ran}, launch grids "
@@ -677,6 +766,21 @@ QUANT_ODD = ((77, 300, 200), (1, 4096, 32000), (5, 33, 17))
 # projection at 32 rows, whose 32 output tiles split K 4 ways; bit-equal
 # checks, the last one timed
 QUANT_W8A8 = ((17, 4096, 11008), (130, 4096, 11008), (32, 11008, 4096))
+# the activation quantizer's cases: (label, shape, dtype, misaligned):
+# llama_7b's decode and prefill activations, the K/V rows of a decode step
+# (b 8 x 32 kv heads) and of a 1024-token prefill (1024 x 32), an odd f32
+# shape and a view 2 bytes off 16-byte alignment (the scalar edge)
+ACT_QUANT_CASES = (
+    ("8 x 4096 bf16", (8, 4096), torch.bfloat16, False),
+    ("8 x 11008 bf16", (8, 11008), torch.bfloat16, False),
+    ("1024 x 4096 bf16", (1024, 4096), torch.bfloat16, False),
+    ("1024 x 11008 bf16", (1024, 11008), torch.bfloat16, False),
+    ("256 x 128 bf16 (K/V decode write)", (256, 128), torch.bfloat16, False),
+    ("32768 x 128 bf16 (K/V prefill write)", (32768, 128), torch.bfloat16,
+     False),
+    ("77 x 300 f32", (77, 300), torch.float32, False),
+    ("1024 x 4096 bf16 misaligned view", (1024, 4096), torch.bfloat16,
+     True))
 
 
 def quant_bytes(m, k, n, el, w8a8):
@@ -717,7 +821,8 @@ def check_quant(records, dev):
         ref = qm.w8a8_matmul_plain(xq, xs, w, sc, dtype)
         torch.cuda.synchronize()
         bit_equal = bool(torch.equal(got, ref))
-        ran = kernels_of(lambda: qm.w8a8_matmul_cuda(xq, xs, w, sc, dtype))
+        ran = kernels_of(lambda: qm.w8a8_matmul_cuda(xq, xs, w, sc, dtype),
+                         want=(w8a8_kernel(m, k),))
         log(f"  w8a8_matmul {label}: kernels {ran}")
         if not any(n.startswith(w8a8_kernel(m, k)) for n in ran):
             raise AssertionError(f"w8a8_matmul {label} ran {ran}, not "
@@ -783,36 +888,75 @@ def check_quant(records, dev):
         head["shapes"] = timed
         records[name] = head
 
-    # the activation quantizer: bit-equal expected (IEEE division,
-    # round half to even); timed at the prefill rows, L2-cold inputs
-    for shape, dtype, timed in (((1024, 4096), bf16, True),
-                                ((8, 11008), bf16, False),
-                                ((8 * 16, 32, 128), bf16, False),
-                                ((77, 300), f32, False)):
-        x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dtype)
+    # the activation quantizer: bit-equal expected (IEEE division, round
+    # half to even) at every row shape of the serving passes, each path's
+    # kernel and launch grid read from the trace against the plan, each
+    # timed with L2-cold inputs beside its byte bound
+    quant_rows = []
+    for label, shape, dtype, misaligned in ACT_QUANT_CASES:
+        # misaligned: a contiguous view one element past an aligned buffer
+        n_el, off = int(np.prod(shape)), int(misaligned)
+        base = (torch.randn(n_el + off, generator=gen, device=dev)
+                * 3).to(dtype)
+        x = base[off:].view(*shape)
         q, s = qm.dynamic_act_quant_cuda(x)
         pq, ps = qm.dynamic_act_quant_plain(x)
         torch.cuda.synchronize()
-        label = f"{shape} {str(dtype).split('.')[-1]}"
         if not (torch.equal(q, pq) and torch.equal(s, ps)):
             raise AssertionError(f"dynamic_act_quant {label}: not bit-equal "
                                  "to its plain version")
         err = max(check("dynamic_act_quant", label + " q bit_equal=True",
                         q, pq, 1e-6),
                   check("dynamic_act_quant", label + " scale", s, ps, 1e-6))
-        if not timed:
-            continue
-        xs_ = cold_inputs(x)
-        ms = cuda_ms(lambda: qm.dynamic_act_quant_cuda(next(xs_)), 100)
-        plain_ms = cuda_ms(lambda: qm.dynamic_act_quant_plain(next(xs_)), 20)
-        n = x.numel()
-        bms, by = bound_ms(n * x.element_size() + n + s.numel() * 4, 3 * n,
-                           F32_FLOP_S)
+        rows_, K = n_el // shape[-1], shape[-1]
+        kernel, grid, threads, _param = qm.act_quant_plan(
+            rows_, K, dtype, not misaligned, qm._sms(dev))
+        ran, launch = kernels_of(lambda: qm.dynamic_act_quant_cuda(x),
+                                 grids=True, want=(kernel,))
+        got = launch.get(kernel)
+        log(f"  dynamic_act_quant {label}: kernels {ran}, launch {got} "
+            f"(plan {kernel} grid {grid} x {threads} threads)")
+        if got is None or got[0][0] != grid or got[1][0] != threads:
+            raise AssertionError(f"dynamic_act_quant {label}: ran {launch}, "
+                                 f"planned {kernel} grid {grid} x {threads}")
+        # copies that outgrow the 50 MB L2, as cold_inputs makes them
+        copies = max(2, -(-2 * (50 << 20)
+                          // (base.numel() * base.element_size())))
+        cold = itertools.cycle([base.clone()[off:].view(*shape)
+                                for _ in range(copies)])
+        ms = cuda_ms(lambda: qm.dynamic_act_quant_cuda(next(cold)), 100)
+        plain_ms = cuda_ms(lambda: qm.dynamic_act_quant_plain(next(cold)),
+                           20)
+        bms, by = bound_ms(n_el * x.element_size() + n_el + rows_ * 4,
+                           3 * n_el, F32_FLOP_S)
         log(f"  dynamic_act_quant {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bms:.4f} ms ({by})")
-        records["dynamic_act_quant"] = dict(
+            f"ms, bound {bms:.4f} ms ({by}), {bms / ms:.2f} of it")
+        quant_rows.append(dict(
             case=label, max_abs_err=err, bit_equal=True, ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+            kernel=kernel, grid=got[0], block=got[1]))
+    # the record: the 1024 x 4096 prefill activation, every shape beside it
+    records["dynamic_act_quant"] = dict(quant_rows[2], shapes=quant_rows)
+    act_quant_plan_sweep(qm, gen, dev)
+
+    # the fused w8a8 twins: one call on q|k|v's or gate|up's concatenated
+    # twins is bit-equal to the separate calls
+    for m in (8, 1024):
+        x = torch.randn(m, 4096, generator=gen, device=dev).bfloat16()
+        for widths in ((4096, 4096, 4096), (11008, 11008)):
+            ws = [torch.randint(-127, 128, (n, 4096), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for n in widths]
+            ss = [torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+                  for n in widths]
+            fused = qm.w8a8_matmul(x, torch.cat(ws), torch.cat(ss))
+            same = all(torch.equal(a, qm.w8a8_matmul(x, w, sc)) for a, w, sc
+                       in zip(fused.split(list(widths), dim=-1), ws, ss))
+            log(f"  w8a8_matmul fused M{m} N {'|'.join(map(str, widths))}: "
+                f"bit-equal to the separate calls: {same}")
+            if not same:
+                raise AssertionError("w8a8_matmul: the fused call differs "
+                                     "from the separate calls")
 
     def unbuildable(name):
         raise _build.KernelBuildError(f"nvcc failed on {name}.cu "
@@ -1172,8 +1316,11 @@ def check_moe_gating(records, dev):
     E 4 top-1 and E 32 top-3.  Routing (eidx, pos, keep) and the round-0
     fill must be identical, w within 1e-6 and l_aux within 1e-5
     relative, and the backward's logit gradient within 1e-5 of autograd
-    of the plain version.  Timed at the decode and prefill shapes; no
-    single PyTorch call computes this function (library: none)."""
+    of the plain version; two calls bit-identical; the kernel and launch
+    grid read from the trace against the plan (one warp up to 32 tokens,
+    more than one block from 4096).  Timed at the decode and prefill
+    shapes; no single PyTorch call computes this function (library:
+    none)."""
     from paddle_tpu_torch.incubate.distributed.models.moe import moe_capacity
     from paddle_tpu_torch.ops import moe_gating as mg
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1230,6 +1377,23 @@ def check_moe_gating(records, dev):
             ((w * cw).sum() + 3.0 * l_aux).backward()
             grads.append(lg.grad)
         check("topk_gating", f"{label} d logits", grads[0], grads[1], 1e-5)
+        # the path and its launch grid, from the trace: one warp up to 32
+        # tokens, the chunk kernel on its planned grid above
+        kernel, threads = mg.gating_plan(T)
+        ran, launch = kernels_of(lambda: mg.topk_gating_cuda(x, k, cap),
+                                 grids=True, want=(kernel,))
+        got_launch = launch.get(kernel)
+        grid = mg.gating_grid(T, E, k)
+        log(f"  topk_gating {label}: kernels {ran}, launch {got_launch} "
+            f"(plan {kernel} grid {grid} x {threads} threads)")
+        if got_launch is None or got_launch[0][0] != grid \
+                or got_launch[1][0] != threads or (T >= 4096) != (grid > 1):
+            raise AssertionError(f"topk_gating {label}: ran {launch}, "
+                                 f"planned {kernel} grid {grid} x {threads}")
+        # two calls are bit-identical, the gate mass included
+        again = mg.topk_gating_cuda(x, k, cap)
+        if not all(torch.equal(a, b) for a, b in zip(raw, again)):
+            raise AssertionError(f"topk_gating {label}: two calls differ")
         if not time_it:
             continue
         ms = cuda_ms(lambda: mg.topk_gating_cuda(x, k, cap), 100)
@@ -1240,7 +1404,8 @@ def check_moe_gating(records, dev):
             f"bound {bms:.6f} ms ({by}), library none")
         timed.append(dict(case=label, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                          library_ms=None))
+                          library_ms=None, kernel=kernel,
+                          grid=got_launch[0], block=got_launch[1]))
     # the record: the decode call (256 of a generate's 264 launches), the
     # prefill call beside it
     records["topk_gating"] = dict(timed[0], shapes=timed)
@@ -1331,7 +1496,7 @@ def check_flashmask(records, dev):
                     q, k, v, out, lse, do, se, causal),
                  {f"flashmask_bwd_dkv{tc}_kernel",
                   f"flashmask_bwd_dq{tc}_kernel"})):
-            ran = kernels_of(fn)
+            ran = kernels_of(fn, want=want)
             seen = {n.split("<")[0] for n in ran
                     if n.startswith("flashmask_")}
             if seen != want:
@@ -1593,14 +1758,10 @@ def flashmask_phase(seed, dev, card, reps=5):
         TF.flashmask_attention(q, k, v, se, causal=True).backward(dout)
 
     fm_fwd_bwd()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
-        fm_fwd_bwd()
-        torch.cuda.synchronize()
     names = ("flashmask_fwd", "flashmask_bwd_dkv", "flashmask_bwd_dq")
-    rec["kernels_seen"] = device_kernels_seen(
-        prof, "flashmask causal_full forward + backward",
-        [f"{n}_wgmma_kernel" for n in names], [f"{n}_kernel" for n in names])
+    rec["kernels_seen"] = [f"{n}_wgmma_kernel" for n in names]
+    window_seeing(fm_fwd_bwd, "flashmask causal_full forward + backward",
+                  rec["kernels_seen"], [f"{n}_kernel" for n in names])
     log("flashmask: a bf16 forward + backward ran "
         f"{rec['kernels_seen']} and no CUDA-core FlashMask kernel")
 
@@ -1852,10 +2013,12 @@ def plain_forward(model, ids, quantize=None, kv_quant=None, replay=None):
     """The port's LLaMA forward on its plain versions (no kernel): the
     reference for the kernel path's last-token logits on the card.
     ``quantize`` runs every Linear through the plain quantized matmul with
-    the same int8 twins the serving path builds; ``kv_quant`` makes
-    attention consume the int8 round trip of K and V, as the pages hold
-    them.  ``replay`` (a :class:`CodeReplay`) supplies the kernel path's
-    int8 codes wherever the plain path quantizes."""
+    the same int8 twins the serving path builds (per Linear; in w8a8 the
+    activation q, k and v read, and the one gate and up read, quantized
+    once each, so the codes come in the kernel path's order);
+    ``kv_quant`` makes attention consume the int8 round trip of K and V,
+    as the pages hold them.  ``replay`` (a :class:`CodeReplay`) supplies
+    the kernel path's int8 codes wherever the plain path quantizes."""
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops.flash_attention import mha_reference
     from paddle_tpu_torch.ops.fused_norm_rope import (apply_rope_plain,
@@ -1867,17 +2030,24 @@ def plain_forward(model, ids, quantize=None, kv_quant=None, replay=None):
              (quantize_linear_weights(model) if quantize else ())}
     act_quant = replay.quantize if replay else qm.dynamic_act_quant_plain
 
-    def linear(layer, x):
+    def linears(x, *layers):
+        """The outputs of Linears that all read ``x``; in w8a8, ``x`` is
+        quantized once for all of them, as the serving path's fused twins
+        (q|k|v, gate|up) quantize it."""
         if not quantize:
-            return layer(x)
-        w_q, sc = twins[id(layer)]
+            return [layer(x) for layer in layers]
         x2 = x.reshape(-1, x.shape[-1])
         if quantize == "w8a8":
             xq, xs = act_quant(x2)
-            y = qm.w8a8_matmul_plain(xq, xs, w_q, sc, x.dtype)
+            ys = [qm.w8a8_matmul_plain(xq, xs, *twins[id(layer)], x.dtype)
+                  for layer in layers]
         else:
-            y = qm.weight_only_matmul_plain(x2, w_q, sc)
-        return y.reshape(*x.shape[:-1], -1)
+            ys = [qm.weight_only_matmul_plain(x2, *twins[id(layer)])
+                  for layer in layers]
+        return [y.reshape(*x.shape[:-1], -1) for y in ys]
+
+    def linear(layer, x):
+        return linears(x, layer)[0]
 
     def kv(t):
         return dequantize_kv(*act_quant(t), t.dtype) if kv_quant else t
@@ -1890,9 +2060,10 @@ def plain_forward(model, ids, quantize=None, kv_quant=None, replay=None):
         at, mlp = layer.self_attn, layer.mlp
         h = rms_norm_plain(x, layer.input_layernorm.weight,
                            layer.input_layernorm.epsilon)
-        q = linear(at.q_proj, h).view(b, s, at.num_heads, at.head_dim)
-        k = linear(at.k_proj, h).view(b, s, at.num_kv_heads, at.head_dim)
-        v = linear(at.v_proj, h).view(b, s, at.num_kv_heads, at.head_dim)
+        q, k, v = linears(h, at.q_proj, at.k_proj, at.v_proj)
+        q = q.view(b, s, at.num_heads, at.head_dim)
+        k = k.view(b, s, at.num_kv_heads, at.head_dim)
+        v = v.view(b, s, at.num_kv_heads, at.head_dim)
         q, k = apply_rope_plain(q, k, m.rope_cos, m.rope_sin, pos)
         k, v = kv(k), kv(v)
         o = mha_reference(q.transpose(1, 2), k.transpose(1, 2),
@@ -1900,8 +2071,8 @@ def plain_forward(model, ids, quantize=None, kv_quant=None, replay=None):
         x = x + linear(at.o_proj, o.reshape(b, s, -1))
         h = rms_norm_plain(x, layer.post_attention_layernorm.weight,
                            layer.post_attention_layernorm.epsilon)
-        x = x + linear(mlp.down_proj, torch.nn.functional.silu(
-            linear(mlp.gate_proj, h)) * linear(mlp.up_proj, h))
+        gate, up = linears(h, mlp.gate_proj, mlp.up_proj)
+        x = x + linear(mlp.down_proj, torch.nn.functional.silu(gate) * up)
     # the last token only, as the serving prefill's head sees it
     x = rms_norm_plain(x[:, -1], m.norm.weight, m.norm.epsilon)
     head = model.lm_head
@@ -1942,16 +2113,16 @@ def quant_prefill_window(model, ids, quantize):
     (``QUANT_PREFILL_KERNEL``) and not its mma.sync tiles."""
     from paddle_tpu_torch.inference.paged import PagedDecoder
     from paddle_tpu_torch.ops.paged_attention import PagedKVCache
-    cache = PagedKVCache.from_model(model, total_pages=32, page_size=16)
     want, refuse = QUANT_PREFILL_KERNEL[quantize]
     with torch.no_grad():
         decoder = PagedDecoder(model, quantize=quantize)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+
+        def prefill():
+            cache = PagedKVCache.from_model(model, total_pages=32,
+                                            page_size=16)
             decoder.prefill(cache, [0], ids.cpu().numpy())
-            torch.cuda.synchronize()
-    return device_kernels_seen(prof, f"{quantize} prefill", (want,),
-                               (refuse,))
+
+        window_seeing(prefill, f"{quantize} prefill", (want,), (refuse,))
 
 
 def check_small():
@@ -2255,18 +2426,23 @@ def moe_generate(seed, dev, card):
         hidden, caches = model.model(ids, 0, caches)
         logits = model._logits_of(hidden[:, -1:])
         n_prof = 4
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
-            for i in range(n_prof):
-                nxt = logits[:, -1].float().cpu().numpy().argmax(-1)
+        state = {"pos": MOE_PROMPT, "caches": caches, "logits": logits}
+
+        def decode_steps():
+            # a window opened again decodes on from where the last stopped
+            for _ in range(n_prof):
+                nxt = state["logits"][:, -1].float().cpu().numpy().argmax(-1)
                 nxt_t = torch.as_tensor(nxt[:, None], device=dev)
-                hidden, caches = model.model(nxt_t, MOE_PROMPT + i, caches)
-                logits = model._logits_of(hidden)
-            torch.cuda.synchronize()
-        del caches, hidden, logits
+                hidden, state["caches"] = model.model(nxt_t, state["pos"],
+                                                      state["caches"])
+                state["logits"] = model._logits_of(hidden)
+                state["pos"] += 1
+
+        seen = ("flash_fwd_wgmma_kernel",)
+        prof = window_seeing(decode_steps, "moe decode", seen,
+                             ("flash_fwd_kernel",))
+        del caches, hidden, logits, state
     events = prof.key_averages()
-    seen = device_kernels_seen(prof, "moe decode", ("flash_fwd_wgmma_kernel",),
-                               ("flash_fwd_kernel",))
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:8]
     rec = {
@@ -2413,15 +2589,13 @@ def train(seed, dev, card, steps=20, warmup=3):
     peak = torch.cuda.max_memory_allocated()
     q1, med, q3 = np.percentile(times, [25, 50, 75])
     n_prof = 2
-    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
-        for _ in range(n_prof):
-            losses.append(step(ids, labels))
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    seen = device_kernels_seen(
-        prof, "train", ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                        "flash_bwd_dq_wgmma_kernel"),
+    seen = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+            "flash_bwd_dq_wgmma_kernel")
+    prof = window_seeing(
+        lambda: losses.extend(step(ids, labels) for _ in range(n_prof)),
+        "train", seen,
         ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+    events = prof.key_averages()
     busy_us = sum(_device_us(e) for e in events)
     top = sorted(events, key=_device_us, reverse=True)[:16]
     by_class = {}
@@ -2707,24 +2881,34 @@ def main():
         passes[label] = dict(stats, launches=got, **kv_bytes)
         # with 256-token chunks every prompt rides the ragged kernel, so
         # that path has no flash launch; a quantized pass launches its
-        # matmul kernel for every Linear of every forward (7 per layer
-        # and the head), the other one never
+        # matmul kernel once a Linear of every forward in w8 (7 a layer
+        # and the head) and once a distinct activation in w8a8 (q|k|v,
+        # o, gate|up, down: 4 a layer, and the head), the other one
+        # never; the quantizer runs once a w8a8 matmul and twice a layer
+        # for int8 K/V pages
         need = ["paged_attention", "rms_norm", "apply_rope"]
         if chunk is None:
             need.append("flash_attention_forward")
         if quant or kv:
             need.append("dynamic_act_quant")
+        forwards = got["rms_norm"] / norms_per_forward
+        layers = cfg.num_hidden_layers
+        per_forward = {}
         if quant:
             need.append(QUANT_KERNEL[quant])
-            forwards = got["rms_norm"] / norms_per_forward
-            passes[label]["quant_launches_per_forward"] = \
-                got[QUANT_KERNEL[quant]] / forwards
-            if got[QUANT_KERNEL[quant]] != (7 * cfg.num_hidden_layers
-                                            + 1) * forwards:
+            per_forward[QUANT_KERNEL[quant]] = \
+                (4 if quant == "w8a8" else 7) * layers + 1
+        if quant or kv:
+            per_forward["dynamic_act_quant"] = \
+                (4 * layers + 1 if quant == "w8a8" else 0) \
+                + (2 * layers if kv else 0)
+        for name, each in per_forward.items():
+            passes[label][f"{name}_launches_per_forward"] = \
+                got[name] / forwards
+            if got[name] != each * forwards:
                 raise AssertionError(
-                    f"{label}: {got[QUANT_KERNEL[quant]]} quantized "
-                    f"launches in {forwards} forwards, expected "
-                    f"{7 * cfg.num_hidden_layers + 1} each")
+                    f"{label}: {got[name]} {name} launches in {forwards} "
+                    f"forwards, expected {each} each")
         log(f"serve {label}: " + json.dumps(passes[label]))
         missing = [n for n in need if got[n] == 0]
         stray = [k for q, k in QUANT_KERNEL.items() if q != quant and got[k]]
@@ -2774,11 +2958,11 @@ def main():
     # any rounding, so a fixed bf16 tolerance would say nothing)
     ids = torch.as_tensor(prompts[1][None, :256].astype(np.int64),
                           device=dev)
-    with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
-        got16, ref16, _ = prefill_logits(model, ids)
-        torch.cuda.synchronize()
-    device_kernels_seen(prof, "serve prefill", ("flash_fwd_wgmma_kernel",),
-                        ("flash_fwd_kernel",))
+    bf16 = []
+    window_seeing(lambda: bf16.append(prefill_logits(model, ids)[:2]),
+                  "serve prefill", ("flash_fwd_wgmma_kernel",),
+                  ("flash_fwd_kernel",))
+    got16, ref16 = bf16[-1]
     log("serve: the bf16 prefill ran flash_fwd_wgmma_kernel (profiler)")
     for quant in ("w8", "w8a8"):
         quant_prefill_window(model, ids, quant)

@@ -17,7 +17,11 @@ prompt prefix read-only.  Each iteration then
 With one class and one tenant the JAX engine's weighted deficit
 round-robin admission is exactly this FIFO order.  A failed step fails
 the requests it carried — loudly: every waiter gets the error, the pages
-are reclaimed and the engine keeps serving.
+are reclaimed and the engine keeps serving.  ``_Request.cancel`` is the
+reference's cooperative cancel: the loop reaps cancelled requests
+between steps (queued, mid-prefill or decoding), reclaims their pages
+and reservations, and their waiters get :class:`RequestCancelled`;
+``generate`` cancels the rows it already submitted when any row fails.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ import torch
 from .._device import resolve_device
 from ..ops.paged_attention import PagedKVCache
 from .paged import PagedDecoder, sample_token
+
+
+class RequestCancelled(RuntimeError):
+    """The request was cooperatively cancelled via ``cancel()``."""
 
 
 class _Request:
@@ -53,6 +61,7 @@ class _Request:
         self.next_token: Optional[int] = None   # sampled, not yet decoded
         self.seq_id: Optional[int] = None
         self.done = threading.Event()
+        self._cancel = threading.Event()
         self.error: Optional[BaseException] = None
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
@@ -62,6 +71,20 @@ class _Request:
     def output_ids(self) -> np.ndarray:
         return np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int32)])
+
+    def cancel(self) -> bool:
+        """Cooperative cancel: honored before admission and between
+        steps (a step in flight finishes first).  The request's pages
+        and reservation are reclaimed when the scheduler reaps it;
+        waiters get :class:`RequestCancelled`.  Returns False if the
+        request had already finished."""
+        already_done = self.done.is_set()
+        self._cancel.set()
+        return not already_done
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancel.is_set()
 
     def result(self, timeout=None) -> np.ndarray:
         """Wait for the generation; returns prompt + generated ids, or
@@ -164,12 +187,21 @@ class ContinuousBatchingEngine:
                  do_sample: bool = False, temperature: float = 1.0,
                  seed: int = 0):
         """Blocking batch API: one sequence per row (row i seeded
-        ``seed + i``), outputs eos-padded to a common length."""
-        ids = np.asarray(input_ids, np.int32)
-        reqs = [self.submit(row, max_new_tokens, eos_token_id, do_sample,
-                            temperature, seed + i)
-                for i, row in enumerate(ids)]
-        rows = [r.result() for r in reqs]
+        ``seed + i``; rows may differ in length), outputs eos-padded to a
+        common length.  If any row fails to submit or errors, the rows
+        already submitted are cancelled and the error re-raised, so a
+        rejected batch never leaves orphan sequences decoding against the
+        pool."""
+        reqs: List[_Request] = []
+        try:
+            for i, row in enumerate(input_ids):
+                reqs.append(self.submit(row, max_new_tokens, eos_token_id,
+                                        do_sample, temperature, seed + i))
+            rows = [r.result() for r in reqs]
+        except BaseException:
+            for r in reqs:
+                r.cancel()
+            raise
         width = max(len(r) for r in rows)
         out = np.full((len(rows), width),
                       0 if eos_token_id is None else eos_token_id, np.int32)
@@ -432,6 +464,29 @@ class ContinuousBatchingEngine:
         self._reserved_pages -= slack + released
         req.finished_at = time.perf_counter()
 
+    def _reap_locked(self) -> List[_Request]:
+        """Caller holds ``self._cond``.  Retire the cancelled requests,
+        queued, mid-prefill and decoding: a queued one holds nothing, the
+        others give back their pages and exactly the reservation
+        ``_retire_locked`` releases.  Returns them; the caller sets their
+        ``done`` events outside the lock."""
+        out = [r for r in self._queue if r.cancelled]
+        if out:
+            self._queue = deque(r for r in self._queue if not r.cancelled)
+        for name in ("_prefilling", "_active"):
+            held = getattr(self, name)
+            gone = [r for r in held if r.cancelled]
+            if gone:
+                setattr(self, name, [r for r in held if not r.cancelled])
+                for r in gone:
+                    self._retire_locked(r)
+                out += gone
+        for r in out:
+            r.error = RequestCancelled("request cancelled")
+        if out:
+            self._cond.notify_all()
+        return out
+
     def _fail_all(self, exc) -> None:
         """A step failed: error every queued and in-flight request, free
         their pages and reservations, and keep serving."""
@@ -472,8 +527,11 @@ class ContinuousBatchingEngine:
                     return
             try:
                 with self._cond:
+                    reaped = self._reap_locked()
                     self._admit_locked()
                     plan = self._plan_chunks_locked()
+                for r in reaped:
+                    r.done.set()
                 if self.prefill_chunk_tokens is None and plan:
                     # unchunked: whole prompts prefill through the
                     # length-bucketed prefill/prefix steps, and only the

@@ -211,9 +211,13 @@ class PagedDecoder:
     ``quantize="w8"`` or ``"w8a8"`` builds every Linear's int8 twin once
     (``quantization.serving.quantize_linear_weights``) and arms the
     Linears with it for the duration of each step; the model's own
-    weights stay as they are.  The arming writes onto the model's shared
-    Linear modules, so a quantized decoder owns its model while it steps:
-    no other decoder on the same model may step at the same time."""
+    weights stay as they are.  In "w8a8" the twins of Linears that read
+    one activation are fused (q|k|v and gate|up, armed on their module),
+    so each distinct activation is quantized once; "w8" keeps one call a
+    Linear, its f32 sums being split by N (``wo_splits``).  The arming
+    writes onto the model's shared modules, so a quantized decoder owns
+    its model while it steps: no other decoder on the same model may step
+    at the same time."""
 
     def __init__(self, model, quantize: Optional[str] = None):
         if quantize not in SERVING_QUANT_MODES:
@@ -224,13 +228,16 @@ class PagedDecoder:
         self.max_position = int(model.config.max_position_embeddings)
         self.device = model.model.embed_tokens.weight.device
         self.quantize = quantize
-        self._quant = (quantize_linear_weights(model) if quantize
-                       else [])
+        self._quant = (quantize_linear_weights(model,
+                                               fuse=quantize == "w8a8")
+                       if quantize else [])
 
     @contextlib.contextmanager
     def _armed(self):
-        """Arm every quantized Linear with its twin for one step; cleared
-        on the way out, on failure too."""
+        """Arm every quantized Linear with its twin for one step, and in
+        w8a8 every module with its fused twin (q|k|v, gate|up: one
+        activation quantized once, one matmul); cleared on the way out,
+        on failure too."""
         for layer, w_q, scale in self._quant:
             layer._serving_quant = (self.quantize, w_q, scale)
         try:

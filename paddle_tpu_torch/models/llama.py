@@ -26,6 +26,7 @@ from ..nn import Embedding, Linear, RMSNorm
 from ..nn.functional import cross_entropy
 from ..ops.flash_attention import flash_attention_bshd
 from ..ops import fused_norm_rope
+from ..ops.quant_matmul import quant_forward
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -97,7 +98,20 @@ def apply_rope(q, k, cos, sin, position_offset, neg_sin):
     return fused_norm_rope.apply_rope(q, k, cos, sin, positions, neg_sin)
 
 
+def _fused_projections(module, x):
+    """The outputs of ``module.quant_fused``'s Linears from one armed
+    fused twin (``_serving_quant``, set only inside a w8a8 serving step):
+    one quantized matmul, split by views along the output axis."""
+    out = quant_forward(x, module._serving_quant)
+    widths = [getattr(module, n).out_features for n in module.quant_fused]
+    return out.split(widths, dim=-1)
+
+
 class LlamaAttention(nn.Module):
+    #: Linears that read one activation: a w8a8 serving step arms their
+    #: concatenated int8 twin on this module (``_serving_quant``)
+    quant_fused = ("q_proj", "k_proj", "v_proj")
+
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         c = config
@@ -113,6 +127,7 @@ class LlamaAttention(nn.Module):
                              self.num_kv_heads * self.head_dim, **kw)
         self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
                              **kw)
+        self._serving_quant = None
 
     def forward(self, x, cos, sin, neg_sin, position_offset=0,
                 kv_cache=None, paged_ctx=None):
@@ -122,9 +137,13 @@ class LlamaAttention(nn.Module):
         causally aligned bottom-right (query i sees keys up to
         i + cached length)."""
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        if self._serving_quant is not None:
+            q, k, v = _fused_projections(self, x)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.view(b, s, self.num_heads, self.head_dim)
+        k = k.view(b, s, self.num_kv_heads, self.head_dim)
+        v = v.view(b, s, self.num_kv_heads, self.head_dim)
         q, k = apply_rope(q, k, cos, sin, position_offset, neg_sin)
         if paged_ctx is not None:
             out = paged_ctx.attend(q, k, v)
@@ -140,6 +159,8 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
+    quant_fused = ("gate_proj", "up_proj")      # as LlamaAttention's
+
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         c = config
@@ -147,9 +168,14 @@ class LlamaMLP(nn.Module):
         self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
         self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
         self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+        self._serving_quant = None
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self._serving_quant is not None:
+            gate, up = _fused_projections(self, x)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaDecoderLayer(nn.Module):

@@ -972,19 +972,194 @@ w8a8_splitk_reduce_kernel(const int* __restrict__ part,
 }
 
 // ------------------------------------------------------- activation quant
-// dynamic_act_quant (an XLA function in the JAX package, the prologue of
-// w8a8 and the KV pages' quantizer): one block per row, the row's absmax
-// by a block reduction, then q = clamp(rint(x / scale), -127, 127) with
-// scale = max(absmax, 1e-30) / 127 — IEEE division and round-half-even,
-// bit-equal to the torch ops.  Bound by bytes (x read twice, from L2 the
-// second time); it exists to make the ~8 torch launches one.
+// dynamic_act_quant (XLA ops in the JAX package, quant_matmul.py:159: the
+// prologue of w8a8 and the KV pages' quantizer).  Per row of K elements:
+// scale = max(absmax, 1e-30) / 127 and q = clamp(rint(x / scale), -127,
+// 127), IEEE division and round half to even, bit-equal to the torch ops
+// of `dynamic_act_quant_plain` in f32 and bf16.
+//
+// What bounds it on the H100: bytes.  Each element is read once and its
+// code written once (3 bytes in bf16, 5 in f32), microseconds at most.
+// The design moves exactly those bytes: a row is read from device memory
+// once, in 16-byte vectors, and kept in registers between the absmax and
+// the quantize steps; the codes go out a vector's worth at a time (8 bytes
+// for bf16, 4 for f32).  The kernel is chosen by row shape, from the plan
+// the wrapper passes (`act_quant_plan` in ops/quant_matmul.py):
+//   - rows of at most 1024 elements (the K/V rows' 128): a group of G
+//     lanes per row, G a power of two <= 32 giving each lane one vector,
+//     or two where one would ask for more blocks than the card holds at
+//     once (a prefill's K/V rows), so several rows share a warp and
+//     128 / G rows a block; the absmax by xor shuffles inside the group
+//     (`act_quant_group_kernel`);
+//   - longer rows (the activations' 4096 and 11008): one block per row,
+//     each thread VPT = 1, 2 or 4 vectors, the fewest that keep the block
+//     at 256 threads or less where 4 allow it (4096: 256 x 2; 11008:
+//     352 x 4); the absmax by shuffles and one pass over the warps'
+//     maxima in shared memory (`act_quant_row_kernel<T, VPT>`).  The
+//     block shapes are the plan's constants, timed beside other values
+//     by chip_smoke.py (`act_quant_plan_sweep`);
+//   - rows that are not 16-byte aligned, or too long for a block's
+//     registers: a scalar edge, a block per row that reads its row twice,
+//     the second time from L2 (`act_quant_edge_kernel`).
+// Row r of x starts at (r / inner) * s_outer + (r % inner) * s_inner
+// elements, so a strided view of (outer, inner, K) — the v slice of a
+// fused q|k|v output — quantizes without a copy; codes and scales are
+// written contiguously, row r at r * K and r.
+constexpr int kActGroupThreads = 128;   // act_quant_group_kernel's block
+constexpr int kActMaxVecs = 4;          // vectors a thread of the row kernel
+constexpr int kActMaxThreads = 1024;
+
+__device__ __forceinline__ int64_t act_row_offset(int r, int inner,
+                                                  int64_t s_outer,
+                                                  int64_t s_inner) {
+  if (inner == 1) return static_cast<int64_t>(r) * s_outer;  // no division
+  return static_cast<int64_t>(r / inner) * s_outer
+         + static_cast<int64_t>(r % inner) * s_inner;
+}
+
+// the elements of one 16-byte vector as floats (bf16 -> f32 is exact)
+template <typename T> struct ActVec;
+template <> struct ActVec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+};
+template <> struct ActVec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& v, float* f) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t w = word_of(v, q);
+      f[2 * q] = __uint_as_float(w << 16);
+      f[2 * q + 1] = __uint_as_float(w & 0xffff0000u);
+    }
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float vec_absmax(const uint4& v, float amax) {
+  float f[ActVec<T>::N];
+  ActVec<T>::unpack(v, f);
+#pragma unroll
+  for (int e = 0; e < ActVec<T>::N; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  return amax;
+}
+
+__device__ __forceinline__ uint32_t act_code(float x, float scale) {
+  const float q = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
+}
+
+// one vector's codes, stored at once (dst aligned to their size)
+template <typename T>
+__device__ __forceinline__ void vec_quantize_store(const uint4& v,
+                                                   float scale,
+                                                   int8_t* dst) {
+  constexpr int N = ActVec<T>::N;
+  float f[N];
+  ActVec<T>::unpack(v, f);
+  uint32_t w[N / 4];
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) w[i] = 0u;
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    w[e / 4] |= act_code(f[e], scale) << (8 * (e % 4));
+  if constexpr (N == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kActGroupThreads)
+act_quant_group_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                       float* __restrict__ xs, int rows, int K, int G,
+                       int inner, int64_t s_outer, int64_t s_inner) {
+  constexpr int N = ActVec<T>::N;
+  constexpr int VPT = 1024 / N / 32;      // a 1024-element row over 32 lanes
+  const int tid = threadIdx.x;
+  const int gl = tid & (G - 1);
+  const int row = blockIdx.x * (kActGroupThreads / G) + tid / G;
+  const bool valid = row < rows;
+  const int nvec = K / N;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      x + (valid ? act_row_offset(row, inner, s_outer, s_inner) : 0));
+  uint4 v[VPT];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = gl + i * G;
+    if (valid && c < nvec) {
+      v[i] = __ldg(src + c);
+      amax = vec_absmax<T>(v[i], amax);
+    }
+  }
+  // the group's lanes are adjacent: xor offsets below G stay inside it
+  for (int o = G >> 1; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (!valid) return;
+  const float scale = fmaxf(amax, 1e-30f) / 127.f;
+  int8_t* dst = xq + static_cast<int64_t>(row) * K;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = gl + i * G;
+    if (c < nvec) vec_quantize_store<T>(v[i], scale, dst + c * N);
+  }
+  if (gl == 0) xs[row] = scale;
+}
+
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kActMaxThreads)
+act_quant_row_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                     float* __restrict__ xs, int K, int inner,
+                     int64_t s_outer, int64_t s_inner) {
+  constexpr int N = ActVec<T>::N;
+  __shared__ float red[kActMaxThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int threads = blockDim.x;
+  const int row = blockIdx.x;
+  const int nvec = K / N;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      x + act_row_offset(row, inner, s_outer, s_inner));
+  uint4 v[VPT];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = tid + i * threads;
+    if (c < nvec) {
+      v[i] = __ldg(src + c);
+      amax = vec_absmax<T>(v[i], amax);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  amax = lane < (threads >> 5) ? red[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = fmaxf(amax, 1e-30f) / 127.f;
+  int8_t* dst = xq + static_cast<int64_t>(row) * K;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = tid + i * threads;
+    if (c < nvec) vec_quantize_store<T>(v[i], scale, dst + c * N);
+  }
+  if (tid == 0) xs[row] = scale;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                 float* __restrict__ xs, int K) {
+act_quant_edge_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                      float* __restrict__ xs, int K, int inner,
+                      int64_t s_outer, int64_t s_inner) {
   __shared__ float red[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* row = x + (size_t)blockIdx.x * K;
+  const T* row = x + act_row_offset(blockIdx.x, inner, s_outer, s_inner);
   float amax = 0.f;
   for (int k = tid; k < K; k += kThreads)
     amax = fmaxf(amax, fabsf(to_float(row[k])));
@@ -997,12 +1172,57 @@ act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
 #pragma unroll
   for (int i = 1; i < kWarps; ++i) amax = fmaxf(amax, red[i]);
   const float scale = fmaxf(amax, 1e-30f) / 127.f;
-  int8_t* out = xq + (size_t)blockIdx.x * K;
-  for (int k = tid; k < K; k += kThreads) {
-    const float q = rintf(to_float(row[k]) / scale);
-    out[k] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
-  }
+  int8_t* out = xq + static_cast<int64_t>(blockIdx.x) * K;
+  for (int k = tid; k < K; k += kThreads)
+    out[k] = static_cast<int8_t>(act_code(to_float(row[k]), scale));
   if (tid == 0) xs[blockIdx.x] = scale;
+}
+
+template <typename T>
+cudaError_t launch_act_quant(const T* x, int8_t* q, float* xs, int rows,
+                             int K, int inner, int64_t s_outer,
+                             int64_t s_inner, int path, int param,
+                             cudaStream_t s) {
+  constexpr int N = ActVec<T>::N;
+  if (rows < 1 || K < 1 || inner < 1) return cudaErrorInvalidValue;
+  if (path == 2) {                                   // scalar edge
+    act_quant_edge_kernel<T><<<rows, kThreads, 0, s>>>(x, q, xs, K, inner,
+                                                       s_outer, s_inner);
+    return cudaGetLastError();
+  }
+  // the vector paths read 16-byte vectors: the rows must be aligned
+  if (reinterpret_cast<uintptr_t>(x) % 16 || K % N || s_outer % N
+      || s_inner % N)
+    return cudaErrorMisalignedAddress;
+  if (path == 0) {                                   // a group per row
+    const int G = param;
+    if (G < 1 || G > 32 || (G & (G - 1)) || K > 1024
+        || K / N > G * (1024 / N / 32))
+      return cudaErrorInvalidValue;
+    const int per_block = kActGroupThreads / G;
+    act_quant_group_kernel<T><<<(rows + per_block - 1) / per_block,
+                                kActGroupThreads, 0, s>>>(
+        x, q, xs, rows, K, G, inner, s_outer, s_inner);
+    return cudaGetLastError();
+  }
+  if (path == 1) {                                   // a block per row
+    const int threads = param;
+    if (threads < 32 || threads > kActMaxThreads || threads % 32
+        || K / N > threads * kActMaxVecs)
+      return cudaErrorInvalidValue;
+    const int vpt = (K / N + threads - 1) / threads;
+    if (vpt == 1)
+      act_quant_row_kernel<T, 1><<<rows, threads, 0, s>>>(
+          x, q, xs, K, inner, s_outer, s_inner);
+    else if (vpt == 2)
+      act_quant_row_kernel<T, 2><<<rows, threads, 0, s>>>(
+          x, q, xs, K, inner, s_outer, s_inner);
+    else
+      act_quant_row_kernel<T, 4><<<rows, threads, 0, s>>>(
+          x, q, xs, K, inner, s_outer, s_inner);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------- launch
@@ -1289,22 +1509,29 @@ int w8a8_matmul_fwd(const void* xq, const void* xscale, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype 0 = f32, 1 = bf16 (of x).  x (rows, K), xq (rows, K) int8,
-// xscale (rows,) f32.
+// dtype 0 = f32, 1 = bf16 (of x).  Row r of x (rows of K elements, the
+// last dim contiguous) starts at (r / inner) * s_outer + (r % inner) *
+// s_inner elements; xq (rows, K) int8 and xscale (rows,) f32 contiguous.
+// path 0: act_quant_group_kernel, param = lanes per row (a power of two
+// <= 32, K <= 1024); 1: act_quant_row_kernel, param = threads; 2: the
+// scalar edge (param unused).  The vector paths need x 16-byte aligned
+// and K and both strides multiples of a 16-byte vector.
 int dynamic_act_quant_fwd(const void* x, void* xq, void* xscale, int rows,
-                          int K, int dtype, void* stream) {
+                          int K, int inner, long long s_outer,
+                          long long s_inner, int dtype, int path, int param,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(xq);
   float* xs = static_cast<float*>(xscale);
   if (dtype == 0)
-    act_quant_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), q, xs, K);
-  else if (dtype == 1)
-    act_quant_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), q, xs, K);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch_act_quant<float>(static_cast<const float*>(x), q, xs,
+                                        rows, K, inner, s_outer, s_inner,
+                                        path, param, s);
+  if (dtype == 1)
+    return (int)launch_act_quant<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), q, xs, rows, K, inner, s_outer,
+        s_inner, path, param, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* quant_matmul_error_string(int code) {

@@ -87,25 +87,107 @@ def topk_gating_plain(logits, top_k, capacity, normalize):
                               normalize)
 
 
+#: the kernel's paths (``csrc/moe_gating.cu``): up to WARP_TOKENS tokens
+#: run on one warp; more on blocks of CHUNK_TOKENS tokens, a thread each
+WARP_TOKENS = 32
+CHUNK_TOKENS = 256
+
+
+def gating_plan(T):
+    """(device kernel, tokens a block) of a call with ``T`` tokens."""
+    if T <= WARP_TOKENS:
+        return "topk_gating_warp_kernel", WARP_TOKENS
+    return "topk_gating_chunk_kernel", CHUNK_TOKENS
+
+
+def topk_gating_chunked_plain(logits, top_k, capacity,
+                              chunk=CHUNK_TOKENS):
+    """The multi-block kernel's algebra in torch ops, on its raw
+    contract: (eidx, pos, keep [k, T] int32, w [k, T] f32
+    capacity-masked and unnormalized, fill [E] int32, gsum [E] f32).
+    Every round's choice of a token at once; each chunk of ``chunk``
+    tokens counts its assignments per (round, expert); a slot is the
+    totals of the earlier rounds plus the counts of the earlier chunks in
+    its round plus the token's exclusive count inside its chunk.  The
+    gate mass is summed per chunk, then over the chunks in order."""
+    gates = torch.softmax(logits, dim=-1)
+    T, E = gates.shape
+    remaining = gates
+    eidx, raw = [], []
+    for _ in range(top_k):
+        idx = torch.argmax(remaining, dim=-1)
+        eidx.append(idx)
+        raw.append(gates.gather(1, idx[:, None])[:, 0])
+        remaining = remaining * (1 - F.one_hot(idx, E)).to(gates.dtype)
+    eidx = torch.stack(eidx)                                  # [k, T]
+    n = -(-T // chunk)
+    onehot = F.pad(F.one_hot(eidx, E), (0, 0, 0, n * chunk - T))
+    onehot = onehot.view(top_k, n, chunk, E)
+    counts = onehot.sum(dim=2)                                # [k, n, E]
+    totals = counts.sum(dim=1)                                # [k, E]
+    base = ((totals.cumsum(dim=0) - totals)[:, None, :]       # rounds < r
+            + counts.cumsum(dim=1) - counts)                  # chunks < c
+    slot = onehot.cumsum(dim=2) - onehot + base[:, :, None, :]
+    pos = (slot * onehot).sum(dim=-1).view(top_k, n * chunk)[:, :T]
+    keep = pos < capacity
+    w = torch.stack(raw) * keep.to(gates.dtype)
+    gpart = F.pad(gates, (0, 0, 0, n * chunk - T)).view(n, chunk, E).sum(1)
+    gsum = torch.zeros(E, dtype=gates.dtype, device=gates.device)
+    for c in range(n):
+        gsum = gsum + gpart[c]
+    return (eidx.to(torch.int32), pos.to(torch.int32),
+            keep.to(torch.int32), w, totals[0].to(torch.int32), gsum)
+
+
 def _lib():
     lib = _build.load("moe_gating")
     if not getattr(lib, "_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.moe_topk_gating_fwd.argtypes = [vp, i32, i32, i32, i32, vp, vp,
-                                            vp, vp, vp, vp, vp]
+                                            vp, vp, vp, vp, vp, vp, vp]
         lib.moe_topk_gating_fwd.restype = i32
+        lib.moe_topk_gating_grid.argtypes = [i32, i32, i32]
+        lib.moe_topk_gating_grid.restype = i32
         lib.moe_gating_error_string.argtypes = [i32]
         lib.moe_gating_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
+#: per device: the chunk kernel's grid-barrier words (arrivals,
+#: generation), zero once; each call leaves the arrivals at 0
+_barriers = {}
+
+
+def _barrier(dev):
+    bar = _barriers.get(dev.index)
+    if bar is None:
+        bar = _barriers[dev.index] = torch.zeros(2, dtype=torch.int32,
+                                                 device=dev)
+    return bar
+
+
+def gating_grid(T, E, top_k):
+    """The launch grid (blocks) of a call with ``T`` tokens: 1 on the
+    warp path, else the chunks, at most the blocks the card holds at
+    once (asked of the card)."""
+    if T <= WARP_TOKENS:
+        return 1
+    grid = _lib().moe_topk_gating_grid(T, E, top_k)
+    if grid < 1:
+        raise RuntimeError("moe_gating: the occupancy query failed")
+    return grid
+
+
 def topk_gating_cuda(logits, top_k, capacity):
     """Launch the CUDA gating kernel on f32 ``logits`` [T, E] (E <= 64) on
-    the card.  Returns the kernel's raw outputs: ``eidx``, ``pos`` and
-    ``keep`` [k, T] int32, the capacity-masked, unnormalized weight ``w``
-    [k, T] f32, the round-0 ``fill`` [E] int32 (each expert's top-1
-    count) and ``gsum`` [E] f32 (each expert's gate mass)."""
+    the card: one warp up to ``WARP_TOKENS`` tokens, blocks of
+    ``CHUNK_TOKENS`` above (:func:`gating_plan`).  Returns the kernel's
+    raw outputs: ``eidx``, ``pos`` and ``keep`` [k, T] int32, the
+    capacity-masked, unnormalized weight ``w`` [k, T] f32, the round-0
+    ``fill`` [E] int32 (each expert's top-1 count) and ``gsum`` [E] f32
+    (each expert's gate mass).  Calls on one device run one at a time
+    (they share the chunk kernel's grid barrier), as on one stream."""
     if logits.device.type != "cuda" or logits.dtype != torch.float32 \
             or logits.dim() != 2:
         raise ValueError(f"topk_gating_cuda takes f32 [T, E] logits on a "
@@ -127,11 +209,18 @@ def topk_gating_cuda(logits, top_k, capacity):
                 torch.zeros(E, dtype=torch.float32, device=dev))
     fill = torch.empty(E, dtype=torch.int32, device=dev)
     gsum = torch.empty(E, dtype=torch.float32, device=dev)
+    ws = bar = None
+    if T > WARP_TOKENS:
+        # per chunk: its (round, expert) counts and its gate mass
+        ws = torch.empty(-(-T // CHUNK_TOKENS) * (top_k + 1) * E,
+                         dtype=torch.int32, device=dev)
+        bar = _barrier(dev)
     lib = _lib()
     status = lib.moe_topk_gating_fwd(
         logits.data_ptr(), T, E, int(top_k), int(capacity), eidx.data_ptr(),
         pos.data_ptr(), keep.data_ptr(), w.data_ptr(), fill.data_ptr(),
-        gsum.data_ptr(), _build.stream_ptr(dev))
+        gsum.data_ptr(), ws.data_ptr() if ws is not None else None,
+        bar.data_ptr() if bar is not None else None, _build.stream_ptr(dev))
     if status:
         raise RuntimeError("moe_gating kernel launch failed: "
                            + lib.moe_gating_error_string(status).decode())

@@ -16,6 +16,10 @@ w8a8 activations here and the KV slots through
 the card the port runs it as one kernel of the same source (bit-equal to
 the torch ops of ``dynamic_act_quant_plain``), because the ~8 launches
 of the torch ops cost host time on every Linear and every K/V write.
+The kernel is picked by row shape (``act_quant_plan``), and a w8a8
+serving step quantizes each distinct activation once: the twins of
+Linears that read one activation are fused (``quant_forward`` on a
+module's concatenated twin, ``quantization.serving``).
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_typed", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.weight_only_matmul_workspace.argtypes = [i32, i32, i32, i32]
         lib.weight_only_matmul_workspace.restype = ctypes.c_longlong
         lib.weight_only_matmul_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32,
@@ -87,7 +91,9 @@ def _lib():
         lib.w8a8_matmul_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                         i32, vp, vp]
         lib.w8a8_matmul_fwd.restype = i32
-        lib.dynamic_act_quant_fwd.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+        lib.dynamic_act_quant_fwd.argtypes = [vp, vp, vp, i32, i32, i32,
+                                               i64, i64, i32, i32, i32,
+                                               vp]
         lib.dynamic_act_quant_fwd.restype = i32
         lib.quant_matmul_error_string.argtypes = [i32]
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
@@ -124,24 +130,115 @@ def _raise_on(status, lib, name):
                            + lib.quant_matmul_error_string(status).decode())
 
 
+#: the quantizer's kernels, by row shape (``csrc/quant_matmul.cu``)
+ACT_GROUP_MAX_K = 1024      # act_quant_group_kernel: rows this long or less
+ACT_GROUP_THREADS = 128     # ... in blocks of this many threads
+ACT_GROUP_BLOCKS_PER_SM = 16  # ... that many resident on an SM
+ACT_ROW_THREADS = 256       # act_quant_row_kernel: threads it aims below
+ACT_ROW_MAX_THREADS = 1024  # ... and at most
+ACT_ROW_MAX_VECS = 4        # vectors a thread holds at most
+#: the H100's SMs, where no card is asked (the CPU tests)
+_DEFAULT_SMS = 132
+
+
+def act_quant_plan(rows, K, dtype, aligned, sms=_DEFAULT_SMS):
+    """The quantizer's launch for ``rows`` rows of ``K`` elements of
+    ``dtype`` on a card of ``sms`` SMs, from shapes alone: (kernel name,
+    grid, threads a block, param), param being the lanes a row (group
+    kernel) or the threads a block (row kernel).  ``aligned``: every row
+    starts 16-byte aligned and K fills whole 16-byte vectors, which the
+    vector kernels read.  A lane of the group kernel holds one vector, or
+    two where one would ask for more blocks than the card holds at once;
+    a thread of the row kernel 1, 2 or 4, the fewest that keep the block
+    within ``ACT_ROW_THREADS`` (chosen on the H100, PERF.md)."""
+    n = 16 // (4 if dtype == torch.float32 else 2)
+    nvec = K // n
+    if aligned and K % n == 0:
+        if K <= ACT_GROUP_MAX_K:
+            lanes = min(32, 1 << max(0, nvec - 1).bit_length())
+            if lanes > 1 and -(-rows * lanes // ACT_GROUP_THREADS) \
+                    > ACT_GROUP_BLOCKS_PER_SM * sms:
+                lanes //= 2
+            return ("act_quant_group_kernel",
+                    -(-rows * lanes // ACT_GROUP_THREADS),
+                    ACT_GROUP_THREADS, lanes)
+        for vecs in (1, 2, ACT_ROW_MAX_VECS):
+            threads = -(-nvec // vecs)
+            threads = -(-threads // 32) * 32
+            if threads <= ACT_ROW_THREADS:
+                break
+        if threads <= ACT_ROW_MAX_THREADS:
+            return "act_quant_row_kernel", rows, threads, threads
+    return "act_quant_edge_kernel", rows, 256, 0
+
+
+_sm_counts = {}
+
+
+def _sms(device):
+    """The SMs of a CUDA device, asked once."""
+    sms = _sm_counts.get(device.index)
+    if sms is None:
+        sms = _sm_counts[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+_ACT_PATHS = {"act_quant_group_kernel": 0, "act_quant_row_kernel": 1,
+              "act_quant_edge_kernel": 2}
+
+
+def _row_layout(x):
+    """(inner, s_outer, s_inner): row r of ``x`` (..., K), last dim
+    contiguous, starts at (r // inner) * s_outer + (r % inner) * s_inner
+    elements, or None where the leading dims need more than two strides.
+    A contiguous tensor is (1, K, 0); the v slice of a fused q|k|v output,
+    (b * s, kv_heads, d) with strides (N, d, 1), is (kv_heads, N, d)."""
+    dims = []                     # innermost first, size-1 dims dropped
+    for n, st in reversed(list(zip(x.shape[:-1], x.stride()[:-1]))):
+        if n == 1:
+            continue
+        if dims and st == dims[-1][0] * dims[-1][1]:
+            dims[-1] = (dims[-1][0] * n, dims[-1][1])
+        else:
+            dims.append((n, st))
+    if len(dims) > 2:
+        return None
+    if len(dims) < 2:
+        return 1, (dims[0][1] if dims else x.shape[-1]), 0
+    (inner, s_inner), (_outer, s_outer) = dims
+    return inner, s_outer, s_inner
+
+
 def dynamic_act_quant_cuda(x):
     """Launch the CUDA activation-quantization kernel on an f32/bf16
-    tensor (..., K) on the card -> (x_q int8 (..., K), f32 (..., 1))."""
+    tensor (..., K) on the card -> (x_q int8 (..., K), f32 (..., 1)).
+    The kernel is chosen by row shape (:func:`act_quant_plan`); a view
+    whose rows two strides address is read in place."""
     if x.device.type != "cuda" or x.dtype not in _DTYPES:
         raise ValueError(f"dynamic_act_quant_cuda takes an f32 or bf16 CUDA "
                          f"tensor, got {x.dtype} on {x.device}")
-    x = x.contiguous()
+    layout = _row_layout(x) if x.dim() and x.stride(-1) == 1 else None
+    if layout is None:
+        x = x.contiguous()
+        layout = _row_layout(x)
+    inner, s_outer, s_inner = layout
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32,
                         device=x.device)
-    rows = scale.numel()
-    if rows == 0 or x.shape[-1] == 0:
+    rows, K = scale.numel(), x.shape[-1]
+    if rows == 0 or K == 0:
         return q, scale
+    n = 16 // x.element_size()
+    aligned = (x.data_ptr() % 16 == 0 and s_outer % n == 0
+               and s_inner % n == 0)
+    kernel, _grid, _threads, param = act_quant_plan(rows, K, x.dtype,
+                                                    aligned, _sms(x.device))
     lib = _lib()
     _raise_on(lib.dynamic_act_quant_fwd(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, x.shape[-1],
-        _DTYPES[x.dtype], _build.stream_ptr(x.device)), lib,
-        "dynamic_act_quant")
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, K, inner,
+        s_outer, s_inner, _DTYPES[x.dtype], _ACT_PATHS[kernel], param,
+        _build.stream_ptr(x.device)), lib, "dynamic_act_quant")
     dynamic_act_quant_cuda.launches += 1
     return q, scale
 
@@ -267,18 +364,23 @@ def w8a8_matmul(x, w_q, scale):
     return w8a8_matmul_cuda(x_q, x_scale, w_q, scale, x.dtype)
 
 
-def quant_linear_forward(layer, x, q):
-    """The quantized forward a ``Linear`` runs while a serving step has
-    armed it: ``q = (mode, w_q, scale)`` with the int8 twin [N, K] and
-    its per-out-channel scales; ``mode`` picks weight-only ("w8") or
-    dynamic-per-token "w8a8"."""
+def quant_forward(x, q):
+    """x (..., K) through an armed int8 twin ``q = (mode, w_q, scale)``
+    ([N, K] int8 and its per-out-channel scales): weight-only ("w8") or
+    dynamic-per-token "w8a8".  Returns (..., N) in x's type."""
     mode, w_q, scale = q
     x2 = x.reshape(-1, x.shape[-1])
     if mode == "w8a8":
         out = w8a8_matmul(x2, w_q, scale)
     else:
         out = weight_only_matmul(x2, w_q, scale)
-    out = out.reshape(*x.shape[:-1], w_q.shape[0])
+    return out.reshape(*x.shape[:-1], w_q.shape[0])
+
+
+def quant_linear_forward(layer, x, q):
+    """The quantized forward a ``Linear`` runs while a serving step has
+    armed it with ``q`` (:func:`quant_forward`), plus its bias."""
+    out = quant_forward(x, q)
     if layer.bias is not None:
         out = out + layer.bias
     return out

@@ -10,7 +10,9 @@ weight), as the JAX package's ``PerChannelAbsmaxObserverLayer`` with
 ``quant_axis=1`` does on its [in, out] layout.  Embeddings (gathered,
 not multiplied) and norms (1-D) stay in the model's type; a tied head
 is not a Linear and stays too.  The twin keeps the port's [N, K] layout
-(K contiguous), the layout ``ops.quant_matmul`` consumes.
+(K contiguous), the layout ``ops.quant_matmul`` consumes.  For w8a8 the
+twins of Linears that read one activation are concatenated into one
+(``fuse=True``), so that activation is quantized once.
 """
 from __future__ import annotations
 
@@ -35,17 +37,43 @@ def iter_quant_linears(model):
             yield name, layer
 
 
+def _twin(layer):
+    w = layer.weight.float()
+    scale = w.abs().amax(dim=1).clamp_min(1e-30) / 127.0
+    w_q = torch.clamp(torch.round(w / scale[:, None]), -127,
+                      127).to(torch.int8)
+    return w_q.contiguous(), scale
+
+
 @torch.no_grad()
-def quantize_linear_weights(model) -> List[Tuple[Linear, torch.Tensor,
-                                                 torch.Tensor]]:
+def quantize_linear_weights(model, fuse: bool = False
+                            ) -> List[Tuple[torch.nn.Module, torch.Tensor,
+                                            torch.Tensor]]:
     """``(layer, w_q, scale)`` for every quantizable Linear: ``w_q``
     int8 [out, in], ``scale`` f32 [out], both on the weight's device.
-    The model's own weights are untouched."""
-    out = []
+    The model's own weights are untouched.
+
+    ``fuse``: a module that names Linears reading one activation in
+    ``quant_fused`` (LLaMA's attention: q|k|v; its MLP: gate|up) gets one
+    entry ``(module, w_q, scale)`` in place of theirs, the twins and
+    scales concatenated along the output axis in that order, so a w8a8
+    step quantizes that activation once and runs one matmul.  Each
+    output channel's twin is the same rows either way, so the fused
+    product is bit-equal to the separate ones.  Groups with a bias stay
+    per Linear."""
+    out, fused = [], set()
+    for module in model.modules() if fuse else ():
+        names = getattr(module, "quant_fused", None)
+        if not names:
+            continue
+        layers = [getattr(module, n) for n in names]
+        if any(layer.bias is not None for layer in layers):
+            continue
+        twins = [_twin(layer) for layer in layers]
+        out.append((module, torch.cat([t[0] for t in twins]),
+                    torch.cat([t[1] for t in twins])))
+        fused.update(id(layer) for layer in layers)
     for _name, layer in iter_quant_linears(model):
-        w = layer.weight.float()
-        scale = w.abs().amax(dim=1).clamp_min(1e-30) / 127.0
-        w_q = torch.clamp(torch.round(w / scale[:, None]), -127,
-                          127).to(torch.int8)
-        out.append((layer, w_q.contiguous(), scale))
+        if id(layer) not in fused:
+            out.append((layer, *_twin(layer)))
     return out

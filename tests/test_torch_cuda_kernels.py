@@ -417,6 +417,134 @@ def test_dynamic_act_quant_bit_equal_to_plain(dev, dt, shape):
     assert torch.equal(q, pq) and torch.equal(s, ps)
 
 
+# the rebuilt quantizer's shapes: llama_7b's decode and prefill
+# activations, the K/V rows of a decode write and of a 1024-token
+# prefill (b * s * kv heads rows of 128), and an odd f32 shape
+ACT_QUANT_SHAPES = [((8, 4096), "bf16"), ((8, 11008), "bf16"),
+                    ((1024, 4096), "bf16"), ((1024, 11008), "bf16"),
+                    ((256, 128), "bf16"), ((32768, 128), "bf16"),
+                    ((77, 300), "f32"), ((8, 4096), "f32"),
+                    ((5, 1024), "bf16"), ((3, 8), "f32")]
+
+
+@pytest.mark.parametrize("shape,dt", ACT_QUANT_SHAPES,
+                         ids=[f"{'x'.join(map(str, s))}-{d}"
+                              for s, d in ACT_QUANT_SHAPES])
+def test_act_quant_kernels_bit_equal_to_plain(dev, shape, dt):
+    """Each row-shape path of the quantizer against its plain version,
+    bit for bit (IEEE division, round half to even), a zero row and a
+    row of exact ties included; the kernel the plan names is the one
+    that ran."""
+    dtype, _ = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+    x[0] = 0
+    if shape[0] > 2:
+        x[1] = torch.arange(shape[1], device=dev).to(dtype) * 0.5 - 3.0
+        # absmax 127, so the scale is exactly 1 and every x.5 a tie
+        x[2] = ((torch.arange(shape[1], device=dev) % 509) * 0.5
+                - 127.0).to(dtype)
+    q, s = qm.dynamic_act_quant_cuda(x)
+    pq, ps = qm.dynamic_act_quant_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    kernel, _grid, _threads, _param = qm.act_quant_plan(
+        x.numel() // shape[-1], shape[-1], dtype, True, qm._sms(x.device))
+    assert any(kernel in n for n in _device_kernels(
+        lambda: qm.dynamic_act_quant_cuda(x)))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_act_quant_views_bit_equal_to_plain(dev, dt):
+    """A misaligned view takes the scalar edge; the v slice of a fused
+    q|k|v output (two strides over its rows) is read in place by the
+    vector kernel; both bit-equal to the plain version."""
+    dtype, _ = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(11)
+    flat = (torch.randn(64 * 4096 + 1, generator=g, device=dev) * 3).to(
+        dtype)
+    x = flat[1:].view(64, 4096)                       # 2 or 4 bytes off
+    assert x.data_ptr() % 16
+    q, s = qm.dynamic_act_quant_cuda(x)
+    pq, ps = qm.dynamic_act_quant_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert any("act_quant_edge_kernel" in n for n in _device_kernels(
+        lambda: qm.dynamic_act_quant_cuda(x)))
+    qkv = (torch.randn(2, 9, (8 + 2 * 2) * 128, generator=g, device=dev)
+           * 3).to(dtype)
+    v = qkv[..., 10 * 128:].view(2 * 9, 2, 128)
+    assert not v.is_contiguous()
+    q, s = qm.dynamic_act_quant_cuda(v)
+    pq, ps = qm.dynamic_act_quant_plain(v.contiguous())
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    names = _device_kernels(lambda: qm.dynamic_act_quant_cuda(v))
+    assert any("act_quant_group_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("widths", [(4096, 4096, 4096), (4096, 1024, 1024),
+                                    (11008, 11008)],
+                         ids=["qkv-mha", "qkv-gqa", "gate-up"])
+def test_w8a8_fused_call_equals_separate_calls(dev, m, widths):
+    """One w8a8 call on the concatenated twins is torch.equal to the
+    separate calls: the same codes, exact s32 sums, a per-element
+    epilogue whatever the tiles or K splits of the wider N."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(m, 4096, generator=g, device=dev).bfloat16()
+    ws = [torch.randint(-127, 128, (n, 4096), generator=g, device=dev,
+                        dtype=torch.int8) for n in widths]
+    ss = [torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4
+          for n in widths]
+    fused = qm.w8a8_matmul(x, torch.cat(ws), torch.cat(ss))
+    for got, w, s in zip(fused.split(list(widths), dim=-1), ws, ss):
+        assert torch.equal(got, qm.w8a8_matmul(x, w, s))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_w8a8_fused_twins_bit_equal_to_per_linear(dev, dt, monkeypatch):
+    """A small GQA LLaMA served in w8a8 with int8 KV: prefill logits and
+    greedy streams with the fused q|k|v and gate|up twins equal the
+    per-Linear path's bit for bit, and the quantizer runs 4 * layers + 1
+    + 2 * layers times a forward."""
+    from paddle_tpu_torch.inference import paged
+    from paddle_tpu_torch.inference.continuous import \
+        ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import serving
+    dtype, _ = DTYPES[dt]
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=dtype, seed=3)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 256, (1, 32)).astype(np.int32)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (5, 17, 40)]
+    real = serving.quantize_linear_weights
+    outs = []
+    for fuse in (True, False):
+        if not fuse:
+            monkeypatch.setattr(paged, "quantize_linear_weights",
+                                lambda m, fuse=False: real(m, fuse=False))
+        cache = pa.PagedKVCache.from_model(model, total_pages=16,
+                                           page_size=16, kv_dtype="int8")
+        dec = paged.PagedDecoder(model, quantize="w8a8")
+        before = qm.dynamic_act_quant_cuda.launches
+        with torch.no_grad():
+            logits = dec.prefill(cache, [0], ids)
+        quantized = qm.dynamic_act_quant_cuda.launches - before
+        with ContinuousBatchingEngine(model, total_pages=64, page_size=16,
+                                      max_batch=4, quantize="w8a8",
+                                      kv_quant="int8", device=dev) as eng:
+            reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            streams = [r.result(timeout=120).tolist() for r in reqs]
+        outs.append((logits, streams, quantized))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1]
+    assert outs[0][2] == 4 * 2 + 1 + 2 * 2
+    assert outs[1][2] == 7 * 2 + 1 + 2 * 2
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("qh,kvh,d", [(8, 8, 128), (8, 2, 64)])
 def test_paged_ragged_int8_matches_plain(dev, dt, qh, kvh, d):
@@ -937,3 +1065,47 @@ def test_paged_attention_raises_without_its_kernel(dev, monkeypatch):
                  lambda: pa.paged_attention_ragged(*args)):
         with pytest.raises(_build.KernelBuildError):
             call()
+
+
+# the rebuilt gating kernel: T 8 on the warp path; 37 (one chunk), 4096
+# and 8192 (16 and 32 chunks) on the chunk kernel
+GATING_SCAN = [(T, E, k) for T in (8, 37, 4096, 8192) for E in (4, 8, 32)
+               for k in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("T,E,k", GATING_SCAN,
+                         ids=[f"T{T}-E{E}-k{k}" for T, E, k in GATING_SCAN])
+def test_topk_gating_paths_bit_equal_in_routing(dev, T, E, k):
+    """Routing bit-equal to the plain version and to the chunked twin's
+    algebra, with a capacity that drops and one that does not, random
+    and underflowed gates; two calls bit-identical, gsum included; the
+    warp kernel at T <= 32, the chunk kernel above (more than one block
+    from T 4096)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        moe_capacity
+    g = torch.Generator(device=dev).manual_seed(T + E + k)
+    for underflow in (False, True):
+        x = torch.randn(T, E, generator=g, device=dev) * 1.4
+        if underflow:
+            x.zero_()
+            x[:, E // 2] = 200.0
+            x[1::2, E - 1] = 200.0
+        for cap in (max(1, T * k // (2 * E)), moe_capacity(k, T, E, 2.4)):
+            raw = mg.topk_gating_cuda(x, k, cap)
+            again = mg.topk_gating_cuda(x, k, cap)
+            for a, b in zip(raw, again):
+                assert torch.equal(a, b)
+            want = mg.topk_gating_plain(x, k, cap, False)
+            for a, b in zip(raw[:3], want[:3]):
+                assert torch.equal(a.to(b.dtype), b)
+            assert float((raw[3] - want[3]).abs().max()) <= 1e-6
+            twin = mg.topk_gating_chunked_plain(x, k, cap)
+            assert torch.equal(raw[4], twin[4])
+            torch.testing.assert_close(raw[5], twin[5], rtol=1e-5, atol=1e-6)
+    kernel, threads = mg.gating_plan(T)
+    names = _device_kernels(lambda: mg.topk_gating_cuda(x, k, cap))
+    assert any(kernel in n for n in names), names
+    if T > 32:
+        assert mg.gating_grid(T, E, k) == -(-T // threads)
+    if T >= 4096:
+        assert mg.gating_grid(T, E, k) > 1

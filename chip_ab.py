@@ -29,10 +29,11 @@ bf16, 16-token pages) at decode b8 with contexts up to 1056 (bf16 and
 int8 pages), decode b8 at context 2048, decode b1 at context 4000 and the
 chunked256 mix (a 256-token chunk row beside 7 decode rows), the pools
 read cold; ``serve`` serves chip_smoke.py's 8 requests on llama_7b (bf16
-weights from ``--seed``) with ``w8`` and ``w8a8`` weights
-and int8 KV pages and times one 1024-token quantized prefill of each
-mode (host wall clock, synchronized, and device busy time in a
-profiler window); ``train`` and ``moe`` run
+weights from ``--seed``) in bf16, and with ``w8`` and ``w8a8`` weights
+and int8 KV pages (after chip_smoke.py's warm-up wave, where the side's
+``serve`` takes one), and times one 1024-token prefill of each mode
+(host wall clock, synchronized, and device busy time in a profiler
+window); ``train`` and ``moe`` run
 ``chip_smoke.py``'s end-to-end phases (llama_small training steps; the
 Mixtral-width MoE generate).  Each side's ``chip_smoke.py`` must provide
 ``cuda_ms(fn)``, ``profiled_ms(fn)``, ``cold_inputs(t)``, ``serve(...)``,
@@ -112,7 +113,8 @@ METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
                               for c in FLASHMASK_CASES
                               for kern in FLASHMASK_KERNELS),
            "paged": tuple(c[0] for c in PAGED_CASES),
-           "serve": tuple(f"{mode} {m}" for mode in ("w8", "w8a8") for m in (
+           "serve": tuple(f"{mode} {m}" for mode in ("bf16", "w8", "w8a8")
+                          for m in (
                "ttft_p50_s", "tpot_p50_s", "prefill1024_wall_ms",
                "prefill1024_device_ms")),
            "train": ("step_ms_p50", "tokens_per_s", "mfu",
@@ -309,11 +311,13 @@ def paged(cs, seed, dev):
 
 
 def serve(cs, seed, dev):
-    """llama_7b with int8 weights (w8, w8a8): one 1024-token quantized
+    """llama_7b in bf16 and with int8 weights (w8, w8a8): one 1024-token
     prefill alone, its synchronized wall milliseconds (median of 3 after
     a first call) and its device busy milliseconds (profiler); then
-    chip_smoke.py's 8 requests through the engine with int8 KV pages
-    (TTFT and TPOT p50)."""
+    chip_smoke.py's 8 requests through the engine, with int8 KV pages
+    where the weights are int8 (TTFT and TPOT p50), after its warm-up
+    wave where the side's ``serve`` takes one."""
+    import inspect
     import time
     import numpy as np
     import torch
@@ -333,8 +337,16 @@ def serve(cs, seed, dev):
         0, cfg.vocab_size, int(lengths[7]) - 256 if lengths[7] > 256
         else 64)]).astype(np.int32)
     ids = rng.integers(0, cfg.vocab_size, (1, 1024)).astype(np.int32)
+    # a side whose engine captures CUDA graphs serves chip_smoke.py's
+    # warm-up wave first, so its measured wave replays them
+    warm = [rng.integers(0, cfg.vocab_size, len(p)).astype(np.int32)
+            for p in prompts]
+    warmup = (warm, np.concatenate([warm[0][:256], rng.integers(
+        0, cfg.vocab_size, len(sharer) - 256)]).astype(np.int32))
+    kw = ({"warmup": warmup}
+          if "warmup" in inspect.signature(cs.serve).parameters else {})
     out = {}
-    for mode in ("w8", "w8a8"):
+    for mode in (None, "w8", "w8a8"):
         # the prefill alone first: its first call also builds the int8
         # twins and compiles the Triton kernels, which the serve pass
         # would otherwise pay inside its TTFT
@@ -351,16 +363,17 @@ def serve(cs, seed, dev):
             prefill()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        out[f"{mode} prefill1024_wall_ms"] = float(np.median(walls[1:]))
-        out[f"{mode} prefill1024_device_ms"] = cs.profiled_ms(prefill,
-                                                              reps=3)
+        label = mode or "bf16"
+        out[f"{label} prefill1024_wall_ms"] = float(np.median(walls[1:]))
+        out[f"{label} prefill1024_device_ms"] = cs.profiled_ms(prefill,
+                                                               reps=3)
         del cache, decoder
         torch.cuda.empty_cache()
         reqs, wall, _ = cs.serve(model, prompts, sharer, None, dev, mode,
-                                 "int8")
+                                 mode and "int8", **kw)
         stats = cs.serve_stats(reqs, wall)
-        out[f"{mode} ttft_p50_s"] = stats["ttft_p50_s"]
-        out[f"{mode} tpot_p50_s"] = stats["tpot_p50_s"]
+        out[f"{label} ttft_p50_s"] = stats["ttft_p50_s"]
+        out[f"{label} tpot_p50_s"] = stats["tpot_p50_s"]
         del reqs
         torch.cuda.empty_cache()
     return out

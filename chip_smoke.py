@@ -80,10 +80,12 @@ failure:
             FlashMask kernels and none of the CUDA-core ones.  Prints
             forward and forward+backward ms p50, tokens/s, peak memory
             and the share of 64 x 64 tiles skipped.
-3. small   — a small f32 model served on the card (kernels) and on the
-            CPU (plain versions) from the same weights, unquantized and
+3. small   — a small f32 model served on the card (kernels, the
+            engine's steps as CUDA graphs) and on the CPU (plain
+            versions, eager) from the same weights, unquantized and
             with int8 weights (w8, w8a8) and int8 KV pages: the greedy
-            token streams must agree.  small-train: a small f32 model trains
+            token streams must agree, and the card's engine must have
+            replayed graphs.  small-train: a small f32 model trains
             5 AdamW steps on the card and on the CPU from the same
             weights and batches: the per-step losses must agree.
             small-moe: a small f32 MoE model's greedy ``generate`` streams
@@ -92,8 +94,15 @@ failure:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks, and unchunked quantized
             (``quantize="w8"`` and ``"w8a8"``, both with
-            ``kv_quant="int8"``).  The kernels' launch counters are
-            zeroed just before each pass and read just after it; every
+            ``kv_quant="int8"``), the page-table width pinned at 256
+            pages.  Each pass first serves a warm-up wave on the same
+            engine (the same prompt lengths, other tokens), whose steps
+            capture the CUDA graphs, then the measured wave, which must
+            capture none and replay; printed: the warm-up's captures, the
+            measured replays, the bytes the warm-up reserved, TTFT and
+            TPOT p50.  The kernels' launch counters are
+            zeroed just before each measured wave and read just after it
+            (a replay adds its capture's launches); every
             kernel of a pass's path must have launched (a quantized pass:
             in w8 its matmul once a Linear of every forward, in w8a8 once
             a distinct activation, q|k|v and gate|up fused, 4 a layer and
@@ -107,9 +116,12 @@ failure:
             must show the tensor-core flash forward, and ones over a bf16
             w8 and a w8a8 prefill the tensor-core w8 and w8a8 kernels.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
-            and 2048, and w8 with int8 KV at 512, host-clock step times,
-            then one ``torch.profiler`` window for the device's busy
-            time, idle share and top kernels.
+            and 2048, w8 with int8 KV at 512, and bf16 at 512 with the
+            table pinned at 256 pages, each through the eager and the
+            graphed decoder on two caches filled alike (ids equal every
+            step, a logits step bit-equal): host-clock step times, then a
+            ``torch.profiler`` window each for the device's busy time,
+            idle share, paged kernels' time and top kernels.
 6. train   — llama_small (full width and depth) in bf16 with
             ``AdamW(multi_precision=True)`` through ``jit.TrainStep``, batch
             8 x sequence 1024, one batch drawn from ``--seed`` and
@@ -242,6 +254,15 @@ PAGED_TIMED = (
     ("chunked256 mix: a 256-token chunk + 7 decode rows, ctx<=1024",
      [256] + [1] * 7, [717, 1011, 84, 530, 966, 311, 12, 640],
      "chunked256_mix"))
+# the serve passes: (label, prefill chunk, quantize, kv_quant); their
+# page-table width, pinned at ceil(max_position / page) for llama_7b, so
+# a wave's bucket set does not hang on its context lengths (the JAX
+# package's compile-free serving lane pins it the same way)
+SERVE_TABLE_PAGES = 4096 // 16
+# the profiled decode steps, batch 8: (context, quantize, kv_quant,
+# min_table_pages); the last one is the first with the table pinned
+PROFILE_CASES = ((512, None, None, 1), (2048, None, None, 1),
+                 (512, "w8", "int8", 1), (512, None, None, SERVE_TABLE_PAGES))
 # the serve passes: (label, prefill chunk, quantize, kv_quant)
 SERVE_PASSES = (("unchunked", None, None, None),
                 ("chunked256", 256, None, None),
@@ -1883,23 +1904,31 @@ def counters():
 
 
 def serve(model, prompts, sharer, chunk, device, quantize=None,
-          kv_quant=None):
+          kv_quant=None, warmup=None, kernels=None):
     """Serve ``prompts`` (the last two sampled) and then ``sharer``,
     which shares prompts[0]'s first 256 tokens, once prompts[0] has its
-    first token (so its prefix is cached).  Returns requests, wall
-    seconds and the KV cache's resident bytes (pages, scales)."""
+    first token (so its prefix is cached).  With ``warmup`` (prompts,
+    sharer) of the same lengths and other tokens, that wave runs first on
+    the same engine, so the measured wave's buckets are captured before
+    it starts; ``kernels``' launch counters are zeroed just before the
+    measured wave.  The prompts of a wave are queued under the engine's
+    lock, so the scheduler admits them together, as each wave.  Returns
+    the measured requests, wall seconds, and the KV cache's resident
+    bytes (pages, scales) with the engine's graph counts: captures in the
+    warm-up and in the measured wave, the measured wave's replays, and
+    the bytes the warm-up added to ``torch.cuda.memory_reserved`` (the
+    graphs' pool with its staging)."""
     from paddle_tpu_torch.inference.continuous import \
         ContinuousBatchingEngine
-    t0 = time.perf_counter()
-    with ContinuousBatchingEngine(model, total_pages=1024, page_size=16,
-                                  max_batch=8, prefill_chunk_tokens=chunk,
-                                  quantize=quantize, kv_quant=kv_quant,
-                                  device=device) as eng:
+
+    def wave(eng, prompts, sharer):
         reqs = []
-        for i, p in enumerate(prompts):
-            sampled = i >= len(prompts) - 2
-            reqs.append(eng.submit(p, max_new_tokens=32, do_sample=sampled,
-                                   temperature=0.8, seed=100 + i))
+        with eng._cond:
+            for i, p in enumerate(prompts):
+                sampled = i >= len(prompts) - 2
+                reqs.append(eng.submit(p, max_new_tokens=32,
+                                       do_sample=sampled, temperature=0.8,
+                                       seed=100 + i))
         while reqs[0].first_token_at is None and not reqs[0].done.is_set():
             time.sleep(0.005)
         reqs.append(eng.submit(sharer, max_new_tokens=32))
@@ -1907,9 +1936,36 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
             r.result(timeout=600)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        kv_bytes = dict(kv_pool_bytes=eng.cache.kv_pool_bytes,
-                        kv_scale_bytes=eng.cache.kv_scale_bytes)
-    return reqs, time.perf_counter() - t0, kv_bytes
+        return reqs
+
+    info = {}
+    with ContinuousBatchingEngine(model, total_pages=1024, page_size=16,
+                                  max_batch=8, prefill_chunk_tokens=chunk,
+                                  quantize=quantize, kv_quant=kv_quant,
+                                  min_table_pages=SERVE_TABLE_PAGES,
+                                  device=device) as eng:
+        if warmup is not None:
+            # cached blocks released on both sides, so the difference is
+            # what the warm-up holds: the graphs' pool and the staging
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            wave(eng, *warmup)
+            torch.cuda.empty_cache()
+            info.update(captures_warmup=eng.captures,
+                        graph_pool_bytes=torch.cuda.memory_reserved(device)
+                        - reserved)
+        captured, replayed = eng.captures, eng.replays
+        for fn in (kernels or {}).values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        reqs = wave(eng, prompts, sharer)
+        wall = time.perf_counter() - t0
+        info.update(captures=eng.captures - captured,
+                    replays=eng.replays - replayed,
+                    kv_pool_bytes=eng.cache.kv_pool_bytes,
+                    kv_scale_bytes=eng.cache.kv_scale_bytes)
+    return reqs, wall, info
 
 
 def serve_stats(reqs, wall):
@@ -2144,7 +2200,7 @@ def check_small():
                for n in (9, 40, 130)]
     for (quant, kv), chunk in itertools.product(
             ((None, None), ("w8", "int8"), ("w8a8", "int8")), (None, 32)):
-        streams = []
+        streams, graphs = [], []
         for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
             with ContinuousBatchingEngine(model, total_pages=64,
                                           page_size=16, max_batch=4,
@@ -2154,13 +2210,18 @@ def check_small():
                 reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
                 streams.append([r.result(timeout=300).tolist()
                                 for r in reqs])
+                graphs.append((eng.captures, eng.replays))
         label = f"quantize={quant} kv_quant={kv} chunk={chunk}"
         if streams[0] != streams[1]:
             raise AssertionError(
                 f"small f32 model, {label}: greedy streams on the "
                 f"card {streams[0]} differ from the CPU's {streams[1]}")
+        if not graphs[0][1]:
+            raise AssertionError(f"small f32 model, {label}: the card's "
+                                 f"engine replayed no CUDA graph")
         log(f"  small f32 model {label}: greedy streams of "
-            f"{len(prompts)} requests equal card vs CPU")
+            f"{len(prompts)} requests equal card (CUDA graphs: "
+            f"{graphs[0][0]} captured, {graphs[0][1]} replays) vs CPU")
 
 
 def _lm_loss(logits, labels):
@@ -2650,76 +2711,127 @@ def _device_us(evt):
     return 0.0
 
 
-def profile_decode(model, batch, context, steps, seed, quantize=None,
-                   kv_quant=None):
-    """Prefill ``batch`` sequences of ``context`` tokens one by one, then
-    run ``steps`` ragged decode steps (one token per row): the first
-    half timed on the host clock (each step ends in the host transfer
-    of its token ids), the second half in one ``torch.profiler`` window
-    for the device's busy time per step and its idle share."""
-    from paddle_tpu_torch.inference.paged import PagedDecoder
-    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
-    pages = batch * (-(-(context + steps + 8) // 16))
-    cache = PagedKVCache.from_model(model, total_pages=pages + 1,
-                                    page_size=16, kv_dtype=kv_quant)
-    dec = PagedDecoder(model, quantize=quantize)
-    rng = np.random.default_rng(seed)
-    seqs = list(range(batch))
-    nxt = np.zeros(batch, np.int32)
-    greedy1 = (np.zeros(1, np.uint32), np.zeros(1, np.int32),
-               np.ones(1, np.float32), np.zeros(1, bool))
-    walls = []
-    for sid in seqs:
-        ids = rng.integers(0, model.config.vocab_size,
-                           (1, context)).astype(np.int32)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nxt[sid] = dec.prefill(cache, [sid], ids, sampling=greedy1)[0]
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    greedy = (np.zeros(batch, np.uint32), np.ones(batch, np.float32),
-              np.zeros(batch, bool))
-
-    def step():
-        ctxs = [cache.length(s) for s in seqs]
-        out, _ = dec.ragged_step(cache, seqs, [[int(t)] for t in nxt],
-                                 ctxs, sampling=greedy)
-        nxt[:] = out
-
-    half = steps // 2
-    times = []
-    for _ in range(half):
-        t0 = time.perf_counter()
-        step()
-        times.append((time.perf_counter() - t0) * 1e3)
-    q1, med, q3 = np.percentile(times[1:], [25, 50, 75])
-    n = steps - half
+def _window(fn, n):
+    """``fn`` ``n`` times in one ``torch.profiler`` window: wall ms a
+    call, the key averages, and the device's busy ms a call (None where
+    the profiler saw no device time)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step()
+            fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     events = prof.key_averages()
     busy_us = sum(_device_us(e) for e in events)
-    top = sorted(events, key=_device_us, reverse=True)[:8]
-    return {
-        "batch": batch, "context": context, "quantize": quantize,
-        "kv_quant": kv_quant,
-        "prefill_s_first": walls[0],
-        "prefill_s_median_rest": float(np.median(walls[1:])),
-        "step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
-        "window_ms_per_step": window * 1e3 / n,
-        "device_busy_ms_per_step": (busy_us / 1e3 / n) if busy_us
-        else "not measured",
-        # the profiler slows the host: idle share against the
-        # unprofiled median step
-        "device_idle_share": (1 - busy_us / 1e3 / n / med) if busy_us
-        else "not measured",
-        "top_device": [{"name": e.key[:60], "calls_per_step": e.count / n,
-                        "device_ms_per_step": _device_us(e) / 1e3 / n}
-                       for e in top if _device_us(e) > 0]}
+    return window * 1e3 / n, events, (busy_us / 1e3 / n if busy_us
+                                      else None)
+
+
+def profile_decode(model, batch, context, steps, seed, quantize=None,
+                   kv_quant=None, min_table_pages=1):
+    """Prefill ``batch`` sequences of ``context`` tokens one by one, then
+    run ``steps`` ragged decode steps (one token per row), through the
+    eager ``PagedDecoder`` and the ``GraphedPagedDecoder`` on two caches
+    filled alike: the ids must be equal every step, and a last step's
+    logits bit-equal.  The first half of the steps, the two decoders in
+    turns, is timed on the host clock (each step ends in the host
+    transfer of its token ids; the graphed decoder's first step captures
+    and is left out); the second half runs each decoder in one
+    ``torch.profiler`` window, for the device's busy time per step, its
+    idle share against the unprofiled median step, and the paged
+    kernels' device ms per step."""
+    from paddle_tpu_torch.inference.paged import (GraphedPagedDecoder,
+                                                  PagedDecoder)
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
+    pages = batch * (-(-(context + steps + 8) // 16))
+    decs = {}
+    for name, cls in (("eager", PagedDecoder),
+                      ("graphed", GraphedPagedDecoder)):
+        cache = PagedKVCache.from_model(model, total_pages=pages + 1,
+                                        page_size=16, kv_dtype=kv_quant)
+        decs[name] = (cls(model, quantize=quantize,
+                          min_table_pages=min_table_pages), cache)
+    rng = np.random.default_rng(seed)
+    seqs = list(range(batch))
+    nxt = {name: np.zeros(batch, np.int32) for name in decs}
+    greedy1 = (np.zeros(1, np.uint32), np.zeros(1, np.int32),
+               np.ones(1, np.float32), np.zeros(1, bool))
+    walls = {name: [] for name in decs}
+    for sid in seqs:
+        ids = rng.integers(0, model.config.vocab_size,
+                           (1, context)).astype(np.int32)
+        for name, (dec, cache) in decs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt[name][sid] = dec.prefill(cache, [sid], ids,
+                                         sampling=greedy1)[0]
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    greedy = (np.zeros(batch, np.uint32), np.ones(batch, np.float32),
+              np.zeros(batch, bool))
+
+    def step(name, sampling=greedy):
+        dec, cache = decs[name]
+        ctxs = [cache.length(s) for s in seqs]
+        out, _ = dec.ragged_step(cache, seqs, [[int(t)] for t in nxt[name]],
+                                 ctxs, sampling=sampling)
+        if sampling is not None:
+            nxt[name][:] = out
+        return out
+
+    def agree(where):
+        if not np.array_equal(nxt["eager"], nxt["graphed"]):
+            raise AssertionError(
+                f"profile ctx {context} {quantize} {kv_quant}: graphed "
+                f"ids {nxt['graphed'].tolist()} differ from eager "
+                f"{nxt['eager'].tolist()} at {where}")
+
+    agree("prefill")
+    half = steps // 2
+    times = {name: [] for name in decs}
+    for i in range(half):
+        for name in decs:
+            t0 = time.perf_counter()
+            step(name)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        agree(f"step {i}")
+    n = steps - half
+    res = {"batch": batch, "context": context, "quantize": quantize,
+           "kv_quant": kv_quant, "min_table_pages": min_table_pages}
+    for name, (dec, _cache) in decs.items():
+        q1, med, q3 = np.percentile(times[name][1:], [25, 50, 75])
+        window_ms, events, busy = _window(lambda: step(name), n)
+        paged_us = sum(_device_us(e) for e in events
+                       if "paged_attention" in e.key)
+        top = sorted(events, key=_device_us, reverse=True)[:6]
+        res[name] = {
+            "prefill_s_first": walls[name][0],
+            "prefill_s_median_rest": float(np.median(walls[name][1:])),
+            "step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
+            "window_ms_per_step": window_ms,
+            "device_busy_ms_per_step": busy if busy else "not measured",
+            # the profiler slows the host: idle share against the
+            # unprofiled median step
+            "device_idle_share": (1 - busy / med) if busy
+            else "not measured",
+            "paged_ms_per_step": paged_us / 1e3 / n if busy
+            else "not measured",
+            "captures": dec.captures, "replays": dec.replays,
+            "top_device": [{"name": e.key[:60],
+                            "calls_per_step": e.count / n,
+                            "device_ms_per_step": _device_us(e) / 1e3 / n}
+                           for e in top if _device_us(e) > 0]}
+    agree("the profiled steps")
+    if decs["graphed"][0].captures != 2:
+        raise AssertionError(
+            f"profile: {decs['graphed'][0].captures} captures, expected "
+            "2 (the prefill bucket and the decode bucket)")
+    logits = [step(name, sampling=None) for name in decs]
+    if not np.array_equal(*logits):
+        raise AssertionError(f"profile ctx {context}: graphed logits differ "
+                             "from eager (bit for bit)")
+    return res
 
 
 def main():
@@ -2856,16 +2968,28 @@ def main():
     sharer = np.concatenate([prompts[0][:256], rng.integers(
         0, cfg.vocab_size, int(lengths[7]) - 256 if lengths[7] > 256
         else 64)]).astype(np.int32)
+    # each pass's warm-up wave: the same lengths, other tokens (so it
+    # makes no prefix hit that the measured wave would not make)
+    warm = [rng.integers(0, cfg.vocab_size, len(p)).astype(np.int32)
+            for p in prompts]
+    warmup = (warm, np.concatenate([warm[0][:256], rng.integers(
+        0, cfg.vocab_size, len(sharer) - 256)]).astype(np.int32))
     kernels = counters()
     passes = {}
     greedy = {}
     norms_per_forward = 2 * cfg.num_hidden_layers + 1
     for label, chunk, quant, kv in SERVE_PASSES:
-        for fn in kernels.values():
-            fn.launches = 0
-        reqs, wall, kv_bytes = serve(model, prompts, sharer, chunk, dev,
-                                     quant, kv)
+        # the launch counters are zeroed inside, just before the measured
+        # wave; its steps replay graphs the warm-up captured, each replay
+        # adding its capture's launches
+        reqs, wall, info = serve(model, prompts, sharer, chunk, dev, quant,
+                                 kv, warmup=warmup, kernels=kernels)
         got = {n: fn.launches for n, fn in kernels.items()}
+        if info["captures"] or not info["replays"]:
+            raise AssertionError(
+                f"{label}: the measured wave captured {info['captures']} "
+                f"CUDA graphs and replayed {info['replays']}; after the "
+                "warm-up every step must replay")
         launches[label] = got
         for i, r in enumerate(reqs):
             if r.error is not None or len(r.generated) != 32:
@@ -2878,7 +3002,7 @@ def main():
                                  f"{reqs[-1].prefix_tokens} cached tokens, "
                                  "expected 256")
         stats = serve_stats(reqs, wall)
-        passes[label] = dict(stats, launches=got, **kv_bytes)
+        passes[label] = dict(stats, launches=got, **info)
         # with 256-token chunks every prompt rides the ragged kernel, so
         # that path has no flash launch; a quantized pass launches its
         # matmul kernel once a Linear of every forward in w8 (7 a layer
@@ -2942,13 +3066,18 @@ def main():
     # launch of it is counted there; before the f32 check below, which
     # turns the model to f32)
     log("profile:")
-    for context, quant, kv in ((512, None, None), (2048, None, None),
-                               (512, "w8", "int8")):
-        log("  " + json.dumps(dict(profile_decode(model, 8, context, 32,
-                                                  args.seed, quant, kv),
-                                   card=smi[0])))
+    profiles = []
+    for context, quant, kv, width in PROFILE_CASES:
+        profiles.append(dict(profile_decode(model, 8, context, 32,
+                                            args.seed, quant, kv, width),
+                             card=smi[0]))
+        log("  " + json.dumps(profiles[-1]))
         gc.collect()
         torch.cuda.empty_cache()
+    log("profile: paged kernels' device ms a bf16 ctx 512 decode step, "
+        "graphed, table width next_pow2(pages) / pinned at "
+        f"{SERVE_TABLE_PAGES} pages: {profiles[0]['graphed']['paged_ms_per_step']}"
+        f" / {profiles[3]['graphed']['paged_ms_per_step']}")
     lap("profile")
 
     # one request's prefill logits, kernel path vs plain forward on the
@@ -3038,7 +3167,9 @@ def main():
                         **records[name]))
     serve_line = {p: {k: passes[p][k] for k in
                       ("ttft_p50_s", "tpot_p50_s", "decode_tok_s", "wall_s",
-                       "kv_pool_bytes", "kv_scale_bytes", "launches")}
+                       "kv_pool_bytes", "kv_scale_bytes", "launches",
+                       "captures_warmup", "captures", "replays",
+                       "graph_pool_bytes")}
                   for p in passes}
     train_line = {k: train_rec[k] for k in (
         "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_gb",

@@ -83,8 +83,10 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     """f32 ``jax.random.uniform`` of shape (..., n) per key."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # filled on the device, not copied from the host: a CUDA graph can
+    # hold the draw
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -35,7 +35,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.paged_attention import PagedKVCache
-from .paged import PagedDecoder, sample_token
+from .paged import GraphedPagedDecoder, PagedDecoder, sample_token
 
 
 class RequestCancelled(RuntimeError):
@@ -108,7 +108,15 @@ class ContinuousBatchingEngine:
     ingests, so long prompts interleave with decode.  ``quantize``
     ("w8"/"w8a8") and ``kv_quant`` ("int8") select quantized serving.
     ``device`` is where the model lives; the engine's steps run on
-    PyTorch's current stream there, from the scheduler thread."""
+    PyTorch's current stream there, from the scheduler thread.  On a
+    card they are CUDA graphs (``GraphedPagedDecoder``: one per mode,
+    tail kind and bucket, captured the first time a bucket runs, replayed
+    after; ``captures`` and ``replays`` count them), on the CPU the eager
+    ``PagedDecoder``.  ``min_table_pages`` floors the ragged and prefix
+    steps' page-table width: pinned at ceil(max_position / page_size) it
+    gives every context length one bucket, so mixed short and long
+    traffic stops capturing new graphs, for more paged-attention splits
+    over the wider table."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
@@ -116,7 +124,7 @@ class ContinuousBatchingEngine:
                  prefill_chunk_tokens: Optional[int] = None,
                  quantize: Optional[str] = None,
                  kv_quant: Optional[str] = None,
-                 device="cuda"):
+                 min_table_pages: int = 1, device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
         if weight.device != self.device:
@@ -142,8 +150,11 @@ class ContinuousBatchingEngine:
         self.cache = PagedKVCache.from_model(model, total_pages=total_pages,
                                              page_size=page_size,
                                              kv_dtype=kv_quant)
-        self._decoder = PagedDecoder(model, quantize=quantize)
-        # the ragged step's pad rows write nowhere, but admission keeps
+        decoder = (GraphedPagedDecoder if self.device.type == "cuda"
+                   else PagedDecoder)
+        self._decoder = decoder(model, quantize=quantize,
+                                min_table_pages=min_table_pages)
+        # the ragged step's pad rows change no page, but admission keeps
         # the JAX engine's pad-row page headroom so the two admit alike
         self._pad_pages = 1
         self._reserved_pages = self._pad_pages
@@ -157,6 +168,16 @@ class ContinuousBatchingEngine:
         self._thread.start()
 
     # ------------------------------------------------------------- public
+    @property
+    def captures(self) -> int:
+        """CUDA graphs the engine's steps have captured (0 on the CPU)."""
+        return self._decoder.captures
+
+    @property
+    def replays(self) -> int:
+        """Steps that replayed a captured graph (0 on the CPU)."""
+        return self._decoder.replays
+
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None, do_sample: bool = False,
                temperature: float = 1.0, seed: int = 0) -> _Request:

@@ -409,8 +409,11 @@ def _scatter_pages(pool, pages, slots, vals):
     total_pages, page_size, d) at (pages[i], slots[i]), in place — one
     ``index_put_`` for a whole step's writes.  Every index must be in
     range: where the JAX scatter drops writes aimed past the pool (the
-    pad positions of a bucket), ``index_put_`` raises, so callers drop
-    those targets first (see ``PagedContext``)."""
+    pad positions of a bucket), ``index_put_`` raises.  So a step writes
+    all of its bucket's positions, each pad aimed at the step's first
+    real target and carrying that token's value (``PagedContext``): the
+    duplicates hold identical bytes, so the write stays deterministic,
+    and its length is the bucket's, as a CUDA graph needs."""
     pool.permute(1, 2, 0, 3).index_put_(
         (pages, slots), vals.transpose(0, 1).to(pool.dtype))
 
@@ -611,11 +614,15 @@ class PagedKVCache:
         return released
 
     def reset_pools(self) -> None:
-        """Reallocate zeroed pools (the scale pools too, in the int8
-        mode).  Bookkeeping survives, cached K/V does not, so the prefix
-        index is dropped and ``generation`` bumps."""
+        """Zero the pools in place (the scale pools too, in the int8
+        mode): their addresses stay, so the CUDA graphs a
+        ``GraphedPagedDecoder`` captured over them stay valid.
+        Bookkeeping survives, cached K/V does not, so the prefix index is
+        dropped and ``generation`` bumps."""
         self.generation += 1
-        self._alloc_pools()
+        for pool in self.k_pages + self.v_pages + self.k_scales \
+                + self.v_scales:
+            pool.zero_()
         while self._prefix_index:
             _, entry = self._prefix_index.popitem(last=False)
             for p in entry.pages:

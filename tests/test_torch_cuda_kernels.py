@@ -1109,3 +1109,154 @@ def test_topk_gating_paths_bit_equal_in_routing(dev, T, E, k):
         assert mg.gating_grid(T, E, k) == -(-T // threads)
     if T >= 4096:
         assert mg.gating_grid(T, E, k) > 1
+
+
+# ------------------------------------------------------------ CUDA graphs
+# (quantize, kv_quant) of the graphed-step cases, all bf16
+GRAPH_CASES = [(None, None), (None, "int8"), ("w8", None), ("w8a8", "int8")]
+
+
+def _graph_model(dev):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    return LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=3)
+
+
+def _launch_counts():
+    from paddle_tpu_torch.inference import paged
+    return {fn: fn.launches for fn in paged._counted_wrappers()}
+
+
+def _graph_script(rng):
+    """(method, args, kwargs) steps over sequences 0-5: prefills of two
+    buckets and both tail kinds, chunk prefills, ragged decode steps
+    (greedy, sampled, logits), each bucket at least twice."""
+    def ids(n):
+        return rng.integers(0, 256, (1, n)).astype(np.int32)
+
+    def samp(n, flag, ctr=True):
+        s = (np.arange(n, dtype=np.uint32) + 5, np.full(n, 0.9, np.float32),
+             np.full(n, flag))
+        return (s[0], np.full(n, 40, np.int32), *s[1:]) if ctr else s
+
+    steps = [("prefill", ([0], ids(20)), dict(sampling=samp(1, True))),
+             ("prefill", ([1], ids(30)), {}),
+             ("prefill", ([2], ids(25)), dict(sampling=samp(1, True))),
+             ("prefill", ([3], ids(16)), dict(sampling=samp(1, False))),
+             ("prefill", ([4], ids(16)), dict(sampling=samp(1, False))),
+             ("chunk_prefill", ([3], ids(10), 16),
+              dict(sampling=samp(1, True))),
+             ("chunk_prefill", ([4], ids(12), 16),
+              dict(sampling=samp(1, True))),
+             ("prefill", ([5], ids(31)), {})]
+    lens = {0: 20, 1: 30, 2: 25, 3: 26, 4: 28, 5: 31}
+    seqs = [0, 1, 2, 3]
+    for i in range(6):
+        rows = [[int(t)] for t in rng.integers(0, 256, 4)]
+        kw = ({} if i % 3 == 2 else
+              dict(sampling=samp(4, i % 3 == 1, ctr=False)))
+        steps.append(("ragged_step", (seqs, rows, [lens[s] for s in seqs]),
+                      kw))
+        for s in seqs:
+            lens[s] += 1
+    return steps
+
+
+def _run_graph_script(decs, caches, steps):
+    """Each step through every decoder on its own cache; returns, per
+    step, each decoder's output and its kernels' launch deltas."""
+    got = []
+    for method, args, kw in steps:
+        row = []
+        for dec, cache in zip(decs, caches):
+            before = _launch_counts()
+            out = getattr(dec, method)(cache, *args, **kw)
+            after = _launch_counts()
+            row.append((out, {fn.__name__: after[fn] - before[fn]
+                              for fn in after if after[fn] != before[fn]}))
+        got.append(row)
+    return got
+
+
+@pytest.mark.parametrize("quantize,kv", GRAPH_CASES,
+                         ids=["bf16", "bf16-int8kv", "w8", "w8a8-int8kv"])
+def test_graphed_steps_equal_eager(dev, quantize, kv):
+    """``GraphedPagedDecoder`` against the eager ``PagedDecoder`` on two
+    caches filled alike: prefill, chunk prefill and ragged steps, ids and
+    logits bit-equal; a bucket's second call captures nothing and
+    replays; each replay advances every launch counter by what the eager
+    step launches; after ``reset_pools`` the replays stay right."""
+    from paddle_tpu_torch.inference import paged
+    model = _graph_model(dev)
+    caches = [pa.PagedKVCache.from_model(model, total_pages=64,
+                                         page_size=16, kv_dtype=kv)
+              for _ in range(2)]
+    eager = paged.PagedDecoder(model, quantize=quantize)
+    graphed = paged.GraphedPagedDecoder(model, quantize=quantize)
+    rng = np.random.default_rng(11)
+    steps = _graph_script(rng)
+    for (out_e, n_e), (out_g, n_g) in _run_graph_script(
+            (eager, graphed), caches, steps):
+        if isinstance(out_e, tuple):
+            for a, b in zip(out_e, out_g):
+                np.testing.assert_array_equal(b, a)
+        else:
+            np.testing.assert_array_equal(out_g, out_e)
+        assert n_g == n_e
+    keys = list(graphed._graphs)
+    assert {k[0] for k in keys} == {"prefill", "prefix", "ragged"}
+    assert graphed.captures == len(keys) < len(steps)
+    assert graphed.replays == len(steps) - len(keys)
+    # every graph again, after the pools are zeroed in place
+    for c in caches:
+        c.reset_pools()
+        for sid in list(c._seq_pages):
+            c.free(sid)
+    captured = graphed.captures
+    again = _run_graph_script((eager, graphed), caches, steps)
+    for (out_e, _), (out_g, _) in again:
+        for a, b in zip(out_e if isinstance(out_e, tuple) else (out_e,),
+                        out_g if isinstance(out_g, tuple) else (out_g,)):
+            np.testing.assert_array_equal(b, a)
+    assert graphed.captures == captured
+
+
+def test_graph_second_call_of_a_bucket_captures_nothing(dev):
+    """One decode bucket: the first call captures, the next replays, and
+    the paged kernel's counter grows by one launch a layer each time."""
+    from paddle_tpu_torch.inference import paged
+    model = _graph_model(dev)
+    cache = pa.PagedKVCache.from_model(model, total_pages=32, page_size=16)
+    dec = paged.GraphedPagedDecoder(model)
+    dec.prefill(cache, [0], np.arange(5, dtype=np.int32)[None])
+    greedy = (np.zeros(1, np.uint32), np.ones(1, np.float32),
+              np.zeros(1, bool))
+    for i, want in enumerate([(2, 0), (2, 1), (2, 2)]):
+        before = pa.paged_attention_cuda.launches
+        dec.ragged_step(cache, [0], [[7]], [5 + i], sampling=greedy)
+        assert (dec.captures, dec.replays) == want
+        assert pa.paged_attention_cuda.launches - before == 2
+
+
+def test_graph_capture_failure_raises(dev):
+    """No fallback: a body that reads a value back to the host cannot be
+    captured, and the step raises with the lengths rolled back."""
+    from paddle_tpu_torch.inference import paged
+    model = _graph_model(dev)
+    cache = pa.PagedKVCache.from_model(model, total_pages=32, page_size=16)
+    dec = paged.GraphedPagedDecoder(model)
+    def read_back(mod, args, out):
+        float(out.float().sum())
+
+    hook = model.model.norm.register_forward_hook(read_back)
+    try:
+        with pytest.raises(RuntimeError):
+            dec.prefill(cache, [0], np.arange(5, dtype=np.int32)[None])
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    assert cache.length(0) == 0
+    assert (dec.captures, dec._graphs) == (0, {})

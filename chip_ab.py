@@ -34,7 +34,9 @@ and int8 KV pages (after chip_smoke.py's warm-up wave, where the side's
 ``serve`` takes one), and times one 1024-token prefill of each mode
 (host wall clock, synchronized, and device busy time in a profiler
 window); ``train`` and ``moe`` run
-``chip_smoke.py``'s end-to-end phases (llama_small training steps; the
+``chip_smoke.py``'s end-to-end phases (llama_small training steps from
+the same seeded weights and batch on both sides, each side through its
+own ``TrainStep``, eager or CUDA graphs as that side has it; the
 Mixtral-width MoE generate).  Each side's ``chip_smoke.py`` must provide
 ``cuda_ms(fn)``, ``profiled_ms(fn)``, ``cold_inputs(t)``, ``serve(...)``,
 ``serve_stats``, ``fm_intervals``, ``train(seed, dev, card)`` and
@@ -117,9 +119,10 @@ METRICS = {"flash": tuple(c[0] for c in FLASH_CASES),
                           for m in (
                "ttft_p50_s", "tpot_p50_s", "prefill1024_wall_ms",
                "prefill1024_device_ms")),
-           "train": ("step_ms_p50", "tokens_per_s", "mfu",
-                     "device_busy_ms_per_step", "device_idle_share",
-                     "device_ms_per_step_by_class"),
+           "train": ("step_ms_p25", "step_ms_p50", "step_ms_p75",
+                     "tokens_per_s", "mfu", "device_busy_ms_per_step",
+                     "device_idle_share", "device_ms_per_step_by_class",
+                     "peak_memory_gb", "loss_first", "loss_last"),
            "moe": ("prefill_s", "decode_ms_p50", "tokens_per_s",
                    "device_busy_ms_per_step", "device_idle_share")}
 

@@ -2233,37 +2233,59 @@ def _lm_loss(logits, labels):
 
 
 def check_small_train():
-    """A small f32 model trains 5 AdamW steps on the card (kernels,
-    forward and backward) and on the CPU (plain versions) from the same
-    weights and batches: the per-step losses must agree within relative
-    1e-4 (f32 on both sides; sums run in other orders)."""
-    from paddle_tpu_torch.jit import TrainStep
+    """A small f32 model trains 5 AdamW steps (2-step accumulation,
+    global-norm clipping) from the same weights and batches three ways:
+    the graphed step on the card (kernels, CUDA graphs), the eager step on
+    the card (the same body without graphs) and on the CPU (plain
+    versions).  Graphed and eager card losses and parameters must be
+    bit-equal; card and CPU losses within relative 1e-4 (f32 on both
+    sides; sums run in other orders)."""
+    from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     cfg = LlamaConfig(vocab_size=512, hidden_size=256,
                       intermediate_size=512, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2,
                       max_position_embeddings=512)
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=9)
-    gpu = LlamaForCausalLM(cfg, device="cuda", seed=None)
-    gpu.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(9)
     batches = [rng.integers(0, 512, (2, 2, 200)) for _ in range(5)]
-    losses = []
-    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
-        step = TrainStep(model, _lm_loss, AdamW(
-            learning_rate=1e-3, parameters=model.parameters()))
+    losses, models, steps = [], [], []
+    for cls, dev in ((TrainStep, "cuda"), (EagerTrainStep, "cuda"),
+                     (TrainStep, "cpu")):
+        model = cpu
+        if dev == "cuda":
+            model = LlamaForCausalLM(cfg, device="cuda", seed=None)
+            model.load_state_dict(cpu.state_dict())
+        step = cls(model, _lm_loss, AdamW(
+            learning_rate=1e-3, parameters=model.parameters(),
+            grad_clip=ClipGradByGlobalNorm(1.0)), accumulate_steps=2)
         out = [step(torch.as_tensor(ids, device=dev),
                     torch.as_tensor(labels, device=dev))
                for ids, labels in batches]
         losses.append(torch.stack(out).cpu().numpy())
-    rel = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
-    log(f"  small-train f32 5 AdamW steps: card {losses[0].tolist()}, "
-        f"cpu {losses[1].tolist()}, max relative difference "
-        f"{rel.max():.2e} (limit 1e-4)")
+        models.append(model)
+        steps.append(step)
+    graphed, eager = steps[:2]
+    same = all(torch.equal(a, b) for a, b in zip(
+        models[0].parameters(), models[1].parameters()))
+    rel = np.abs(losses[0] - losses[2]) / np.abs(losses[2])
+    log(f"  small-train f32 5 AdamW steps (accumulate 2, clip 1.0): card "
+        f"graphed {losses[0].tolist()} ({graphed.captures} captures, "
+        f"{graphed.replays} replays), card eager {losses[1].tolist()}, cpu "
+        f"{losses[2].tolist()}; graphed vs eager losses and parameters "
+        f"bit-equal: {bool((losses[0] == losses[1]).all()) and same}; card "
+        f"vs cpu max relative difference {rel.max():.2e} (limit 1e-4)")
     if not np.isfinite(losses[0]).all() or rel.max() > 1e-4:
         raise AssertionError("small-train: the card's losses differ from "
                              "the CPU's")
+    if not ((losses[0] == losses[1]).all() and same):
+        raise AssertionError("small-train: the graphed card step differs "
+                             "from the eager card step")
+    if (graphed.captures, graphed.replays) != (2, 3):
+        raise AssertionError(f"small-train: {graphed.captures} captures and "
+                             f"{graphed.replays} replays, expected 2 and 3")
 
 
 def check_small_moe():
@@ -2610,43 +2632,141 @@ def model_flops(cfg, batch, seq):
     return 3 * (2 * linear * tokens + attn_fwd)
 
 
-def train(seed, dev, card, steps=20, warmup=3):
-    """llama_small pretraining steps on the card; returns the train
-    pass's record and its launch counts (counters zeroed just before
-    the timed steps)."""
+TRAIN_KERNELS = ("flash_attention_forward", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq", "rms_norm", "apply_rope")
+
+
+def _host_ms(fn, n):
+    """Host ms of each of ``n`` calls of ``fn``, each ended by a
+    synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def train_run_steps(trainer, mode, cfg, rng, dev):
+    """``run_steps`` over 8 distinct batches (bench.py's on-chip
+    ``k_fused``) at a constant rate or under LinearWarmup(CosineAnnealing
+    Decay), against 8 single graphed calls (each followed by the
+    schedule's step) from the same weights: losses and parameters must
+    be bit-equal.  Then a second ``run_steps`` over 8 more batches, which
+    must only replay, is timed: tokens/s and mfu."""
     from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import lr as sched_lr
+
+    def rate():
+        if mode == "constant":
+            return 1e-3
+        return sched_lr.LinearWarmup(
+            sched_lr.CosineAnnealingDecay(1e-3, T_max=16), warmup_steps=4,
+            start_lr=1e-5, end_lr=1e-3)
+
+    def batches():
+        out = []
+        for _ in range(8):
+            x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+            out.append((torch.as_tensor(x[:, :-1], device=dev),
+                        torch.as_tensor(x[:, 1:], device=dev)))
+        return out
+
+    fused, single = trainer(TrainStep, rate()), trainer(TrainStep, rate())
+    if not fused.fused_supported:
+        raise AssertionError(f"train run_steps {mode}: not fused")
+    first = batches()
+    got = fused.run_steps(first)
+    want = []
+    for ids, labels in first:
+        want.append(single(ids, labels))
+        if single._sched() is not None:
+            single._sched().step()
+    want = torch.stack(want)
+    equal = torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(fused.model.parameters(),
+                                          single.model.parameters()))
+    del single
+    second = batches()
+    captured, replayed = fused.captures, fused.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused.run_steps(second)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = torch.cat([got, out]).cpu().numpy()
+    rec = {"k": 8, "wall_ms": wall * 1e3, "step_ms": wall * 1e3 / 8,
+           "tokens_per_s": 8 * TRAIN_B * TRAIN_S / wall,
+           "mfu": 8 * model_flops(cfg, TRAIN_B, TRAIN_S) / wall / BF16_FLOP_S,
+           "captures": fused.captures - captured,
+           "replays": fused.replays - replayed,
+           "equal_to_single_calls": equal,
+           "losses": [float(x) for x in vals]}
+    log(f"  run_steps {mode}: " + json.dumps(rec))
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"train run_steps {mode}: non-finite loss")
+    if not equal:
+        raise AssertionError(
+            f"train run_steps {mode}: losses {got.tolist()} or parameters "
+            f"differ from 8 single graphed calls' {want.tolist()}")
+    if rec["captures"]:
+        raise AssertionError(f"train run_steps {mode}: the second run "
+                             f"captured {rec['captures']} graphs")
+    return rec
+
+
+def train(seed, dev, card, steps=20, warmup=3):
+    """llama_small pretraining steps on the card through the graphed
+    ``TrainStep``: ``warmup`` steps (the first runs eagerly and captures),
+    then ``steps`` timed ones, which must capture nothing, with the launch
+    counters zeroed just before them.  Then the same weights and batch
+    through the eager step (``EagerTrainStep``): its first 5 losses must
+    equal the graphed step's bit for bit and its launches a step a
+    replay's, and its step ms and busy time are measured beside the
+    graphs'.  Then ``run_steps`` (``train_run_steps``).  Returns the train
+    pass's record and the timed steps' launch counts."""
+    from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_small
     from paddle_tpu_torch.optimizer import AdamW
     cfg = llama_small()
-    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
-                             seed=seed)
-    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
-                multi_precision=True)
-    step = TrainStep(model, _lm_loss, opt)
-    n_params = sum(p.numel() for p in model.parameters())
+
+    def trainer(cls, lr=1e-3):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=seed)
+        return cls(model, _lm_loss, AdamW(
+            learning_rate=lr, parameters=model.parameters(),
+            multi_precision=True))
+
+    step = trainer(TrainStep)
+    n_params = sum(p.numel() for p in step.model.parameters())
     rng = np.random.default_rng(seed)
     ids_np = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
     ids = torch.as_tensor(ids_np[:, :-1], device=dev)
     labels = torch.as_tensor(ids_np[:, 1:], device=dev)
     log(f"train: llama_small ({cfg.num_hidden_layers} layers, hidden "
         f"{cfg.hidden_size}) bf16 + AdamW(multi_precision) "
-        f"{n_params / 1e6:.1f} M params, batch {TRAIN_B} x {TRAIN_S}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses = []
-    for _ in range(warmup):
-        losses.append(step(ids, labels))
-    torch.cuda.synchronize()
+        f"{n_params / 1e6:.1f} M params, batch {TRAIN_B} x {TRAIN_S}, "
+        "graphed TrainStep")
     kernels = counters()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # cached blocks released on both sides, so the difference is what the
+    # warm-up holds: the graph pool, static buffers and gradient sums
+    reserved = torch.cuda.memory_reserved(dev)
+    losses = [step(ids, labels) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+    captures_warmup = step.captures
     for fn in kernels.values():
         fn.launches = 0
-    times = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(step(ids, labels))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    captured, replayed = step.captures, step.replays
+    times = _host_ms(lambda: losses.append(step(ids, labels)), steps)
     launches = {n: fn.launches for n, fn in kernels.items()}
+    captures, replays = step.captures - captured, step.replays - replayed
     peak = torch.cuda.max_memory_allocated()
     q1, med, q3 = np.percentile(times, [25, 50, 75])
     n_prof = 2
@@ -2664,6 +2784,32 @@ def train(seed, dev, card, steps=20, warmup=3):
         by_class[_kernel_class(e.key)] = by_class.get(
             _kernel_class(e.key), 0.0) + _device_us(e) / 1e3 / n_prof
     vals = torch.stack(losses).float().cpu().numpy()
+    log("  losses: " + " ".join(f"{x:.4f}" for x in vals))
+
+    # the eager step on the same weights and batch
+    eager = trainer(EagerTrainStep)
+    for fn in kernels.values():
+        fn.launches = 0
+    eager_losses = torch.stack([eager(ids, labels) for _ in range(5)])
+    eager_launches = {n: fn.launches / 5 for n, fn in kernels.items()}
+    eager_times = _host_ms(lambda: eager(ids, labels), 10)
+    _ms, _events, eager_busy = _window(lambda: eager(ids, labels), n_prof)
+    equal = torch.equal(torch.stack(losses[:5]), eager_losses)
+    e_med = float(np.percentile(eager_times, 50))
+    eager_rec = {
+        "step_ms_p25": float(np.percentile(eager_times, 25)),
+        "step_ms_p50": e_med,
+        "step_ms_p75": float(np.percentile(eager_times, 75)),
+        "device_busy_ms_per_step": eager_busy or "not measured",
+        "device_idle_share": (1 - eager_busy / e_med) if eager_busy
+        else "not measured",
+        "launches_per_step": eager_launches,
+        "losses": [float(x) for x in eager_losses.cpu()]}
+    log("  eager: " + json.dumps(eager_rec))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
     flops = model_flops(cfg, TRAIN_B, TRAIN_S)
     rec = {
         "card": card, "batch": TRAIN_B, "seq": TRAIN_S,
@@ -2673,6 +2819,8 @@ def train(seed, dev, card, steps=20, warmup=3):
         "model_flops_per_step": flops,
         "mfu": flops / (med / 1e3) / BF16_FLOP_S,
         "peak_memory_gb": peak / 1e9,
+        "captures_warmup": captures_warmup, "captures": captures,
+        "replays": replays, "graph_pool_bytes": pool_bytes,
         "launches_per_step": {n: c / steps for n, c in launches.items()},
         "device_busy_ms_per_step": (busy_us / 1e3 / n_prof) if busy_us
         else "not measured",
@@ -2684,19 +2832,34 @@ def train(seed, dev, card, steps=20, warmup=3):
                         "device_ms_per_step": _device_us(e) / 1e3 / n_prof}
                        for e in top if _device_us(e) > 0],
         "loss_first": float(vals[0]), "loss_last": float(vals[-1]),
+        "first_5_losses_equal_eager": equal,
+        "eager": eager_rec,
         "attention_kernels_seen": list(seen)}
-    log("  losses: " + " ".join(f"{x:.4f}" for x in vals))
     if not np.isfinite(vals).all():
         raise AssertionError(f"train: non-finite loss {vals.tolist()}")
     if not vals[-1] < vals[0]:
         raise AssertionError(f"train: the last loss {vals[-1]} is not below "
                              f"the first {vals[0]}")
-    need = ("flash_attention_forward", "flash_attention_bwd_dkv",
-            "flash_attention_bwd_dq", "rms_norm", "apply_rope")
-    missing = [n for n in need if launches[n] == 0]
+    if captures or replays != steps:
+        raise AssertionError(f"train: the timed steps captured {captures} "
+                             f"graphs and replayed {replays}; after the "
+                             "warm-up every step must replay")
+    if not equal:
+        raise AssertionError(
+            f"train: the graphed step's first 5 losses {vals[:5].tolist()} "
+            f"differ from the eager step's {eager_rec['losses']}")
+    missing = [n for n in TRAIN_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"train: kernels never launched on the "
                              f"training path: {missing}")
+    apart = {n: (launches[n] / steps, eager_launches[n])
+             for n in TRAIN_KERNELS
+             if launches[n] / steps != eager_launches[n]}
+    if apart:
+        raise AssertionError(f"train: launches a step, replayed vs eager, "
+                             f"differ: {apart}")
+    rec["run_steps"] = {mode: train_run_steps(trainer, mode, cfg, rng, dev)
+                        for mode in ("constant", "warmup_cosine")}
     return rec, launches
 
 
@@ -3172,9 +3335,17 @@ def main():
                        "graph_pool_bytes")}
                   for p in passes}
     train_line = {k: train_rec[k] for k in (
-        "step_ms_p50", "tokens_per_s", "mfu", "peak_memory_gb",
-        "device_idle_share", "launches_per_step", "loss_first",
-        "loss_last")}
+        "step_ms_p25", "step_ms_p50", "step_ms_p75",
+        "device_busy_ms_per_step", "device_idle_share", "tokens_per_s",
+        "mfu", "peak_memory_gb", "captures_warmup", "captures", "replays",
+        "graph_pool_bytes", "launches_per_step", "loss_first", "loss_last",
+        "first_5_losses_equal_eager")}
+    train_line["eager"] = {k: train_rec["eager"][k] for k in (
+        "step_ms_p50", "device_busy_ms_per_step", "device_idle_share")}
+    train_line["run_steps"] = {
+        m: {k: r[k] for k in ("tokens_per_s", "mfu", "step_ms",
+                              "equal_to_single_calls")}
+        for m, r in train_rec["run_steps"].items()}
     moe_line = {k: moe_rec[k] for k in (
         "layers", "prefill_s", "decode_ms_p50", "tokens_per_s",
         "peak_memory_gb", "device_idle_share", "launches", "logits_rel_l2")}

@@ -28,8 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import (flash_attention, flashmask_attention, fused_norm_rope,
-                   moe_gating, paged_attention, quant_matmul)
+from ..cuda_graphs import capture
+# under its old name here, where the card tests read it
+from ..cuda_graphs import counted_wrappers as _counted_wrappers  # noqa: F401
 from ..ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention_bshd
 from ..ops.paged_attention import (PagedKVCache, _gather_dequant,
                                    _scatter_pages, dequantize_kv,
@@ -301,16 +302,6 @@ def _plan_writes(host, plans, span):
         pg[i, :n] = rpg
         sl[i, :n] = rsl
         src[i, :n] = np.arange(i * span, i * span + n)
-
-
-def _counted_wrappers():
-    """Every kernel wrapper that counts its launches (``.launches``)."""
-    return list(dict.fromkeys(
-        fn for mod in (flash_attention, flashmask_attention,
-                       fused_norm_rope, moe_gating, paged_attention,
-                       quant_matmul)
-        for fn in vars(mod).values()
-        if callable(fn) and hasattr(fn, "launches")))
 
 
 class PagedDecoder:
@@ -743,19 +734,8 @@ class GraphedPagedDecoder(PagedDecoder):
         with torch.cuda.stream(self._stream), self._armed():
             body()
         here.wait_stream(self._stream)
-        wrappers = _counted_wrappers()
-        counts = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
-        try:
-            with self._armed(), torch.cuda.graph(
-                    graph, pool=self._pool, stream=self._stream,
-                    capture_error_mode="thread_local"):
-                body()
-        finally:
-            launches = {}
-            for fn, n in zip(wrappers, counts):
-                if fn.launches != n:
-                    launches[fn] = fn.launches - n
-                    fn.launches = n
+        with self._armed():
+            _out, launches = capture(graph, self._pool, self._stream, body)
         self._graphs[key] = (graph, launches)
         self.captures += 1

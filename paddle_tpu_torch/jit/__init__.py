@@ -1,4 +1,4 @@
 """Whole training steps (port of paddle_tpu/jit)."""
-from .train_step import TrainStep
+from .train_step import EagerTrainStep, TrainStep
 
-__all__ = ["TrainStep"]
+__all__ = ["EagerTrainStep", "TrainStep"]

@@ -89,7 +89,9 @@ failure:
             5 AdamW steps on the card and on the CPU from the same
             weights and batches: the per-step losses must agree.
             small-moe: a small f32 MoE model's greedy ``generate`` streams
-            equal card vs CPU.
+            equal card vs CPU.  small-generate: the small f32 model's
+            ``PagedGenerator`` greedy tokens on the card (graphs) equal
+            the CPU's and its dense ``generate``'s on the card.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks, and unchunked quantized
@@ -122,6 +124,29 @@ failure:
             step, a logits step bit-equal): host-clock step times, then a
             ``torch.profiler`` window each for the device's busy time,
             idle share, paged kernels' time and top kernels.
+   generate — ``PagedGenerator`` on the same bf16 model (bench.py's
+            ``bench_paged_decode`` shape: batch 8, a 128-token prompt,
+            32 new greedy tokens, 256 pages of 16): a warm-up generate
+            (its prefill and multi-step graphs captured), then a timed
+            one with the launch counters zeroed just before and read just
+            after: it must capture nothing, and its launches must equal
+            the eager ``PagedDecoder``'s prefill plus one eager decode step
+            a replay (32 paged, 65 RMSNorm, 32 RoPE a step); prints
+            prefill s, decode s and decode tokens/s as bench.py counts
+            them, replays, graph pool bytes and a profiler window's busy
+            time.  Its tokens must equal an eager generate's; in a pool of
+            72 pages, where only the per-token continuation fits, graphed
+            equals eager too.  ``verify`` (b 8 x 5, greedy and drawn) must
+            equal the ragged step over the same full-span blocks, ids and
+            accept counts, and the verify form of the paged kernel is
+            timed; ``batch_context_prefill`` (contexts 0, 128 and 300,
+            bucket 4) against one prefill or chunk prefill a row, held
+            after the model turns f32 (below): greedy ids equal, logits
+            within relative L2 3e-3, and the bf16 batched logits no
+            further from f32 than twice the bf16 per-row ones; a w8a8 +
+            int8 KV generate of 8 tokens must run the w8a8 matmul, the
+            quantizer and the int8-page paged kernel inside its replays,
+            captures 0.
 6. train   — llama_small (full width and depth) in bf16 with
             ``AdamW(multi_precision=True)`` through ``jit.TrainStep``, batch
             8 x sequence 1024, one batch drawn from ``--seed`` and
@@ -153,10 +178,11 @@ The line before the last is the kernels' JSON record: each kernel's
 the engine's default, for the serving kernels; the train pass for the
 two backward kernels; the w8 or w8a8 pass for the quantized matmuls; the
 moe pass for the gating kernel; the flashmask phase for the FlashMask
-kernels), ``launches_by_path`` its count in every pass, ``train_shape``
-the times of a serving kernel at the training shapes, ``decode`` and
-``f32`` the flash forward's decode and f32 cases (and dK/dV's f32
-case), ``hgmma`` the wgmma instructions of each instantiation; ``serve``,
+kernels), ``launches_by_path`` its count in every pass (``generate``:
+the timed ``PagedGenerator`` call), ``train_shape`` the times of a
+serving kernel at the training shapes, ``decode`` and ``f32`` the flash
+forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
+wgmma instructions of each instantiation; ``serve``, ``generate``,
 ``train``, ``moe`` and ``flashmask`` hold each pass's end-to-end
 numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -271,6 +297,17 @@ SERVE_PASSES = (("unchunked", None, None, None),
 QUANT_KERNEL = {"w8": "weight_only_matmul", "w8a8": "w8a8_matmul"}
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
+# the generate phase: bench.py's bench_paged_decode shape at llama_7b's
+# widths (batch 8, a 128-token prompt, 32 new tokens, 256 pages of 16);
+# the per-token continuation is forced on 113-token prompts in a pool of
+# 72 pages, which holds 113 + 31 tokens a row but not the first chunk's
+# 113 + 32 (the chunk rounds up to a power of two); verify blocks of 5;
+# batch_context_prefill rows as (cached context, new tokens), bucket 4
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_PAGES = 8, 128, 32, 256
+GEN_TIGHT_PROMPT, GEN_TIGHT_PAGES = 113, 72
+GEN_VERIFY_S = 5
+GEN_BCP = ((0, 64), (128, 40), (300, 50))
+GEN_QUANT_NEW = 8
 # the MoE generate pass: Mixtral-8x7B's widths cut to 8 of its 32 layers,
 # batch 8, a 512-token prompt, 32 new tokens (33 forwards); the logits
 # check at 2 layers in f32
@@ -2224,6 +2261,363 @@ def check_small():
             f"{graphs[0][0]} captured, {graphs[0][1]} replays) vs CPU")
 
 
+def check_small_generate():
+    """The small f32 model of ``check_small``: ``PagedGenerator`` on the
+    card (CUDA graphs, kernels) gives the greedy tokens of the CPU's
+    (plain versions) and of the port's dense ``generate`` on the card
+    (JAX ``test_paged_generation_matches_dense``)."""
+    from paddle_tpu_torch.inference import PagedGenerator
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=512)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=7)
+    gpu = LlamaForCausalLM(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = np.random.default_rng(7).integers(0, 512, (3, 9)).astype(np.int32)
+    card = PagedGenerator(gpu, total_pages=64, page_size=16)
+    outs = {"card": card.generate(ids, max_new_tokens=12),
+            "cpu": PagedGenerator(cpu, total_pages=64, page_size=16,
+                                  device="cpu").generate(
+                                      ids, max_new_tokens=12),
+            "dense": gpu.generate(torch.as_tensor(ids, device="cuda"),
+                                  max_new_tokens=12).cpu().numpy()}
+    if not (np.array_equal(outs["card"], outs["cpu"])
+            and np.array_equal(outs["card"], outs["dense"])):
+        raise AssertionError(f"small f32 model: PagedGenerator tokens on "
+                             f"the card, on the CPU and dense generate "
+                             f"differ: {outs}")
+    if not card._decoder.replays:
+        raise AssertionError("small f32 model: PagedGenerator replayed no "
+                             "CUDA graph")
+    log(f"  small f32 model PagedGenerator: greedy tokens of 3 rows x 12 "
+        f"equal card (CUDA graphs: {card._decoder.captures} captured, "
+        f"{card._decoder.replays} replays) vs CPU vs dense generate")
+
+
+def _counts(kernels):
+    return {n: fn.launches for n, fn in kernels.items()}
+
+
+def _zero(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _eager_generator(model, pages, **kw):
+    """A ``PagedGenerator`` stepping through the eager ``PagedDecoder``
+    (the same bodies as the graphs, run op by op)."""
+    from paddle_tpu_torch.inference.paged import PagedDecoder, PagedGenerator
+    gen = PagedGenerator(model, total_pages=pages, page_size=16, **kw)
+    gen._decoder = PagedDecoder(model, quantize=kw.get("quantize"))
+    return gen
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def batch_context_prefill_logits(model, seed):
+    """Three rows at cached contexts 0, 128 and 300 through one graphed
+    ``batch_context_prefill`` (bucket 4), and the same rows through one
+    eager ``prefill`` or ``chunk_prefill`` each, on two caches filled
+    alike: both logits, the prefix graph keys, the relative L2 a row and
+    whether the greedy ids agree."""
+    from paddle_tpu_torch.inference.paged import (GraphedPagedDecoder,
+                                                  PagedDecoder)
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(seed + 16)
+    ctx_ids = [rng.integers(0, vocab, (1, k)).astype(np.int32)
+               for k, _n in GEN_BCP]
+    rows = [rng.integers(0, vocab, n).astype(np.int32) for _k, n in GEN_BCP]
+    bdec, pdec = GraphedPagedDecoder(model), PagedDecoder(model)
+    bc, pc = (PagedKVCache.from_model(model, total_pages=GEN_PAGES,
+                                      page_size=16) for _ in range(2))
+    for d, c in ((bdec, bc), (pdec, pc)):
+        for sid, (k, _n) in enumerate(GEN_BCP):
+            if k:
+                d.prefill(c, [sid], ctx_ids[sid])
+    got = bdec.batch_context_prefill(bc, [0, 1, 2], rows,
+                                     [k for k, _n in GEN_BCP])
+    want = np.stack([
+        pdec.chunk_prefill(pc, [sid], row[None], k)[0] if k
+        else pdec.prefill(pc, [sid], row[None])[0]
+        for sid, ((k, _n), row) in enumerate(zip(GEN_BCP, rows))])
+    return {"keys": sorted(str(k) for k in bdec._graphs
+                           if k[0] == "prefix"),
+            "rel_l2": [_rel(g, w) for g, w in zip(got, want)],
+            "ids_equal": bool(np.array_equal(got.argmax(-1),
+                                             want.argmax(-1))),
+            "logits": (got, want)}
+
+
+def check_batch_context_prefill(model, seed, bf16):
+    """``batch_context_prefill`` against one prefill or chunk prefill a
+    row on the f32 model: greedy ids equal, each row's logits within
+    relative L2 3e-3; the bf16 run's (``bf16``, from the generate phase)
+    batched logits no further from the f32 per-row ones than twice its
+    own per-row logits are (the two round at different places, and 32
+    random layers amplify any rounding).  Returns the f32 record."""
+    rec = batch_context_prefill_logits(model, seed)
+    got16, want16 = bf16["logits"]
+    ref = rec["logits"][1]
+    rec["bf16_batched_vs_f32"] = _rel(got16, ref)
+    rec["bf16_per_row_vs_f32"] = _rel(want16, ref)
+    del rec["logits"], bf16["logits"]
+    log("batch_context_prefill (f32): " + json.dumps(rec))
+    if not rec["ids_equal"] or max(rec["rel_l2"]) > 3e-3 \
+            or rec["bf16_batched_vs_f32"] > 2 * rec["bf16_per_row_vs_f32"]:
+        raise AssertionError(
+            "batch_context_prefill: greedy ids differ or logits past "
+            "relative L2 3e-3 against one prefill a row in f32, or the "
+            "bf16 batched logits further than twice the per-row ones from "
+            "f32")
+    return rec
+
+
+def generate_phase(model, seed, kernels):
+    """``PagedGenerator`` on llama_7b in bf16 (bench.py's
+    ``bench_paged_decode`` shape): a warm-up generate, then a timed one
+    whose launches are counted (its steps replay the warm-up's graphs:
+    the prefill, and one multi-step graph replayed 32 times), held
+    against the eager ``PagedDecoder``'s prefill and one decode step,
+    and its tokens against an eager generate; the per-token continuation
+    forced by a small pool, graphed vs eager; ``verify`` against the
+    ragged step over the same blocks; ``batch_context_prefill`` against
+    one prefill or chunk prefill a row; a w8a8 + int8 KV generate.
+    Returns the phase's record and the timed generate's launches."""
+    from paddle_tpu_torch.inference.paged import (GraphedPagedDecoder,
+                                                  PagedDecoder,
+                                                  PagedGenerator)
+    from paddle_tpu_torch.ops import paged_attention as tpa
+    from paddle_tpu_torch.ops.paged_attention import (PagedKVCache,
+                                                      paged_attention_multi)
+    cfg = model.config
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(seed + 15)
+    ids = rng.integers(0, vocab, (GEN_B, GEN_PROMPT)).astype(np.int32)
+    warm_ids = rng.integers(0, vocab, ids.shape).astype(np.int32)
+    seqs = list(range(GEN_B))
+    pos = np.full(GEN_B, GEN_PROMPT, np.int32)
+    rec = {}
+
+    def valid(out, prompt, new, label):
+        if out.shape != (GEN_B, prompt + new) or not (
+                (0 <= out) & (out < vocab)).all():
+            raise AssertionError(f"generate {label}: output {out.shape} "
+                                 "of the wrong shape or out of vocabulary")
+
+    # the timed generate: captures in the warm-up only
+    gen = PagedGenerator(model, total_pages=GEN_PAGES, page_size=16)
+    dec = gen._decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    gen.generate(warm_ids, max_new_tokens=GEN_NEW)
+    torch.cuda.empty_cache()
+    rec["graph_pool_bytes"] = torch.cuda.memory_reserved() - reserved
+    rec["captures_warmup"] = dec.captures
+    replays = dec.replays
+    _zero(kernels)
+    out = gen.generate(ids, max_new_tokens=GEN_NEW)
+    launches = _counts(kernels)
+    valid(out, GEN_PROMPT, GEN_NEW, "timed")
+    rec.update(captures=dec.captures - rec["captures_warmup"],
+               replays=dec.replays - replays,
+               graph_keys=sorted(str(k) for k in dec._graphs),
+               prefill_s=gen.last_prefill_seconds,
+               decode_s=gen.last_decode_seconds)
+    decode_tokens = (out.shape[1] - GEN_PROMPT - 1) * GEN_B
+    rec["decode_tok_s"] = decode_tokens / max(gen.last_decode_seconds, 1e-9)
+    if rec["captures"] or set(k[0] for k in dec._graphs) != {"prefill",
+                                                              "multi"}:
+        raise AssertionError(f"generate: the timed call captured "
+                             f"{rec['captures']} graphs (keys "
+                             f"{rec['graph_keys']}); it must replay the "
+                             "warm-up's prefill and multi-step graphs")
+    # one graphed generate under the profiler: the device's busy time
+    wall_ms, events, busy = _window(
+        lambda: gen.generate(ids, max_new_tokens=GEN_NEW), 1)
+    steps = rec["replays"] - 1              # the prefill's replay, then
+    rec.update(window_ms=wall_ms,           # one a decode step
+               device_busy_ms=busy if busy else "not measured",
+               device_idle_share=1 - busy / wall_ms if busy
+               else "not measured",
+               paged_ms_per_decode_step=sum(
+                   _device_us(e) for e in events
+                   if "paged_attention" in e.key) / 1e3 / steps
+               if busy else "not measured",
+               decode_steps=steps)
+
+    # eager: the same tokens; its prefill and one decode step's launches
+    eager = _eager_generator(model, GEN_PAGES)
+    want = eager.generate(ids, max_new_tokens=GEN_NEW)
+    rec["ids_equal_eager"] = bool(np.array_equal(out, want))
+    rec["eager_prefill_s"] = eager.last_prefill_seconds
+    rec["eager_decode_s"] = eager.last_decode_seconds
+    if not rec["ids_equal_eager"]:
+        raise AssertionError("generate: graphed tokens differ from the "
+                             "eager PagedDecoder's")
+    edec, cache = eager._decoder, PagedKVCache.from_model(
+        model, total_pages=GEN_PAGES, page_size=16)
+    _zero(kernels)
+    first = edec.prefill(cache, seqs, ids).argmax(-1).astype(np.int32)
+    prefill_n = _counts(kernels)
+    _zero(kernels)
+    edec.step(cache, seqs, first[:, None], pos)
+    step_n = _counts(kernels)
+    del cache
+    rec["launches"] = launches
+    rec["launches_per_decode_step"] = {
+        n: (launches[n] - prefill_n[n]) / steps for n in launches
+        if launches[n]}
+    rec["eager_step_launches"] = {n: c for n, c in step_n.items() if c}
+    bad = {n for n in launches
+           if launches[n] != prefill_n[n] + steps * step_n[n]}
+    if bad or step_n["paged_attention"] != cfg.num_hidden_layers:
+        raise AssertionError(
+            f"generate: launches {launches} are not the eager prefill's "
+            f"{prefill_n} plus {steps} x the eager step's {step_n} "
+            f"(kernels {sorted(bad)})")
+    log("generate: " + json.dumps(rec))
+
+    # the per-token continuation: the first chunk cannot be reserved
+    tight = {}
+    for name in ("graphed", "eager"):
+        g = (PagedGenerator(model, total_pages=GEN_TIGHT_PAGES, page_size=16)
+             if name == "graphed" else
+             _eager_generator(model, GEN_TIGHT_PAGES))
+        got = g.generate(ids[:, :GEN_TIGHT_PROMPT], max_new_tokens=GEN_NEW)
+        valid(got, GEN_TIGHT_PROMPT, GEN_NEW, "tight")
+        tight[name] = (got, sorted({k[0] for k in g._decoder._staging}),
+                       g.cache.free_pages)
+    modes = tight["graphed"][1]
+    rec["tight"] = {"modes": modes,
+                    "ids_equal_eager": bool(np.array_equal(
+                        tight["graphed"][0], tight["eager"][0]))}
+    if modes != ["decode", "prefill"] or tight["eager"][1] != modes \
+            or not rec["tight"]["ids_equal_eager"] \
+            or tight["graphed"][2] != GEN_TIGHT_PAGES:
+        raise AssertionError(f"generate, {GEN_TIGHT_PAGES} pages: the "
+                             f"per-token continuation did not run or its "
+                             f"tokens differ from eager: {rec['tight']}")
+    del g, tight
+
+    # verify against the ragged step over the same full-span blocks
+    vdec, rdec = GraphedPagedDecoder(model), GraphedPagedDecoder(model)
+    caches = [PagedKVCache.from_model(model, total_pages=GEN_PAGES,
+                                      page_size=16) for _ in range(2)]
+    for d, c in zip((vdec, rdec), caches):
+        first = d.prefill(c, seqs, ids).argmax(-1).astype(np.int32)
+    drafts = vdec.multi_step(caches[0], seqs, first, pos, GEN_VERIFY_S - 1)
+    block = np.concatenate([first[:, None], drafts], axis=1)
+    for row in range(GEN_B // 2):           # half the rows reject a draft
+        block[row, 1 + row % (GEN_VERIFY_S - 1)] += 1
+    block %= vocab
+    nd = [GEN_VERIFY_S - 1] * GEN_B
+    rec["verify"] = {}
+    for kind, flags in (("greedy", np.zeros(GEN_B, bool)),
+                        ("draw", np.arange(GEN_B) % 2 == 0)):
+        sampling = (np.arange(GEN_B, dtype=np.uint32) + 40,
+                    np.full(GEN_B, 0.8, np.float32), flags)
+        outs = []
+        for call in range(3):
+            for c in caches:
+                for sid in seqs:
+                    c.truncate(sid, GEN_PROMPT)
+            t0 = time.perf_counter()
+            v = vdec.verify(caches[0], seqs, block, pos, sampling=sampling)
+            v_ms = (time.perf_counter() - t0) * 1e3
+            r = rdec.ragged_step(caches[1], seqs, list(block), list(pos),
+                                 n_drafts=nd, sampling=sampling)
+            outs.append((v, r, v_ms))
+        (v_out, v_acc), (r_out, r_acc), _ = outs[0]
+        rec["verify"][kind] = {
+            "accept": v_acc.tolist(), "ids": v_out.tolist(),
+            "equal_ragged": bool(np.array_equal(v_out, r_out)
+                                 and np.array_equal(v_acc, r_acc)),
+            "step_ms_host": [o[2] for o in outs[1:]]}
+        if not rec["verify"][kind]["equal_ragged"] or any(
+                not np.array_equal(o[0][0], v_out) for o in outs):
+            raise AssertionError(
+                f"verify {kind}: ids {v_out.tolist()} accept "
+                f"{v_acc.tolist()} differ from the full-span ragged step's "
+                f"{r_out.tolist()} {r_acc.tolist()}, or between calls")
+    rec["verify"]["captures"] = vdec.captures
+    # the verify form of the paged kernel at the step's shapes, on layer
+    # 0's pools as the step left them (read warm), against its plain
+    # version; bound: each row's K/V read once, q and out
+    heads, d = cfg.num_attention_heads, cfg.hidden_size // \
+        cfg.num_attention_heads
+    kv_heads = cfg.num_key_value_heads
+    n_kv = GEN_PROMPT + GEN_VERIFY_S
+    lens = torch.full((GEN_B,), n_kv, dtype=torch.int32,
+                      device=model.model.embed_tokens.weight.device)
+    width = max(k[4] for k in vdec._graphs if k[0] == "verify")
+    tables, _ = caches[0].page_table(seqs, max_pages=width)
+    q = torch.randn(GEN_B, GEN_VERIFY_S, heads, d, dtype=torch.bfloat16,
+                    device=lens.device)
+    pools = (caches[0].k_pages[0], caches[0].v_pages[0])
+    ms = cuda_ms(lambda: paged_attention_multi(q, *pools, lens, tables))
+    plain_ms = cuda_ms(lambda: tpa._multi_plain(q, *pools, lens, tables,
+                                                d ** -0.5), reps=3)
+    err = check("paged_attention", f"verify b{GEN_B} x{GEN_VERIFY_S} "
+                f"{heads}/{kv_heads} ctx {n_kv}",
+                paged_attention_multi(q, *pools, lens, tables),
+                tpa._multi_plain(q, *pools, lens, tables, d ** -0.5), 2e-2)
+    visible = GEN_B * sum(n_kv - GEN_VERIFY_S + 1 + j
+                          for j in range(GEN_VERIFY_S))
+    bms, by = bound_ms(GEN_B * n_kv * kv_heads * d * 2 * 2
+                       + 2 * GEN_B * GEN_VERIFY_S * heads * d * 2,
+                       4 * visible * heads * d, BF16_FLOP_S)
+    rec["verify"].update(paged_ms_per_call=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, max_abs_err=err)
+    log("generate verify: " + json.dumps(rec["verify"]))
+    del vdec, rdec, caches
+
+    # batch_context_prefill against one prefill / chunk prefill a row;
+    # held to its limits in f32 (check_batch_context_prefill), where bf16
+    # rounding amplified by 32 random layers does not hide a fault
+    rec["batch_context_prefill"] = batch_context_prefill_logits(model, seed)
+    log("generate batch_context_prefill (bf16): " + json.dumps(
+        {k: v for k, v in rec["batch_context_prefill"].items()
+         if k != "logits"}))
+
+    # w8a8 weights + int8 KV pages through the multi-step graph
+    qgen = PagedGenerator(model, total_pages=GEN_PAGES, page_size=16,
+                          quantize="w8a8", kv_dtype="int8")
+    qgen.generate(warm_ids, max_new_tokens=GEN_QUANT_NEW)
+    captured, replays = qgen._decoder.captures, qgen._decoder.replays
+    _zero(kernels)
+    q_out = qgen.generate(ids, max_new_tokens=GEN_QUANT_NEW)
+    q_n = _counts(kernels)
+    valid(q_out, GEN_PROMPT, GEN_QUANT_NEW, "w8a8 int8 KV")
+    forwards = qgen._decoder.replays - replays
+    layers = cfg.num_hidden_layers
+    rec["w8a8_int8kv"] = {
+        "captures": qgen._decoder.captures - captured, "replays": forwards,
+        "kv_page_dtype": str(qgen.cache.k_pages[0].dtype),
+        "launches": {n: c for n, c in q_n.items() if c},
+        "decode_s": qgen.last_decode_seconds}
+    log("generate w8a8_int8kv: " + json.dumps(rec["w8a8_int8kv"]))
+    if rec["w8a8_int8kv"]["captures"] \
+            or q_n["w8a8_matmul"] != (4 * layers + 1) * forwards \
+            or q_n["dynamic_act_quant"] != (6 * layers + 1) * forwards \
+            or q_n["paged_attention"] != layers * (forwards - 1) \
+            or q_n["weight_only_matmul"] \
+            or qgen.cache.k_pages[0].dtype != torch.int8:
+        raise AssertionError("generate w8a8 + int8 KV: the timed call "
+                             "captured, or its int8 kernels did not run "
+                             f"inside the graphs as expected: {q_n}")
+    del qgen, gen, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def _lm_loss(logits, labels):
     """The classic f32-logits cross entropy of ``bench.py``'s LLaMA
     pretrain step."""
@@ -3110,6 +3504,8 @@ def main():
     log("small:")
     check_small()
     lap("check_small")
+    check_small_generate()
+    lap("check_small_generate")
     check_small_train()
     lap("check_small_train")
     check_small_moe()
@@ -3243,6 +3639,14 @@ def main():
         f" / {profiles[3]['graphed']['paged_ms_per_step']}")
     lap("profile")
 
+    # 6. PagedGenerator (the multi-step and per-token decode graphs),
+    # verify and batch_context_prefill on the same bf16 model
+    log("generate:")
+    gen_rec, launches["generate"] = generate_phase(model, args.seed,
+                                                   kernels)
+    gen_rec["card"] = smi[0]
+    lap("generate")
+
     # one request's prefill logits, kernel path vs plain forward on the
     # card: in f32 the two must agree closely; in bf16 the kernel path
     # must stay as close to the f32 result as the plain bf16 path does
@@ -3263,6 +3667,8 @@ def main():
     gc.collect()
     model.float()
     got32, ref32, _ = prefill_logits(model, ids)
+    gen_rec["batch_context_prefill_f32"] = check_batch_context_prefill(
+        model, args.seed, gen_rec["batch_context_prefill"])
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
@@ -3304,7 +3710,7 @@ def main():
         gc.collect()
     lap("prefill_logits")
 
-    # 6. llama_small pretraining (the 7B model's 27 GB of f32 go first,
+    # 7. llama_small pretraining (the 7B model's 27 GB of f32 go first,
     # with the slice that shares its tensors and the loop's last handle)
     del model
     torch.cuda.empty_cache()
@@ -3312,7 +3718,7 @@ def main():
     log("train: " + json.dumps(train_rec))
     lap("train")
 
-    # 7. the MoE model generating at Mixtral-8x7B widths (the 7B model
+    # 8. the MoE model generating at Mixtral-8x7B widths (the 7B model
     # and the trainer are gone), then its full-width f32 logits
     moe_rec, launches["moe"] = moe_generate(args.seed, dev, smi[0])
     log("moe: " + json.dumps(moe_rec))
@@ -3356,7 +3762,16 @@ def main():
         "flash_dq_ms", "fwd_bound_ms", "dkv_bound_ms", "dq_bound_ms",
         "plain_fwd_ms", "plain_bwd_ms", "sdpa_fwd_ms", "sdpa_bwd_ms")}
         for c in FM_CASES}
+    gen_line = {k: gen_rec[k] for k in (
+        "prefill_s", "decode_s", "decode_tok_s", "captures_warmup",
+        "captures", "replays", "graph_pool_bytes", "device_busy_ms",
+        "device_idle_share", "paged_ms_per_decode_step",
+        "launches_per_decode_step", "ids_equal_eager")}
+    gen_line["verify"] = {k: gen_rec["verify"][k] for k in (
+        "paged_ms_per_call", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err")}
     print(json.dumps({"kernels": out, "serve": serve_line,
+                      "generate": gen_line,
                       "train": train_line, "moe": moe_line,
                       "flashmask": fm_line,
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),

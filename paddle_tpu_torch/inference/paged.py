@@ -1,7 +1,9 @@
 """Paged-KV serving steps for causal LMs (port of
-paddle_tpu/inference/paged.py: the prefill, prefix/chunk and ragged
-programs, the fused sampling tail, and quantized serving — int8 weights
-through the armed ``Linear`` hook, int8 KV pages).
+paddle_tpu/inference/paged.py: the prefill, prefix/chunk, batched
+context, decode, verify, multi-step and ragged programs, the fused
+sampling tail, quantized serving — int8 weights through the armed
+``Linear`` hook, int8 KV pages — the eager oracle and
+``PagedGenerator``).
 
 Each step comes in two parts.  The host plans it — page allocation, the
 (page, slot) write targets, page tables, the bucket's pads — into the
@@ -12,28 +14,33 @@ KV write has the bucket's length, the accept counts, output positions and
 draw counters are computed on the device, and the outputs come back in
 one copy.  The JAX package's buckets are kept — power-of-two batch and
 span buckets, pad rows of context 0 and span 1, right-padded prompts,
-the page-table width ``max(next_pow2(pages), min_table_pages)``.
+the page-table width ``max(next_pow2(pages), min_table_pages)``; the
+decode, verify and multi-step batches are not bucketed, as there.
 
-:class:`PagedDecoder` runs the bodies eagerly (the counterpart of the
-JAX package's eager oracle); :class:`GraphedPagedDecoder` captures each
-(mode, tail kind, bucket) once as a CUDA graph and replays it, the
-counterpart of ``JittedPagedDecoder``'s compiled programs.
+:class:`PagedDecoder` runs the bodies eagerly; :class:`GraphedPagedDecoder`
+captures each (mode, tail kind, bucket) once as a CUDA graph and replays
+it, the counterpart of ``JittedPagedDecoder``'s compiled programs.
+:class:`EagerPagedContext` is the JAX package's eager oracle, which no
+step uses: the tests hold the device bodies against it.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..cuda_graphs import capture
 # under its old name here, where the card tests read it
 from ..cuda_graphs import counted_wrappers as _counted_wrappers  # noqa: F401
 from ..ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention_bshd
 from ..ops.paged_attention import (PagedKVCache, _gather_dequant,
                                    _scatter_pages, dequantize_kv,
+                                   paged_attention, paged_attention_multi,
                                    paged_attention_ragged, quantize_kv)
 from ..quantization.serving import (SERVING_QUANT_MODES,
                                     quantize_linear_weights)
@@ -163,16 +170,21 @@ class PagedContext:
       (``tables``, ``prefix_lens``), dense;
     - ``"ragged"``: each row's left-aligned span over its pages, through
       ``paged_attention_ragged`` (``lens`` counts the span, ``q_lens``
-      is the span length).
+      is the span length);
+    - ``"decode"``: one token a row (s == 1) over its pages, through
+      ``paged_attention`` (``lens`` counts the token just written);
+    - ``"verify"``: an s-token block a row over its pages, through
+      ``paged_attention_multi`` (``lens`` counts the whole block).
 
-    In the int8 KV mode the write quantizes per slot and head and stores
-    the scales beside the values, and prefill attends the round-tripped
-    K/V, so every consumer sees exactly what the pages hold.
+    A decode or verify batch has no pad position.  In the int8 KV mode
+    the write quantizes per slot and head and stores the scales beside
+    the values, and prefill attends the round-tripped K/V, so every
+    consumer sees exactly what the pages hold.
     """
 
     def __init__(self, cache: PagedKVCache, mode: str, pg, sl, src,
                  lens=None, tables=None, q_lens=None, prefix_lens=None):
-        if mode not in ("prefill", "prefix", "ragged"):
+        if mode not in ("prefill", "prefix", "ragged", "decode", "verify"):
             raise ValueError(f"unknown paged attention mode {mode!r}")
         self.cache = cache
         self.mode = mode
@@ -191,7 +203,7 @@ class PagedContext:
     def _write(self, layer, x, pages, scales):
         """Write one of k/v (b, s, kv_heads, d) into its pool; returns
         the values prefill attention consumes (round-tripped in the int8
-        mode; the ragged step reads the pages instead)."""
+        mode; the other modes read the pages instead)."""
         b, s, kvh, d = x.shape
         flat = x.reshape(b * s, kvh, d)
         if not self.cache.kv_quant:
@@ -200,7 +212,7 @@ class PagedContext:
         x8, sc = quantize_kv(flat)
         self._store(pages[layer], x8)
         self._store(scales[layer], sc)
-        if self.mode == "ragged":
+        if self.mode not in ("prefill", "prefix"):
             return None
         return dequantize_kv(x8, sc, x.dtype).reshape(b, s, kvh, d)
 
@@ -218,8 +230,54 @@ class PagedContext:
         if self.mode == "prefix":
             return _prefix_suffix_attention(q, k, v, kp, vp, self.tables,
                                             self.prefix_lens, ks, vs)
+        if self.mode == "decode":
+            return paged_attention(q[:, 0], kp, vp, self.lens, self.tables,
+                                   k_scales=ks, v_scales=vs)[:, None]
+        if self.mode == "verify":
+            return paged_attention_multi(q, kp, vp, self.lens, self.tables,
+                                         k_scales=ks, v_scales=vs)
         return paged_attention_ragged(q, kp, vp, self.lens, self.q_lens,
                                       self.tables, k_scales=ks, v_scales=vs)
+
+
+class EagerPagedContext:
+    """The eager oracle, the JAX package's ``_PagedContext``
+    (``paddle_tpu/inference/paged.py:216-262``): a per-forward attention
+    context over a :class:`PagedKVCache` whose host bookkeeping runs
+    inside the forward.  Each layer appends its K/V through
+    ``cache.write_batch`` (the last layer's write advances the lengths);
+    prefill then runs causal flash attention over the batch's own
+    (round-tripped, in the int8 mode) K/V, and decode runs
+    ``paged_attention`` over the sequences' page tables, counting the
+    token just written below the last layer.  No step runs it: the steps'
+    device bodies (:class:`PagedContext`) are held against it.  Allocate
+    the sequences' pages before the forward."""
+
+    def __init__(self, cache: PagedKVCache, seq_ids, prefill: bool):
+        self.cache = cache
+        self.seq_ids = list(seq_ids)
+        self.prefill = prefill
+        self.layer_idx = 0
+
+    def attend(self, q, k, v):
+        """q/k/v (batch, s, heads, head_dim) post-rope; returns
+        (batch, s, q_heads, head_dim)."""
+        cache, layer = self.cache, self.layer_idx
+        cache.write_batch(layer, self.seq_ids, k, v)
+        if self.prefill:
+            if cache.kv_quant:
+                k, v = (dequantize_kv(*quantize_kv(t), t.dtype)
+                        for t in (k, v))
+            return flash_attention_bshd(q, k, v, causal=True)
+        tables, lens = cache.page_table(self.seq_ids)
+        if layer < cache.num_layers - 1:
+            lens = lens + k.shape[1]
+        scales = ((cache.k_scales[layer], cache.v_scales[layer])
+                  if cache.kv_quant else (None, None))
+        return paged_attention(q[:, 0], cache.k_pages[layer],
+                               cache.v_pages[layer], lens, tables,
+                               k_scales=scales[0],
+                               v_scales=scales[1])[:, None]
 
 
 class _Staging:
@@ -266,16 +324,29 @@ class _Staging:
 
 def _inputs(mode, kind, rows, span, width):
     """The staged inputs of a step: ids, the write plan (targets and
-    sources), the mode's lengths and tables, and the draw's per-row
-    seeds, temperatures and flags (with the counters where the host
-    knows them: prefill and prefix)."""
+    sources), the mode's positions, lengths and tables, and the draw's
+    per-row seeds, temperatures and flags (with the counters where the
+    host knows them: prefill, prefix and decode).
+
+    A multi-step run (``"multi"``, ``span`` its power-of-two step bucket)
+    stages its whole plan, one row of targets and positions a step, with
+    the token it carries (``ids``) and its step counter (``i``): the
+    upload resets both, and each replay of the step reads row ``i``."""
     i32, i64 = torch.int32, torch.int64
+    if mode == "multi":
+        return [("ids", (rows, 1), i64), ("i", (1,), i64),
+                ("src", (rows,), i64), ("pg", (span, rows), i64),
+                ("sl", (span, rows), i64), ("pos", (span, rows), i32),
+                ("tables", (rows, width), i32)]
     n = rows * span
     f = [("ids", (rows, span), i64), ("pg", (n,), i64), ("sl", (n,), i64),
          ("src", (n,), i64)]
     if mode == "ragged":
         f += [("ctx", (rows,), i32), ("ql", (rows,), i32),
               ("nd", (rows,), i32), ("tables", (rows, width), i32)]
+    elif mode in ("decode", "verify"):
+        f += [("pos", (rows,), i32), ("lens", (rows,), i32),
+              ("tables", (rows, width), i32)]
     else:
         f.append(("last", (rows,), i64))
     if mode == "prefix":
@@ -283,9 +354,18 @@ def _inputs(mode, kind, rows, span, width):
     if kind == "draw":
         f += [("seeds", (rows,), i64), ("temps", (rows,), torch.float32),
               ("flags", (rows,), torch.bool)]
-        if mode != "ragged":
+        if mode not in ("ragged", "verify"):
             f.append(("ctrs", (rows,), i64))
     return f
+
+
+def _fill_tables(host, cache, seq_ids):
+    """Stage each sequence's whole page table, zero past its pages (pad
+    rows: all zeros)."""
+    host["tables"][:] = 0
+    for i, sid in enumerate(seq_ids):
+        pages = cache._seq_pages[sid]
+        host["tables"][i, :len(pages)] = pages
 
 
 def _plan_writes(host, plans, span):
@@ -306,11 +386,19 @@ def _plan_writes(host, plans, span):
 
 class PagedDecoder:
     """The serving steps over a :class:`PagedKVCache`: whole-prompt
-    prefill, prefix/chunk prefill and the ragged unified step.  Every
+    prefill, prefix/chunk and batched context prefill, the ragged
+    unified step, and the decode, verify and multi-step programs.  Every
     step plans its page writes on the host into the staging buffer of
-    its bucket (kept from call to call), runs its device body eagerly,
-    and on any failure rolls the sequences' lengths back to where the
-    step found them.
+    its bucket (kept from call to call) and runs its device body
+    eagerly.
+
+    The failure contract (the counterpart of the JAX package's
+    ``_recover_pools``): the pools are written in place and never
+    donated, so there is nothing to rebuild.  A step that fails before
+    its body — in planning, staging or the upload — has changed no page,
+    and every step, wherever it fails, rolls its sequences' lengths back
+    to where it found them; pages it allocated stay mapped, as in JAX,
+    and a retry rewrites their slots.
 
     ``min_table_pages`` floors the page-table width of the ragged and
     prefix steps (``max(next_pow2(pages), min_table_pages)``, as in
@@ -372,9 +460,13 @@ class PagedDecoder:
         if st is None:
             mode, kind, rows, span = key[:4]
             width = key[4] if len(key) > 4 else 0
-            out = ([("out", (rows,), torch.int32)] if kind
-                   else [("out", (rows, self.vocab), torch.float32)])
-            if mode == "ragged":
+            if mode == "multi":
+                out = [("out", (span, rows), torch.int32)]
+            elif kind:
+                out = [("out", (rows,), torch.int32)]
+            else:
+                out = [("out", (rows, self.vocab), torch.float32)]
+            if mode in ("ragged", "verify"):
                 out.append(("accept", (rows,), torch.int32))
             st = self._staging[key] = (
                 _Staging(_inputs(mode, kind, rows, span, width),
@@ -382,19 +474,22 @@ class PagedDecoder:
                 _Staging(out, self.device))
         return st
 
-    def _execute(self, cache, key, body) -> None:
-        """Run a step's device body over its staged tensors: eagerly."""
+    def _execute(self, cache, key, body, n: int = 1) -> None:
+        """Run a step's device body ``n`` times over its staged tensors:
+        eagerly."""
         with self._armed():
-            body()
+            for _ in range(n):
+                body()
 
-    def _run(self, cache, key, fill, body) -> dict:
+    def _run(self, cache, key, fill, body, n: int = 1) -> dict:
         """One step: ``fill(host views)`` plans it, the inputs go up in
-        one copy, ``body(dev inputs, dev outputs)`` runs, the outputs
-        come back in one copy."""
+        one copy, ``body(dev inputs, dev outputs)`` runs (``n`` times in
+        a row for a multi-step run, with no host read between), the
+        outputs come back in one copy."""
         inp, out = self._stage(key)
         fill(inp.host)
         inp.upload()
-        self._execute(cache, key, lambda: body(inp.dev, out.dev))
+        self._execute(cache, key, lambda: body(inp.dev, out.dev), n)
         return out.download()
 
     @staticmethod
@@ -429,6 +524,12 @@ class PagedDecoder:
         if with_ctrs:
             h["ctrs"][:n] = np.asarray(ctrs, np.int32)
 
+    def _table_width(self, cache, seq_ids) -> int:
+        """Page-table width of a step whose sequences' pages are all
+        allocated: ``max(next_pow2(pages), min_table_pages)``."""
+        needed = max(len(cache._seq_pages.get(sid, ())) for sid in seq_ids)
+        return max(next_pow2(needed), self.min_table_pages)
+
     @staticmethod
     def _rollback_lengths(cache, seq_ids, before) -> None:
         """Undo a failed step's ``advance`` (its pages stay mapped)."""
@@ -455,6 +556,31 @@ class PagedDecoder:
             o["out"].copy_(self._tail(kind, logits, d, d.get("ctrs")))
         return body
 
+    def _accept_tail(self, kind, ids, lg, ctx, ql, nd, d, o) -> None:
+        """The accept counts and the emitted output of a ragged or verify
+        step, on the device: ids (B, S) the staged spans, lg (B, S, V)
+        their f32 logits, ctx/ql/nd (B,) each row's cached context, span
+        length and draft count (a verify row: the whole block, S - 1
+        drafts)."""
+        targets = lg.argmax(dim=-1)
+        # verify-row accept arithmetic, gated to the first nd positions
+        # so chunk/decode rows (nd == 0) accept nothing
+        j = torch.arange(1, ids.shape[1], device=ids.device)[None, :]
+        match = ((ids[:, 1:] == targets[:, :-1])
+                 & (j <= nd[:, None])).long()
+        accept = match.cumprod(dim=1).sum(dim=1)             # (B,)
+        # the row's output position: its last real token, or the bonus
+        # position of a verify row
+        sel = ql.long() - 1 - nd.long() + accept
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        if kind == "greedy":
+            o["out"].copy_(targets[rows, sel])
+        else:
+            # the draw's counter: the emitted token's absolute position
+            ctrs = ctx.long() + ql.long() - nd.long() + accept
+            o["out"].copy_(self._tail(kind, lg[rows, sel], d, ctrs))
+        o["accept"].copy_(accept)
+
     def _ragged_body(self, cache, kind):
         """Device body of a ragged step (the JAX ragged program,
         ``paddle_tpu/inference/paged.py:741-812``): accept counts, the
@@ -466,25 +592,49 @@ class PagedDecoder:
                                  tables=d["tables"], q_lens=ql)
             hidden = self.model.model(ids, ctx, paged_ctx=paged)
             lg = self.model._logits_of(hidden).float()       # (B, S, V)
-            targets = lg.argmax(dim=-1)
-            # verify-row accept arithmetic, gated to the first nd
-            # positions so chunk/decode rows (nd == 0) accept nothing
-            j = torch.arange(1, ids.shape[1], device=ids.device)[None, :]
-            match = ((ids[:, 1:] == targets[:, :-1])
-                     & (j <= nd[:, None])).long()
-            accept = match.cumprod(dim=1).sum(dim=1)         # (B,)
-            # the row's output position: its last real token, or the
-            # bonus position of a verify row
-            sel = ql.long() - 1 - nd.long() + accept
-            rows = torch.arange(ids.shape[0], device=ids.device)
-            if kind == "greedy":
-                o["out"].copy_(targets[rows, sel])
-            else:
-                # the draw's counter: the emitted token's absolute
-                # position
-                ctrs = ctx.long() + ql.long() - nd.long() + accept
-                o["out"].copy_(self._tail(kind, lg[rows, sel], d, ctrs))
-            o["accept"].copy_(accept)
+            self._accept_tail(kind, ids, lg, ctx, ql, nd, d, o)
+        return body
+
+    def _span_body(self, cache, mode, kind):
+        """Device body of a decode step (the JAX "decode" program,
+        ``paddle_tpu/inference/paged.py:645-663``) or a verify step (its
+        "verify" program, ``:705-753``): a verify block is a full-span
+        ragged row — S tokens, S - 1 of them drafts — so its accept
+        counts, bonus position and draw counter (pos + accept + 1) come
+        from the ragged step's arithmetic."""
+        def body(d, o):
+            ids, pos = d["ids"], d["pos"]
+            paged = PagedContext(cache, mode, d["pg"], d["sl"], d["src"],
+                                 lens=d["lens"], tables=d["tables"])
+            hidden = self.model.model(ids, pos, paged_ctx=paged)
+            lg = self.model._logits_of(hidden).float()       # (B, S, V)
+            if mode == "decode":
+                o["out"].copy_(self._tail(kind, lg[:, -1], d, d.get("ctrs")))
+                return
+            ql = torch.full_like(pos, ids.shape[1])
+            self._accept_tail(kind, ids, lg, pos, ql, ql - 1, d, o)
+        return body
+
+    def _multi_body(self, cache):
+        """Device body of one greedy step of a multi-step run (the body
+        of the JAX ``lax.scan``, ``paddle_tpu/inference/paged.py:1330-1346``):
+        the step counter ``i`` picks row ``i`` of the staged targets and
+        positions, the carried token is embedded, attention sees
+        ``pos + 1`` tokens, and the argmax goes to row ``i`` of the output
+        and into the carry; then ``i`` advances.  Nothing here comes from
+        the host, so a replay needs no upload and no read back."""
+        def body(d, o):
+            i = d["i"]
+            pos = d["pos"].index_select(0, i)[0]
+            paged = PagedContext(cache, "decode",
+                                 d["pg"].index_select(0, i)[0],
+                                 d["sl"].index_select(0, i)[0], d["src"],
+                                 lens=pos + 1, tables=d["tables"])
+            hidden = self.model.model(d["ids"], pos, paged_ctx=paged)
+            nxt = self.model._logits_of(hidden)[:, -1].float().argmax(dim=-1)
+            o["out"].index_copy_(0, i, nxt[None].to(torch.int32))
+            d["ids"].copy_(nxt[:, None])
+            i.add_(1)
         return body
 
     # ------------------------------------------------------------ steps
@@ -644,8 +794,7 @@ class PagedDecoder:
         for sid, n in zip(seq_ids, ns):
             plans.append(cache.plan_write([sid], n))
             cache.advance([sid], n)
-        needed = max(len(cache._seq_pages.get(sid, ())) for sid in seq_ids)
-        width = max(next_pow2(needed), self.min_table_pages)
+        width = self._table_width(cache, seq_ids)
         kind = _tail_kind(None if sampling is None else sampling[2])
 
         def fill(h):
@@ -653,10 +802,7 @@ class PagedDecoder:
             for i, (row, n) in enumerate(zip(rows, ns)):
                 h["ids"][i, :n] = np.asarray(row, np.int32)
             _plan_writes(h, plans, s_b)
-            h["tables"][:] = 0
-            for i, sid in enumerate(seq_ids):
-                t = cache._seq_pages[sid]
-                h["tables"][i, :len(t)] = t
+            _fill_tables(h, cache, seq_ids)
             # pad rows: a 1-token span at context 0, no draft
             h["ctx"][:] = 0
             h["ctx"][:b] = before
@@ -675,18 +821,205 @@ class PagedDecoder:
             raise
         return got["out"][:b], got["accept"][:b]
 
+    @torch.no_grad()
+    def batch_context_prefill(self, cache: PagedKVCache, seq_ids, rows, ks,
+                              sampling=None) -> np.ndarray:
+        """Batched context prefill (JAX ``batch_context_prefill``):
+        ingest ``rows[i]`` (a 1-D int32 token slice) for ``seq_ids[i]``
+        whose cached context length is ``ks[i]`` in one step of the
+        ``"prefix"`` body, with a prefix length and rope offset a row; a
+        row with ``ks[i] == 0`` is a fresh prefill.  The batch pads to a
+        power of two with rows of prefix length 0 that draw nothing, the
+        span to ``min(next_pow2(max span), max_position - max(ks))``
+        (never below the longest span), so it shares graphs with
+        :meth:`prefix_prefill` and :meth:`chunk_prefill`.  Returns the
+        last real token's output per row: ids under ``sampling=(seeds,
+        ctrs, temps, flags)``, logits otherwise."""
+        b = len(seq_ids)
+        ns = [len(r) for r in rows]
+        if b == 0 or min(ns) < 1:
+            raise ValueError("every row needs at least one token")
+        before = []
+        for sid, k, n in zip(seq_ids, ks, ns):
+            if cache.length(sid) != int(k):
+                raise ValueError(
+                    f"sequence {sid!r} is at length {cache.length(sid)}, "
+                    f"expected the cached context length {k}")
+            if int(k) + n > self.max_position:
+                raise ValueError(
+                    f"context {k} + chunk {n} exceeds "
+                    f"max_position_embeddings ({self.max_position})")
+            before.append(int(k))
+            cache.allocate(sid, n)
+        s_b = max(max(ns),
+                  min(next_pow2(max(ns)),
+                      self.max_position - max(int(k) for k in ks)))
+        b_b = next_pow2(b)
+        plans = []
+        for sid, n in zip(seq_ids, ns):
+            plans.append(cache.plan_write([sid], n))
+            cache.advance([sid], n)
+        n_pre = [-(-int(k) // cache.page_size) for k in ks]
+        width = max(next_pow2(max(1, max(n_pre))), self.min_table_pages)
+        kind = _tail_kind(None if sampling is None else sampling[3])
+
+        def fill(h):
+            h["ids"][:] = 0
+            for i, (row, n) in enumerate(zip(rows, ns)):
+                h["ids"][i, :n] = np.asarray(row, np.int32)
+            _plan_writes(h, plans, s_b)
+            h["last"][:] = 0
+            h["last"][:b] = [n - 1 for n in ns]
+            h["tables"][:] = 0
+            for i, (sid, npg) in enumerate(zip(seq_ids, n_pre)):
+                h["tables"][i, :npg] = cache._seq_pages[sid][:npg]
+            h["plens"][:] = 0
+            h["plens"][:b] = before
+            if kind == "draw":
+                self._fill_sampling(h, sampling, True)
+
+        try:
+            got = self._run(cache, ("prefix", kind, b_b, s_b, width), fill,
+                            self._prompt_body(cache, kind))
+        except BaseException:
+            self._rollback_lengths(cache, seq_ids, before)
+            raise
+        return got["out"][:b]
+
+    @torch.no_grad()
+    def step(self, cache: PagedKVCache, seq_ids, tokens_np, positions_np,
+             sampling=None) -> np.ndarray:
+        """One decode token for every sequence (JAX ``step``): tokens_np
+        (batch, 1) int32, positions_np (batch,) each row's current length.
+        The batch is not bucketed.  Returns the last logits (batch,
+        vocab) f32, or with ``sampling=(seeds, ctrs, temps, flags)`` the
+        next ids (batch,) int32 drawn on the device."""
+        positions_np = np.asarray(positions_np)
+        if int(positions_np.max()) + 1 > self.max_position:
+            raise ValueError(
+                f"decode position {int(positions_np.max()) + 1} exceeds "
+                f"max_position_embeddings ({self.max_position})")
+        for sid in seq_ids:
+            cache.allocate(sid, 1)
+        return self._span_step("decode", cache, seq_ids,
+                               np.asarray(tokens_np).reshape(-1, 1),
+                               positions_np, sampling)["out"]
+
+    @torch.no_grad()
+    def verify(self, cache: PagedKVCache, seq_ids, block_np, positions_np,
+               sampling=None):
+        """Speculative verify (JAX ``verify``): score a (batch, S) block,
+        each row's last fed token followed by S - 1 draft proposals, at
+        positions_np (batch,), each row's current length.  All S
+        positions are written and the lengths advance by S; the caller
+        rolls a row back to its verified length with
+        ``cache.truncate(sid, pos + accept + 1)``, and the pages stay
+        mapped.  Returns ``(out, accept)``: ``accept`` (batch,) the
+        leading drafts the model reproduced, computed on the device;
+        ``out`` the bonus token ids under ``sampling=(seeds, temps,
+        flags)`` (a sampled row draws at position pos + accept + 1), or
+        the bonus position's logits (batch, vocab) f32 without."""
+        block_np = np.asarray(block_np)
+        positions_np = np.asarray(positions_np)
+        s = block_np.shape[1]
+        if int(positions_np.max()) + s > self.max_position:
+            raise ValueError(
+                f"verify through position {int(positions_np.max()) + s} "
+                f"exceeds max_position_embeddings ({self.max_position})")
+        cache.allocate_batch_atomic(seq_ids, s)
+        got = self._span_step("verify", cache, seq_ids, block_np,
+                              positions_np, sampling)
+        return got["out"], got["accept"]
+
+    def _span_step(self, mode, cache, seq_ids, block, positions, sampling):
+        """A decode or verify step over pages already allocated: plan the
+        (batch, s) block's writes, advance, run the body at table width
+        ``max(next_pow2(pages), min_table_pages)``."""
+        b, s = block.shape
+        before = [cache.length(sid) for sid in seq_ids]
+        pg, sl = cache.plan_write(seq_ids, s)
+        cache.advance(seq_ids, s)
+        width = self._table_width(cache, seq_ids)
+        kind = _tail_kind(None if sampling is None else sampling[-1])
+
+        def fill(h):
+            h["ids"][:] = block
+            _plan_writes(h, list(zip(pg.reshape(b, s), sl.reshape(b, s))),
+                         s)
+            h["pos"][:] = positions
+            h["lens"][:] = [cache.length(sid) for sid in seq_ids]
+            _fill_tables(h, cache, seq_ids)
+            if kind == "draw":
+                self._fill_sampling(h, sampling, mode == "decode")
+
+        try:
+            return self._run(cache, (mode, kind, b, s, width), fill,
+                             self._span_body(cache, mode, kind))
+        except BaseException:
+            self._rollback_lengths(cache, seq_ids, before)
+            raise
+
+    @torch.no_grad()
+    def multi_step(self, cache: PagedKVCache, seq_ids, tokens_np,
+                   positions_np, n_steps: int) -> np.ndarray:
+        """``n_steps`` greedy tokens a sequence (JAX ``multi_step``):
+        tokens_np (batch,) the last token of each row, positions_np
+        (batch,) each row's current length.  Pages for every step are
+        reserved up front, all or nothing (:class:`PagesExhausted`, an
+        "out of pages" ``RuntimeError``, leaves nothing reserved); one
+        table covers the final length and step j attends ``pos + j + 1``
+        tokens.  The whole (steps, batch) plan goes up in one copy, padded
+        to ``next_pow2(n_steps)`` rows that never run; one step body is
+        run ``n_steps`` times — on a card, one CUDA graph replayed with no
+        host read between replays — carrying its token and step counter
+        on the device, and the tokens come back in one copy.  Returns
+        (batch, n_steps) int32."""
+        positions_np = np.asarray(positions_np)
+        b, n = len(seq_ids), int(n_steps)
+        if n < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n}")
+        if int(positions_np.max()) + n > self.max_position:
+            raise ValueError(
+                f"decode through position {int(positions_np.max()) + n} "
+                f"exceeds max_position_embeddings ({self.max_position})")
+        before = [cache.length(sid) for sid in seq_ids]
+        cache.allocate_batch_atomic(seq_ids, n)
+        pg, sl = cache.plan_write(seq_ids, n)
+        cache.advance(seq_ids, n)
+        width = self._table_width(cache, seq_ids)
+
+        def fill(h):
+            h["ids"][:, 0] = np.asarray(tokens_np).reshape(-1)
+            h["i"][:] = 0
+            h["src"][:] = np.arange(b)
+            for k, v in (("pg", pg), ("sl", sl),
+                         ("pos", positions_np[:, None] + np.arange(n))):
+                h[k][:] = 0
+                h[k][:n] = v.reshape(b, n).T
+            _fill_tables(h, cache, seq_ids)
+
+        try:
+            got = self._run(cache, ("multi", "greedy", b, next_pow2(n), width),
+                            fill, self._multi_body(cache), n)
+        except BaseException:
+            self._rollback_lengths(cache, seq_ids, before)
+            raise
+        return np.ascontiguousarray(got["out"][:n].T)
+
 
 class GraphedPagedDecoder(PagedDecoder):
     """:class:`PagedDecoder` whose steps are CUDA graphs: the port's
     ``JittedPagedDecoder``.  It keeps one ``torch.cuda.CUDAGraph`` per
-    (mode, tail kind, bucket) — (rows, span, table width) for the ragged
-    and prefix steps, (rows, span) for prefill — captured lazily, as
+    (mode, tail kind, bucket) — (rows, span, table width) for the ragged,
+    prefix, decode and verify steps, (rows, span) for prefill, (rows,
+    step bucket, table width) for a multi-step run — captured lazily, as
     ``jax.jit`` compiles lazily.  The first call of a bucket runs its body
     eagerly on the real inputs (that call is the step) and then captures
     it, which executes nothing; later calls copy their inputs into the
-    bucket's staging buffer and replay.  Every graph draws on one memory
-    pool, and between steps only the staged inputs and outputs stay
-    alive.
+    bucket's staging buffer and replay.  A multi-step run of N steps
+    replays its one-step graph N times in a row (N - 1 on its first
+    call), counting N replays.  Every graph draws on one memory pool, and
+    between steps only the staged inputs and outputs stay alive.
 
     A graph holds the addresses of the cache's pools, the model's weights
     and the int8 twins, so a decoder serves the one cache it first
@@ -713,29 +1046,170 @@ class GraphedPagedDecoder(PagedDecoder):
         self._pool = torch.cuda.graph_pool_handle()
         self._stream = torch.cuda.Stream(self.device)
 
-    def _execute(self, cache, key, body) -> None:
+    def _execute(self, cache, key, body, n: int = 1) -> None:
         if self._cache is None:
             self._cache = cache
         elif cache is not self._cache:
             raise ValueError("a GraphedPagedDecoder serves the one cache "
                              "its graphs were captured over")
         entry = self._graphs.get(key)
-        if entry is not None:
-            graph, launches = entry
+        if entry is None:
+            # the bucket's first call: the step itself, eagerly, on the
+            # stream the capture uses (so its lazy set-up happens there)
+            here = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(here)
+            with torch.cuda.stream(self._stream), self._armed():
+                body()
+            here.wait_stream(self._stream)
+            graph = torch.cuda.CUDAGraph()
+            with self._armed():
+                _out, launches = capture(graph, self._pool, self._stream,
+                                         body)
+            entry = self._graphs[key] = (graph, launches)
+            self.captures += 1
+            n -= 1
+        graph, launches = entry
+        for _ in range(n):
             graph.replay()
-            for fn, n in launches.items():
-                fn.launches += n
-            self.replays += 1
-            return
-        # the bucket's first call: the step itself, eagerly, on the
-        # stream the capture uses (so its lazy set-up happens there)
-        here = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(here)
-        with torch.cuda.stream(self._stream), self._armed():
-            body()
-        here.wait_stream(self._stream)
-        graph = torch.cuda.CUDAGraph()
-        with self._armed():
-            _out, launches = capture(graph, self._pool, self._stream, body)
-        self._graphs[key] = (graph, launches)
-        self.captures += 1
+        for fn, count in launches.items():
+            fn.launches += count * n
+        self.replays += n
+
+
+class PagedGenerator:
+    """Batched greedy or sampled decoding over a shared page pool (the
+    JAX package's ``PagedGenerator``)::
+
+        gen = PagedGenerator(model, total_pages=512, page_size=16)
+        out_ids = gen.generate(input_ids, max_new_tokens=64)
+
+    ``device`` is where the model lives (``"cuda"`` by default, as the
+    engine's): on a card the steps are CUDA graphs
+    (:class:`GraphedPagedDecoder`), on the CPU the eager
+    :class:`PagedDecoder`.  A model elsewhere, or ``"cuda"`` without a
+    card, raises.  The prefill is one step that returns logits.  Greedy
+    generation decodes in :meth:`PagedDecoder.multi_step` chunks of
+    ``min(next_pow2(remaining), 64, max_position - pos)`` tokens and, where
+    a chunk's pages cannot be reserved, goes on one :meth:`PagedDecoder.step`
+    a token; eos is applied afterwards.  Sampling runs one step a token
+    that returns logits and draws on the host from
+    ``np.random.default_rng(seed)`` (``sample_token``), as JAX does."""
+
+    def __init__(self, model, total_pages: int = 256, page_size: int = 16,
+                 quantize: Optional[str] = None,
+                 kv_dtype: Optional[str] = None, device="cuda"):
+        self.device = resolve_device(device)
+        weight = model.model.embed_tokens.weight
+        if weight.device != self.device:
+            raise ValueError(f"the model lives on {weight.device}, the "
+                             f"generator was asked for {self.device}")
+        self.model = model
+        self._next_seq = 0
+        self.cache = PagedKVCache.from_model(
+            model, total_pages=total_pages, page_size=page_size,
+            kv_dtype=kv_dtype)
+        decoder = (GraphedPagedDecoder if self.device.type == "cuda"
+                   else PagedDecoder)
+        self._decoder = decoder(model, quantize=quantize)
+        # wall seconds of the last generate()'s prefill and decode
+        self.last_prefill_seconds = 0.0
+        self.last_decode_seconds = 0.0
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 eos_token_id: Optional[int] = None,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 seed: int = 0) -> np.ndarray:
+        """input_ids (batch, prompt) ints (an array or a tensor); returns
+        (batch, prompt + generated) token ids as a numpy array.  The
+        batch's pages are freed on the way out, on failure too."""
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids)
+        b = ids.shape[0]
+        seq_ids = list(range(self._next_seq, self._next_seq + b))
+        self._next_seq += b
+        rng = np.random.default_rng(seed)
+        try:
+            return self._generate(ids, seq_ids, max_new_tokens,
+                                  eos_token_id, do_sample, temperature, rng)
+        finally:
+            for sid in seq_ids:
+                self.cache.free(sid)
+
+    def _generate(self, ids, seq_ids, max_new_tokens, eos_token_id,
+                  do_sample, temperature, rng):
+        b, s = ids.shape
+        dec = self._decoder
+        t0 = time.perf_counter()
+        step = dec.prefill(self.cache, seq_ids, ids.astype(np.int32))
+        self.last_prefill_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = [ids]
+        if (not do_sample and max_new_tokens > 1
+                and s + max_new_tokens <= dec.max_position):
+            first = step.argmax(axis=-1).astype(np.int32)
+            pieces = [first[:, None]]
+            cur, pos, remaining = first, s, max_new_tokens - 1
+            done = (first == eos_token_id) if eos_token_id is not None \
+                else None
+            # power-of-two chunks (the last one rounded up and cut), so
+            # any length replays a bounded set of graphs; a chunk whose
+            # pages cannot be reserved (nothing is left reserved) hands
+            # over to one step a token from where the chunks stopped
+            while remaining > 0:
+                if done is not None and done.all():
+                    break
+                n = min(next_pow2(remaining), 64, dec.max_position - pos)
+                try:
+                    chunk = dec.multi_step(self.cache, seq_ids, cur,
+                                           np.full(b, pos, np.int32), n)
+                except RuntimeError as e:
+                    if "out of pages" not in str(e):
+                        raise
+                    break
+                pieces.append(chunk[:, :remaining])
+                if done is not None:
+                    done |= (pieces[-1] == eos_token_id).any(axis=1)
+                cur = chunk[:, -1].astype(np.int32)
+                pos += n
+                remaining -= n
+            while remaining > 0:
+                if done is not None and done.all():
+                    break
+                logits = dec.step(self.cache, seq_ids, cur[:, None],
+                                  np.full(b, pos, np.int32))
+                cur = logits.argmax(axis=-1).astype(np.int32)
+                pieces.append(cur[:, None])
+                if done is not None:
+                    done |= cur == eos_token_id
+                pos += 1
+                remaining -= 1
+            gen = np.concatenate(pieces, axis=1)
+            if eos_token_id is not None:
+                hit = gen == eos_token_id
+                after = (np.cumsum(hit, axis=1) - hit.astype(int)) > 0
+                gen = np.where(after, eos_token_id, gen)
+                # the stepwise width: up to the step where the last row
+                # finished
+                alldone = (np.cumsum(hit, axis=1) > 0).all(axis=0)
+                if alldone.any():
+                    gen = gen[:, :int(np.argmax(alldone)) + 1]
+            out.append(gen.astype(ids.dtype))
+            self.last_decode_seconds = time.perf_counter() - t0
+            return np.concatenate(out, axis=1)
+
+        finished = np.zeros(b, bool)
+        pos = s
+        for _ in range(max_new_tokens):
+            nxt = np.array([sample_token(row, do_sample, temperature, rng)
+                            for row in step])
+            if eos_token_id is not None:
+                nxt = np.where(finished, eos_token_id, nxt)
+                finished |= nxt == eos_token_id
+            out.append(nxt[:, None].astype(ids.dtype))
+            if eos_token_id is not None and finished.all():
+                break
+            step = dec.step(self.cache, seq_ids, out[-1].astype(np.int32),
+                            np.full(b, pos, np.int32))
+            pos += 1
+        self.last_decode_seconds = time.perf_counter() - t0
+        return np.concatenate(out, axis=1)

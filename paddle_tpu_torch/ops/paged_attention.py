@@ -766,3 +766,32 @@ class PagedKVCache:
         """Advance logical lengths by ``n`` tokens per sequence."""
         for sid in seq_ids:
             self._seq_len[sid] = self._seq_len.get(sid, 0) + n
+
+    def write(self, layer: int, seq_id, k_new, v_new) -> None:
+        """Append (tokens, kv_heads, head_dim) k/v for one sequence into
+        its pages (call :meth:`allocate` first; the last layer's write
+        advances the length)."""
+        self.write_batch(layer, [seq_id], k_new[None], v_new[None])
+
+    def write_batch(self, layer: int, seq_ids, k_new, v_new) -> None:
+        """Append one step's k/v for many sequences, k_new/v_new (batch,
+        tokens, kv_heads, head_dim), with one ``_scatter_pages`` per pool
+        at the targets :meth:`plan_write` gives; in the int8 mode each
+        slot and head is quantized on the way in and its scale written
+        beside it.  The eager write of the oracle
+        (``inference.paged.EagerPagedContext``); the steps' device bodies
+        write through their staged plan instead.  The last layer's write
+        advances the lengths."""
+        b, n = k_new.shape[0], k_new.shape[1]
+        pages, slots = (torch.from_numpy(a.astype(np.int64)).to(self.device)
+                        for a in self.plan_write(seq_ids, n))
+        for new, data, scales in ((k_new, self.k_pages, self.k_scales),
+                                  (v_new, self.v_pages, self.v_scales)):
+            flat = new.reshape((b * n,) + tuple(new.shape[2:]))
+            if self.kv_quant:
+                flat, sc = quantize_kv(flat)
+                _scatter_pages(scales[layer], pages, slots,
+                               sc.transpose(0, 1))
+            _scatter_pages(data[layer], pages, slots, flat.transpose(0, 1))
+        if layer == self.num_layers - 1:
+            self.advance(seq_ids, n)

@@ -92,12 +92,29 @@ failure:
             equal card vs CPU.  small-generate: the small f32 model's
             ``PagedGenerator`` greedy tokens on the card (graphs) equal
             the CPU's and its dense ``generate``'s on the card.
+            small-legacy: the small f32 model through the engine's legacy
+            composition (``unified_step=False``): greedy streams on the
+            card equal the CPU's legacy ones and the card's unified ones,
+            unchunked and chunked; then, each under its own fault plan
+            (``paddle_tpu_torch.testing.faults``), a prefill fault, a
+            sticky decode fault on one sequence (bisected), a transient
+            decode fault (retried) and a ragged step that raises (the
+            iteration re-run through the legacy composition, latched off
+            after 3): exactly the poisoned request fails, the others'
+            streams equal the clean run's, the pool comes back whole.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
-            with 256-token prefill chunks, and unchunked quantized
-            (``quantize="w8"`` and ``"w8a8"``, both with
-            ``kv_quant="int8"``), the page-table width pinned at 256
-            pages.  Each pass first serves a warm-up wave on the same
+            with 256-token prefill chunks (through the unified ragged
+            step, and through the legacy composition:
+            ``legacy_chunked256``, a dispatch a chunk and one decode step
+            an iteration, which must dispatch no ragged step and launch
+            the paged kernel once a layer of each decode step; the dense
+            prefix attention of its continuation chunks is timed), and
+            unchunked quantized (``quantize="w8"`` and ``"w8a8"``, both
+            with ``kv_quant="int8"``), the page-table width pinned at 256
+            pages.  No pass may retry, quarantine or fall back: no fault
+            plan is installed, so any of these is a step that raised.
+            Each pass first serves a warm-up wave on the same
             engine (the same prompt lengths, other tokens), whose steps
             capture the CUDA graphs, then the measured wave, which must
             capture none and replay; printed: the warm-up's captures, the
@@ -289,11 +306,14 @@ SERVE_TABLE_PAGES = 4096 // 16
 # min_table_pages); the last one is the first with the table pinned
 PROFILE_CASES = ((512, None, None, 1), (2048, None, None, 1),
                  (512, "w8", "int8", 1), (512, None, None, SERVE_TABLE_PAGES))
-# the serve passes: (label, prefill chunk, quantize, kv_quant)
-SERVE_PASSES = (("unchunked", None, None, None),
-                ("chunked256", 256, None, None),
-                ("w8_int8kv", None, "w8", "int8"),
-                ("w8a8_int8kv", None, "w8a8", "int8"))
+# the serve passes: (label, prefill chunk, quantize, kv_quant, unified
+# step); legacy_chunked256 is chunked256 through the legacy composition
+# (a dispatch a chunk, then one decode step)
+SERVE_PASSES = (("unchunked", None, None, None, True),
+                ("chunked256", 256, None, None, True),
+                ("legacy_chunked256", 256, None, None, False),
+                ("w8_int8kv", None, "w8", "int8", True),
+                ("w8a8_int8kv", None, "w8a8", "int8", True))
 QUANT_KERNEL = {"w8": "weight_only_matmul", "w8a8": "w8a8_matmul"}
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
@@ -1941,7 +1961,7 @@ def counters():
 
 
 def serve(model, prompts, sharer, chunk, device, quantize=None,
-          kv_quant=None, warmup=None, kernels=None):
+          kv_quant=None, warmup=None, kernels=None, unified=True):
     """Serve ``prompts`` (the last two sampled) and then ``sharer``,
     which shares prompts[0]'s first 256 tokens, once prompts[0] has its
     first token (so its prefix is cached).  With ``warmup`` (prompts,
@@ -1954,7 +1974,11 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
     bytes (pages, scales) with the engine's graph counts: captures in the
     warm-up and in the measured wave, the measured wave's replays, and
     the bytes the warm-up added to ``torch.cuda.memory_reserved`` (the
-    graphs' pool with its staging)."""
+    graphs' pool with its staging), the measured wave's dispatches by
+    mode, and the engine's failure counters over both waves (retries,
+    quarantines, unified fallbacks), which an ordinary pass must hold at
+    0: no fault plan is installed, so a nonzero count is a kernel or
+    step that raised and was absorbed."""
     from paddle_tpu_torch.inference.continuous import \
         ContinuousBatchingEngine
 
@@ -1980,6 +2004,7 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
                                   max_batch=8, prefill_chunk_tokens=chunk,
                                   quantize=quantize, kv_quant=kv_quant,
                                   min_table_pages=SERVE_TABLE_PAGES,
+                                  unified_step=unified,
                                   device=device) as eng:
         if warmup is not None:
             # cached blocks released on both sides, so the difference is
@@ -1993,6 +2018,7 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
                         graph_pool_bytes=torch.cuda.memory_reserved(device)
                         - reserved)
         captured, replayed = eng.captures, eng.replays
+        dispatched = dict(eng.dispatches)
         for fn in (kernels or {}).values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2000,6 +2026,11 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
         wall = time.perf_counter() - t0
         info.update(captures=eng.captures - captured,
                     replays=eng.replays - replayed,
+                    dispatches={m: n - dispatched[m]
+                                for m, n in eng.dispatches.items()},
+                    decode_retries=eng.decode_retries,
+                    quarantined=eng.quarantined,
+                    unified_fallbacks=eng.unified_fallbacks,
                     kv_pool_bytes=eng.cache.kv_pool_bytes,
                     kv_scale_bytes=eng.cache.kv_scale_bytes)
     return reqs, wall, info
@@ -2015,6 +2046,40 @@ def serve_stats(reqs, wall):
     return dict(requests=len(reqs), ttft_p50_s=ttft[len(ttft) // 2],
                 tpot_p50_s=tpot[len(tpot) // 2],
                 decode_tok_s=decode_tokens / span, wall_s=wall)
+
+
+def time_prefix_suffix_attention(model, chunk, lengths):
+    """Device ms of one call of the dense prefix attention that a
+    legacy continuation chunk runs in each layer
+    (``inference.paged._prefix_suffix_attention``: the JAX package's own
+    dense masked attention, no kernel of its own), at the
+    legacy_chunked256 pass's shape: a ``chunk``-token suffix over a page
+    table pinned at ``SERVE_TABLE_PAGES`` pages of 16, the prefix the
+    median of the wave's prompt lengths cut to whole chunks; pools of the
+    pass's 1024 pages.  Returns {"per_call": ms, "per_chunk": ms for every
+    layer, "prefix_tokens": n}."""
+    from paddle_tpu_torch.inference.paged import _prefix_suffix_attention
+    c = model.config
+    dev, dtype = model.model.embed_tokens.weight.device, \
+        model.model.embed_tokens.weight.dtype
+    kvh, d = c.num_key_value_heads, c.hidden_size // c.num_attention_heads
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(1, chunk, c.num_attention_heads, d, generator=g,
+                    device=dev).to(dtype)
+    k_suf, v_suf = (torch.randn(1, chunk, kvh, d, generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+    k_pages, v_pages = (torch.randn(kvh, 1024, 16, d, generator=g,
+                                    device=dev).to(dtype) for _ in range(2))
+    prefix = max(chunk, int(np.median(lengths)) // chunk * chunk)
+    tables = torch.zeros(1, SERVE_TABLE_PAGES, dtype=torch.int32,
+                         device=dev)
+    tables[0, :prefix // 16] = torch.arange(prefix // 16, device=dev)
+    plens = torch.full((1,), prefix, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: _prefix_suffix_attention(q, k_suf, v_suf, k_pages,
+                                                  v_pages, tables, plens))
+    del k_pages, v_pages
+    return {"per_call": ms, "per_chunk": ms * c.num_hidden_layers,
+            "prefix_tokens": prefix}
 
 
 class CodeReplay:
@@ -2218,12 +2283,9 @@ def quant_prefill_window(model, ids, quantize):
         window_seeing(prefill, f"{quantize} prefill", (want,), (refuse,))
 
 
-def check_small():
-    """A small f32 model: greedy streams on the card (kernels) equal the
-    CPU's (plain versions) from the same weights, unquantized and with
-    int8 weights (w8, w8a8) and int8 KV pages, unchunked and chunked."""
-    from paddle_tpu_torch.inference.continuous import \
-        ContinuousBatchingEngine
+def _small_models():
+    """The small f32 LLaMA of the small checks, on the CPU and on the
+    card with the same weights."""
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig(vocab_size=512, hidden_size=256,
                       intermediate_size=512, num_hidden_layers=2,
@@ -2232,6 +2294,16 @@ def check_small():
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=7)
     gpu = LlamaForCausalLM(cfg, device="cuda", seed=None)
     gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def check_small():
+    """A small f32 model: greedy streams on the card (kernels) equal the
+    CPU's (plain versions) from the same weights, unquantized and with
+    int8 weights (w8, w8a8) and int8 KV pages, unchunked and chunked."""
+    from paddle_tpu_torch.inference.continuous import \
+        ContinuousBatchingEngine
+    cpu, gpu = _small_models()
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 512, n).astype(np.int32)
                for n in (9, 40, 130)]
@@ -2261,20 +2333,156 @@ def check_small():
             f"{graphs[0][0]} captured, {graphs[0][1]} replays) vs CPU")
 
 
+def check_small_legacy():
+    """The small f32 model of ``check_small`` through the engine's legacy
+    composition (``unified_step=False``: a dispatch a prompt chunk, then
+    one padded decode step) and its failure isolation, on the card:
+
+    - legacy greedy streams on the card equal the CPU's legacy streams
+      and the card's unified streams, unchunked and with 32-token chunks;
+    - with w8a8 weights and int8 KV pages, 32-token chunks, legacy
+      greedy streams on the card equal the CPU's, and the int8 matmul and
+      the quantizer launch once a quantized activation (and twice a layer
+      for the KV pages) of every dispatch;
+    - a ``prefill`` fault with nth=2 errors exactly that request;
+    - a sticky ``decode_step`` fault on one sequence is bisected and
+      ejects exactly that request;
+    - a transient ``decode_step`` fault (nth=3) is retried once;
+    - a ragged step that raises an injected fault falls back to the
+      legacy composition with equal streams, and 3 failures latch the
+      unified path off;
+    - a ragged step that raises any other error fails the requests of
+      that step with it, with no fallback and no latch.
+
+    In every case the survivors' streams equal the clean run's, the pool
+    comes back whole and only the pad headroom stays reserved.  Each
+    fault plan is installed for its engine alone."""
+    from paddle_tpu_torch.inference.continuous import \
+        ContinuousBatchingEngine
+    from paddle_tpu_torch.testing import faults
+    cpu, gpu = _small_models()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (9, 40, 130)]
+
+    kernels = counters()
+
+    def run(model, dev, unified, chunk=None, plan=None, broken=None,
+            quantize=None, kv_quant=None):
+        """Serve the prompts as one batch; ``broken`` is the exception
+        class every ragged step raises.  A request failing with a fault
+        (or with ``broken``) gives None."""
+        _zero(kernels)
+        with contextlib.ExitStack() as stack:
+            if plan is not None:
+                stack.enter_context(faults.installed(faults.FaultPlan(plan)))
+            eng = stack.enter_context(ContinuousBatchingEngine(
+                model, total_pages=64, page_size=16, max_batch=4,
+                prefill_chunk_tokens=chunk, unified_step=unified,
+                quantize=quantize, kv_quant=kv_quant, device=dev))
+            if broken is not None:
+                def ragged_step(*a, **kw):
+                    raise broken("injected ragged step failure")
+                eng._decoder.ragged_step = ragged_step
+            with eng._cond:         # admitted together: one batch
+                reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            outs = []
+            for r in reqs:
+                try:
+                    outs.append(r.result(timeout=300).tolist())
+                except (faults.FaultError, broken or faults.FaultError):
+                    outs.append(None)
+            t0 = time.monotonic()
+            while eng.cache.free_pages != 64 and time.monotonic() - t0 < 30:
+                time.sleep(0.01)
+            state = dict(free_pages=eng.cache.free_pages,
+                         reserved=eng._reserved_pages,
+                         retries=eng.decode_retries,
+                         quarantined=eng.quarantined,
+                         fallbacks=eng.unified_fallbacks,
+                         latched=eng._unified_off,
+                         dispatches=dict(eng.dispatches),
+                         captures=eng.captures, replays=eng.replays,
+                         launches=_counts(kernels))
+        if faults.active() is not None:
+            raise AssertionError("a fault plan outlived its check")
+        if state["free_pages"] != 64 or state["reserved"] != 1:
+            raise AssertionError(f"small legacy: the pool did not come back "
+                                 f"whole: {state}")
+        return outs, state
+
+    for chunk in (None, 32):
+        card, st = run(gpu, "cuda", False, chunk)
+        cpu_outs, _ = run(cpu, "cpu", False, chunk)
+        unified, _ = run(gpu, "cuda", True, chunk)
+        if not (card == cpu_outs == unified) or st["dispatches"]["ragged"] \
+                or not st["replays"]:
+            raise AssertionError(
+                f"small f32 model legacy chunk={chunk}: card {card}, CPU "
+                f"{cpu_outs}, card unified {unified}; {st}")
+        log(f"  small f32 model legacy chunk={chunk}: greedy streams equal "
+            f"card legacy vs CPU legacy vs card unified; dispatches "
+            f"{st['dispatches']}, {st['captures']} graphs captured, "
+            f"{st['replays']} replays")
+        if chunk is None:
+            clean = card
+    # w8a8 weights and int8 KV pages: every dispatch is one forward of
+    # the quantized model, which quantizes 4 activations a layer and the
+    # head's and writes int8 K and V a layer
+    quant = dict(quantize="w8a8", kv_quant="int8")
+    card, st = run(gpu, "cuda", False, 32, **quant)
+    cpu_outs, _ = run(cpu, "cpu", False, 32, **quant)
+    layers = gpu.config.num_hidden_layers
+    forwards = sum(st["dispatches"].values())
+    want = {"w8a8_matmul": (4 * layers + 1) * forwards,
+            "dynamic_act_quant": (6 * layers + 1) * forwards,
+            "weight_only_matmul": 0}
+    got = {k: st["launches"][k] for k in want}
+    if card != cpu_outs or got != want or st["dispatches"]["ragged"] \
+            or not st["replays"]:
+        raise AssertionError(
+            f"small f32 model legacy w8a8 int8 KV chunk=32: card {card}, "
+            f"CPU {cpu_outs}; launches {got} (want {want}); {st}")
+    log(f"  small f32 model legacy w8a8 int8 KV chunk=32: greedy streams "
+        f"equal card vs CPU; dispatches {st['dispatches']}, launches "
+        f"{got}, {st['captures']} graphs captured, {st['replays']} replays")
+    # (label, fault plan, exception class of a broken ragged step, the
+    # requests that must fail, the counters it must end with)
+    cases = (
+        ("prefill nth=2", [{"site": "prefill", "nth": 2}], None, {1},
+         dict(quarantined=1, retries=0)),
+        ("sticky decode_step seq 1", [{"site": "decode_step",
+                                       "seq_id": 1}], None, {1},
+         dict(quarantined=1, retries=5)),
+        ("transient decode_step nth=3", [{"site": "decode_step",
+                                          "nth": 3}], None, set(),
+         dict(quarantined=0, retries=1)),
+        ("ragged step raises a fault", None, faults.FaultError, set(),
+         dict(quarantined=0, retries=0, fallbacks=3, latched=True)),
+        ("ragged step raises another error", None, RuntimeError,
+         {0, 1, 2}, dict(quarantined=3, retries=0, fallbacks=0,
+                         latched=False)))
+    for label, plan, broken, victims, counts in cases:
+        outs, st = run(gpu, "cuda", True, plan=plan, broken=broken)
+        want = [None if i in victims else o for i, o in enumerate(clean)]
+        got = {k: st[k] for k in counts}
+        if outs != want or got != counts:
+            raise AssertionError(f"small legacy fault check {label}: "
+                                 f"streams {outs} (want {want}), counters "
+                                 f"{got} (want {counts})")
+        log(f"  small f32 model fault check {label}: "
+            + (f"requests {sorted(victims)} failed, " if victims else "")
+            + f"the others' streams equal the clean run's; {got}, pool "
+            f"whole, dispatches {st['dispatches']}")
+
+
 def check_small_generate():
     """The small f32 model of ``check_small``: ``PagedGenerator`` on the
     card (CUDA graphs, kernels) gives the greedy tokens of the CPU's
     (plain versions) and of the port's dense ``generate`` on the card
     (JAX ``test_paged_generation_matches_dense``)."""
     from paddle_tpu_torch.inference import PagedGenerator
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig(vocab_size=512, hidden_size=256,
-                      intermediate_size=512, num_hidden_layers=2,
-                      num_attention_heads=4, num_key_value_heads=2,
-                      max_position_embeddings=512)
-    cpu = LlamaForCausalLM(cfg, device="cpu", seed=7)
-    gpu = LlamaForCausalLM(cfg, device="cuda", seed=None)
-    gpu.load_state_dict(cpu.state_dict())
+    cpu, gpu = _small_models()
     ids = np.random.default_rng(7).integers(0, 512, (3, 9)).astype(np.int32)
     card = PagedGenerator(gpu, total_pages=64, page_size=16)
     outs = {"card": card.generate(ids, max_new_tokens=12),
@@ -3504,6 +3712,8 @@ def main():
     log("small:")
     check_small()
     lap("check_small")
+    check_small_legacy()
+    lap("check_small_legacy")
     check_small_generate()
     lap("check_small_generate")
     check_small_train()
@@ -3537,18 +3747,45 @@ def main():
     passes = {}
     greedy = {}
     norms_per_forward = 2 * cfg.num_hidden_layers + 1
-    for label, chunk, quant, kv in SERVE_PASSES:
+    from paddle_tpu_torch.testing import faults
+    if faults.active() is not None:
+        raise AssertionError("a fault plan is installed outside the fault "
+                             "checks")
+    for label, chunk, quant, kv, unified in SERVE_PASSES:
         # the launch counters are zeroed inside, just before the measured
         # wave; its steps replay graphs the warm-up captured, each replay
         # adding its capture's launches
         reqs, wall, info = serve(model, prompts, sharer, chunk, dev, quant,
-                                 kv, warmup=warmup, kernels=kernels)
+                                 kv, warmup=warmup, kernels=kernels,
+                                 unified=unified)
         got = {n: fn.launches for n, fn in kernels.items()}
         if info["captures"] or not info["replays"]:
             raise AssertionError(
                 f"{label}: the measured wave captured {info['captures']} "
                 f"CUDA graphs and replayed {info['replays']}; after the "
                 "warm-up every step must replay")
+        absorbed = {k: info[k] for k in ("decode_retries", "quarantined",
+                                         "unified_fallbacks")}
+        if any(absorbed.values()):
+            raise AssertionError(f"{label}: steps failed and were absorbed "
+                                 f"by the engine's isolation: {absorbed}")
+        disp = info["dispatches"]
+        if not unified:
+            # the legacy composition: no ragged step, and the paged kernel
+            # only in its decode form, one launch a layer of each decode
+            # step (the first chunks take flash, the continuation chunks
+            # the dense prefix attention)
+            if disp["ragged"] or not disp["decode"] \
+                    or got["paged_attention"] \
+                    != cfg.num_hidden_layers * disp["decode"]:
+                raise AssertionError(
+                    f"{label}: dispatches {disp} and "
+                    f"{got['paged_attention']} paged launches; the legacy "
+                    "composition runs no ragged step and the paged kernel "
+                    "once a layer of each decode step")
+        elif disp["decode"]:
+            raise AssertionError(f"{label}: the unified pass dispatched "
+                                 f"decode steps: {disp}")
         launches[label] = got
         for i, r in enumerate(reqs):
             if r.error is not None or len(r.generated) != 32:
@@ -3561,7 +3798,10 @@ def main():
                                  f"{reqs[-1].prefix_tokens} cached tokens, "
                                  "expected 256")
         stats = serve_stats(reqs, wall)
-        passes[label] = dict(stats, launches=got, **info)
+        passes[label] = dict(stats, launches=got, card=smi[0], **info)
+        if not unified:
+            passes[label]["prefix_suffix_attention_ms"] = \
+                time_prefix_suffix_attention(model, chunk, lengths)
         # with 256-token chunks every prompt rides the ragged kernel, so
         # that path has no flash launch; a quantized pass launches its
         # matmul kernel once a Linear of every forward in w8 (7 a layer
@@ -3570,7 +3810,7 @@ def main():
         # never; the quantizer runs once a w8a8 matmul and twice a layer
         # for int8 K/V pages
         need = ["paged_attention", "rms_norm", "apply_rope"]
-        if chunk is None:
+        if chunk is None or not unified:
             need.append("flash_attention_forward")
         if quant or kv:
             need.append("dynamic_act_quant")
@@ -3612,6 +3852,10 @@ def main():
     log(f"serve: {same}/6 greedy streams identical unchunked vs chunked "
         "(bf16: the two paths round differently, so equality is "
         "reported, not required)")
+    same = sum(a == b for a, b in zip(greedy["chunked256"],
+                                      greedy["legacy_chunked256"]))
+    log(f"serve: {same}/6 greedy streams identical chunked256 vs "
+        "legacy_chunked256 (reported: bf16, other kernels)")
     for label in ("w8_int8kv", "w8a8_int8kv"):
         same = sum(a == b for a, b in zip(greedy["unchunked"],
                                           greedy[label]))
@@ -3738,8 +3982,11 @@ def main():
                       ("ttft_p50_s", "tpot_p50_s", "decode_tok_s", "wall_s",
                        "kv_pool_bytes", "kv_scale_bytes", "launches",
                        "captures_warmup", "captures", "replays",
-                       "graph_pool_bytes")}
+                       "graph_pool_bytes", "dispatches", "decode_retries",
+                       "quarantined", "unified_fallbacks")}
                   for p in passes}
+    serve_line["legacy_chunked256"]["prefix_suffix_attention_ms"] = \
+        passes["legacy_chunked256"]["prefix_suffix_attention_ms"]
     train_line = {k: train_rec[k] for k in (
         "step_ms_p25", "step_ms_p50", "step_ms_p75",
         "device_busy_ms_per_step", "device_idle_share", "tokens_per_s",

@@ -5,23 +5,50 @@ Requests enqueue; a scheduler thread admits them FIFO whenever a running
 slot and enough pool pages are free.  Admission reserves each sequence's
 worst-case pages (prompt + max_new_tokens, plus the pad-row headroom),
 so a step can never run out of pages mid-flight, and maps any cached
-prompt prefix read-only.  Each iteration then
+prompt prefix read-only.  Each iteration runs one of two compositions:
 
-  * prefills — whole prompts through the length-bucketed prefill (or,
-    on a prefix hit, the prefix) step when ``prefill_chunk_tokens`` is
-    None; otherwise the planned prompt chunks ride the ragged step;
-  * runs ONE ragged step for every active row (and the planned chunks),
-    through ``PagedDecoder.ragged_step``;
-  * retires finished sequences (pages freed, waiter woken).
+  * unified (``unified_step=True``, the default): whole prompts prefill
+    through the length-bucketed prefill (or, on a prefix hit, the
+    prefix) step when ``prefill_chunk_tokens`` is None, otherwise the
+    planned prompt chunks ride the ragged step; then ONE ragged step
+    (``PagedDecoder.ragged_step``) runs the chunks and every active row;
+  * legacy (``unified_step=False``): one prefill or chunk-prefill
+    dispatch a planned chunk, then ONE decode step
+    (``PagedDecoder.step``) for every active row, the batch padded to a
+    power of two with rows on a scratch sequence;
 
-With one class and one tenant the JAX engine's weighted deficit
-round-robin admission is exactly this FIFO order.  A failed step fails
-the requests it carried — loudly: every waiter gets the error, the pages
-are reclaimed and the engine keeps serving.  ``_Request.cancel`` is the
-reference's cooperative cancel: the loop reaps cancelled requests
-between steps (queued, mid-prefill or decoding), reclaims their pages
-and reservations, and their waiters get :class:`RequestCancelled`;
-``generate`` cancels the rows it already submitted when any row fails.
+and retires finished sequences (pages freed, waiter woken).  With one
+class and one tenant the JAX engine's weighted deficit round-robin
+admission is exactly this FIFO order.
+
+Failures are isolated per request, as in the JAX engine: a failing
+prefill or chunk quarantines its own request; a failing decode step is
+retried once, then bisected down to the rows that fail alone, which are
+quarantined.  A ragged step that fails on an injected fault
+(``FaultError``) is rolled back and the same iteration re-run through
+the legacy composition, and after 3 such failures in a row the unified
+path is latched off.  Any other ragged failure is not re-run: the JAX
+engine re-runs every failure, but here the legacy composition takes
+other code (dense attention for continuation chunks), which would hide
+a broken ragged kernel, so the requests of the failed step are
+quarantined with its error and the queue is served on.  A quarantined
+request's waiter gets the error, its pages are reclaimed, and everyone
+else is served on.  Only a fault outside any step (admission, planning)
+reaches ``_fail_all``.  The fault-injection sites (``testing.faults``)
+``prefill``, ``prefill_chunk`` and ``decode_step`` fire here; an
+iteration under a plan that targets an engine site diverts to the
+legacy composition, whose dispatch granularity defines the blast
+radius.  The JAX engine's crash recovery (``_after_step_failure``,
+``_split_replay_dead``: pools rebuilt and survivors' KV replayed after a
+donated buffer is lost or a step wedges) is not ported: here a failed
+step has already rolled its lengths back and no pool is donated, so it
+comes with the watchdog and survivor replay.
+
+``_Request.cancel`` is the reference's cooperative cancel: the loop
+reaps cancelled requests between steps (queued, mid-prefill or
+decoding), reclaims their pages and reservations, and their waiters get
+:class:`RequestCancelled`; ``generate`` cancels the rows it already
+submitted when any row fails.
 """
 from __future__ import annotations
 
@@ -35,7 +62,25 @@ import torch
 
 from .._device import resolve_device
 from ..ops.paged_attention import PagedKVCache
-from .paged import GraphedPagedDecoder, PagedDecoder, sample_token
+from ..testing import faults as _faults
+from .paged import GraphedPagedDecoder, PagedDecoder, next_pow2, sample_token
+
+_PAD_SEQ = "__pad__"
+
+# fault-injection sites whose quarantine semantics are defined against
+# the legacy per-mode dispatch granularity (one poisoned chunk fails one
+# request, a decode fault bisects the batch): an iteration running under
+# a plan that targets any of them diverts to the legacy composition.
+# The port fires no ``engine_wedge`` or ``buffer_loss``; they stay so a
+# plan written for the JAX engine diverts as it does there
+_ENGINE_FAULT_SITES = frozenset((
+    "prefill", "prefill_chunk", "decode_step", "engine_wedge",
+    "buffer_loss", "page_alloc"))
+# except pacing: a delay-kind rule on a dispatch site injects no failure,
+# and the unified step fires these sites itself (same sleep, same seq_id
+# targeting)
+_PACING_FAULT_SITES = frozenset(("prefill", "prefill_chunk",
+                                 "decode_step"))
 
 
 class RequestCancelled(RuntimeError):
@@ -97,7 +142,7 @@ class _Request:
 
 
 class ContinuousBatchingEngine:
-    """Scheduler + ragged step loop over one shared PagedKVCache.
+    """Scheduler + step loop over one shared PagedKVCache.
 
     ``submit`` is thread-safe and non-blocking; ``generate`` is the
     blocking batch facade.  ``sample_on_device`` keeps the sampling tail
@@ -116,7 +161,16 @@ class ContinuousBatchingEngine:
     steps' page-table width: pinned at ceil(max_position / page_size) it
     gives every context length one bucket, so mixed short and long
     traffic stops capturing new graphs, for more paged-attention splits
-    over the wider table."""
+    over the wider table.  ``unified_step=False`` runs every iteration
+    through the legacy composition (a dispatch a chunk, then one decode
+    step), the JAX engine's escape hatch.
+
+    Counters, the engine's counterparts of the JAX monitor's:
+    ``dispatches`` by mode (``ragged``, ``prefill``, ``chunk``,
+    ``decode``; a retry or bisection probe counts again),
+    ``decode_retries``, ``quarantined`` (requests failed alone) and
+    ``unified_fallbacks`` (ragged steps re-run through the legacy
+    composition)."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
@@ -124,7 +178,8 @@ class ContinuousBatchingEngine:
                  prefill_chunk_tokens: Optional[int] = None,
                  quantize: Optional[str] = None,
                  kv_quant: Optional[str] = None,
-                 min_table_pages: int = 1, device="cuda"):
+                 min_table_pages: int = 1, unified_step: bool = True,
+                 device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
         if weight.device != self.device:
@@ -140,6 +195,16 @@ class ContinuousBatchingEngine:
         self.prefix_cache = bool(prefix_cache)
         self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
+        self.unified_step = bool(unified_step)
+        # latched after 3 ragged-step failures in a row: the legacy
+        # composition serves from then on
+        self._unified_off = False
+        self._unified_failures = 0
+        self.dispatches = {"ragged": 0, "prefill": 0, "chunk": 0,
+                           "decode": 0}
+        self.decode_retries = 0
+        self.quarantined = 0
+        self.unified_fallbacks = 0
         # quantized serving: ``quantize`` runs every Linear of the steps
         # in int8 ("w8" weight-only, "w8a8" dynamic per token);
         # ``kv_quant="int8"`` stores the KV pages in int8 with per-slot
@@ -154,8 +219,9 @@ class ContinuousBatchingEngine:
                    else PagedDecoder)
         self._decoder = decoder(model, quantize=quantize,
                                 min_table_pages=min_table_pages)
-        # the ragged step's pad rows change no page, but admission keeps
-        # the JAX engine's pad-row page headroom so the two admit alike
+        # headroom for the legacy decode step's pad rows, which write
+        # slot 0 of the scratch sequence's one page (the ragged step's
+        # pad rows change no page)
         self._pad_pages = 1
         self._reserved_pages = self._pad_pages
         self._queue: "deque[_Request]" = deque()
@@ -317,10 +383,11 @@ class ContinuousBatchingEngine:
         return plan
 
     @staticmethod
-    def _row_sampling(reqs):
-        """(seeds, temps, flags) for the sampling tail; a None entry is a
-        row that draws nothing."""
-        n = len(reqs)
+    def _row_sampling(reqs, n: Optional[int] = None):
+        """(seeds, temps, flags) for the sampling tail, padded to ``n``
+        rows (default ``len(reqs)``); a None entry and a pad row draw
+        nothing."""
+        n = len(reqs) if n is None else n
         seeds = np.zeros(n, np.uint32)
         temps = np.ones(n, np.float32)
         flags = np.zeros(n, bool)
@@ -333,9 +400,10 @@ class ContinuousBatchingEngine:
         return seeds, temps, flags
 
     def _sampling_for(self, reqs, ctrs):
-        """(seeds, ctrs, temps, flags): ``ctrs`` is each row's absolute
-        token position, the counter of its draw."""
-        seeds, temps, flags = self._row_sampling(reqs)
+        """(seeds, ctrs, temps, flags), padded to ``len(ctrs)`` rows (pad
+        rows draw nothing), as in the JAX engine: ``ctrs`` is each row's
+        absolute token position, the counter of its draw."""
+        seeds, temps, flags = self._row_sampling(reqs, len(ctrs))
         return seeds, np.asarray(ctrs, np.int32), temps, flags
 
     def _pick(self, req, logits_row) -> int:
@@ -359,7 +427,8 @@ class ContinuousBatchingEngine:
     def _prefill_chunk(self, req, n: int) -> bool:
         """Ingest the next ``n`` prompt tokens of ``req`` in one step;
         True once the prompt is resident (only then is the first token
-        sampled, at its absolute position)."""
+        sampled, at its absolute position).  Fires ``prefill`` on the
+        request's first chunk and ``prefill_chunk`` on every one."""
         k = req.prefill_pos
         total = len(req.prompt)
         n = min(n, total - k)
@@ -368,6 +437,12 @@ class ContinuousBatchingEngine:
             sampling = None
         else:
             sampling = self._sampling_for([req if last else None], [total])
+        if k == req.prefix_tokens:
+            # per-sequence site, once: chunking must not change existing
+            # fault plans' semantics
+            _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
+        _faults.maybe_fire("prefill_chunk", seq_ids=[req.seq_id])
+        self.dispatches["chunk" if k else "prefill"] += 1
         out = self._ingest(req, k, n, sampling)
         req.prefill_pos = k + n
         if last:
@@ -384,14 +459,20 @@ class ContinuousBatchingEngine:
         req.first_token_at = time.perf_counter()
 
     def _run_chunks(self, plan) -> None:
-        """Whole-prompt prefills, one dispatch each (device work, called
-        without the lock).  A failing prefill fails its own request."""
+        """One dispatch a planned chunk (device work, called without the
+        lock).  A failing chunk quarantines exactly its request: the
+        decoder already rolled the failed dispatch back, retirement
+        reclaims the pages every earlier chunk wrote, and the other
+        requests are untouched."""
         completed, failed = [], []
         for req, n in plan:
+            if req.cancelled or req.done.is_set():
+                # cancelled: the next reap retires it
+                continue
             try:
                 if self._prefill_chunk(req, n):
                     completed.append(req)
-            except Exception as e:  # noqa: BLE001 — fail this request
+            except Exception as e:  # noqa: BLE001 — quarantine this one
                 req.error = e
                 failed.append(req)
         if not completed and not failed:
@@ -399,25 +480,198 @@ class ContinuousBatchingEngine:
         with self._cond:
             for r in failed:
                 self._prefilling.remove(r)
+                self.quarantined += 1
                 self._retire_locked(r)
             for r in completed:
                 self._prefilling.remove(r)
                 self._active.append(r)
+            self._cond.notify_all()
         for r in failed:
             r.done.set()
+
+    # ------------------------------------------ legacy composition
+    def _legacy_iteration(self) -> bool:
+        """True when this iteration must run the legacy composition: the
+        ``unified_step=False`` escape hatch, the repeated-failure latch,
+        or an installed fault plan targeting the legacy dispatch sites
+        (their quarantine semantics are defined per legacy dispatch —
+        one poisoned chunk fails one request — which a single ragged
+        step would widen).  Delay-kind rules on the dispatch sites
+        themselves are pacing, not failure injection: the unified step
+        fires those sites itself, so they do not divert."""
+        if not self.unified_step or self._unified_off:
+            return True
+        plan = _faults.active()
+        return plan is not None and any(
+            r.site in _ENGINE_FAULT_SITES
+            and not (r.kind == "delay" and r.site in _PACING_FAULT_SITES)
+            for r in plan.rules)
+
+    def _exec_step(self, reqs) -> list:
+        """ONE decode step for ``reqs`` (all of, or a bisected subset of,
+        the active batch), padded to ``min(next_pow2(n), max_batch)``
+        rows.  Tokens, positions and draw counters come from request and
+        cache state, so a rolled-back step replays identically, which
+        retry and bisection depend on.  Returns one output per request
+        (the sampled id, or the logits row)."""
+        b = min(next_pow2(len(reqs)), self.max_batch)
+        npad = b - len(reqs)
+        # the new token enters the sequence now: its rope position
+        # (== current length) is read before the write
+        tokens = np.zeros((b, 1), np.int32)
+        pos = np.zeros(b, np.int32)
+        seq_ids = []
+        for i, r in enumerate(reqs):
+            tokens[i, 0] = r.generated[-1]
+            pos[i] = self.cache.length(r.seq_id)
+            seq_ids.append(r.seq_id)        # the decoder allocates pages
+        if npad:
+            # pad rows: the scratch sequence rewrites its slot 0 every
+            # step, one row after another, and its page stays across
+            # steps until the engine goes idle.  Truncate FIRST: its
+            # length grew by the pad count last step, and allocating
+            # against that could demand a second page
+            self.cache.truncate(_PAD_SEQ, 0)
+            self.cache.allocate(_PAD_SEQ, 1)    # no-op while held
+            seq_ids.extend([_PAD_SEQ] * npad)
+        sampling = (self._sampling_for(reqs, pos + 1)
+                    if self.sample_on_device else None)
+        # the fault fires before the decoder runs, so never inside a
+        # CUDA graph's capture
+        _faults.maybe_fire("decode_step", seq_ids=seq_ids[:len(reqs)])
+        self.dispatches["decode"] += 1
+        out = self._decoder.step(self.cache, seq_ids, tokens, pos,
+                                 sampling=sampling)
+        return [out[i] for i in range(len(reqs))]
+
+    def _rollback_step(self, reqs, lens_before) -> None:
+        """Restore pre-step lengths after a failed attempt (the decoder
+        rolls back its own advance; this covers faults fired before it
+        ran).  Pages stay mapped: they are inside the admission
+        reservation and the replay rewrites their slots."""
+        for r in reqs:
+            self.cache.truncate(r.seq_id, lens_before[r.seq_id])
+
+    def _step_isolated(self, reqs, lens_before):
+        """(survivors, rows, poisoned) for one logical decode step: try
+        the whole batch; on failure retry once (transient faults), then
+        bisect to isolate the poisoned sequence(s) instead of erroring
+        everyone."""
+        try:
+            return reqs, self._exec_step(reqs), []
+        except Exception:  # noqa: BLE001 — retried below
+            self._rollback_step(reqs, lens_before)
+        self.decode_retries += 1
+        try:
+            return reqs, self._exec_step(reqs), []
+        except Exception as e:  # noqa: BLE001 — bisected below
+            self._rollback_step(reqs, lens_before)
+            return self._bisect_step(reqs, lens_before, e)
+
+    def _bisect_step(self, reqs, lens_before, error):
+        """Deterministic fault isolation: halve the failing batch and
+        replay each half (solo replay at size 1).  Healthy halves advance
+        their token normally; a size-1 failure quarantines that request
+        with the error that killed it.  O(k log n) extra step attempts
+        for k poisoned sequences in a batch of n."""
+        if len(reqs) == 1:
+            r = reqs[0]
+            r.error = error
+            self.quarantined += 1
+            return [], [], [r]
+        mid = (len(reqs) + 1) // 2
+        survivors, rows, poisoned = [], [], []
+        for half in (reqs[:mid], reqs[mid:]):
+            self.decode_retries += 1
+            try:
+                half_rows = self._exec_step(half)
+            except Exception as e:  # noqa: BLE001 — bisected further
+                self._rollback_step(half, lens_before)
+                s, o, p = self._bisect_step(half, lens_before, e)
+                survivors.extend(s)
+                rows.extend(o)
+                poisoned.extend(p)
+            else:
+                survivors.extend(half)
+                rows.extend(half_rows)
+        return survivors, rows, poisoned
+
+    def _decode_step(self) -> None:
+        """One token for every active sequence, padded to a bucket;
+        failures are isolated per sequence (retry, then bisect) rather
+        than erroring the whole batch."""
+        active = self._active
+        lens_before = {r.seq_id: self.cache.length(r.seq_id)
+                       for r in active}
+        for r in active:
+            r.generated.append(r.next_token)
+        survivors, rows, poisoned = self._step_isolated(active, lens_before)
+        still, retired = self._advance_rows(survivors, rows,
+                                            self.sample_on_device)
+        for r in poisoned:
+            # the token recorded for this step never executed
+            r.generated.pop()
+        with self._cond:
+            for r in retired + poisoned:
+                self._retire_locked(r)
+            self._active = still
+            if not still:
+                # idle: the scratch page goes back too, before the
+                # waiters wake, so a drained engine reports a fully
+                # reclaimed pool
+                self.cache.free(_PAD_SEQ)
+            self._cond.notify_all()
+        for r in retired + poisoned:
+            r.done.set()
+
+    def _advance_rows(self, reqs, rows, sampled: bool):
+        """(still, retired) after a decode token: a request that hit eos
+        or its budget retires, the others latch their next token."""
+        still, retired = [], []
+        for r, row in zip(reqs, rows):
+            eos_hit = (r.eos_token_id is not None
+                       and r.generated[-1] == r.eos_token_id)
+            if eos_hit or len(r.generated) >= r.max_new_tokens:
+                retired.append(r)
+                continue
+            r.next_token = int(row) if sampled else self._pick(r, row)
+            still.append(r)
+        return still, retired
+
+    # ------------------------------------------------ unified ragged step
+    def _unified_rollback(self, chunks, active, lens_before) -> None:
+        """Undo the unified composition after a failed ragged step, so
+        the legacy re-run replays the exact same step: appended decode
+        tokens pop and every row's length returns to its pre-step value
+        (the decoder rolled its own advance back; this covers a fault
+        fired before it ran)."""
+        for req, k, _n, _last in chunks:
+            self.cache.truncate(req.seq_id, k)
+        for r in active:
+            r.generated.pop()
+        self._rollback_step(active, lens_before)
 
     def _unified_step(self, plan) -> None:
         """ONE ragged step for the iteration: the planned prompt chunks
         plus every active row's decode token.  Chunk bookkeeping, prefill
-        completion, and retirement follow."""
+        completion, and retirement follow.  On an injected fault the
+        composition unwinds and the iteration re-runs through the legacy
+        composition, whose retry and bisection own failure isolation; 3
+        such failures in a row latch the unified path off.  Any other
+        failure unwinds and fails the step's requests alone (see the
+        module docstring)."""
         chunks = []
         for req, n in plan:
+            if req.cancelled or req.done.is_set():
+                continue
             k = req.prefill_pos
             n = min(n, len(req.prompt) - k)
             chunks.append((req, k, n, k + n == len(req.prompt)))
         active = list(self._active)
         if not chunks and not active:
             return
+        lens_before = {r.seq_id: self.cache.length(r.seq_id)
+                       for r in active}
         for r in active:
             r.generated.append(r.next_token)
         seq_ids, rows, ctxs = [], [], []
@@ -438,12 +692,35 @@ class ContinuousBatchingEngine:
         else:
             sampling = None
         try:
+            # only delay-kind pacing rules can be live here
+            # (_legacy_iteration diverts everything else): fire the
+            # legacy sites so throttling plans pace the unified step as
+            # they pace the composition it replaces
+            for req, k, _n, _last in chunks:
+                if not k:
+                    _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
+                _faults.maybe_fire("prefill_chunk", seq_ids=[req.seq_id])
+            if active:
+                _faults.maybe_fire("decode_step",
+                                   seq_ids=[r.seq_id for r in active])
+            self.dispatches["ragged"] += 1
             out, _accept = self._decoder.ragged_step(
                 self.cache, seq_ids, rows, ctxs, sampling=sampling)
-        except BaseException:
-            for r in active:
-                r.generated.pop()
-            raise
+        except _faults.FaultError:  # the legacy re-run isolates
+            self._unified_rollback(chunks, active, lens_before)
+            self.unified_fallbacks += 1
+            self._unified_failures += 1
+            if self._unified_failures >= 3:
+                self._unified_off = True
+            self._run_chunks(plan)
+            if self._active:
+                self._decode_step()
+            return
+        except Exception as e:  # noqa: BLE001 — fail the step's requests
+            self._unified_rollback(chunks, active, lens_before)
+            self._quarantine_step([req for req, *_ in chunks], active, e)
+            return
+        self._unified_failures = 0
         nchunks = len(chunks)
         completed = []
         for i, (req, k, n, last) in enumerate(chunks):
@@ -451,26 +728,38 @@ class ContinuousBatchingEngine:
             if last:
                 completed.append(req)
                 self._finish_prefill(req, out[i], sampling is not None)
-        still, retired = [], []
-        for r, row in zip(active, out[nchunks:]):
-            eos_hit = (r.eos_token_id is not None
-                       and r.generated[-1] == r.eos_token_id)
-            if eos_hit or len(r.generated) >= r.max_new_tokens:
-                retired.append(r)
-                continue
-            r.next_token = (int(row) if sampling is not None
-                            else self._pick(r, row))
-            still.append(r)
+        still, retired = self._advance_rows(active, out[nchunks:],
+                                            sampling is not None)
         with self._cond:
             if active:
                 for r in retired:
                     self._retire_locked(r)
                 self._active = still
+                if not still:
+                    self.cache.free(_PAD_SEQ)
             for r in completed:
                 self._prefilling.remove(r)
                 self._active.append(r)
             self._cond.notify_all()
         for r in retired:
+            r.done.set()
+
+    def _quarantine_step(self, prefilling, active, error) -> None:
+        """Fail the requests of a rolled-back ragged step with its error:
+        their pages and reservations go back, the queue is served on."""
+        failed = prefilling + active
+        with self._cond:
+            self._prefilling = [r for r in self._prefilling
+                                if r not in prefilling]
+            self._active = [r for r in self._active if r not in active]
+            if not self._active:
+                self.cache.free(_PAD_SEQ)
+            for r in failed:
+                r.error = error
+                self._retire_locked(r)
+            self.quarantined += len(failed)
+            self._cond.notify_all()
+        for r in failed:
             r.done.set()
 
     def _retire_locked(self, req) -> None:
@@ -502,6 +791,9 @@ class ContinuousBatchingEngine:
                 for r in gone:
                     self._retire_locked(r)
                 out += gone
+                if name == "_active" and not self._active:
+                    # everything reaped: the pad scratch page goes back
+                    self.cache.free(_PAD_SEQ)
         for r in out:
             r.error = RequestCancelled("request cancelled")
         if out:
@@ -509,8 +801,12 @@ class ContinuousBatchingEngine:
         return out
 
     def _fail_all(self, exc) -> None:
-        """A step failed: error every queued and in-flight request, free
-        their pages and reservations, and keep serving."""
+        """Last resort, for a fault outside any step (isolation failed
+        or admission and planning raised): error every queued and
+        in-flight request, free their pages and reservations, and keep
+        serving.  A request that retired earlier in the same step (its
+        ``done`` is set after the step) gets its generation, not the
+        error."""
         with self._cond:
             holders = self._active + self._prefilling
             for r in holders + list(self._queue):
@@ -522,6 +818,7 @@ class ContinuousBatchingEngine:
             for r in holders:
                 if r.seq_id is not None:
                     self.cache.free(r.seq_id)
+            self.cache.free(_PAD_SEQ)
             self._reserved_pages = self._pad_pages
             self._queue.clear()
             self._active = []
@@ -537,6 +834,7 @@ class ContinuousBatchingEngine:
                         and not self._active and not self._prefilling:
                     self._cond.wait(timeout=0.5)
                 if self._stop:
+                    self.cache.free(_PAD_SEQ)
                     stopped = (list(self._queue) + self._prefilling
                                + self._active)
                     self._queue.clear()
@@ -553,13 +851,22 @@ class ContinuousBatchingEngine:
                     plan = self._plan_chunks_locked()
                 for r in reaped:
                     r.done.set()
-                if self.prefill_chunk_tokens is None and plan:
-                    # unchunked: whole prompts prefill through the
-                    # length-bucketed prefill/prefix steps, and only the
-                    # active rows (span 1) ride the ragged step
+                if self._legacy_iteration():
+                    # legacy composition: a dispatch a planned chunk
+                    # (a failing one quarantines only its request), then
+                    # ONE decode step for everything active
                     self._run_chunks(plan)
-                    plan = ()
-                self._unified_step(plan)
-            except BaseException as e:  # noqa: BLE001 — fail loudly
-                # every waiter gets the error; the thread keeps serving
+                    if self._active:
+                        self._decode_step()
+                else:
+                    if self.prefill_chunk_tokens is None and plan:
+                        # unchunked: whole prompts prefill through the
+                        # length-bucketed prefill/prefix steps, and only
+                        # the active rows (span 1) ride the ragged step
+                        self._run_chunks(plan)
+                        plan = ()
+                    self._unified_step(plan)
+            except Exception as e:  # noqa: BLE001 — fail loudly
+                # a fault outside any step's isolation: every waiter
+                # gets the error; the thread keeps serving
                 self._fail_all(e)

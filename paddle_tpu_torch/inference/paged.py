@@ -38,7 +38,8 @@ from ..cuda_graphs import capture
 # under its old name here, where the card tests read it
 from ..cuda_graphs import counted_wrappers as _counted_wrappers  # noqa: F401
 from ..ops.flash_attention import DEFAULT_MASK_VALUE, flash_attention_bshd
-from ..ops.paged_attention import (PagedKVCache, _gather_dequant,
+from ..ops.paged_attention import (PagedKVCache, PagesExhausted,
+                                   _gather_dequant,
                                    _scatter_pages, dequantize_kv,
                                    paged_attention, paged_attention_multi,
                                    paged_attention_ragged, quantize_kv)
@@ -965,8 +966,8 @@ class PagedDecoder:
         """``n_steps`` greedy tokens a sequence (JAX ``multi_step``):
         tokens_np (batch,) the last token of each row, positions_np
         (batch,) each row's current length.  Pages for every step are
-        reserved up front, all or nothing (:class:`PagesExhausted`, an
-        "out of pages" ``RuntimeError``, leaves nothing reserved); one
+        reserved up front, all or nothing (:class:`PagesExhausted` leaves
+        nothing reserved); one
         table covers the final length and step j attends ``pos + j + 1``
         tokens.  The whole (steps, batch) plan goes up in one copy, padded
         to ``next_pow2(n_steps)`` rows that never run; one step body is
@@ -1162,9 +1163,7 @@ class PagedGenerator:
                 try:
                     chunk = dec.multi_step(self.cache, seq_ids, cur,
                                            np.full(b, pos, np.int32), n)
-                except RuntimeError as e:
-                    if "out of pages" not in str(e):
-                        raise
+                except PagesExhausted:
                     break
                 pieces.append(chunk[:, :remaining])
                 if done is not None:

@@ -12,7 +12,9 @@ split-and-merge arithmetic, for the tests.  Each takes ``k_scales`` and
 scale per slot and head, dequantized by :func:`dequantize_kv`.
 
 The page allocator (:class:`PagedKVCache`) is host-side bookkeeping; the
-page pools live on the cache's device and are updated in place.
+page pools live on the cache's device and are updated in place.  Taking a
+page from the free list fires the ``page_alloc`` fault site
+(``testing.faults``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from . import _build
 from .flash_attention import DEFAULT_MASK_VALUE
 from .quant_matmul import dynamic_act_quant
 from .._device import resolve_device
+from ..testing import faults as _faults
 
 
 class PagesExhausted(RuntimeError):
@@ -561,6 +564,7 @@ class PagedKVCache:
                 self._decref_idx(p)
 
     def _pop_free_page(self) -> int:
+        _faults.maybe_fire("page_alloc")
         if not self._free:
             self._evict_prefixes(1)
         if not self._free:

@@ -158,8 +158,10 @@ def test_fused_sample_matches_softmax_distribution():
 
 
 def test_failed_step_fails_its_requests_loudly(models, monkeypatch):
-    """A step that raises wakes every waiter with the error (no hang),
-    frees the pages, and the engine keeps serving."""
+    """A ragged step that raises (not an injected fault) wakes its
+    request's waiter with the error (no hang) and quarantines it, with
+    no re-run through the legacy composition; its pages are freed and
+    the engine keeps serving."""
     _jm, tm = models
     prompts, _ = _prompts()
     with ContinuousBatchingEngine(tm, device="cpu", **ENGINE) as eng:
@@ -178,6 +180,8 @@ def test_failed_step_fails_its_requests_loudly(models, monkeypatch):
         req = eng.submit(prompts[0], max_new_tokens=4)
         with pytest.raises(RuntimeError, match="injected step failure"):
             req.result(timeout=60)
+        assert (eng.quarantined, eng.unified_fallbacks) == (1, 0)
+        assert eng.dispatches["decode"] == 0
         assert eng.cache.free_pages == ENGINE["total_pages"]
         out = eng.submit(prompts[0], max_new_tokens=4).result(timeout=60)
         assert len(out) == len(prompts[0]) + 4

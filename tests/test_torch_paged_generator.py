@@ -138,6 +138,33 @@ def test_generator_under_pool_pressure_matches_jax(models):
     assert any(k[0] == "decode" for k in gen._decoder._staging)
 
 
+def test_only_pages_exhausted_hands_over_to_steps(models, monkeypatch):
+    """The per-token continuation takes over on :class:`PagesExhausted`
+    whatever its text, with JAX's tokens; any other error of a chunk,
+    even one whose text says "out of pages", propagates."""
+    jm, tm = models
+    ids = _gen_ids(5, (2, 7))
+    want = JaxGenerator(jm, total_pages=64, page_size=4).generate(
+        ids, max_new_tokens=12)
+    gen = PagedGenerator(tm, total_pages=64, page_size=4, device="cpu")
+
+    def exhausted(*a, **kw):
+        raise tpa.PagesExhausted("the pool ran dry")
+
+    monkeypatch.setattr(gen._decoder, "multi_step", exhausted)
+    np.testing.assert_array_equal(gen.generate(ids, max_new_tokens=12),
+                                  want)
+    assert gen.cache.free_pages == 64
+
+    def other(*a, **kw):
+        raise RuntimeError("out of pages, but not the pool's")
+
+    monkeypatch.setattr(gen._decoder, "multi_step", other)
+    with pytest.raises(RuntimeError, match="not the pool's"):
+        gen.generate(ids, max_new_tokens=12)
+    assert gen.cache.free_pages == 64
+
+
 def test_generator_matches_dense_generate(models):
     """The port's ``PagedGenerator`` and its dense KV-cache ``generate``
     give the same greedy tokens (JAX's

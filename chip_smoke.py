@@ -102,6 +102,14 @@ failure:
             iteration re-run through the legacy composition, latched off
             after 3): exactly the poisoned request fails, the others'
             streams equal the clean run's, the pool comes back whole.
+            small-lifecycle: the small f32 model through the workload
+            scheduler: a ``batch`` request paused mid-prefill or
+            mid-decode by an ``interactive`` one resumes with the CPU's
+            and the unpreempted stream (greedy and sampled, unified and
+            legacy); a TTL, a queue-wait deadline, a timed-out
+            ``result``, ``max_queue=1``, ``drain(reject_queued=True)``, a
+            submit after it, the resume TTL and an unknown class each end
+            as the JAX engine's do, with the pool whole.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks (through the unified ragged
@@ -134,6 +142,16 @@ failure:
             quantized forward); a profiler window over the bf16 prefill
             must show the tensor-core flash forward, and ones over a bf16
             w8 and a w8a8 prefill the tensor-core w8 and w8a8 kernels.
+   classes — the same model, 256-token chunks, 8 slots: 8 ``batch``
+            requests of 1024 prompt tokens, then 4 ``interactive`` ones
+            of 128 (tenants a, b, a, b), 32 new tokens each, after a
+            warm-up wave of the same shape: with classes the batch class
+            is preempted 4 times and resumed 4 times and the interactive
+            requests finish first; ``classes_fifo`` (all in the default
+            class) preempts nothing; TTFT and TPOT p50 by class, the
+            scheduler's counters by class, ms a ragged step by bucket;
+            measured captures 0, no failed step, ``drain`` True with the
+            pool whole.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, w8 with int8 KV at 512, and bf16 at 512 with the
             table pinned at 256 pages, each through the eager and the
@@ -200,8 +218,8 @@ the timed ``PagedGenerator`` call), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``moe`` and ``flashmask`` hold each pass's end-to-end
-numbers, ``phase_s`` each phase's wall seconds.  The last
+``train``, ``moe``, ``flashmask`` and ``classes`` hold each pass's
+end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -315,6 +333,15 @@ SERVE_PASSES = (("unchunked", None, None, None, True),
                 ("w8_int8kv", None, "w8", "int8", True),
                 ("w8a8_int8kv", None, "w8a8", "int8", True))
 QUANT_KERNEL = {"w8": "weight_only_matmul", "w8a8": "w8a8_matmul"}
+# the workload-scheduler serve passes, llama_7b bf16, unified, 256-token
+# chunks, 8 slots: a wave is 8 ``batch``-class requests of 1024 prompt
+# tokens, then, once the first has a chunk in, 4 ``interactive`` ones of
+# 128 from tenants a, b, a, b; 32 new greedy tokens each.  Pages: 8 x 66
+# + 4 x 10 + the pad page = 569 of 1024.  ``classes_fifo`` serves the
+# same traffic with every request in the default class
+CLASSES_BATCH, CLASSES_BATCH_PROMPT = 8, 1024
+CLASSES_TENANTS, CLASSES_PROMPT, CLASSES_NEW = ("a", "b", "a", "b"), 128, 32
+CLASSES_PASSES = (("classes", False), ("classes_fifo", True))
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
 # the generate phase: bench.py's bench_paged_decode shape at llama_7b's
@@ -2036,6 +2063,178 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
     return reqs, wall, info
 
 
+def serve_classes(model, waves, fifo, device, kernels):
+    """One engine (llama_7b's serve settings: 1024 pages of 16, 8 slots,
+    256-token chunks, the table pinned at ``SERVE_TABLE_PAGES``, the
+    unified step) serves ``waves[0]`` as its warm-up and then
+    ``waves[1]``, the measured wave, each (batch prompts, interactive
+    prompts): the batch requests are queued together under the engine's
+    lock, so all 8 are admitted and every slot is held; once the first has
+    a chunk in, the interactive requests are queued together, from tenants
+    a, b, a, b.  In ``classes`` they are the ``batch`` and
+    ``interactive`` classes, so each interactive arrival pauses a batch
+    prefill and takes its slot; with ``fifo`` every request is in the
+    default class and the interactive ones wait for slots.  The launch
+    counters are zeroed just before the measured wave and read just after
+    it.  Each ragged step of the measured wave is timed on the host
+    clock (it returns after its outputs reach the host) by its bucket,
+    (rows, span) rounded up to powers of two.  The engine is closed with
+    ``drain(timeout=300)``.  Returns the measured (batch, interactive)
+    requests, wall seconds and a record: graph counts, dispatches, the
+    scheduler's counters by class over the measured wave, failure
+    counters, launches, ms a ragged step by bucket, the drain's result
+    and the pool's state after it."""
+    from paddle_tpu_torch.inference.continuous import \
+        ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.paged import next_pow2
+
+    def wave(eng, batch, interactive):
+        with eng._cond:
+            breqs = [eng.submit(p, max_new_tokens=CLASSES_NEW,
+                                priority=None if fifo else "batch")
+                     for p in batch]
+        while not breqs[0].prefill_pos and not breqs[0].done.is_set():
+            time.sleep(0.001)
+        with eng._cond:
+            ireqs = [eng.submit(p, max_new_tokens=CLASSES_NEW,
+                                priority=None if fifo else "interactive",
+                                tenant=t)
+                     for p, t in zip(interactive, CLASSES_TENANTS)]
+        for r in breqs + ireqs:
+            r.result(timeout=600)
+        torch.cuda.synchronize()
+        return breqs, ireqs
+
+    def delta(after, before):
+        return {c: {k: n - before[c][k] for k, n in cs.items()}
+                for c, cs in after.items()}
+
+    with ContinuousBatchingEngine(model, total_pages=1024, page_size=16,
+                                  max_batch=8, prefill_chunk_tokens=256,
+                                  min_table_pages=SERVE_TABLE_PAGES,
+                                  device=device) as eng:
+        wave(eng, *waves[0])
+        captured, replayed = eng.captures, eng.replays
+        dispatched = dict(eng.dispatches)
+        counted = eng.scheduler_info()["counts"]
+        ragged, steps = eng._decoder.ragged_step, {}
+
+        def timed(cache, seq_ids, rows, ctxs, **kw):
+            t = time.perf_counter()
+            got = ragged(cache, seq_ids, rows, ctxs, **kw)
+            key = (f"{next_pow2(len(rows))}x"
+                   f"{next_pow2(max(len(r) for r in rows))}")
+            steps.setdefault(key, []).append(time.perf_counter() - t)
+            return got
+
+        eng._decoder.ragged_step = timed
+        _zero(kernels)
+        t0 = time.perf_counter()
+        breqs, ireqs = wave(eng, *waves[1])
+        wall = time.perf_counter() - t0
+        eng._decoder.ragged_step = ragged
+        info = dict(captures_warmup=captured,
+                    captures=eng.captures - captured,
+                    replays=eng.replays - replayed,
+                    dispatches={m: n - dispatched[m]
+                                for m, n in eng.dispatches.items()},
+                    counts=delta(eng.scheduler_info()["counts"], counted),
+                    launches=_counts(kernels),
+                    ragged_ms_by_bucket={
+                        k: dict(steps=len(v), ms_mean=1e3 * sum(v) / len(v))
+                        for k, v in sorted(steps.items())},
+                    decode_retries=eng.decode_retries,
+                    quarantined=eng.quarantined,
+                    unified_fallbacks=eng.unified_fallbacks)
+        info["drained"] = eng.drain(timeout=300)
+        info["pool_after_drain"] = dict(
+            free_pages=eng.cache.free_pages,
+            total_pages=eng.cache.total_pages,
+            reserved_pages=eng._reserved_pages, pad_pages=eng._pad_pages)
+    return breqs, ireqs, wall, info
+
+
+def classes_phase(model, seed, kernels, card):
+    """The ``classes`` and ``classes_fifo`` serve passes (see
+    ``serve_classes``) on the bf16 llama_7b model.  Prints and returns
+    each pass's record: TTFT and TPOT p50 by class, wall seconds, the
+    scheduler's counters by class, graph counts, dispatches; and the
+    launches of each measured wave.  Fails unless, in ``classes``, the
+    batch class was preempted 4 times and resumed 4 times and deferred
+    chunks, every interactive request finished before the last batch
+    request; in ``classes_fifo`` nothing was preempted; and in both the
+    measured wave captured no graph, no step failed, every request
+    completed, the paged, RMSNorm and RoPE kernels launched, and the
+    drain returned True with the pool whole and only the pad page
+    reserved."""
+    rng = np.random.default_rng(seed + 1)
+    vocab = model.config.vocab_size
+    device = model.model.embed_tokens.weight.device
+
+    def draw():
+        return ([rng.integers(0, vocab, CLASSES_BATCH_PROMPT)
+                 .astype(np.int32) for _ in range(CLASSES_BATCH)],
+                [rng.integers(0, vocab, CLASSES_PROMPT).astype(np.int32)
+                 for _ in CLASSES_TENANTS])
+
+    waves = (draw(), draw())      # warm-up and measured: other tokens
+    records, launches = {}, {}
+    for label, fifo in CLASSES_PASSES:
+        breqs, ireqs, wall, info = serve_classes(model, waves, fifo,
+                                                 device, kernels)
+        for r in breqs + ireqs:
+            if r.error is not None or len(r.generated) != CLASSES_NEW:
+                raise AssertionError(f"{label}: a request did not "
+                                     f"complete ({r.error})")
+        by_class = {"batch": serve_stats(breqs, wall),
+                    "interactive": serve_stats(ireqs, wall)}
+        rec = dict(ttft_p50_s={c: st["ttft_p50_s"]
+                               for c, st in by_class.items()},
+                   tpot_p50_s={c: st["tpot_p50_s"]
+                               for c, st in by_class.items()},
+                   wall_s=wall, card=card, **info)
+        log(f"serve {label}: " + json.dumps(rec))
+        counts = info["counts"]
+        preempted = sum(c["preempted"] for c in counts.values())
+        if fifo:
+            wrong = preempted != 0
+        else:
+            last_batch = max(r.finished_at for r in breqs)
+            wrong = (counts["batch"]["preempted"] != 4
+                     or counts["batch"]["resumed"] != 4
+                     or preempted != 4
+                     or not counts["batch"]["deferrals"]
+                     or not all(r.finished_at < last_batch for r in ireqs))
+        absorbed = [info[k] for k in ("decode_retries", "quarantined",
+                                      "unified_fallbacks")]
+        pool = info["pool_after_drain"]
+        got = info["launches"]
+        missing = [n for n in ("paged_attention", "rms_norm", "apply_rope")
+                   if not got[n]]
+        stray = [n for n in ("weight_only_matmul", "w8a8_matmul",
+                             "dynamic_act_quant") if got[n]]
+        if wrong or info["captures"] or not info["replays"] \
+                or any(absorbed) or missing or stray \
+                or not info["drained"] \
+                or pool["free_pages"] != pool["total_pages"] \
+                or pool["reserved_pages"] != pool["pad_pages"]:
+            raise AssertionError(
+                f"{label}: counts {counts}, captures {info['captures']}, "
+                f"replays {info['replays']}, failure counters {absorbed}, "
+                f"kernels never launched {missing}, off the path {stray}, "
+                f"drained {info['drained']}, pool {pool}")
+        records[label] = rec
+        launches[label] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("serve classes: interactive TTFT p50 "
+        f"{records['classes']['ttft_p50_s']['interactive']:.4f} s with "
+        "classes, "
+        f"{records['classes_fifo']['ttft_p50_s']['interactive']:.4f} s "
+        "FIFO")
+    return records, launches
+
+
 def serve_stats(reqs, wall):
     ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
@@ -2474,6 +2673,232 @@ def check_small_legacy():
             + (f"requests {sorted(victims)} failed, " if victims else "")
             + f"the others' streams equal the clean run's; {got}, pool "
             f"whole, dispatches {st['dispatches']}")
+
+
+def check_small_lifecycle():
+    """The small f32 model of ``check_small`` through the engine's request
+    lifecycle and workload scheduler, on the card and on the CPU from the
+    same weights:
+
+    - preemption: a ``batch``-class request (130 tokens, chunks of 32,
+      every chunk paced by a ``delay`` rule) is paused mid-prefill by an
+      ``interactive`` one in an engine of one slot; its greedy stream and
+      its sampled stream on the card equal the CPU's and the card's
+      unpreempted run's, through the unified step and through the legacy
+      composition, with one preemption and one resume;
+    - decode preemption: a decoding batch row paused by an interactive
+      arrival (no prefill left to pause) resumes with the unpreempted
+      stream, greedy and sampled, both compositions;
+    - lifecycle, each case ending with the pool whole and only the pad
+      headroom reserved: a TTL expiring mid-decode (``DeadlineExceeded``),
+      a queue-wait deadline rejecting an unadmitted request, a timed-out
+      ``result`` cancelling, ``max_queue=1`` raising ``EngineSaturated``
+      naming the class, ``drain(reject_queued=True)`` failing the queued
+      requests with ``EngineDraining`` and completing the admitted one, a
+      ``submit`` after the drain raising ``EngineDraining``, the resume
+      TTL reaping a paused prefill (``DeadlineExceeded``), an unknown
+      class raising ``ValueError``.
+
+    The paged, flash, RMSNorm and RoPE kernels must have launched on the
+    card over the check (flash in the unchunked lifecycle cases' prefill,
+    the paged kernel in its ragged and decode forms)."""
+    from paddle_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine, DeadlineExceeded, EngineDraining,
+        EngineSaturated)
+    from paddle_tpu_torch.testing import faults
+    cpu, gpu = _small_models()
+    rng = np.random.default_rng(11)
+    long_p = rng.integers(0, 512, 130).astype(np.int32)
+    short_p = rng.integers(0, 512, 9).astype(np.int32)
+    kernels = counters()
+    _zero(kernels)
+
+    def engine(model, dev, **kw):
+        kw.setdefault("total_pages", 64)
+        kw.setdefault("max_batch", 1)
+        return ContinuousBatchingEngine(model, page_size=16, device=dev,
+                                        **kw)
+
+    def wait_for(cond, what, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > end:
+                raise AssertionError(f"small lifecycle: timed out waiting "
+                                     f"for {what}")
+            time.sleep(0.001)
+
+    def whole(eng, label):
+        def idle():
+            with eng._cond:
+                return not (len(eng._sched) or eng._preempted
+                            or eng._prefilling or eng._active) \
+                    and eng.cache.free_pages == eng.cache.total_pages
+        wait_for(idle, f"{label}: the engine idle with its pool whole")
+        if eng._reserved_pages != eng._pad_pages:
+            raise AssertionError(f"small lifecycle {label}: reserved "
+                                 f"{eng._reserved_pages} pages idle")
+
+    def pace(*sites, delay=0.02):
+        return faults.installed(faults.FaultPlan(
+            [{"site": s, "kind": "delay", "delay_s": delay}
+             for s in sites]))
+
+    def preempted(model, dev, unified, sampled, mid_decode, preempt):
+        """The batch request's stream and the batch class's counters;
+        with ``preempt`` an interactive request arrives mid-prefill (or,
+        ``mid_decode``, once 4 tokens are out) and must finish first."""
+        kw = dict(max_new_tokens=24, do_sample=sampled, temperature=0.8,
+                  seed=5, priority="batch")
+        chunk = None if mid_decode else 32
+        site = "decode_step" if mid_decode else "prefill_chunk"
+        with pace(site), engine(model, dev, prefill_chunk_tokens=chunk,
+                                unified_step=unified) as eng:
+            rb = eng.submit(long_p, **kw)
+            if preempt:
+                wait_for((lambda: len(rb.generated) >= 4) if mid_decode
+                         else (lambda: rb.prefill_pos > 0), "progress")
+                ri = eng.submit(short_p, max_new_tokens=8,
+                                priority="interactive")
+                ri.result(timeout=120)
+            got = rb.result(timeout=120).tolist()
+            if preempt and not ri.finished_at < rb.finished_at:
+                raise AssertionError("small lifecycle: the interactive "
+                                     "request did not finish first")
+            whole(eng, "preemption")
+            return got, eng.scheduler_info()["counts"]["batch"]
+
+    for mid_decode, unified, sampled in itertools.product(
+            (False, True), (True, False), (False, True)):
+        label = (f"{'decode' if mid_decode else 'prefill'} preemption "
+                 f"{'unified' if unified else 'legacy'} "
+                 f"{'sampled' if sampled else 'greedy'}")
+        card, counts = preempted(gpu, "cuda", unified, sampled,
+                                 mid_decode, True)
+        host, _ = preempted(cpu, "cpu", unified, sampled, mid_decode, True)
+        alone, _ = preempted(gpu, "cuda", unified, sampled, mid_decode,
+                             False)
+        if not card == host == alone or counts["preempted"] != 1 \
+                or counts["resumed"] != 1:
+            raise AssertionError(
+                f"small lifecycle {label}: card {card}, CPU {host}, card "
+                f"unpreempted {alone}; batch counters {counts}")
+        log(f"  small f32 model {label}: batch stream equal card "
+            f"preempted vs CPU preempted vs card unpreempted; batch "
+            f"preempted {counts['preempted']}, resumed {counts['resumed']}"
+            f", chunks {counts['chunks']}")
+
+    def raises(exc, fn, match, label):
+        try:
+            fn()
+        except exc as e:
+            if match not in str(e):
+                raise AssertionError(f"small lifecycle {label}: {e!r} "
+                                     f"lacks {match!r}") from e
+            return e
+        raise AssertionError(f"small lifecycle {label}: no "
+                             f"{exc.__name__}")
+
+    # (label, body(eng) -> note) over an engine of its own, paced
+    def ttl(eng):
+        r = eng.submit(short_p, max_new_tokens=200, ttl_s=0.3)
+        raises(DeadlineExceeded, lambda: r.result(timeout=60), "TTL",
+               "ttl")
+        if r.first_token_at is None or len(r.generated) >= 200:
+            raise AssertionError("small lifecycle ttl: expired outside "
+                                 "its decode")
+        return f"expired after {len(r.generated)} tokens"
+
+    def queue_wait(eng):
+        r1 = eng.submit(short_p, max_new_tokens=200)
+        wait_for(lambda: r1.seq_id is not None, "admission")
+        r2 = eng.submit(short_p, max_new_tokens=4, queue_timeout_s=0.1)
+        raises(DeadlineExceeded, lambda: r2.result(timeout=60),
+               "queue-wait", "queue wait")
+        r1.cancel()
+        if r2.seq_id is not None:
+            raise AssertionError("small lifecycle queue wait: admitted")
+        return "rejected unadmitted"
+
+    def timeout_cancels(eng):
+        r = eng.submit(short_p, max_new_tokens=200)
+        raises(TimeoutError, lambda: r.result(timeout=0.05), "cancelled",
+               "result timeout")
+        wait_for(r.done.is_set, "the cancelled request's reap")
+        return f"cancelled after {len(r.generated)} tokens"
+
+    def saturated(eng):
+        r1 = eng.submit(short_p, max_new_tokens=200)
+        wait_for(lambda: r1.seq_id is not None, "admission")
+        eng.submit(short_p, max_new_tokens=4)
+        e = raises(EngineSaturated,
+                   lambda: eng.submit(short_p, max_new_tokens=4),
+                   "is full", "max_queue=1")
+        if e.priority_class != "standard":
+            raise AssertionError(f"small lifecycle max_queue=1: class "
+                                 f"{e.priority_class}")
+        r1.cancel()
+        return f"EngineSaturated, class {e.priority_class}"
+
+    def reject_queued(eng):
+        r1 = eng.submit(short_p, max_new_tokens=24)
+        wait_for(lambda: r1.seq_id is not None, "admission")
+        queued = [eng.submit(short_p, max_new_tokens=4) for _ in range(2)]
+        if not eng.drain(timeout=120, reject_queued=True):
+            raise AssertionError("small lifecycle drain: timed out")
+        for q in queued:
+            raises(EngineDraining, lambda: q.result(timeout=1),
+                   "reject_queued", "drain reject_queued")
+        if len(r1.result(timeout=1)) != len(short_p) + 24 \
+                or eng.drain_rejected != 2:
+            raise AssertionError("small lifecycle drain: the admitted "
+                                 "request did not complete")
+        raises(EngineDraining, lambda: eng.submit(short_p), "draining",
+               "submit after drain")
+        return "2 queued failed with EngineDraining, admitted complete; " \
+            "a later submit raised EngineDraining"
+
+    def resume_ttl(eng):
+        rb = eng.submit(long_p, max_new_tokens=4, priority="batch")
+        wait_for(lambda: rb.prefill_pos > 0, "first chunk")
+        ri = eng.submit(short_p, max_new_tokens=100,
+                        priority="interactive")
+        raises(DeadlineExceeded, lambda: rb.result(timeout=60),
+               "resume TTL", "resume ttl")
+        ri.result(timeout=120)
+        counts = eng.scheduler_info()["counts"]["batch"]
+        if counts["preempt_expired"] != 1:
+            raise AssertionError(f"small lifecycle resume ttl: {counts}")
+        return f"paused prefill reaped at {rb.prefill_pos} tokens"
+
+    def unknown_class(eng):
+        raises(ValueError, lambda: eng.submit(short_p, priority="gold"),
+               "unknown priority class", "unknown class")
+        return "ValueError"
+
+    cases = (("ttl", ttl, {}), ("queue wait", queue_wait, {}),
+             ("result timeout", timeout_cancels, {}),
+             ("max_queue=1", saturated, dict(max_queue=1)),
+             ("drain reject_queued", reject_queued, {}),
+             ("resume ttl", resume_ttl, dict(prefill_chunk_tokens=32,
+                                             preempt_resume_ttl_s=0.15)),
+             ("unknown class", unknown_class, {}))
+    for label, body, kw in cases:
+        with pace("prefill_chunk", "decode_step", delay=0.01), \
+                engine(gpu, "cuda", **kw) as eng:
+            note = body(eng)
+            whole(eng, label)
+            log(f"  small f32 model lifecycle {label}: {note}; cancelled "
+                f"{eng.cancelled}, expired {eng.expired}, saturated "
+                f"{eng.saturated}, pool whole")
+    if faults.active() is not None:
+        raise AssertionError("a fault plan outlived its check")
+    got = {n: kernels[n].launches for n in (
+        "paged_attention", "flash_attention_forward", "rms_norm",
+        "apply_rope")}
+    if not all(got.values()):
+        raise AssertionError(f"small lifecycle: kernels not launched on "
+                             f"the card: {got}")
+    log(f"  small f32 model lifecycle: launches on the card {got}")
 
 
 def check_small_generate():
@@ -3714,6 +4139,8 @@ def main():
     lap("check_small")
     check_small_legacy()
     lap("check_small_legacy")
+    check_small_lifecycle()
+    lap("check_small_lifecycle")
     check_small_generate()
     lap("check_small_generate")
     check_small_train()
@@ -3864,6 +4291,10 @@ def main():
             f" B + scales {passes[label]['kv_scale_bytes']} B against bf16 "
             f"pages {passes['unchunked']['kv_pool_bytes']} B")
     lap("serve")
+    classes_rec, classes_launches = classes_phase(model, args.seed, kernels,
+                                                  smi[0])
+    launches.update(classes_launches)
+    lap("serve_classes")
 
     # 5. where a decode step's time goes (after the serve passes, so no
     # launch of it is counted there; before the f32 check below, which
@@ -4021,6 +4452,11 @@ def main():
                       "generate": gen_line,
                       "train": train_line, "moe": moe_line,
                       "flashmask": fm_line,
+                      "classes": {p: {k: r[k] for k in (
+                          "ttft_p50_s", "tpot_p50_s", "wall_s", "counts",
+                          "captures_warmup", "captures", "replays",
+                          "dispatches", "ragged_ms_by_bucket")}
+                          for p, r in classes_rec.items()},
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,45 @@
 """Continuous batching over the paged-KV pool (port of the core of
 paddle_tpu/inference/continuous.py).
 
-Requests enqueue; a scheduler thread admits them FIFO whenever a running
-slot and enough pool pages are free.  Admission reserves each sequence's
-worst-case pages (prompt + max_new_tokens, plus the pad-row headroom),
-so a step can never run out of pages mid-flight, and maps any cached
-prompt prefix read-only.  Each iteration runs one of two compositions:
+Requests enqueue in the workload scheduler (``scheduler.py``: per-class,
+per-tenant bounded queues, weighted deficit round-robin); a scheduler
+thread admits them whenever a running slot and enough pool pages are
+free.  Admission reserves each sequence's worst-case pages (prompt +
+max_new_tokens, plus the pad-row headroom), so a step can never run out
+of pages mid-flight, and maps any cached prompt prefix read-only.  With
+one class and one tenant the admission order is FIFO.  When every slot
+is held and a more urgent class waits, a preemptible request (the
+``batch`` class by default) is paused, mid-prefill or, with
+``decode_preempt``, mid-decode: it keeps its seq id, pages and
+reservation, and resumes where it stopped when a slot frees; it is never
+prefilled again.  Each iteration runs one of two compositions:
 
   * unified (``unified_step=True``, the default): whole prompts prefill
     through the length-bucketed prefill (or, on a prefix hit, the
     prefix) step when ``prefill_chunk_tokens`` is None, otherwise the
-    planned prompt chunks ride the ragged step; then ONE ragged step
+    planned prompt chunks (most urgent class first, under the chunk
+    budget) ride the ragged step; then ONE ragged step
     (``PagedDecoder.ragged_step``) runs the chunks and every active row;
   * legacy (``unified_step=False``): one prefill or chunk-prefill
     dispatch a planned chunk, then ONE decode step
     (``PagedDecoder.step``) for every active row, the batch padded to a
     power of two with rows on a scratch sequence;
 
-and retires finished sequences (pages freed, waiter woken).  With one
-class and one tenant the JAX engine's weighted deficit round-robin
-admission is exactly this FIFO order.
+and retires finished sequences (pages freed, waiter woken).
+
+Lifecycle, as in the JAX engine: a request may carry a total TTL
+(``ttl_s``) and a queue-wait deadline (``queue_timeout_s``); the loop
+reaps expired and cancelled requests between steps (queued, mid-prefill,
+paused or decoding), reclaims their pages and reservations, and their
+waiters get :class:`DeadlineExceeded` or :class:`RequestCancelled`.
+``preempt_resume_ttl_s`` bounds how long a paused request may hold its
+reservation (an aging boost at half of it, reaped past it).  A full
+class queue raises :class:`EngineSaturated`; ``drain`` stops admissions
+(:class:`EngineDraining`), lets every submitted request finish (or fails
+the queued ones with ``reject_queued``) and stops the thread.  The JAX
+engine's overload controls (arrival shedding on a class's
+``deadline_s``, the TPOT trigger on ``tpot_budget_s``, the brownout
+ladder) are not ported: a class that sets either budget is refused.
 
 Failures are isolated per request, as in the JAX engine: a failing
 prefill or chunk quarantines its own request; a failing decode step is
@@ -43,18 +63,11 @@ radius.  The JAX engine's crash recovery (``_after_step_failure``,
 donated buffer is lost or a step wedges) is not ported: here a failed
 step has already rolled its lengths back and no pool is donated, so it
 comes with the watchdog and survivor replay.
-
-``_Request.cancel`` is the reference's cooperative cancel: the loop
-reaps cancelled requests between steps (queued, mid-prefill or
-decoding), reclaims their pages and reservations, and their waiters get
-:class:`RequestCancelled`; ``generate`` cancels the rows it already
-submitted when any row fails.
 """
 from __future__ import annotations
 
 import threading
 import time
-from collections import deque
 from typing import List, Optional
 
 import numpy as np
@@ -64,6 +77,7 @@ from .._device import resolve_device
 from ..ops.paged_attention import PagedKVCache
 from ..testing import faults as _faults
 from .paged import GraphedPagedDecoder, PagedDecoder, next_pow2, sample_token
+from .scheduler import DEFAULT_CLASS, QueueFull, WorkloadScheduler
 
 _PAD_SEQ = "__pad__"
 
@@ -83,6 +97,23 @@ _PACING_FAULT_SITES = frozenset(("prefill", "prefill_chunk",
                                  "decode_step"))
 
 
+class EngineSaturated(RuntimeError):
+    """The bounded admission queue of the request's class is full;
+    retryable later.  ``priority_class`` names the class."""
+
+    priority_class: Optional[str] = None
+
+
+class EngineDraining(RuntimeError):
+    """The engine is draining for graceful shutdown and accepts no new
+    submissions (in-flight requests still complete)."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's queue-wait deadline, total TTL or resume TTL expired
+    before completion; its pages and reservation were reclaimed."""
+
+
 class RequestCancelled(RuntimeError):
     """The request was cooperatively cancelled via ``cancel()``."""
 
@@ -91,7 +122,8 @@ class _Request:
     """One sequence's life in the engine."""
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, do_sample,
-                 temperature, seed):
+                 temperature, seed, ttl_s=None, queue_timeout_s=None,
+                 priority=None, tenant="default"):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
@@ -100,8 +132,19 @@ class _Request:
         self.seed = int(seed) & 0xFFFFFFFF   # on-device threefry seed
         self.rng = np.random.default_rng(seed)   # host draws
         self.prefix_tokens = 0       # prompt tokens shared at admission
-        self.prefill_pos = 0         # prompt tokens resident in the cache
+        # the class and tenant the scheduler queues this request under,
+        # and the chunked prefill cursor (prompt tokens resident in the
+        # cache: a preempted request resumes from here)
+        self.priority = priority     # normalized by the scheduler
+        self.tenant = str(tenant)
+        self.prefill_pos = 0
+        self.admitted_at: Optional[float] = None
         self._admit_plan = None      # (need, shared_tok) fit-check stash
+        # preempted_at / paused_total bound a paused request's page
+        # reservation (paused_total accumulates across preempt/resume
+        # cycles, so re-preemption cannot reset the aging clock)
+        self.preempted_at: Optional[float] = None
+        self.paused_total = 0.0
         self.generated: List[int] = []
         self.next_token: Optional[int] = None   # sampled, not yet decoded
         self.seq_id: Optional[int] = None
@@ -111,6 +154,15 @@ class _Request:
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        # deadlines are absolute perf_counter instants; the loop reaps at
+        # admission and between steps
+        self.ttl_s = ttl_s
+        self.queue_timeout_s = queue_timeout_s
+        self.deadline = (None if ttl_s is None
+                         else self.submitted_at + float(ttl_s))
+        self.queue_deadline = (
+            None if queue_timeout_s is None
+            else self.submitted_at + float(queue_timeout_s))
 
     @property
     def output_ids(self) -> np.ndarray:
@@ -131,10 +183,35 @@ class _Request:
     def cancelled(self) -> bool:
         return self._cancel.is_set()
 
-    def result(self, timeout=None) -> np.ndarray:
+    def _lifecycle_error(self, now: float,
+                         queued: bool) -> Optional[BaseException]:
+        """The error this request should retire with right now, or None
+        while it is still live."""
+        if self._cancel.is_set():
+            return RequestCancelled("request cancelled")
+        if self.deadline is not None and now > self.deadline:
+            return DeadlineExceeded(
+                f"request exceeded its {float(self.ttl_s):.3f}s TTL")
+        if queued and self.queue_deadline is not None \
+                and now > self.queue_deadline:
+            return DeadlineExceeded(
+                f"request waited past its {float(self.queue_timeout_s):.3f}s "
+                "queue-wait deadline without being admitted")
+        return None
+
+    def result(self, timeout=None, cancel_on_timeout: bool = True
+               ) -> np.ndarray:
         """Wait for the generation; returns prompt + generated ids, or
-        raises the error the request failed with."""
+        raises the error the request failed with.  On timeout the request
+        is cancelled by default (``cancel_on_timeout=False`` keeps it
+        running), so an abandoned wait does not leave the sequence
+        decoding, and holding pool pages, forever."""
         if not self.done.wait(timeout):
+            if cancel_on_timeout:
+                self.cancel()
+                raise TimeoutError(
+                    "generation still running; request cancelled "
+                    "(pass cancel_on_timeout=False to keep it)")
             raise TimeoutError("generation still running")
         if self.error is not None:
             raise self.error
@@ -165,20 +242,41 @@ class ContinuousBatchingEngine:
     through the legacy composition (a dispatch a chunk, then one decode
     step), the JAX engine's escape hatch.
 
+    Lifecycle and scheduling, as the JAX engine's constructor takes
+    them: ``max_queue`` bounds each class's admission queue (overflow
+    raises :class:`EngineSaturated`; ``PriorityClass.max_queue``
+    overrides it a class); ``default_ttl_s`` and
+    ``default_queue_timeout_s`` are the deadlines a ``submit`` may
+    override; ``scheduler_classes`` and ``default_class`` configure the
+    class taxonomy (``submit(priority=..., tenant=...)``);
+    ``preempt_resume_ttl_s`` bounds how long a paused request may hold
+    its reservation; ``decode_preempt`` lets a slot preemption pause a
+    decoding row when no preemptible prefill is left.
+
     Counters, the engine's counterparts of the JAX monitor's:
     ``dispatches`` by mode (``ragged``, ``prefill``, ``chunk``,
     ``decode``; a retry or bisection probe counts again),
-    ``decode_retries``, ``quarantined`` (requests failed alone) and
+    ``decode_retries``, ``quarantined`` (requests failed alone),
     ``unified_fallbacks`` (ragged steps re-run through the legacy
-    composition)."""
+    composition), ``cancelled`` and ``expired`` (requests reaped),
+    ``saturated`` (submissions refused by a full queue) and
+    ``drain_rejected`` (queued requests failed by ``drain``); per class,
+    ``scheduler_info()["counts"]``."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
-                 prefix_cache: bool = True,
+                 prefix_cache: bool = True, max_queue: int = 256,
+                 default_ttl_s: Optional[float] = None,
+                 default_queue_timeout_s: Optional[float] = None,
                  prefill_chunk_tokens: Optional[int] = None,
+                 scheduler_classes=None,
+                 default_class: str = DEFAULT_CLASS,
+                 min_table_pages: int = 1,
+                 preempt_resume_ttl_s: Optional[float] = None,
                  quantize: Optional[str] = None,
                  kv_quant: Optional[str] = None,
-                 min_table_pages: int = 1, unified_step: bool = True,
+                 unified_step: bool = True,
+                 decode_preempt: bool = True,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -188,13 +286,37 @@ class ContinuousBatchingEngine:
         if prefill_chunk_tokens is not None \
                 and int(prefill_chunk_tokens) < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1 or None")
+        # admission queues live in the workload scheduler (per class,
+        # per tenant); the engine owns three lists the drain, reap and
+        # fail paths must see: _prefilling (admitted, chunk cursor
+        # advancing), _preempted (paused, pages kept, waiting for a slot)
+        # and _active (decoding)
+        self._sched = WorkloadScheduler(
+            classes=scheduler_classes, max_queue=max_queue,
+            default_class=default_class)
+        budgeted = [c.name for c in self._sched.classes
+                    if c.deadline_s is not None
+                    or c.tpot_budget_s is not None]
+        if budgeted:
+            raise ValueError(
+                f"classes {budgeted} set deadline_s or tpot_budget_s: the "
+                "overload controls are not ported yet")
         self.model = model
         self.max_batch = int(max_batch)
         self.max_position = int(model.config.max_position_embeddings)
         self.sample_on_device = bool(sample_on_device)
         self.prefix_cache = bool(prefix_cache)
+        self.default_ttl_s = default_ttl_s
+        self.default_queue_timeout_s = default_queue_timeout_s
         self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
+        # a paused request holds its page reservation at most this long:
+        # past half of it an aging boost forces its resume ahead of any
+        # queued class, past all of it it is reaped (None: unbounded)
+        self.preempt_resume_ttl_s = (
+            None if preempt_resume_ttl_s is None
+            else float(preempt_resume_ttl_s))
+        self.decode_preempt = bool(decode_preempt)
         self.unified_step = bool(unified_step)
         # latched after 3 ragged-step failures in a row: the legacy
         # composition serves from then on
@@ -205,6 +327,10 @@ class ContinuousBatchingEngine:
         self.decode_retries = 0
         self.quarantined = 0
         self.unified_fallbacks = 0
+        self.cancelled = 0
+        self.expired = 0
+        self.saturated = 0
+        self.drain_rejected = 0
         # quantized serving: ``quantize`` runs every Linear of the steps
         # in int8 ("w8" weight-only, "w8a8" dynamic per token);
         # ``kv_quant="int8"`` stores the KV pages in int8 with per-slot
@@ -224,11 +350,12 @@ class ContinuousBatchingEngine:
         # pad rows change no page)
         self._pad_pages = 1
         self._reserved_pages = self._pad_pages
-        self._queue: "deque[_Request]" = deque()
         self._active: List[_Request] = []
         self._prefilling: List[_Request] = []
+        self._preempted: List[_Request] = []
         self._cond = threading.Condition()
         self._stop = False
+        self._draining = False
         self._next_seq = 0
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -246,10 +373,30 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None, do_sample: bool = False,
-               temperature: float = 1.0, seed: int = 0) -> _Request:
-        """Queue one request; returns its handle (``result()`` waits)."""
+               temperature: float = 1.0, seed: int = 0,
+               ttl_s: Optional[float] = None,
+               queue_timeout_s: Optional[float] = None,
+               priority: Optional[str] = None,
+               tenant: str = "default") -> _Request:
+        """Queue one request; returns its handle (``result()`` waits).
+
+        ``ttl_s`` and ``queue_timeout_s`` override the engine's default
+        deadlines; ``priority`` names a scheduling class (None -> the
+        default class; an unknown name is a ValueError, a client mistake
+        and not a capacity problem); ``tenant`` is a free-form tenant id
+        fair-queued within the class.  Raises :class:`EngineDraining`
+        once draining, :class:`EngineSaturated` when the class's queue
+        is full."""
+        # the class is resolved before any capacity check: an unknown
+        # class is never reported as saturation or draining
+        pclass = self._sched.resolve(priority)
         req = _Request(prompt, max_new_tokens, eos_token_id, do_sample,
-                       temperature, seed)
+                       temperature, seed,
+                       ttl_s=self.default_ttl_s if ttl_s is None else ttl_s,
+                       queue_timeout_s=(self.default_queue_timeout_s
+                                        if queue_timeout_s is None
+                                        else queue_timeout_s),
+                       priority=pclass.name, tenant=tenant)
         if len(req.prompt) < 1:
             raise ValueError("the prompt needs at least one token")
         total = len(req.prompt) + req.max_new_tokens
@@ -263,16 +410,28 @@ class ContinuousBatchingEngine:
                 f"request needs {need} pages but the pool holds "
                 f"{self.cache.total_pages} total; grow total_pages")
         with self._cond:
+            if self._draining:
+                raise EngineDraining(
+                    "engine is draining or drained; not accepting new "
+                    "requests")
             if self._stop:
                 raise RuntimeError("engine stopped")
-            self._queue.append(req)
+            try:
+                self._sched.push(req)
+            except QueueFull as e:
+                self.saturated += 1
+                err = EngineSaturated(str(e))
+                err.priority_class = e.priority_class
+                raise err from None
             self._cond.notify_all()
         return req
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
-                 seed: int = 0):
+                 seed: int = 0, ttl_s: Optional[float] = None,
+                 priority: Optional[str] = None,
+                 tenant: str = "default"):
         """Blocking batch API: one sequence per row (row i seeded
         ``seed + i``; rows may differ in length), outputs eos-padded to a
         common length.  If any row fails to submit or errors, the rows
@@ -283,7 +442,9 @@ class ContinuousBatchingEngine:
         try:
             for i, row in enumerate(input_ids):
                 reqs.append(self.submit(row, max_new_tokens, eos_token_id,
-                                        do_sample, temperature, seed + i))
+                                        do_sample, temperature, seed + i,
+                                        ttl_s=ttl_s, priority=priority,
+                                        tenant=tenant))
             rows = [r.result() for r in reqs]
         except BaseException:
             for r in reqs:
@@ -296,8 +457,80 @@ class ContinuousBatchingEngine:
             out[i, :len(r)] = r
         return out
 
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def scheduler_info(self) -> dict:
+        """JSON-able scheduling state: the policy knobs, per-class and
+        per-tenant queue depths, per-class counters and the lengths of
+        the in-flight lists."""
+        with self._cond:
+            return {
+                "prefill_chunk_tokens": self.prefill_chunk_tokens,
+                "default_class": self._sched.default_class,
+                "classes": self._sched.policy(),
+                "tenants_queued": self._sched.tenant_depths(),
+                "counts": self._sched.counts(),
+                "prefilling": len(self._prefilling),
+                "preempted": len(self._preempted),
+                "decode_preempt": self.decode_preempt,
+            }
+
+    def stop_admissions(self) -> None:
+        """Flip the draining flag synchronously (``drain()`` sets it
+        again, idempotently): every later ``submit`` raises
+        :class:`EngineDraining`."""
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+
+    def drain(self, timeout: Optional[float] = None,
+              reject_queued: bool = False) -> bool:
+        """Graceful shutdown: stop accepting new submissions, let every
+        already-submitted request (queued, prefilling, paused and
+        decoding) run to completion, then stop the scheduler thread; the
+        pool reclaims to idle as the last sequence retires.  Returns True
+        when fully drained, False if ``timeout`` elapsed first (the
+        engine keeps draining: call again, or ``stop()``).
+
+        ``reject_queued=True`` fails the queued, unadmitted requests at
+        once with :class:`EngineDraining` (they hold no pages) while the
+        admitted ones still run to completion."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + float(timeout))
+        rejected: List[_Request] = []
+        with self._cond:
+            self._draining = True
+            if reject_queued and len(self._sched):
+                rejected = self._sched.pop_all()
+                for r in rejected:
+                    r.error = EngineDraining(
+                        "engine draining: request rejected before "
+                        "admission (reject_queued)")
+                self.drain_rejected += len(rejected)
+            self._cond.notify_all()
+        for r in rejected:
+            r.done.set()
+        with self._cond:
+            while len(self._sched) or self._active or self._prefilling \
+                    or self._preempted:
+                if self._stop:
+                    # a concurrent stop() errored what was left: that is
+                    # not a completed drain
+                    return False
+                wait = 0.5
+                if deadline is not None:
+                    wait = min(wait, deadline - time.monotonic())
+                    if wait <= 0:
+                        return False
+                self._cond.wait(wait)
+        self.stop()
+        return True
+
     def stop(self):
-        """Hard stop: errors whatever is still queued or running."""
+        """Hard stop: errors whatever is still queued or running.  Use
+        :meth:`drain` for the graceful path."""
         with self._cond:
             self._stop = True
             self._cond.notify_all()
@@ -315,11 +548,48 @@ class ContinuousBatchingEngine:
         total = len(req.prompt) + req.max_new_tokens
         return -(-total // self.cache.page_size)
 
+    @staticmethod
+    def _pause_age(r, now: Optional[float] = None) -> float:
+        """Total time this request has spent paused: the current pause
+        plus every earlier preempt/resume cycle, so re-preemption can
+        never reset the aging and reap clock."""
+        age = r.paused_total
+        if r.preempted_at is not None:
+            age += (time.perf_counter() if now is None else now) \
+                - r.preempted_at
+        return age
+
+    def _preempt_expired_error(self, r,
+                               now: float) -> Optional[BaseException]:
+        """Caller holds ``self._cond``.  The reap error for a paused
+        request that exhausted its resume TTL, or None while it may still
+        resume (or no TTL is configured)."""
+        ttl = self.preempt_resume_ttl_s
+        if ttl is None or self._pause_age(r, now) <= ttl:
+            return None
+        self._sched.note_preempt_expired(r)
+        return DeadlineExceeded(
+            f"preempted request spent more than its {ttl:.3f}s resume "
+            "TTL paused without a slot freeing up")
+
+    def _preempt_rank_locked(self, r) -> int:
+        """Caller holds ``self._cond``.  A request's effective rank for
+        preemption decisions: its class rank, or, once it has spent half
+        the resume TTL paused, an aging boost (rank -1) that outranks
+        every queued class, so a slot that frees goes to the aged request
+        (and an aged resumed request cannot be picked as a victim again)
+        instead of fresh urgent traffic starving it to the reap bound."""
+        ttl = self.preempt_resume_ttl_s
+        if ttl is not None and self._pause_age(r) >= 0.5 * ttl:
+            return -1
+        return self._sched.class_of(r).rank
+
     def _admission_cost_locked(self, req) -> Optional[int]:
-        """Caller holds ``self._cond``.  Pages this admission would newly
-        reserve, or None when it does not fit now.  A cached prefix
-        reserves only the un-shared pages plus the shared pages no other
-        live sharer pins yet."""
+        """Caller holds ``self._cond``.  Pure fit check: the pages this
+        admission would newly reserve (its DRR cost, at least 1), or None
+        when it does not fit now.  A cached prefix reserves only the
+        un-shared pages plus the shared pages no other live sharer pins
+        yet."""
         shared_tok, newly_pinned = (
             self.cache.probe_prefix(req.prompt) if self.prefix_cache
             else (0, 0))
@@ -327,12 +597,15 @@ class ContinuousBatchingEngine:
                 - shared_tok // self.cache.page_size + newly_pinned)
         if self._reserved_pages + need > self.cache.total_pages:
             return None
+        # stashed for _finalize_admission_locked: nothing can change the
+        # pool between this check and the commit (same lock hold)
         req._admit_plan = (need, shared_tok)
-        return need
+        return max(1, need)
 
     def _finalize_admission_locked(self, req) -> None:
         """Caller holds ``self._cond``.  Reserve the worst-case pages,
-        assign the sequence id and acquire any cached prefix."""
+        assign the sequence id, acquire any cached prefix and stamp the
+        admission."""
         need, shared_tok = req._admit_plan
         req._admit_plan = None
         self._reserved_pages += need
@@ -346,39 +619,157 @@ class ContinuousBatchingEngine:
                     f"mapped {got}")
             req.prefix_tokens = got
         req.prefill_pos = req.prefix_tokens
+        req.admitted_at = time.perf_counter()
+        self._sched.note_admitted(req)
+
+    def _best_preempted_locked(self) -> Optional[_Request]:
+        """Caller holds ``self._cond``.  The paused request that should
+        resume first: most urgent effective class (aging boost
+        included), then preemption order."""
+        if not self._preempted:
+            return None
+        return min(self._preempted,
+                   key=lambda r: (self._preempt_rank_locked(r),
+                                  self._preempted.index(r)))
+
+    def _preemption_victim_locked(self, rank: int) -> Optional[_Request]:
+        """Caller holds ``self._cond``.  The request to pause so a
+        rank-``rank`` request can take its slot: the least urgent
+        preemptible prefilling request strictly outranked by the waiter,
+        preferring the least prefill progress (cheapest pause); with
+        ``decode_preempt`` and no such prefill, the least urgent
+        preemptible decoding row, preferring the fewest tokens decoded.
+        Effective rank, so an aging-boosted request is immune."""
+        victims = [r for r in self._prefilling
+                   if self._sched.class_of(r).preemptible
+                   and self._preempt_rank_locked(r) > rank]
+        if victims:
+            return max(victims,
+                       key=lambda r: (self._sched.class_of(r).rank,
+                                      -r.prefill_pos))
+        if not self.decode_preempt:
+            return None
+        victims = [r for r in self._active
+                   if self._sched.class_of(r).preemptible
+                   and self._preempt_rank_locked(r) > rank]
+        if not victims:
+            return None
+        return max(victims,
+                   key=lambda r: (self._sched.class_of(r).rank,
+                                  -len(r.generated)))
+
+    def _pause_locked(self, victim) -> None:
+        """Caller holds ``self._cond``.  Move a preemption victim,
+        mid-prefill or mid-decode, onto the paused list (seq id, pages
+        and reservation all kept; a decoding row keeps its pending
+        ``next_token``)."""
+        if victim in self._prefilling:
+            self._prefilling.remove(victim)
+        else:
+            self._active.remove(victim)
+        victim.preempted_at = time.perf_counter()
+        self._preempted.append(victim)
+        self._sched.note_preempted(victim)
+
+    def _resume_locked(self, pre) -> None:
+        """Caller holds ``self._cond``.  Un-pause a request: its pause
+        time banks into ``paused_total`` and chunking continues from
+        ``prefill_pos`` (it is never prefilled again).  A row paused
+        mid-decode (first token out, next token pending) rejoins the
+        decode batch directly: the chunk planner has no work for it."""
+        self._preempted.remove(pre)
+        if pre.preempted_at is not None:
+            pre.paused_total += time.perf_counter() - pre.preempted_at
+            pre.preempted_at = None
+        if pre.first_token_at is not None \
+                and pre.prefill_pos >= len(pre.prompt):
+            self._active.append(pre)
+        else:
+            self._prefilling.append(pre)
+        self._sched.note_resumed(pre)
 
     def _admit_locked(self) -> None:
-        """Caller holds ``self._cond``.  Admit from the queue head while a
-        slot is free and the head's pages fit (FIFO: a head that does not
-        fit waits, and so does everyone behind it)."""
-        while self._queue and (len(self._active) + len(self._prefilling)
-                               < self.max_batch):
-            req = self._queue[0]
-            if self._admission_cost_locked(req) is None:
+        """Caller holds ``self._cond``.  Fill free slots from (a) paused
+        requests, which resume for free (their pages are reserved), and
+        (b) the scheduler's queues in weighted-DRR order; when every slot
+        is held and a more urgent class waits, pause a preemptible
+        request and hand its slot over.  Under sustained urgent load a
+        preemptible request stays paused (that is the priority contract)
+        holding its reservation; ``preempt_resume_ttl_s`` bounds that."""
+        pending_rank = None     # rank a preemption just freed a slot for
+        while True:
+            slots = (self.max_batch - len(self._active)
+                     - len(self._prefilling))
+            qrank = self._sched.min_waiting_rank()
+            pre = self._best_preempted_locked()
+            if slots <= 0:
+                if qrank is None:
+                    break
+                victim = self._preemption_victim_locked(qrank)
+                head = self._sched.peek_urgent()
+                if victim is None or head is None \
+                        or self._admission_cost_locked(head) is None:
+                    break
+                self._pause_locked(victim)
+                pending_rank = qrank
+                continue
+            if pending_rank is None and pre is not None and (
+                    qrank is None
+                    or self._preempt_rank_locked(pre) <= qrank):
+                self._resume_locked(pre)
+                continue
+            # a slot bought with a preemption belongs to the rank it was
+            # bought for: a less urgent class's banked deficit must not
+            # take it (that would pause one batch prefill to start
+            # another)
+            req = self._sched.pop_next(self._admission_cost_locked,
+                                       max_rank=pending_rank)
+            pending_rank = None
+            if req is None:
+                if pre is not None:
+                    self._resume_locked(pre)
+                    continue
                 break
-            self._queue.popleft()
             self._finalize_admission_locked(req)
             self._prefilling.append(req)
 
     def _plan_chunks_locked(self) -> List:
         """Caller holds ``self._cond``.  (request, n_tokens) prefill work
-        for this iteration, in admission order: whole remaining prompts
-        without a chunk budget, else at most ``prefill_chunk_tokens``
-        tokens, each request's chunk full-size or its prompt's tail."""
+        for this iteration, most urgent class first (admission order
+        within a class): whole remaining prompts without a chunk budget,
+        else at most ``prefill_chunk_tokens`` tokens, each request's
+        chunk full-size or its prompt's tail (never split to fit the
+        budget's leftover, so chunk shapes stay position-derived).  A
+        request whose chunk the budget gave to a more urgent class is
+        counted as deferred (same-class queueing is not a deferral)."""
+        if not self._prefilling:
+            return []
+        order = sorted(
+            range(len(self._prefilling)),
+            key=lambda i: (self._sched.class_of(
+                self._prefilling[i]).rank, i))
         chunk = self.prefill_chunk_tokens
         plan: List = []
         budget = chunk
-        for req in self._prefilling:
+        best_served_rank: Optional[int] = None
+        for i in order:
+            req = self._prefilling[i]
             remaining = len(req.prompt) - req.prefill_pos
             if remaining <= 0:
                 continue
             if budget is None:
                 plan.append((req, remaining))
                 continue
+            rank = self._sched.class_of(req).rank
             if budget <= 0:
-                break
+                if best_served_rank is not None \
+                        and rank > best_served_rank:
+                    self._sched.note_chunk_deferred(req)
+                continue
             n = min(remaining, chunk)
             plan.append((req, n))
+            if best_served_rank is None or rank < best_served_rank:
+                best_served_rank = rank
             budget -= n
         return plan
 
@@ -445,6 +836,7 @@ class ContinuousBatchingEngine:
         self.dispatches["chunk" if k else "prefill"] += 1
         out = self._ingest(req, k, n, sampling)
         req.prefill_pos = k + n
+        self._sched.note_chunk(req)
         if last:
             self._finish_prefill(req, out[0], sampling is not None)
         return last
@@ -457,6 +849,8 @@ class ContinuousBatchingEngine:
         req.next_token = (int(out_row) if sampled
                           else self._pick(req, out_row))
         req.first_token_at = time.perf_counter()
+        self._sched.note_first_token(req,
+                                     req.first_token_at - req.submitted_at)
 
     def _run_chunks(self, plan) -> None:
         """One dispatch a planned chunk (device work, called without the
@@ -725,6 +1119,7 @@ class ContinuousBatchingEngine:
         completed = []
         for i, (req, k, n, last) in enumerate(chunks):
             req.prefill_pos = k + n
+            self._sched.note_chunk(req)
             if last:
                 completed.append(req)
                 self._finish_prefill(req, out[i], sampling is not None)
@@ -773,43 +1168,61 @@ class ContinuousBatchingEngine:
         released = self.cache.free(req.seq_id)
         self._reserved_pages -= slack + released
         req.finished_at = time.perf_counter()
+        self._sched.note_retired(req)
 
     def _reap_locked(self) -> List[_Request]:
-        """Caller holds ``self._cond``.  Retire the cancelled requests,
-        queued, mid-prefill and decoding: a queued one holds nothing, the
-        others give back their pages and exactly the reservation
-        ``_retire_locked`` releases.  Returns them; the caller sets their
-        ``done`` events outside the lock."""
-        out = [r for r in self._queue if r.cancelled]
-        if out:
-            self._queue = deque(r for r in self._queue if not r.cancelled)
-        for name in ("_prefilling", "_active"):
-            held = getattr(self, name)
-            gone = [r for r in held if r.cancelled]
-            if gone:
-                setattr(self, name, [r for r in held if not r.cancelled])
-                for r in gone:
-                    self._retire_locked(r)
-                out += gone
-                if name == "_active" and not self._active:
-                    # everything reaped: the pad scratch page goes back
-                    self.cache.free(_PAD_SEQ)
-        for r in out:
-            r.error = RequestCancelled("request cancelled")
+        """Caller holds ``self._cond``.  Retire the requests that were
+        cancelled or whose deadline passed, queued (through the
+        scheduler), mid-prefill, paused (also past the resume TTL) and
+        decoding: a queued one holds nothing, the others give back their
+        pages and exactly the reservation ``_retire_locked`` releases,
+        so an abandoned request never holds pool capacity past its TTL.
+        Returns them; the caller sets their ``done`` events outside the
+        lock."""
+        now = time.perf_counter()
+        out: List[_Request] = []
+        for r in self._sched.reap(now):
+            r.error = r._lifecycle_error(now, queued=True)
+            self._count_lifecycle(r)
+            out.append(r)
+        for name in ("_prefilling", "_preempted", "_active"):
+            keep: List[_Request] = []
+            for r in getattr(self, name):
+                err = r._lifecycle_error(now, queued=False)
+                if err is None and name == "_preempted":
+                    err = self._preempt_expired_error(r, now)
+                if err is None:
+                    keep.append(r)
+                    continue
+                r.error = err
+                self._count_lifecycle(r)
+                self._retire_locked(r)
+                out.append(r)
+            if name == "_active" and self._active and not keep:
+                # everything reaped: the pad scratch page goes back too
+                self.cache.free(_PAD_SEQ)
+            setattr(self, name, keep)
         if out:
             self._cond.notify_all()
         return out
 
+    def _count_lifecycle(self, req) -> None:
+        if isinstance(req.error, RequestCancelled):
+            self.cancelled += 1
+        else:
+            self.expired += 1
+
     def _fail_all(self, exc) -> None:
         """Last resort, for a fault outside any step (isolation failed
-        or admission and planning raised): error every queued and
-        in-flight request, free their pages and reservations, and keep
+        or admission and planning raised): error every queued, in-flight
+        and paused request, free their pages and reservations, and keep
         serving.  A request that retired earlier in the same step (its
         ``done`` is set after the step) gets its generation, not the
         error."""
         with self._cond:
-            holders = self._active + self._prefilling
-            for r in holders + list(self._queue):
+            queued = self._sched.pop_all()
+            holders = self._active + self._prefilling + self._preempted
+            for r in holders + queued:
                 if r.done.is_set():
                     continue
                 if r.finished_at is None:
@@ -820,9 +1233,9 @@ class ContinuousBatchingEngine:
                     self.cache.free(r.seq_id)
             self.cache.free(_PAD_SEQ)
             self._reserved_pages = self._pad_pages
-            self._queue.clear()
             self._active = []
             self._prefilling = []
+            self._preempted = []
             self._cond.notify_all()
 
     def _loop(self):
@@ -830,15 +1243,16 @@ class ContinuousBatchingEngine:
             torch.cuda.set_device(self.device)
         while True:
             with self._cond:
-                while not self._stop and not self._queue \
-                        and not self._active and not self._prefilling:
+                while not self._stop and not len(self._sched) \
+                        and not self._active and not self._prefilling \
+                        and not self._preempted:
                     self._cond.wait(timeout=0.5)
                 if self._stop:
                     self.cache.free(_PAD_SEQ)
-                    stopped = (list(self._queue) + self._prefilling
-                               + self._active)
-                    self._queue.clear()
+                    stopped = (self._sched.pop_all() + self._prefilling
+                               + self._preempted + self._active)
                     self._prefilling = []
+                    self._preempted = []
                     self._active = []
                     for r in stopped:
                         r.error = RuntimeError("engine stopped")

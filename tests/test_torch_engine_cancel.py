@@ -38,7 +38,8 @@ def _prompts(*lengths):
 def _idle(eng):
     """The engine holds no request and only the pad-row headroom."""
     with eng._cond:
-        return (not eng._queue and not eng._prefilling and not eng._active
+        return (not len(eng._sched) and not eng._preempted
+                and not eng._prefilling and not eng._active
                 and eng._reserved_pages == eng._pad_pages
                 and eng.cache.free_pages == ENGINE["total_pages"])
 

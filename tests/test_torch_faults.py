@@ -301,7 +301,7 @@ def test_failed_decode_step_spares_queued_requests(models, ref):
             tm, device="cpu", **dict(ENGINE, max_batch=2)) as eng:
         with eng._cond:
             reqs = [eng.submit(p, max_new_tokens=m) for p, m in rows]
-            assert len(eng._queue) == 4
+            assert len(eng._sched) == 4
         with pytest.raises(faults.FaultError):
             reqs[0].result(timeout=120)
         for r, (p, m) in zip(reqs[1:], rows[1:]):

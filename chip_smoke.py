@@ -110,6 +110,14 @@ failure:
             ``result``, ``max_queue=1``, ``drain(reject_queued=True)``, a
             submit after it, the resume TTL and an unknown class each end
             as the JAX engine's do, with the pool whole.
+            small-speculative: the small f32 model with a draft model
+            (the target itself, and a bad one of another seed), spec
+            tokens 3, a sampled request riding along: the engine's
+            streams on the card equal the CPU's and the draft-free ones,
+            unified (verify rows in the ragged step) and legacy
+            (``verify``), also with a w8 target and a full-precision
+            draft; a failing draft prefill downgrades (not quarantines);
+            ``SpeculativeGenerator`` card = CPU = dense ``generate``.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks (through the unified ragged
@@ -152,6 +160,25 @@ failure:
             scheduler's counters by class, ms a ragged step by bucket;
             measured captures 0, no failed step, ``drain`` True with the
             pool whole.
+   speculative — the same model and the unchunked pass's traffic with a
+            draft model, spec tokens 4: the target as its own draft and
+            a bad draft (llama_7b's widths, 2 layers, another seed)
+            through the unified step, the bad one through the legacy
+            composition too (the unchunked pass is the draft-free run);
+            each a warm-up wave, every ragged/verify/decode and draft
+            bucket captured, then the measured wave (captures 0, launch
+            counters zeroed just before it) and ``drain`` (True, both
+            pools whole).  The paged kernel must launch once a layer of
+            every target step and every draft step; printed: TTFT, TPOT
+            p50 beside the draft-free one, decode tokens/s, wall, steps,
+            proposed/accepted and the acceptance rate, accept lengths,
+            dispatches, graphs, launches, and in bf16 (reported, not
+            required) each greedy stream's agreement with the draft-free
+            one and its first divergent position, where the top-2 logit
+            gap of a plain f32 forward is printed later.  Then
+            ``SpeculativeGenerator`` (b1, a 128-token prompt, 32 new)
+            with both drafts beside the port's ``generate``: wall,
+            tokens/s, its stats, agreement, launches (flash, no paged).
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, w8 with int8 KV at 512, and bf16 at 512 with the
             table pinned at 256 pages, each through the eager and the
@@ -218,7 +245,8 @@ the timed ``PagedGenerator`` call), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``moe``, ``flashmask`` and ``classes`` hold each pass's
+``train``, ``moe``, ``flashmask``, ``classes`` and ``speculative`` hold
+each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -342,6 +370,16 @@ QUANT_KERNEL = {"w8": "weight_only_matmul", "w8a8": "w8a8_matmul"}
 CLASSES_BATCH, CLASSES_BATCH_PROMPT = 8, 1024
 CLASSES_TENANTS, CLASSES_PROMPT, CLASSES_NEW = ("a", "b", "a", "b"), 128, 32
 CLASSES_PASSES = (("classes", False), ("classes_fifo", True))
+# the speculative phase on llama_7b bf16: the serve pass's traffic and
+# engine (its ``unchunked`` pass is the draft-free run), spec_tokens 4,
+# with the target as its own draft, and a bad draft at llama_7b's widths
+# cut to 2 layers (another seed), through the unified step and the bad
+# one through the legacy composition too: (label, draft, unified step);
+# then SpeculativeGenerator, b1, a 128-token prompt, 32 new tokens
+SPEC_K, SPEC_BAD_LAYERS = 4, 2
+SPEC_PASSES = (("spec_self", "self", True), ("spec_bad", "bad", True),
+               ("spec_bad_legacy", "bad", False))
+SPEC_GEN_PROMPT, SPEC_GEN_NEW = 128, 32
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
 # the generate phase: bench.py's bench_paged_decode shape at llama_7b's
@@ -1135,6 +1173,12 @@ def check_flash(records, dev):
     case("s2048 causal 32/32 d128 bf16", bf16, 32, 32, 2048, 2048, 128,
          True, timed=True)
     case("sq256<sk1024 causal bf16", bf16, 32, 32, 256, 1024, 128, True)
+    # SpeculativeGenerator's verify forward: k + 1 = 5 queries over the
+    # cached keys, causally aligned bottom-right
+    case("verify sq5 sk133 32/32 d128 bf16 causal", bf16, 32, 32, 5, 133,
+         128, True)
+    case("verify sq5 sk133 32/32 d128 f32 causal", f32, 32, 32, 5, 133,
+         128, True)
     case("gqa 32/8 s512 causal bf16", bf16, 32, 8, 512, 512, 128, True)
     case("s512 causal f32", f32, 32, 32, 512, 512, 128, True, timed="f32")
     case("d64 sk1000 full bf16", bf16, 8, 8, 300, 1000, 64, False)
@@ -1988,7 +2032,8 @@ def counters():
 
 
 def serve(model, prompts, sharer, chunk, device, quantize=None,
-          kv_quant=None, warmup=None, kernels=None, unified=True):
+          kv_quant=None, warmup=None, kernels=None, unified=True,
+          draft_model=None, warm=None, drain=False):
     """Serve ``prompts`` (the last two sampled) and then ``sharer``,
     which shares prompts[0]'s first 256 tokens, once prompts[0] has its
     first token (so its prefix is cached).  With ``warmup`` (prompts,
@@ -2002,10 +2047,15 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
     warm-up and in the measured wave, the measured wave's replays, and
     the bytes the warm-up added to ``torch.cuda.memory_reserved`` (the
     graphs' pool with its staging), the measured wave's dispatches by
-    mode, and the engine's failure counters over both waves (retries,
+    mode and steps, and the engine's failure counters over both waves (retries,
     quarantines, unified fallbacks), which an ordinary pass must hold at
     0: no fault plan is installed, so a nonzero count is a kernel or
-    step that raised and was absorbed."""
+    step that raised and was absorbed.  With ``draft_model`` the engine
+    speculates (``SPEC_K`` tokens), ``warm(eng)`` runs after the warm-up
+    wave (its captures count as the warm-up's), the measured wave's
+    speculative counters join the record, and with ``drain``
+    the engine is closed with ``drain(timeout=300)`` and the pools'
+    state after it recorded."""
     from paddle_tpu_torch.inference.continuous import \
         ContinuousBatchingEngine
 
@@ -2032,6 +2082,8 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
                                   quantize=quantize, kv_quant=kv_quant,
                                   min_table_pages=SERVE_TABLE_PAGES,
                                   unified_step=unified,
+                                  draft_model=draft_model,
+                                  spec_tokens=SPEC_K,
                                   device=device) as eng:
         if warmup is not None:
             # cached blocks released on both sides, so the difference is
@@ -2040,12 +2092,19 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
             wave(eng, *warmup)
+            if warm is not None:
+                warm(eng)
             torch.cuda.empty_cache()
             info.update(captures_warmup=eng.captures,
                         graph_pool_bytes=torch.cuda.memory_reserved(device)
                         - reserved)
         captured, replayed = eng.captures, eng.replays
         dispatched = dict(eng.dispatches)
+        spec_keys = ("spec_proposed", "spec_accepted", "spec_rollbacks",
+                     "spec_draft_failures")
+        spec0 = {k: getattr(eng, k) for k in spec_keys}
+        steps0 = eng.steps
+        lens0 = list(eng.spec_accept_lens)
         for fn in (kernels or {}).values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2055,11 +2114,32 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
                     replays=eng.replays - replayed,
                     dispatches={m: n - dispatched[m]
                                 for m, n in eng.dispatches.items()},
+                    steps=eng.steps - steps0,
                     decode_retries=eng.decode_retries,
                     quarantined=eng.quarantined,
                     unified_fallbacks=eng.unified_fallbacks,
                     kv_pool_bytes=eng.cache.kv_pool_bytes,
                     kv_scale_bytes=eng.cache.kv_scale_bytes)
+        if draft_model is not None:
+            info.update({k: getattr(eng, k) - n for k, n in spec0.items()})
+            info["spec_accept_lens"] = [
+                n - m for n, m in zip(eng.spec_accept_lens, lens0)]
+            info["acceptance_rate"] = (info["spec_accepted"]
+                                       / max(1, info["spec_proposed"]))
+            info["draft_dispatches"] = info["dispatches"]["draft"]
+        if drain:
+            info["drained"] = eng.drain(timeout=300)
+            info["pools_after_drain"] = dict(
+                free_pages=eng.cache.free_pages,
+                total_pages=eng.cache.total_pages,
+                reserved_pages=eng._reserved_pages,
+                pad_pages=eng._pad_pages,
+                draft_pages=eng.draft_pages,
+                draft_free_pages=(eng.draft_cache.free_pages
+                                  if draft_model is not None else None),
+                draft_total_pages=(eng.draft_cache.total_pages
+                                   if draft_model is not None else None),
+                reserved_draft_pages=eng._reserved_draft_pages)
     return reqs, wall, info
 
 
@@ -2233,6 +2313,254 @@ def classes_phase(model, seed, kernels, card):
         f"{records['classes_fifo']['ttft_p50_s']['interactive']:.4f} s "
         "FIFO")
     return records, launches
+
+
+def warm_spec_buckets(eng, unified):
+    """Capture every graph a speculative wave of ``serve`` can step
+    through, whatever order its rows finish in (the accept counts of a
+    wave decide when each greedy row retires): the ragged step's verify
+    rows (span SPEC_K + 1) at 1, 2, 4 and 8 rows, greedy and drawing,
+    and its decode rows at 1 and 2 rows drawing (the two sampled
+    requests left alone); legacy, ``verify`` and ``step`` at the same
+    buckets; the draft's ``multi_step`` at 1, 2, 4 and 8 rows.  Rows sit
+    on scratch sequences at context 0, freed after."""
+    k = SPEC_K
+    cache, dcache = eng.cache, eng.draft_cache
+
+    def sampling(b, draw, ctrs=False):
+        flags = np.zeros(b, bool)
+        flags[0] = draw
+        if ctrs:
+            return (np.zeros(b, np.uint32), np.zeros(b, np.int32),
+                    np.ones(b, np.float32), flags)
+        return np.zeros(b, np.uint32), np.ones(b, np.float32), flags
+
+    keys = [(b, True, draw) for b in (1, 2, 4, 8) for draw in (False, True)]
+    keys += [(b, False, True) for b in (1, 2)]
+    for b, verify, draw in keys:
+        seqs = [f"__warm{i}" for i in range(b)]
+        span = k + 1 if verify else 1
+        if unified:
+            eng._decoder.ragged_step(
+                cache, seqs, [np.zeros(span, np.int32)] * b, [0] * b,
+                n_drafts=[span - 1] * b, sampling=sampling(b, draw))
+        elif verify:
+            eng._decoder.verify(cache, seqs, np.zeros((b, span), np.int32),
+                                np.zeros(b, np.int32),
+                                sampling=sampling(b, draw))
+        else:
+            eng._decoder.step(cache, seqs, np.zeros((b, 1), np.int32),
+                              np.zeros(b, np.int32),
+                              sampling=sampling(b, draw, ctrs=True))
+        for sid in seqs:
+            cache.free(sid)
+    for b in (1, 2, 4, 8):
+        seqs = [f"__warm{i}" for i in range(b)]
+        eng._draft_decoder.multi_step(dcache, seqs, np.zeros(b, np.int32),
+                                      np.zeros(b, np.int32), k + 1)
+        for sid in seqs:
+            dcache.free(sid)
+    torch.cuda.synchronize()
+
+
+def first_divergence(got, want):
+    """The first index where two token lists differ, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def speculative_phase(model, prompts, sharer, warmup, kernels, plain, seed,
+                      card):
+    """Speculative decoding on llama_7b in bf16 (the ``SPEC_PASSES``): the
+    serve pass's traffic through the engine with the target as its own
+    draft and with a bad draft, unified and legacy, each a warm-up wave
+    (then ``warm_spec_buckets``) and a measured wave with the launch
+    counters zeroed just before it, closed with ``drain``; then
+    ``SpeculativeGenerator`` (b1, SPEC_GEN_PROMPT, SPEC_GEN_NEW) with
+    both drafts against the port's ``generate``.  ``plain`` is the
+    draft-free ``unchunked`` pass of this run (record, requests).
+
+    Fails unless every request completes, the measured waves capture no
+    graph and retry, quarantine, fall back or downgrade nothing, the
+    unified passes dispatch ragged steps and no verify or decode step and
+    the legacy one no ragged step, the draft proposes, the paged kernel
+    launches exactly once a layer of every target step (ragged, or verify
+    and decode) and of every draft step (SPEC_K + 1 a proposal), the
+    flash, RMSNorm and RoPE kernels launch, and the drain returns True
+    with both pools whole, only the pad headroom reserved and no draft
+    page pinned.  bf16 makes exactness a report, not a check: each greedy
+    stream's agreement with the draft-free one and its first divergent
+    position (the top-2 logit gap there comes later, from a plain f32
+    forward).  Returns the phase's record, the launches of each measured
+    pass, and the divergences for the gap."""
+    import dataclasses
+    from paddle_tpu_torch.inference import SpeculativeGenerator
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cfg = model.config
+    device = model.model.embed_tokens.weight.device
+    bad = LlamaForCausalLM(
+        dataclasses.replace(cfg, num_hidden_layers=SPEC_BAD_LAYERS),
+        device=device, dtype=torch.bfloat16, seed=seed + 18)
+    drafts = {"self": model, "bad": bad}
+    plain_rec, plain_reqs = plain
+    greedy_idx = [i for i in range(len(plain_reqs))
+                  if not plain_reqs[i].do_sample]
+    rec, launches, divergences = {}, {}, []
+    for label, name, unified in SPEC_PASSES:
+        layers = drafts[name].config.num_hidden_layers
+        reqs, wall, info = serve(
+            model, prompts, sharer, None, device, warmup=warmup,
+            kernels=kernels, unified=unified, draft_model=drafts[name],
+            warm=lambda eng, u=unified: warm_spec_buckets(eng, u),
+            drain=True)
+        got = _counts(kernels)
+        disp = info["dispatches"]
+        n_spec = len(greedy_idx)
+        proposals = disp["draft"] - n_spec
+        target_steps = (disp["ragged"] if unified
+                        else disp["verify"] + disp["decode"])
+        want_paged = (cfg.num_hidden_layers * target_steps
+                      + (SPEC_K + 1) * layers * proposals)
+        pools = info["pools_after_drain"]
+        problems = []
+        for i, r in enumerate(reqs):
+            if r.error is not None or len(r.generated) != 32 \
+                    or not all(0 <= t < cfg.vocab_size for t in r.generated):
+                problems.append(f"request {i} did not complete ({r.error})")
+        if info["captures"] or not info["replays"]:
+            problems.append(f"measured captures {info['captures']}, "
+                            f"replays {info['replays']}")
+        absorbed = [info[k] for k in ("decode_retries", "quarantined",
+                                      "unified_fallbacks",
+                                      "spec_draft_failures")]
+        if any(absorbed):
+            problems.append(f"failures absorbed {absorbed}")
+        if (unified and (not disp["ragged"] or disp["verify"]
+                         or disp["decode"])) \
+                or (not unified and (disp["ragged"] or not disp["verify"])) \
+                or proposals <= 0 or not info["spec_proposed"]:
+            problems.append(f"dispatches {disp}")
+        if got["paged_attention"] != want_paged:
+            problems.append(f"{got['paged_attention']} paged launches, want "
+                            f"{want_paged}")
+        missing = [n for n in ("flash_attention_forward", "rms_norm",
+                               "apply_rope") if not got[n]]
+        if missing:
+            problems.append(f"kernels never launched: {missing}")
+        if not info["drained"] or pools["free_pages"] != pools["total_pages"] \
+                or pools["draft_free_pages"] != pools["draft_total_pages"] \
+                or pools["reserved_pages"] != pools["pad_pages"] \
+                or pools["reserved_draft_pages"] != pools["pad_pages"] \
+                or pools["draft_pages"]:
+            problems.append(f"drained {info['drained']}, pools {pools}")
+        if problems:
+            raise AssertionError(f"speculative {label}: " + "; ".join(problems))
+        agree = []
+        for i in greedy_idx:
+            at = first_divergence(reqs[i].generated, plain_reqs[i].generated)
+            agree.append(at)
+            if at is not None:
+                ids = np.concatenate([reqs[i].prompt, np.asarray(
+                    plain_reqs[i].generated[:at], np.int32)])
+                divergences.append(dict(
+                    label=label, request=i, position=at, ids=ids,
+                    tokens=(int(plain_reqs[i].generated[at]),
+                            int(reqs[i].generated[at]))))
+        stats = serve_stats(reqs, wall)
+        rec[label] = dict(
+            stats, card=card, draft=name, draft_layers=layers,
+            unified=unified, launches=got, paged_launches_want=want_paged,
+            greedy_equal_draft_free=sum(a is None for a in agree),
+            greedy_requests=len(agree), first_divergence=agree,
+            tpot_p50_draft_free_s=plain_rec["tpot_p50_s"],
+            steps_draft_free=plain_rec["steps"],
+            **{k: info[k] for k in info if k != "launches"})
+        launches[label] = got
+        log(f"speculative {label}: " + json.dumps(
+            {k: v for k, v in rec[label].items() if k != "launches"}))
+        log(f"  launches: " + json.dumps(got))
+        del reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the standalone generator, b1, against the port's generate
+    rng = np.random.default_rng(seed + 19)
+    ids = rng.integers(0, cfg.vocab_size, (1, SPEC_GEN_PROMPT))
+    warm_ids = rng.integers(0, cfg.vocab_size, (1, SPEC_GEN_PROMPT))
+    tids = torch.as_tensor(ids, device=device)
+    model.generate(torch.as_tensor(warm_ids, device=device),
+                   max_new_tokens=4)
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    ref = model.generate(tids, max_new_tokens=SPEC_GEN_NEW).cpu().numpy()
+    torch.cuda.synchronize()
+    gen_rec = {"generate": dict(wall_s=time.perf_counter() - t0,
+                                launches=_counts(kernels))}
+    ref_new = ref[0, SPEC_GEN_PROMPT:].tolist()
+    for name, draft in drafts.items():
+        gen = SpeculativeGenerator(model, draft, SPEC_K)
+        gen.generate(warm_ids, max_new_tokens=4)
+        torch.cuda.synchronize()
+        _zero(kernels)
+        t0 = time.perf_counter()
+        out = gen.generate(ids, max_new_tokens=SPEC_GEN_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts(kernels)
+        new = out[0, SPEC_GEN_PROMPT:].tolist()
+        if out.shape != (1, SPEC_GEN_PROMPT + SPEC_GEN_NEW) or got["paged_attention"] \
+                or not all(got[n] for n in ("flash_attention_forward",
+                                            "rms_norm", "apply_rope")) \
+                or not all(0 <= t < cfg.vocab_size for t in new):
+            raise AssertionError(f"SpeculativeGenerator draft={name}: output "
+                                 f"{out.shape}, launches {got}")
+        at = first_divergence(new, ref_new)
+        if at is not None:
+            divergences.append(dict(
+                label=f"generator_{name}", request=0, position=at,
+                ids=np.concatenate([ids[0], ref[0, SPEC_GEN_PROMPT:][:at]]),
+                tokens=(int(ref_new[at]), int(new[at]))))
+        gen_rec[name] = dict(wall_s=wall, decode_tok_s=SPEC_GEN_NEW / wall,
+                             first_divergence=at, launches=got,
+                             **gen.last_stats)
+        log(f"speculative generator draft={name}: " + json.dumps(
+            gen_rec[name]))
+    gen_rec["generate"]["decode_tok_s"] = \
+        SPEC_GEN_NEW / gen_rec["generate"]["wall_s"]
+    log("speculative generator generate (draft-free): "
+        + json.dumps(gen_rec["generate"]))
+    rec["generator"] = gen_rec
+    del bad, drafts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, divergences
+
+
+def top2_gaps(model, divergences):
+    """For each bf16 divergence, the top-2 logit gap of a plain f32
+    forward (``plain_forward``) at the divergent position, and the two
+    tokens' logits there (one forward a distinct prefix)."""
+    out, seen = [], {}
+    for d in divergences:
+        key = d["ids"].tobytes()
+        if key not in seen:
+            ids = torch.as_tensor(
+                d["ids"][None].astype(np.int64),
+                device=model.model.embed_tokens.weight.device)
+            with torch.no_grad():
+                seen[key] = plain_forward(model, ids)[0]
+        logits = seen[key]
+        top = torch.topk(logits, 2).values
+        want, got = d["tokens"]
+        out.append(dict(label=d["label"], request=d["request"],
+                        position=d["position"],
+                        top2_gap=float(top[0] - top[1]),
+                        logit_draft_free=float(logits[want]),
+                        logit_speculative=float(logits[got])))
+    return out
 
 
 def serve_stats(reqs, wall):
@@ -2927,6 +3255,129 @@ def check_small_generate():
     log(f"  small f32 model PagedGenerator: greedy tokens of 3 rows x 12 "
         f"equal card (CUDA graphs: {card._decoder.captures} captured, "
         f"{card._decoder.replays} replays) vs CPU vs dense generate")
+
+
+def check_small_speculative():
+    """The small f32 model of ``check_small`` with a draft model
+    (speculative decoding), on the card (CUDA graphs, kernels) and on the
+    CPU from the same weights, spec_tokens 3:
+
+    - the engine's streams, through the unified step (verify rows) and
+      the legacy composition (``verify``), with the target as its own
+      draft and with a bad draft (another seed), a sampled request riding
+      along: card = CPU = the card's draft-free streams, the draft's and
+      the target's graphs replayed, both pools whole after the wave;
+    - a w8 target with a full-precision draft: card = CPU = the card's
+      w8 draft-free streams;
+    - a failing draft prefill downgrades its request (not quarantined),
+      whose stream stays the draft-free one, and its draft pages go back;
+    - ``SpeculativeGenerator`` (b1, 12 new, k 3) with both drafts: card =
+      CPU = the card's dense ``generate``."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            SpeculativeGenerator)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cpu, gpu = _small_models()
+    bad_cpu = LlamaForCausalLM(cpu.config, device="cpu", seed=8)
+    bad_gpu = LlamaForCausalLM(cpu.config, device="cuda", seed=None)
+    bad_gpu.load_state_dict(bad_cpu.state_dict())
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (9, 40, 130, 17)]
+
+    def run(model, draft, dev, unified=True, quantize=None, broken=False):
+        with ContinuousBatchingEngine(model, total_pages=64, page_size=16,
+                                      max_batch=4, unified_step=unified,
+                                      quantize=quantize, draft_model=draft,
+                                      spec_tokens=3, device=dev) as eng:
+            if broken:
+                def prefill(*a, **kw):
+                    raise RuntimeError("injected draft prefill failure")
+                eng._draft_decoder.prefill = prefill
+            with eng._cond:         # admitted together: one batch
+                reqs = [eng.submit(p, max_new_tokens=12,
+                                   do_sample=i == 3, temperature=0.8,
+                                   seed=5) for i, p in enumerate(prompts)]
+            outs = [r.result(timeout=300).tolist() for r in reqs]
+            drained = eng.drain(timeout=60)
+            state = dict(drained=drained, captures=eng.captures,
+                         replays=eng.replays,
+                         draft_replays=(eng._draft_decoder.replays
+                                        if draft is not None else 0),
+                         proposed=eng.spec_proposed,
+                         accepted=eng.spec_accepted,
+                         failures=eng.spec_draft_failures,
+                         quarantined=eng.quarantined,
+                         dispatches=dict(eng.dispatches),
+                         use_draft=[r.use_draft for r in reqs],
+                         free=eng.cache.free_pages,
+                         draft_free=(eng.draft_cache.free_pages
+                                     if draft is not None else 64),
+                         reserved=(eng._reserved_pages,
+                                   eng._reserved_draft_pages,
+                                   eng._pad_pages))
+        whole = (state["drained"] and state["free"] == 64
+                 and state["draft_free"] == 64
+                 and state["reserved"][0] == state["reserved"][1]
+                 == state["reserved"][2])
+        if not whole:
+            raise AssertionError(f"small speculative: the pools did not "
+                                 f"come back whole: {state}")
+        return outs, state
+
+    for quantize in (None, "w8"):
+        plain, _ = run(gpu, None, "cuda", quantize=quantize)
+        drafts = (("self", gpu, cpu), ("bad", bad_gpu, bad_cpu))
+        if quantize:
+            # the draft stays at full precision: a separate clone
+            clones = []
+            for dev in ("cuda", "cpu"):
+                clones.append(LlamaForCausalLM(cpu.config, device=dev,
+                                               seed=None))
+                clones[-1].load_state_dict(cpu.state_dict())
+            drafts = (("clone", *clones),)
+        for (name, d_gpu, d_cpu), unified in itertools.product(
+                drafts, (True, False)):
+            card, st = run(gpu, d_gpu, "cuda", unified, quantize)
+            host, _ = run(cpu, d_cpu, "cpu", unified, quantize)
+            label = (f"quantize={quantize} draft={name} "
+                     f"{'unified' if unified else 'legacy'}")
+            mode = "ragged" if unified else "verify"
+            if not (card == host == plain) or not st["draft_replays"] \
+                    or not st["dispatches"][mode] \
+                    or st["dispatches"]["ragged" if not unified
+                                        else "verify"] \
+                    or not st["proposed"]:
+                raise AssertionError(
+                    f"small speculative {label}: card {card}, CPU {host}, "
+                    f"draft-free {plain}; {st}")
+            log(f"  small f32 model speculative {label}: streams of "
+                f"{len(prompts)} requests (one sampled) equal card vs CPU vs "
+                f"draft-free; accepted {st['accepted']}/{st['proposed']}, "
+                f"dispatches {st['dispatches']}, {st['captures']} graphs "
+                f"captured, {st['replays']} replays, pools whole")
+    plain, _ = run(gpu, None, "cuda")
+    outs, st = run(gpu, gpu, "cuda", broken=True)
+    if outs != plain or st["failures"] != 3 or st["quarantined"] \
+            or any(st["use_draft"]) or st["proposed"]:
+        raise AssertionError(f"small speculative draft prefill failure: "
+                             f"streams {outs} (want {plain}), {st}")
+    log(f"  small f32 model speculative: a failing draft prefill downgraded "
+        f"its 3 greedy requests (not quarantined), streams equal the "
+        f"draft-free ones, pools whole")
+    ids = prompts[0][None]
+    for name, d_gpu, d_cpu in (("self", gpu, cpu), ("bad", bad_gpu, bad_cpu)):
+        card = SpeculativeGenerator(gpu, d_gpu, 3)
+        got = card.generate(ids, max_new_tokens=12)
+        host = SpeculativeGenerator(cpu, d_cpu, 3).generate(
+            ids, max_new_tokens=12)
+        dense = gpu.generate(torch.as_tensor(
+            ids, device=gpu.model.embed_tokens.weight.device),
+            max_new_tokens=12).cpu().numpy()
+        if not (np.array_equal(got, host) and np.array_equal(got, dense)):
+            raise AssertionError(f"small SpeculativeGenerator draft={name}: "
+                                 f"card {got}, CPU {host}, dense {dense}")
+        log(f"  small f32 model SpeculativeGenerator draft={name}: 12 tokens "
+            f"equal card vs CPU vs dense generate; {card.last_stats}")
 
 
 def _counts(kernels):
@@ -4143,6 +4594,8 @@ def main():
     lap("check_small_lifecycle")
     check_small_generate()
     lap("check_small_generate")
+    check_small_speculative()
+    lap("check_small_speculative")
     check_small_train()
     lap("check_small_train")
     check_small_moe()
@@ -4269,6 +4722,8 @@ def main():
                                  f"serving path: {missing}; launched off "
                                  f"it: {stray}")
         greedy[label] = [r.generated for r in reqs[:6]]
+        if label == "unchunked":
+            unchunked_reqs = reqs
         if quant:
             # the engine and its int8 twins go before the next pass
             del reqs
@@ -4295,6 +4750,14 @@ def main():
                                                   smi[0])
     launches.update(classes_launches)
     lap("serve_classes")
+    # speculative decoding: the engine's draft model against the
+    # unchunked pass (its draft-free run), then SpeculativeGenerator
+    spec_rec, spec_launches, spec_div = speculative_phase(
+        model, prompts, sharer, warmup, kernels,
+        (passes["unchunked"], unchunked_reqs), args.seed, smi[0])
+    launches.update(spec_launches)
+    del unchunked_reqs
+    lap("speculative")
 
     # 5. where a decode step's time goes (after the serve passes, so no
     # launch of it is counted there; before the f32 check below, which
@@ -4341,6 +4804,12 @@ def main():
             f"{QUANT_PREFILL_KERNEL[quant][0]} (profiler)")
     gc.collect()
     model.float()
+    # the speculative phase's bf16 divergences: the draft-free run's top-2
+    # logit gap there, from a plain f32 forward
+    spec_rec["bf16_divergence_gaps"] = top2_gaps(model, spec_div)
+    log("speculative: bf16 divergences from the draft-free streams, top-2 "
+        "logit gap of a plain f32 forward there: "
+        + json.dumps(spec_rec["bf16_divergence_gaps"]))
     got32, ref32, _ = prefill_logits(model, ids)
     gen_rec["batch_context_prefill_f32"] = check_batch_context_prefill(
         model, args.seed, gen_rec["batch_context_prefill"])
@@ -4452,6 +4921,18 @@ def main():
                       "generate": gen_line,
                       "train": train_line, "moe": moe_line,
                       "flashmask": fm_line,
+                      "speculative": {
+                          p: ({k: r[k] for k in (
+                              "ttft_p50_s", "tpot_p50_s",
+                              "tpot_p50_draft_free_s", "decode_tok_s",
+                              "wall_s", "steps", "steps_draft_free",
+                              "spec_proposed",
+                              "spec_accepted", "acceptance_rate",
+                              "spec_accept_lens", "dispatches",
+                              "captures_warmup", "captures", "replays",
+                              "greedy_equal_draft_free", "drained")}
+                              if p in {c[0] for c in SPEC_PASSES} else r)
+                          for p, r in spec_rec.items()},
                       "classes": {p: {k: r[k] for k in (
                           "ttft_p50_s", "tpot_p50_s", "wall_s", "counts",
                           "captures_warmup", "captures", "replays",

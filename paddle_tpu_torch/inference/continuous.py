@@ -41,6 +41,22 @@ engine's overload controls (arrival shedding on a class's
 ``deadline_s``, the TPOT trigger on ``tpot_budget_s``, the brownout
 ladder) are not ported: a class that sets either budget is refused.
 
+Speculative decoding, as in the JAX engine: with ``draft_model`` the
+draft proposes ``spec_tokens`` greedy tokens a greedy active row in ONE
+``multi_step`` over its own PagedKVCache (pages allocated and freed in
+lockstep with the target's), and the target scores each row's
+``spec_tokens + 1`` tokens in one step: as verify rows of the ragged
+step (unified) or one ``verify`` step (legacy), the accept counts and
+the bonus token computed on the device.  Greedy speculation is exact:
+the streams are target-only greedy whatever the draft proposes; sampled
+and opted-out rows ride along with drafts of -1, which never match, and
+advance one token with the draw they would make in a plain step.  A
+rejected suffix rolls back by truncating both caches (the pages stay
+mapped inside the admission reservation).  A draft-side failure (its
+prefill or its proposal) downgrades the affected requests to plain
+decode for the rest of their life, with their draft pages released at
+once: speculation is an optimization and never fails a request.
+
 Failures are isolated per request, as in the JAX engine: a failing
 prefill or chunk quarantines its own request; a failing decode step is
 retried once, then bisected down to the rows that fail alone, which are
@@ -68,6 +84,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import namedtuple
 from typing import List, Optional
 
 import numpy as np
@@ -95,6 +112,19 @@ _ENGINE_FAULT_SITES = frozenset((
 # targeting)
 _PACING_FAULT_SITES = frozenset(("prefill", "prefill_chunk",
                                  "decode_step"))
+
+#: one request's share of a speculative step: the bonus token (its id,
+#: or the logits row), the accept count computed on the device, and the
+#: drafts the host proposed (so accepted tokens need no second read back)
+_SpecRow = namedtuple("_SpecRow", ("out", "accept", "drafts"))
+
+
+def _null_sampling():
+    """Sampling arguments for one row that draws nothing: the argmax-only
+    tail for a dispatch whose token is discarded (the draft's prompt
+    ingestion)."""
+    return (np.zeros(1, np.uint32), np.zeros(1, np.int32),
+            np.ones(1, np.float32), np.zeros(1, bool))
 
 
 class EngineSaturated(RuntimeError):
@@ -147,6 +177,10 @@ class _Request:
         self.paused_total = 0.0
         self.generated: List[int] = []
         self.next_token: Optional[int] = None   # sampled, not yet decoded
+        # speculative decoding: whether this request speculates, and
+        # whether it holds a draft-pool reservation
+        self.use_draft = False
+        self._draft_reserved = False
         self.seq_id: Optional[int] = None
         self.done = threading.Event()
         self._cancel = threading.Event()
@@ -253,15 +287,29 @@ class ContinuousBatchingEngine:
     its reservation; ``decode_preempt`` lets a slot preemption pause a
     decoding row when no preemptible prefill is left.
 
+    Speculative decoding: ``draft_model`` (same vocabulary, on the same
+    device) proposes ``spec_tokens`` tokens a step for every greedy
+    request that does not opt out (``submit(draft=False)``); it has its
+    own decoder (graphed on a card) and page pool of
+    ``draft_total_pages`` (default ``total_pages``), and stays at full
+    precision whatever ``quantize`` and ``kv_quant`` say.
+
     Counters, the engine's counterparts of the JAX monitor's:
     ``dispatches`` by mode (``ragged``, ``prefill``, ``chunk``,
-    ``decode``; a retry or bisection probe counts again),
+    ``decode``, ``verify``, and ``draft`` for the draft model's prompt
+    ingestion and proposals; a retry or bisection probe counts again),
+    ``steps`` (decode, verify or ragged steps that carried active rows),
     ``decode_retries``, ``quarantined`` (requests failed alone),
     ``unified_fallbacks`` (ragged steps re-run through the legacy
     composition), ``cancelled`` and ``expired`` (requests reaped),
     ``saturated`` (submissions refused by a full queue) and
-    ``drain_rejected`` (queued requests failed by ``drain``); per class,
-    ``scheduler_info()["counts"]``."""
+    ``drain_rejected`` (queued requests failed by ``drain``); with a
+    draft, ``spec_proposed`` and ``spec_accepted`` (draft tokens),
+    ``spec_rollbacks`` (verify outcomes that rejected a suffix),
+    ``spec_accept_lens`` (verify outcomes by accept length 0..k),
+    ``spec_draft_failures`` (requests downgraded), ``last_spec`` (the
+    last step's (proposed, accepted)) and ``draft_pages`` (pages the
+    draft pool pins); per class, ``scheduler_info()["counts"]``."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
@@ -277,6 +325,8 @@ class ContinuousBatchingEngine:
                  kv_quant: Optional[str] = None,
                  unified_step: bool = True,
                  decode_preempt: bool = True,
+                 draft_model=None, spec_tokens: int = 4,
+                 draft_total_pages: Optional[int] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -323,7 +373,8 @@ class ContinuousBatchingEngine:
         self._unified_off = False
         self._unified_failures = 0
         self.dispatches = {"ragged": 0, "prefill": 0, "chunk": 0,
-                           "decode": 0}
+                           "decode": 0, "verify": 0, "draft": 0}
+        self.steps = 0
         self.decode_retries = 0
         self.quarantined = 0
         self.unified_fallbacks = 0
@@ -345,11 +396,51 @@ class ContinuousBatchingEngine:
                    else PagedDecoder)
         self._decoder = decoder(model, quantize=quantize,
                                 min_table_pages=min_table_pages)
-        # headroom for the legacy decode step's pad rows, which write
-        # slot 0 of the scratch sequence's one page (the ragged step's
-        # pad rows change no page)
-        self._pad_pages = 1
+        # speculative decoding: the draft gets its own decoder and page
+        # pool, at full precision (its accuracy sets the acceptance rate)
+        self.draft_model = draft_model
+        self.spec_k = int(spec_tokens)
+        if draft_model is not None:
+            if self.spec_k < 1:
+                raise ValueError("spec_tokens must be >= 1")
+            if int(draft_model.config.vocab_size) \
+                    != int(model.config.vocab_size):
+                raise ValueError(
+                    "draft and target models must share a vocabulary "
+                    f"({draft_model.config.vocab_size} vs "
+                    f"{model.config.vocab_size})")
+            dweight = draft_model.model.embed_tokens.weight
+            if dweight.device != self.device:
+                raise ValueError(f"the draft model lives on "
+                                 f"{dweight.device}, the engine on "
+                                 f"{self.device}")
+            self._draft_decoder = decoder(draft_model,
+                                          min_table_pages=min_table_pages)
+            self.draft_cache = PagedKVCache.from_model(
+                draft_model,
+                total_pages=(total_pages if draft_total_pages is None
+                             else draft_total_pages),
+                page_size=page_size)
+            self._draft_max_position = int(
+                draft_model.config.max_position_embeddings)
+        else:
+            self._draft_decoder = None
+            self.draft_cache = None
+            self._draft_max_position = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollbacks = 0
+        self.spec_draft_failures = 0
+        self.spec_accept_lens = [0] * (self.spec_k + 1)
+        self.last_spec = (0, 0)
+        # headroom for the legacy steps' pad rows on the scratch
+        # sequence: a decode pad writes slot 0 of its one page, a verify
+        # pad (and a draft proposal's) spec_tokens + 1 slots (the ragged
+        # step's pad rows change no page)
+        pad_tokens = self.spec_k + 1 if self._spec else 1
+        self._pad_pages = max(1, -(-pad_tokens // int(page_size)))
         self._reserved_pages = self._pad_pages
+        self._reserved_draft_pages = self._pad_pages
         self._active: List[_Request] = []
         self._prefilling: List[_Request] = []
         self._preempted: List[_Request] = []
@@ -362,14 +453,27 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- public
     @property
+    def _spec(self) -> bool:
+        return self.draft_model is not None
+
+    @property
     def captures(self) -> int:
-        """CUDA graphs the engine's steps have captured (0 on the CPU)."""
-        return self._decoder.captures
+        """CUDA graphs the engine's steps have captured, the draft's
+        included (0 on the CPU)."""
+        return self._decoder.captures + (self._draft_decoder.captures
+                                         if self._spec else 0)
 
     @property
     def replays(self) -> int:
-        """Steps that replayed a captured graph (0 on the CPU)."""
-        return self._decoder.replays
+        """Steps that replayed a captured graph, the draft's included (0
+        on the CPU)."""
+        return self._decoder.replays + (self._draft_decoder.replays
+                                        if self._spec else 0)
+
+    @property
+    def draft_pages(self) -> int:
+        """Pages the draft pool pins (0 without a draft)."""
+        return self.draft_cache.pinned_pages if self._spec else 0
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None, do_sample: bool = False,
@@ -377,9 +481,14 @@ class ContinuousBatchingEngine:
                ttl_s: Optional[float] = None,
                queue_timeout_s: Optional[float] = None,
                priority: Optional[str] = None,
-               tenant: str = "default") -> _Request:
+               tenant: str = "default",
+               draft: Optional[bool] = None) -> _Request:
         """Queue one request; returns its handle (``result()`` waits).
 
+        ``draft`` is the request's speculative opt-in: None speculates
+        whenever the engine has a draft model and the request is greedy,
+        False opts out, True demands it (ValueError without a draft
+        model, with ``do_sample``, or past the draft's positions).
         ``ttl_s`` and ``queue_timeout_s`` override the engine's default
         deadlines; ``priority`` names a scheduling class (None -> the
         default class; an unknown name is a ValueError, a client mistake
@@ -400,15 +509,49 @@ class ContinuousBatchingEngine:
         if len(req.prompt) < 1:
             raise ValueError("the prompt needs at least one token")
         total = len(req.prompt) + req.max_new_tokens
-        if total > self.max_position:
+        # a verify step writes spec_tokens + 1 positions before it rolls
+        # back, so the rope table must hold the overhang for every
+        # request of a speculative engine (opted-out rows ride in the
+        # same block)
+        overhang = self.spec_k if self._spec else 0
+        if total + overhang > self.max_position:
             raise ValueError(
-                f"prompt + max_new_tokens = {total} exceeds the model's "
-                f"max_position_embeddings ({self.max_position})")
+                f"prompt + max_new_tokens = {total} "
+                + (f"+ speculative overhang {overhang} " if overhang
+                   else "")
+                + f"exceeds the model's max_position_embeddings "
+                f"({self.max_position})")
+        if draft and not self._spec:
+            raise ValueError("draft=True but the engine was built without "
+                             "a draft_model")
+        use = self._spec and (draft is None or bool(draft))
+        if use and req.do_sample:
+            # acceptance by argmax is exact only for greedy rows; sampled
+            # rows ride along unaccelerated
+            if draft:
+                raise ValueError(
+                    "speculative decoding is greedy-exact only; draft=True "
+                    "cannot be combined with do_sample")
+            use = False
+        if use and total + self.spec_k > self._draft_max_position:
+            if draft:
+                raise ValueError(
+                    f"prompt + max_new_tokens + speculative overhang = "
+                    f"{total + self.spec_k} exceeds the DRAFT model's "
+                    f"max_position_embeddings ({self._draft_max_position})")
+            use = False
+        req.use_draft = use
         need = self._pages_for(req)
         if need > self.cache.total_pages - self._pad_pages:
             raise RuntimeError(
                 f"request needs {need} pages but the pool holds "
                 f"{self.cache.total_pages} total; grow total_pages")
+        if req.use_draft \
+                and need > self.draft_cache.total_pages - self._pad_pages:
+            raise RuntimeError(
+                f"request needs {need} draft-cache pages but the draft "
+                f"pool holds {self.draft_cache.total_pages} total; grow "
+                "draft_total_pages")
         with self._cond:
             if self._draining:
                 raise EngineDraining(
@@ -546,7 +689,20 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------------- scheduler
     def _pages_for(self, req) -> int:
         total = len(req.prompt) + req.max_new_tokens
+        if self._spec:
+            # a verify step writes spec_tokens + 1 tokens from a length
+            # of at most prompt + max_new - 1 before it rolls back (the
+            # draft's proposal peaks at the same bound)
+            total += self.spec_k
         return -(-total // self.cache.page_size)
+
+    def _free_pads_locked(self) -> None:
+        """Caller holds ``self._cond`` (or the loop is stopping).  Give
+        the pad scratch pages back in both pools, so an idle engine
+        reports whole pools."""
+        self.cache.free(_PAD_SEQ)
+        if self._spec:
+            self.draft_cache.free(_PAD_SEQ)
 
     @staticmethod
     def _pause_age(r, now: Optional[float] = None) -> float:
@@ -597,6 +753,12 @@ class ContinuousBatchingEngine:
                 - shared_tok // self.cache.page_size + newly_pinned)
         if self._reserved_pages + need > self.cache.total_pages:
             return None
+        # the draft pool reserves the whole worst case (no prefix sharing
+        # there: the draft ingests whole prompts); both pools fit or
+        # neither is reserved
+        if req.use_draft and self._reserved_draft_pages \
+                + self._pages_for(req) > self.draft_cache.total_pages:
+            return None
         # stashed for _finalize_admission_locked: nothing can change the
         # pool between this check and the commit (same lock hold)
         req._admit_plan = (need, shared_tok)
@@ -609,6 +771,9 @@ class ContinuousBatchingEngine:
         need, shared_tok = req._admit_plan
         req._admit_plan = None
         self._reserved_pages += need
+        if req.use_draft:
+            self._reserved_draft_pages += self._pages_for(req)
+            req._draft_reserved = True
         req.seq_id = self._next_seq
         self._next_seq += 1
         if shared_tok:
@@ -842,10 +1007,24 @@ class ContinuousBatchingEngine:
         return last
 
     def _finish_prefill(self, req, out_row, sampled: bool) -> None:
-        """The prompt is resident: register its prefixes, latch the first
-        token and stamp the time to first token."""
+        """The prompt is resident: register its prefixes, ingest the
+        draft's copy, latch the first token and stamp the time to first
+        token."""
         if self.prefix_cache:
             self.cache.register_prefix(req.seq_id, req.prompt)
+        if req.use_draft:
+            # the draft ingests the whole prompt (its pool shares no
+            # prefix), so its cache sits at the target's length: the
+            # lockstep every proposal and verify keeps.  Only at prefill
+            # completion, so a request paused mid-prefill never touched
+            # the draft pool.  The token it draws is discarded
+            try:
+                self.dispatches["draft"] += 1
+                self._draft_decoder.prefill(self.draft_cache, [req.seq_id],
+                                            req.prompt[None],
+                                            sampling=_null_sampling())
+            except Exception:  # noqa: BLE001 — downgrade, don't fail
+                self._downgrade_draft([req])
         req.next_token = (int(out_row) if sampled
                           else self._pick(req, out_row))
         req.first_token_at = time.perf_counter()
@@ -901,14 +1080,114 @@ class ContinuousBatchingEngine:
             and not (r.kind == "delay" and r.site in _PACING_FAULT_SITES)
             for r in plan.rules)
 
+    def _bucket(self, n: int) -> int:
+        return min(next_pow2(n), self.max_batch)
+
+    def _propose_drafts(self, reqs) -> np.ndarray:
+        """(len(reqs), spec_tokens) draft proposals: ONE ``multi_step`` of
+        spec_tokens + 1 greedy steps on the draft decoder for the rows
+        that speculate (it feeds the last token and every proposal, so
+        the draft cache covers them all), padded to a bucket with rows
+        on the draft pool's scratch sequence.  The other rows, and all of
+        them when the draft fails (they are downgraded), get -1, which
+        never matches: they advance one token, as in a plain step."""
+        k = self.spec_k
+        drafts = np.full((len(reqs), k), -1, np.int32)
+        d_idx = [i for i, r in enumerate(reqs) if r.use_draft]
+        if not d_idx:
+            return drafts
+        npad = self._bucket(len(d_idx)) - len(d_idx)
+        d_seqs = [reqs[i].seq_id for i in d_idx]
+        d_tok = np.zeros(len(d_idx) + npad, np.int32)
+        d_pos = np.zeros(len(d_idx) + npad, np.int32)
+        for j, i in enumerate(d_idx):
+            d_tok[j] = reqs[i].generated[-1]
+            d_pos[j] = self.draft_cache.length(d_seqs[j])
+        if npad:
+            self.draft_cache.truncate(_PAD_SEQ, 0)
+            d_seqs += [_PAD_SEQ] * npad
+        try:
+            self.dispatches["draft"] += 1
+            prop = self._draft_decoder.multi_step(
+                self.draft_cache, d_seqs, d_tok, d_pos, k + 1)
+        except Exception:  # noqa: BLE001 — downgrade, don't fail
+            self._downgrade_draft([reqs[i] for i in d_idx])
+        else:
+            for j, i in enumerate(d_idx):
+                drafts[i] = prop[j, :k]
+        return drafts
+
+    def _note_spec(self, accepts) -> None:
+        """Count a speculative step's outcome: ``accepts`` holds the
+        accept count of every row that proposed."""
+        k = self.spec_k
+        self.last_spec = (k * len(accepts), sum(accepts))
+        self.spec_proposed += k * len(accepts)
+        self.spec_accepted += sum(accepts)
+        for a in accepts:
+            self.spec_accept_lens[a] += 1
+            self.spec_rollbacks += a < k
+
+    def _exec_spec_step(self, reqs) -> List[_SpecRow]:
+        """ONE speculative step for ``reqs`` (the legacy composition's):
+        the draft proposes (``_propose_drafts``), then the target scores
+        the whole (bucket, spec_tokens + 1) block in ONE ``verify`` step,
+        padded with rows on the scratch sequence; the accept counts and
+        bonus tokens come from the device.  Both caches are truncated
+        here to each row's verified length pos + accept + 1.  Replays
+        identically after a rollback (a greedy draft, the same draw
+        counters), which retry and bisection depend on."""
+        k = self.spec_k
+        b = self._bucket(len(reqs))
+        npad = b - len(reqs)
+        _faults.maybe_fire("decode_step", seq_ids=[r.seq_id for r in reqs])
+        drafts = self._propose_drafts(reqs)
+        block = np.zeros((b, k + 1), np.int32)
+        pos = np.zeros(b, np.int32)
+        seq_ids = []
+        for i, r in enumerate(reqs):
+            block[i, 0] = r.generated[-1]
+            block[i, 1:] = drafts[i]
+            pos[i] = self.cache.length(r.seq_id)
+            seq_ids.append(r.seq_id)
+        if npad:
+            self.cache.truncate(_PAD_SEQ, 0)
+            seq_ids.extend([_PAD_SEQ] * npad)
+        # the draw's counter, pos + accept + 1, is computed on the
+        # device, so a sampled row draws where a plain step would
+        sampling = (self._row_sampling(reqs, b)
+                    if self.sample_on_device else None)
+        self.dispatches["verify"] += 1
+        out, accept = self._decoder.verify(self.cache, seq_ids, block, pos,
+                                           sampling=sampling)
+        rows = []
+        for i, r in enumerate(reqs):
+            a = int(accept[i])
+            # partial rollback: the rejected positions' lengths unwind on
+            # both caches; their pages stay mapped and later steps
+            # rewrite their slots
+            new_len = int(pos[i]) + a + 1
+            self.cache.truncate(r.seq_id, new_len)
+            if r.use_draft:
+                self.draft_cache.truncate(r.seq_id, new_len)
+            rows.append(_SpecRow(out[i], a, drafts[i]))
+        self._note_spec([int(accept[i]) for i, r in enumerate(reqs)
+                         if r.use_draft])
+        return rows
+
     def _exec_step(self, reqs) -> list:
         """ONE decode step for ``reqs`` (all of, or a bisected subset of,
         the active batch), padded to ``min(next_pow2(n), max_batch)``
-        rows.  Tokens, positions and draw counters come from request and
-        cache state, so a rolled-back step replays identically, which
-        retry and bisection depend on.  Returns one output per request
-        (the sampled id, or the logits row)."""
-        b = min(next_pow2(len(reqs)), self.max_batch)
+        rows; with a draft and a row of ``reqs`` that speculates, one
+        speculative step (``_exec_spec_step``).  Tokens, positions and
+        draw counters come from request and cache state, so a
+        rolled-back step replays identically, which retry and bisection
+        depend on.  Returns one output per request (the sampled id, or
+        the logits row; a :class:`_SpecRow` when speculative)."""
+        if self._spec and any(r.use_draft for r in reqs):
+            return self._exec_spec_step(reqs)
+        self.last_spec = (0, 0)
+        b = self._bucket(len(reqs))
         npad = b - len(reqs)
         # the new token enters the sequence now: its rope position
         # (== current length) is read before the write
@@ -938,13 +1217,25 @@ class ContinuousBatchingEngine:
                                  sampling=sampling)
         return [out[i] for i in range(len(reqs))]
 
+    def _lengths(self, reqs) -> dict:
+        """seq id -> (target length, draft length or None) before a
+        step, what a failed attempt rolls back to."""
+        return {r.seq_id: (self.cache.length(r.seq_id),
+                           (self.draft_cache.length(r.seq_id)
+                            if r.use_draft else None))
+                for r in reqs}
+
     def _rollback_step(self, reqs, lens_before) -> None:
         """Restore pre-step lengths after a failed attempt (the decoder
         rolls back its own advance; this covers faults fired before it
-        ran).  Pages stay mapped: they are inside the admission
-        reservation and the replay rewrites their slots."""
+        ran, and a draft proposal that ran before the verify failed).
+        Pages stay mapped: they are inside the admission reservation and
+        the replay rewrites their slots."""
         for r in reqs:
-            self.cache.truncate(r.seq_id, lens_before[r.seq_id])
+            tgt, dft = lens_before[r.seq_id]
+            self.cache.truncate(r.seq_id, tgt)
+            if dft is not None:
+                self.draft_cache.truncate(r.seq_id, dft)
 
     def _step_isolated(self, reqs, lens_before):
         """(survivors, rows, poisoned) for one logical decode step: try
@@ -995,8 +1286,7 @@ class ContinuousBatchingEngine:
         failures are isolated per sequence (retry, then bisect) rather
         than erroring the whole batch."""
         active = self._active
-        lens_before = {r.seq_id: self.cache.length(r.seq_id)
-                       for r in active}
+        lens_before = self._lengths(active)
         for r in active:
             r.generated.append(r.next_token)
         survivors, rows, poisoned = self._step_isolated(active, lens_before)
@@ -1006,21 +1296,25 @@ class ContinuousBatchingEngine:
             # the token recorded for this step never executed
             r.generated.pop()
         with self._cond:
+            self.steps += 1
             for r in retired + poisoned:
                 self._retire_locked(r)
             self._active = still
             if not still:
-                # idle: the scratch page goes back too, before the
-                # waiters wake, so a drained engine reports a fully
-                # reclaimed pool
-                self.cache.free(_PAD_SEQ)
+                # idle: the scratch pages go back too, before the
+                # waiters wake, so a drained engine reports whole pools
+                self._free_pads_locked()
             self._cond.notify_all()
         for r in retired + poisoned:
             r.done.set()
 
     def _advance_rows(self, reqs, rows, sampled: bool):
-        """(still, retired) after a decode token: a request that hit eos
-        or its budget retires, the others latch their next token."""
+        """(still, retired) after a decode or verify step: a request that
+        hit eos or its budget retires, the others latch their next token.
+        A speculative row first takes its accepted drafts one by one,
+        with the same eos and budget checks a plain step applies a token
+        at a time, so its stream is target-only greedy's token for
+        token."""
         still, retired = [], []
         for r, row in zip(reqs, rows):
             eos_hit = (r.eos_token_id is not None
@@ -1028,6 +1322,19 @@ class ContinuousBatchingEngine:
             if eos_hit or len(r.generated) >= r.max_new_tokens:
                 retired.append(r)
                 continue
+            if isinstance(row, _SpecRow):
+                done = False
+                for t in row.drafts[:row.accept]:
+                    r.generated.append(int(t))
+                    if (r.eos_token_id is not None
+                            and int(t) == r.eos_token_id) \
+                            or len(r.generated) >= r.max_new_tokens:
+                        done = True
+                        break
+                if done:
+                    retired.append(r)
+                    continue
+                row = row.out
             r.next_token = int(row) if sampled else self._pick(r, row)
             still.append(r)
         return still, retired
@@ -1037,8 +1344,8 @@ class ContinuousBatchingEngine:
         """Undo the unified composition after a failed ragged step, so
         the legacy re-run replays the exact same step: appended decode
         tokens pop and every row's length returns to its pre-step value
-        (the decoder rolled its own advance back; this covers a fault
-        fired before it ran)."""
+        in both caches (the decoder rolled its own advance back; this
+        covers a fault fired before it ran and the draft's proposal)."""
         for req, k, _n, _last in chunks:
             self.cache.truncate(req.seq_id, k)
         for r in active:
@@ -1047,8 +1354,12 @@ class ContinuousBatchingEngine:
 
     def _unified_step(self, plan) -> None:
         """ONE ragged step for the iteration: the planned prompt chunks
-        plus every active row's decode token.  Chunk bookkeeping, prefill
-        completion, and retirement follow.  On an injected fault the
+        plus every active row's decode token, or, when a row speculates,
+        every active row as a (spec_tokens + 1)-token verify row of
+        freshly proposed drafts (-1 for the rows that do not speculate).
+        Chunk bookkeeping, prefill completion, the accept counts (both
+        caches truncated to the verified length) and retirement
+        follow.  On an injected fault the
         composition unwinds and the iteration re-runs through the legacy
         composition, whose retry and bisection own failure isolation; 3
         such failures in a row latch the unified path off.  Any other
@@ -1064,8 +1375,8 @@ class ContinuousBatchingEngine:
         active = list(self._active)
         if not chunks and not active:
             return
-        lens_before = {r.seq_id: self.cache.length(r.seq_id)
-                       for r in active}
+        spec = self._spec and any(r.use_draft for r in active)
+        lens_before = self._lengths(active)
         for r in active:
             r.generated.append(r.next_token)
         seq_ids, rows, ctxs = [], [], []
@@ -1097,9 +1408,18 @@ class ContinuousBatchingEngine:
             if active:
                 _faults.maybe_fire("decode_step",
                                    seq_ids=[r.seq_id for r in active])
+            drafts = None
+            if spec:
+                drafts = self._propose_drafts(active)
+                for i in range(len(active)):
+                    rows[len(chunks) + i] = np.concatenate(
+                        [rows[len(chunks) + i], drafts[i]])
             self.dispatches["ragged"] += 1
-            out, _accept = self._decoder.ragged_step(
-                self.cache, seq_ids, rows, ctxs, sampling=sampling)
+            out, accept = self._decoder.ragged_step(
+                self.cache, seq_ids, rows, ctxs,
+                n_drafts=([0] * len(chunks) + [self.spec_k] * len(active)
+                          if spec else None),
+                sampling=sampling)
         except _faults.FaultError:  # the legacy re-run isolates
             self._unified_rollback(chunks, active, lens_before)
             self.unified_fallbacks += 1
@@ -1123,15 +1443,30 @@ class ContinuousBatchingEngine:
             if last:
                 completed.append(req)
                 self._finish_prefill(req, out[i], sampling is not None)
-        still, retired = self._advance_rows(active, out[nchunks:],
+        outs = list(out[nchunks:])
+        if spec:
+            for i, r in enumerate(active):
+                a = int(accept[nchunks + i])
+                # partial rollback on both caches, as in _exec_spec_step
+                new_len = lens_before[r.seq_id][0] + a + 1
+                self.cache.truncate(r.seq_id, new_len)
+                if r.use_draft:
+                    self.draft_cache.truncate(r.seq_id, new_len)
+                outs[i] = _SpecRow(outs[i], a, drafts[i])
+            self._note_spec([int(accept[nchunks + i])
+                             for i, r in enumerate(active) if r.use_draft])
+        elif active:
+            self.last_spec = (0, 0)
+        still, retired = self._advance_rows(active, outs,
                                             sampling is not None)
         with self._cond:
             if active:
+                self.steps += 1
                 for r in retired:
                     self._retire_locked(r)
                 self._active = still
                 if not still:
-                    self.cache.free(_PAD_SEQ)
+                    self._free_pads_locked()
             for r in completed:
                 self._prefilling.remove(r)
                 self._active.append(r)
@@ -1148,7 +1483,7 @@ class ContinuousBatchingEngine:
                                 if r not in prefilling]
             self._active = [r for r in self._active if r not in active]
             if not self._active:
-                self.cache.free(_PAD_SEQ)
+                self._free_pads_locked()
             for r in failed:
                 r.error = error
                 self._retire_locked(r)
@@ -1167,8 +1502,33 @@ class ContinuousBatchingEngine:
                  - len(self.cache._seq_pages.get(req.seq_id, ())))
         released = self.cache.free(req.seq_id)
         self._reserved_pages -= slack + released
+        self._release_draft_locked(req)
         req.finished_at = time.perf_counter()
         self._sched.note_retired(req)
+
+    def _release_draft_locked(self, req) -> None:
+        """Caller holds ``self._cond``.  Free the request's draft pages
+        and exactly the reservation they covered (the draft pool has no
+        prefix index, so every freed page is free).  Once only: a
+        downgrade and the retirement both come here."""
+        if not req._draft_reserved:
+            return
+        slack = (self._pages_for(req)
+                 - len(self.draft_cache._seq_pages.get(req.seq_id, ())))
+        released = self.draft_cache.free(req.seq_id)
+        self._reserved_draft_pages -= slack + released
+        req._draft_reserved = False
+
+    def _downgrade_draft(self, reqs) -> None:
+        """After a draft-side failure the requests decode on the plain
+        path instead of failing, for the rest of their life (a draft
+        cache out of lockstep cannot rejoin), and their draft pages go
+        back at once."""
+        with self._cond:
+            for r in reqs:
+                self.spec_draft_failures += 1
+                r.use_draft = False
+                self._release_draft_locked(r)
 
     def _reap_locked(self) -> List[_Request]:
         """Caller holds ``self._cond``.  Retire the requests that were
@@ -1199,8 +1559,8 @@ class ContinuousBatchingEngine:
                 self._retire_locked(r)
                 out.append(r)
             if name == "_active" and self._active and not keep:
-                # everything reaped: the pad scratch page goes back too
-                self.cache.free(_PAD_SEQ)
+                # everything reaped: the pad scratch pages go back too
+                self._free_pads_locked()
             setattr(self, name, keep)
         if out:
             self._cond.notify_all()
@@ -1231,8 +1591,12 @@ class ContinuousBatchingEngine:
             for r in holders:
                 if r.seq_id is not None:
                     self.cache.free(r.seq_id)
-            self.cache.free(_PAD_SEQ)
+                    if self._spec:
+                        self.draft_cache.free(r.seq_id)
+                r._draft_reserved = False
+            self._free_pads_locked()
             self._reserved_pages = self._pad_pages
+            self._reserved_draft_pages = self._pad_pages
             self._active = []
             self._prefilling = []
             self._preempted = []
@@ -1248,7 +1612,7 @@ class ContinuousBatchingEngine:
                         and not self._preempted:
                     self._cond.wait(timeout=0.5)
                 if self._stop:
-                    self.cache.free(_PAD_SEQ)
+                    self._free_pads_locked()
                     stopped = (self._sched.pop_all() + self._prefilling
                                + self._preempted + self._active)
                     self._prefilling = []

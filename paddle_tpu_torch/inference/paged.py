@@ -591,7 +591,11 @@ class PagedDecoder:
             paged = PagedContext(cache, "ragged", d["pg"], d["sl"],
                                  d["src"], lens=ctx + ql,
                                  tables=d["tables"], q_lens=ql)
-            hidden = self.model.model(ids, ctx, paged_ctx=paged)
+            # a draft of -1 (a row that proposed nothing) never matches;
+            # its embedding reads row 0, and only positions the row's
+            # accept count of 0 discards see it
+            hidden = self.model.model(ids.clamp_min(0), ctx,
+                                      paged_ctx=paged)
             lg = self.model._logits_of(hidden).float()       # (B, S, V)
             self._accept_tail(kind, ids, lg, ctx, ql, nd, d, o)
         return body
@@ -607,7 +611,10 @@ class PagedDecoder:
             ids, pos = d["ids"], d["pos"]
             paged = PagedContext(cache, mode, d["pg"], d["sl"], d["src"],
                                  lens=d["lens"], tables=d["tables"])
-            hidden = self.model.model(ids, pos, paged_ctx=paged)
+            # -1 drafts embed as id 0 (see _ragged_body)
+            hidden = self.model.model(
+                ids.clamp_min(0) if mode == "verify" else ids, pos,
+                paged_ctx=paged)
             lg = self.model._logits_of(hidden).float()       # (B, S, V)
             if mode == "decode":
                 o["out"].copy_(self._tail(kind, lg[:, -1], d, d.get("ctrs")))

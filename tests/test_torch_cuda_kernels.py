@@ -48,7 +48,9 @@ def _close_l2(got, want, tol):
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("causal,sq,sk,h,kvh,d", [
     (True, 200, 200, 4, 4, 128), (True, 70, 300, 4, 2, 64),
-    (False, 129, 33, 2, 2, 128)])
+    (False, 129, 33, 2, 2, 128),
+    # a speculative verify forward: k + 1 = 5 queries over cached keys
+    (True, 5, 133, 32, 32, 128)])
 def test_flash_forward_matches_plain(dev, dt, causal, sq, sk, h, kvh, d):
     dtype, tol = DTYPES[dt]
     g = torch.Generator(device=dev).manual_seed(0)

@@ -118,6 +118,17 @@ failure:
             (``verify``), also with a w8 target and a full-precision
             draft; a failing draft prefill downgrades (not quarantines);
             ``SpeculativeGenerator`` card = CPU = dense ``generate``.
+            small-recovery: the small f32 model served to mid-decode,
+            then one fault at a step boundary: a transient
+            ``buffer_loss`` (unified and legacy, replayed a row at a time
+            and batched), a sticky one on one sequence, sampled rows, the
+            target as its own draft (the loss on the verify), w8 weights
+            with int8 KV pages, a late prefix sharer after the loss, an
+            ``engine_wedge`` delay under the step watchdog, and
+            ``snapshot`` / JSON / ``stop`` / ``restore`` on a fresh
+            engine: the streams on the card equal a fault-free run on the
+            card, which equals the CPU's; exactly the sticky row fails;
+            every engine drains with both pools whole.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks (through the unified ragged
@@ -179,6 +190,25 @@ failure:
             ``SpeculativeGenerator`` (b1, a 128-token prompt, 32 new)
             with both drafts beside the port's ``generate``: wall,
             tokens/s, its stats, agreement, launches (flash, no paged).
+   recovery — the same model, traffic and engine (unchunked): each pass
+            a warm-up wave with its own recovery, then the measured wave
+            (launch counters zeroed just before it), one fault installed
+            at a step boundary once every row holds 8 tokens:
+            ``loss_batched`` and ``loss_per_row`` (one ``buffer_loss``,
+            the survivors replayed in batched rounds or a prefill a row),
+            ``wedge`` (an ``engine_wedge`` delay of 0.6 s under
+            ``step_timeout_s=0.25``) and ``snapshot_restore`` (a snapshot
+            mid-wave, JSON, ``stop``, ``restore`` on a fresh engine).
+            Printed: the MTTR (the failure hook's entry to the replay's
+            end) beside the ragged step's p50, replay dispatches, rows
+            replayed, captures (must be 0) and launches by kernel inside
+            the recovery window, TTFT and TPOT p50 beside the fault-free
+            unchunked pass, the relative L2 of the survivors' K/V after
+            the replay against a copy taken before the fault, the
+            watchdog's timeouts, the snapshot's ms and entries, the time
+            from ``restore`` to every row's next token, and (bf16,
+            reported) each stream's agreement with the fault-free one
+            and its first divergence, whose f32 top-2 gap comes later.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, w8 with int8 KV at 512, and bf16 at 512 with the
             table pinned at 256 pages, each through the eager and the
@@ -245,8 +275,8 @@ the timed ``PagedGenerator`` call), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``moe``, ``flashmask``, ``classes`` and ``speculative`` hold
-each pass's
+``train``, ``moe``, ``flashmask``, ``classes``, ``speculative`` and
+``recovery`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -262,6 +292,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 T_START = time.perf_counter()   # before torch's import, which takes seconds
 
@@ -380,6 +411,12 @@ SPEC_K, SPEC_BAD_LAYERS = 4, 2
 SPEC_PASSES = (("spec_self", "self", True), ("spec_bad", "bad", True),
                ("spec_bad_legacy", "bad", False))
 SPEC_GEN_PROMPT, SPEC_GEN_NEW = 128, 32
+# the recovery phase on llama_7b bf16: the unchunked serve pass's traffic
+# and engine; the fault lands once every row holds RECOVERY_AT tokens; the
+# wedge is an engine_wedge delay of WEDGE_DELAY_S under a watchdog timeout
+# of WEDGE_TIMEOUT_S
+RECOVERY_AT = 8
+WEDGE_TIMEOUT_S, WEDGE_DELAY_S = 0.25, 0.6
 # the training path's shapes: llama_small, batch 8 x sequence 1024
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D, TRAIN_HIDDEN = 8, 1024, 12, 64, 768
 # the generate phase: bench.py's bench_paged_decode shape at llama_7b's
@@ -527,7 +564,17 @@ def _short_kernel(key):
     return m.group(0).replace(" ", "") if m else key
 
 
-def profiler_window(fn, lacks, where):
+PRIMER_KERNEL = "spin_kernel"
+
+
+def _prime():
+    """Two launches of PyTorch's spin kernel (``torch.cuda._sleep``), a
+    name no call here runs, to open a window ahead of the call."""
+    for _ in range(2):
+        torch.cuda._sleep(1000)
+
+
+def profiler_window(fn, lacks, where, prime=False):
     """A ``torch.profiler`` window around one call of ``fn``, opened again
     while ``lacks(names)`` (the device kernel entries the window
     recorded) returns what it misses.  CUPTI now and then drops the
@@ -537,16 +584,23 @@ def profiler_window(fn, lacks, where):
     it), at times in several windows in a row.  The kernels a call takes
     are fixed by its shapes and types, so such a window is opened again,
     after a pause that doubles each time, up to ``WINDOW_TRIES`` windows,
-    each logged.  Returns (the last window, its names, what it lacks)."""
+    each logged.  With ``prime``, ``_prime`` runs first in each window,
+    so a request made at the window's first launch loses a primer's
+    record and not the call's (a call of one launch lost it in 6 windows
+    in a row); the primer's entries are left out of the names.  Returns
+    (the last window, its names, what it lacks)."""
     for i in range(WINDOW_TRIES):
         if i:
             time.sleep(0.05 * 2 ** i)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=DEVICE_ACTIVITY) as prof:
+            if prime:
+                _prime()
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        names = [e.key for e in events if _device_us(e) > 0]
+        names = [e.key for e in events if _device_us(e) > 0
+                 and not (prime and PRIMER_KERNEL in e.key)]
         missing = lacks(names)
         if not missing:
             break
@@ -581,9 +635,9 @@ def window_seeing(fn, where, want, refuse):
 
 def kernels_of(fn, grids=False, want=()):
     """Short names (``name<template args>``) of the device kernels that one
-    call of ``fn`` runs, from a ``profiler_window``, opened again while it
-    recorded no kernel at all (every call here launches one) or none
-    named by a prefix in ``want``; the caller holds the names against its
+    call of ``fn`` runs, from a primed ``profiler_window``, opened again
+    while it recorded no kernel at all (every call here launches one) or
+    none named by a prefix in ``want``; the caller holds the names against its
     plan.  With ``grids``, also {short name without template args:
     (launch grid, block)}, as the window's exported trace records each
     kernel launch."""
@@ -592,7 +646,8 @@ def kernels_of(fn, grids=False, want=()):
         return [w for w in want if not any(n.startswith(w) for n in short)] \
             or ([] if names else ["any kernel"])
 
-    prof, names, _missing = profiler_window(fn, lacks, "kernels_of")
+    prof, names, _missing = profiler_window(fn, lacks, "kernels_of",
+                                            prime=True)
     names = {_short_kernel(n) for n in names}
     if not grids:
         return sorted(names)
@@ -604,7 +659,8 @@ def kernels_of(fn, grids=False, want=()):
     launch = {}
     for e in events:
         m = re.search(r"(\w+_kernel)", e.get("name", ""))
-        if e.get("cat") == "kernel" and m and "grid" in e.get("args", {}):
+        if e.get("cat") == "kernel" and m and "grid" in e.get("args", {}) \
+                and m.group(1) != PRIMER_KERNEL:
             launch[m.group(1)] = (list(e["args"]["grid"]),
                                   list(e["args"].get("block", [])))
     return sorted(names), launch
@@ -2539,6 +2595,372 @@ def speculative_phase(model, prompts, sharer, warmup, kernels, plain, seed,
     return rec, launches, divergences
 
 
+def recovery_phase(model, prompts, sharer, warmup, kernels, plain, card):
+    """Crash recovery on llama_7b in bf16, full depth, over the unchunked
+    serve pass's traffic and engine (8 slots, the table pinned at
+    ``SERVE_TABLE_PAGES``).  Each pass serves a warm-up wave with its own
+    recovery (so every bucket the recovery steps through is captured),
+    then the measured wave, with the launch counters zeroed just before
+    it; the fault is installed at a step boundary once every row holds
+    ``RECOVERY_AT`` tokens, and the plan is cleared as the recovery
+    starts, so one fault lands in each wave:
+
+    - ``loss_batched`` / ``loss_per_row``: one ``buffer_loss`` (both pools
+      zeroed), the survivors replayed in one batched round or a prefill
+      a row;
+    - ``wedge``: ``step_timeout_s=WEDGE_TIMEOUT_S`` and one
+      ``engine_wedge`` delay of ``WEDGE_DELAY_S``: the watchdog flags the
+      step, the engine zeroes the pools, replays a row at a time and
+      retries;
+    - ``snapshot_restore``: ``snapshot`` mid-wave, a JSON round trip,
+      ``stop``, then ``restore`` on a fresh engine over the same model
+      (which first serves the warm-up wave).
+
+    The recovery window runs from the engine's failure hook
+    (``_after_step_failure``, entered as the failed call returns and is
+    rolled back) to the end of the replay: its length is the MTTR, and
+    the captures (must be 0) and kernel launches inside it are read
+    there.  The survivors' cached K/V (every resident slot, all layers)
+    is copied at the step boundary before the fault and held against the
+    replayed K/V (relative L2, reported: bf16 replay re-ingests decoded
+    tokens through prefill attention).  Fails unless every request
+    completes, no batched replay round raised in either wave (the
+    engine would fall back to a row at a time without a word), each
+    measured wave recovers once with no quarantine,
+    replays every one of its 8 rows, captures nothing in the window and
+    launches the flash kernel once a layer of each per-row replay and
+    none in a batched round, the watchdog flags the wedge, the restored
+    streams complete, and each engine drains with the pool whole.
+    Stream agreement with the fault-free unchunked pass (``plain``) is
+    reported with the first divergences (bf16), whose f32 top-2 gap
+    comes later.  Returns the record and the divergences."""
+    from paddle_tpu_torch.distributed.watchdog import CommTaskManager
+    from paddle_tpu_torch.inference.continuous import \
+        ContinuousBatchingEngine
+    from paddle_tpu_torch.testing import faults
+    cfg = model.config
+    device = model.model.embed_tokens.weight.device
+    plain_rec, plain_reqs = plain
+    layers = cfg.num_hidden_layers
+    mgr = CommTaskManager.instance()
+    mgr._scan_interval = 0.05
+    free, total = torch.cuda.mem_get_info(device)
+    log(f"recovery: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated "
+        "at the start")
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(
+            model, total_pages=1024, page_size=16, max_batch=8,
+            min_table_pages=SERVE_TABLE_PAGES, device=device, **kw)
+
+    def submit_wave(eng, ps, sh):
+        reqs = []
+        with eng._cond:
+            for i, p in enumerate(ps):
+                reqs.append(eng.submit(p, max_new_tokens=32,
+                                       do_sample=i >= len(ps) - 2,
+                                       temperature=0.8, seed=100 + i))
+        while reqs[0].first_token_at is None and not reqs[0].done.is_set():
+            time.sleep(0.001)
+        reqs.append(eng.submit(sh, max_new_tokens=32))
+        return reqs
+
+    def ripe(reqs, label):
+        while not all(len(r.generated) >= RECOVERY_AT for r in reqs):
+            if any(r.done.is_set() for r in reqs):
+                raise AssertionError(f"recovery {label}: a request ended "
+                                     f"before every row held "
+                                     f"{RECOVERY_AT} tokens")
+            time.sleep(0.0005)
+
+    def at_boundary(eng, fn):
+        """``fn()`` with the engine's loop held between two steps."""
+        with eng._cond:
+            eng._snap_waiters += 1
+            try:
+                while eng._stepping:
+                    eng._cond.wait(0.1)
+                return fn()
+            finally:
+                eng._snap_waiters -= 1
+                eng._cond.notify_all()
+
+    def resident(eng, reqs):
+        """Every live row's cached (page, slot), flat, on the card."""
+        ps = eng.cache.page_size
+        idx = []
+        for r in reqs:
+            pos = np.arange(eng.cache.length(r.seq_id))
+            pages = np.asarray(eng.cache._seq_pages[r.seq_id])
+            idx.append(pages[pos // ps] * ps + pos % ps)
+        return torch.as_tensor(np.concatenate(idx), device=device)
+
+    def gather(eng, idx):
+        out = []
+        for pool in eng.cache.k_pages + eng.cache.v_pages:
+            kvh, total, ps, d = pool.shape
+            out.append(pool.view(kvh, total * ps, d).index_select(1, idx))
+        return out
+
+    def hook(eng, window):
+        """Wrap the failure hook: clear the plan (one fault a wave) and
+        record the recovery window, and the batched replay: record what
+        made a round fail (the engine falls back to a row at a time
+        without a word)."""
+        orig = eng._after_step_failure
+        orig_batch = eng._replay_kv_batch
+
+        def batch(rows, targets):
+            try:
+                return orig_batch(rows, targets)
+            except Exception as e:  # noqa: BLE001 — recorded, re-raised
+                window.setdefault("batch_errors", []).append(repr(e)[:400])
+                raise
+
+        eng._replay_kv_batch = batch
+
+        def hooked(error=None, exclude=(), in_step=False):
+            faults.clear()
+            t0 = time.perf_counter()
+            before = dict(captures=eng.captures, launches=_counts(kernels),
+                          dispatches=eng.replay_dispatches,
+                          replays=eng.survivor_replays,
+                          rebuilds=eng.rebuilds)
+            out = orig(error, exclude, in_step)
+            if eng.rebuilds > before["rebuilds"]:
+                torch.cuda.synchronize()
+                w = dict(mttr_s=time.perf_counter() - t0,
+                         recovery_s=eng.recovery_s[-1],
+                         error=type(error).__name__,
+                         peak_reserved_gib=torch.cuda.max_memory_reserved(
+                             device) / 2**30,
+                         captures=eng.captures - before["captures"],
+                         replay_dispatches=eng.replay_dispatches
+                         - before["dispatches"],
+                         survivors_replayed=eng.survivor_replays
+                         - before["replays"],
+                         launches={n: c - before["launches"][n]
+                                   for n, c in _counts(kernels).items()})
+                snap = window.get("pages_before")
+                if snap is not None:
+                    after = gather(eng, window["idx"])
+                    num = sum(float((a.float() - b.float()).norm() ** 2)
+                              for a, b in zip(after, snap))
+                    den = sum(float(b.float().norm() ** 2) for b in snap)
+                    per = [float((a.float() - b.float()).norm()
+                                 / b.float().norm().clamp_min(1e-30))
+                           for a, b in zip(after, snap)]
+                    w.update(pages_rel_l2=(num / den) ** 0.5,
+                             pages_rel_l2_max=max(per),
+                             pages_rel_l2_layer0=max(per[0],
+                                                     per[layers]))
+                    del after, snap
+                    window.pop("pages_before")
+                window.setdefault("recoveries", []).append(w)
+            return out
+
+        eng._after_step_failure = hooked
+
+    def timed_ragged(eng, times):
+        orig = eng._decoder.ragged_step
+
+        def ragged_step(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            times.append(time.perf_counter() - t0)
+            return out
+
+        eng._decoder.ragged_step = ragged_step
+
+    def fault_wave(eng, ps, sh, plan, window, label, copy=False):
+        reqs = submit_wave(eng, ps, sh)
+        ripe(reqs, label)
+
+        def install():
+            if copy:
+                window["idx"] = resident(eng, reqs)
+                window["pages_before"] = gather(eng, window["idx"])
+            faults.install(faults.FaultPlan(plan))
+
+        at_boundary(eng, install)
+        for r in reqs:
+            r.result(timeout=600)
+        torch.cuda.synchronize()
+        faults.clear()
+        return reqs
+
+    def agree(label, reqs, want_reqs):
+        at = [first_divergence(r.generated, w.generated)
+              for r, w in zip(reqs, want_reqs)]
+        for i, (a, r, w) in enumerate(zip(at, reqs, want_reqs)):
+            if a is not None and not w.do_sample:
+                divergences.append(dict(
+                    label=label, request=i, position=a,
+                    ids=np.concatenate([w.prompt, np.asarray(
+                        w.generated[:a], np.int32)]),
+                    tokens=(int(w.generated[a]), int(r.generated[a]))))
+        return at
+
+    def finish(eng, label, reqs):
+        problems = []
+        for i, r in enumerate(reqs):
+            if r.error is not None or len(r.generated) != 32 \
+                    or not all(0 <= t < cfg.vocab_size
+                               for t in r.generated):
+                problems.append(f"request {i} did not complete "
+                                f"({r.error})")
+        drained = eng.drain(timeout=300)
+        whole = drained and eng.cache.free_pages == eng.cache.total_pages \
+            and eng._reserved_pages == eng._pad_pages
+        if not whole:
+            problems.append(f"drained {drained}, free pages "
+                            f"{eng.cache.free_pages}, reserved "
+                            f"{eng._reserved_pages}")
+        return problems, whole
+
+    rec, divergences = {}, []
+    loss = [{"site": "buffer_loss", "nth": 1}]
+    wedge = [{"site": "engine_wedge", "kind": "delay",
+              "delay_s": WEDGE_DELAY_S, "nth": 1}]
+    for label, kw, plan in (
+            ("loss_batched", dict(replay_batch=True), loss),
+            ("loss_per_row", dict(replay_batch=False), loss),
+            ("wedge", dict(step_timeout_s=WEDGE_TIMEOUT_S), wedge)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with engine(**kw) as eng:
+                batched = eng.replay_batch
+                warm_window, window, times = {}, {}, []
+                hook(eng, warm_window)
+                fault_wave(eng, *warmup, plan, warm_window, label)
+                del eng._after_step_failure      # the warm-up's hooks
+                del eng._replay_kv_batch
+                hook(eng, window)
+                timed_ragged(eng, times)
+                captured = eng.captures
+                counts0 = {k: getattr(eng, k) for k in (
+                    "rebuilds", "quarantined", "decode_retries")}
+                timeouts = mgr.timeouts
+                torch.cuda.reset_peak_memory_stats(device)
+                _zero(kernels)
+                t0 = time.perf_counter()
+                reqs = fault_wave(eng, prompts, sharer, plan, window,
+                                  label, copy=True)
+                wall = time.perf_counter() - t0
+                got = _counts(kernels)
+                problems, whole = finish(eng, label, reqs)
+                measured_captures = eng.captures - captured
+                counts = {k: getattr(eng, k) - v for k, v in counts0.items()}
+                flagged = mgr.timeouts - timeouts
+        wins = window.get("recoveries", [])
+        w = wins[0] if len(wins) == 1 else {}
+        for where, win in (("warm-up", warm_window), ("measured", window)):
+            if win.get("batch_errors"):
+                problems.append(f"{where} wave: a batched replay round "
+                                f"failed: {win['batch_errors']}")
+        if len(wins) != 1 or counts["rebuilds"] != 1 \
+                or counts["quarantined"]:
+            problems.append(f"recoveries {wins}, counters {counts}")
+        else:
+            if w["captures"]:
+                problems.append(f"{w['captures']} captures in the window")
+            if w["survivors_replayed"] != len(reqs) \
+                    or not w["replay_dispatches"]:
+                problems.append(f"replayed {w['survivors_replayed']} rows "
+                                f"in {w['replay_dispatches']} dispatches")
+            flash = w["launches"]["flash_attention_forward"]
+            want_flash = 0 if batched else layers * w["replay_dispatches"]
+            if flash != want_flash or w["launches"]["rms_norm"] \
+                    != (2 * layers + 1) * w["replay_dispatches"]:
+                problems.append(f"window launches {w['launches']}, want "
+                                f"{want_flash} flash")
+        if label == "wedge" and (flagged < 1 or w.get("error")
+                                 != "_EngineWedged"):
+            problems.append(f"watchdog timeouts {flagged}, window {w}")
+        if problems:
+            raise AssertionError(f"recovery {label}: " + "; ".join(problems))
+        at = agree(label, reqs, plain_reqs)
+        stats = serve_stats(reqs, wall)
+        rec[label] = dict(
+            card=card, replay_batch=batched, **w, ragged_step_ms_p50=1e3 * float(
+                np.median(times)) if times else None,
+            ragged_steps=len(times),
+            ttft_p50_s=stats["ttft_p50_s"], tpot_p50_s=stats["tpot_p50_s"],
+            ttft_p50_fault_free_s=plain_rec["ttft_p50_s"],
+            tpot_p50_fault_free_s=plain_rec["tpot_p50_s"],
+            wall_s=wall, captures_wave=measured_captures,
+            warmup_mttr_s=warm_window.get("recoveries", [{}])[0]
+            .get("mttr_s"), watchdog_timeouts=flagged,
+            decode_retries=counts["decode_retries"],
+            streams_equal_fault_free=sum(a is None for a in at),
+            first_divergence=at, wave_launches=got, drained=whole)
+        log(f"recovery {label}: " + json.dumps(
+            {k: v for k, v in rec[label].items()
+             if k not in ("launches", "wave_launches")}))
+        log(f"  window launches: " + json.dumps(w["launches"]))
+        del reqs, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    mgr.stop()
+
+    # snapshot mid-wave, JSON, stop; restore on a fresh engine
+    label = "snapshot_restore"
+    with engine() as eng_a:
+        for r in submit_wave(eng_a, *warmup):
+            r.result(timeout=600)
+        reqs = submit_wave(eng_a, prompts, sharer)
+        ripe(reqs, label)
+        t0 = time.perf_counter()
+        snap = eng_a.snapshot()
+        snapshot_ms = 1e3 * (time.perf_counter() - t0)
+        text = json.dumps(snap)
+        eng_a.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap = json.loads(text)
+    cut = {e["request_id"]: len(e["generated"]) for e in snap["requests"]}
+    with engine() as eng_b:
+        for r in submit_wave(eng_b, *warmup):
+            r.result(timeout=600)
+        captured = eng_b.captures
+        _zero(kernels)
+        t0 = time.perf_counter()
+        restored = eng_b.restore(snap)
+        while not all(len(r.generated) > cut[r.request_id]
+                      or r.done.is_set() for r in restored):
+            time.sleep(0.0005)
+        next_token_s = time.perf_counter() - t0
+        for r in restored:
+            r.result(timeout=600)
+        wall = time.perf_counter() - t0
+        got = _counts(kernels)
+        problems, whole = finish(eng_b, label, restored)
+        restore_captures = eng_b.captures - captured
+    if len(restored) != len(reqs) or len(snap["requests"]) != len(reqs) \
+            or any(c < RECOVERY_AT for c in cut.values()):
+        problems.append(f"{len(snap['requests'])} entries, {len(restored)} "
+                        f"restored, cut {cut}")
+    if problems:
+        raise AssertionError(f"recovery {label}: " + "; ".join(problems))
+    by_prompt = {tuple(w.prompt.tolist()): w for w in plain_reqs}
+    at = agree(label, restored, [by_prompt[tuple(r.prompt.tolist())]
+                                 for r in restored])
+    rec[label] = dict(
+        card=card, snapshot_ms=snapshot_ms, entries=len(snap["requests"]),
+        snapshot_bytes=len(text), generated_at_cut=sorted(cut.values()),
+        restore_to_next_token_s=next_token_s, wall_s=wall,
+        captures_restore=restore_captures, launches=got,
+        streams_equal_fault_free=sum(a is None for a in at),
+        first_divergence=at, drained=whole)
+    log(f"recovery {label}: " + json.dumps(
+        {k: v for k, v in rec[label].items() if k != "launches"}))
+    del restored, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, divergences
+
+
 def top2_gaps(model, divergences):
     """For each bf16 divergence, the top-2 logit gap of a plain f32
     forward (``plain_forward``) at the divergent position, and the two
@@ -3378,6 +3800,244 @@ def check_small_speculative():
                                  f"card {got}, CPU {host}, dense {dense}")
         log(f"  small f32 model SpeculativeGenerator draft={name}: 12 tokens "
             f"equal card vs CPU vs dense generate; {card.last_stats}")
+
+
+def check_small_recovery():
+    """The small f32 model of ``check_small`` through the engine's crash
+    recovery, on the card (the steps and the replays as CUDA graphs) and
+    on the CPU from the same weights.  Four requests (24 new tokens, so a
+    row the draft speeds up by 4 tokens a step is still mid-stream) are
+    served to mid-decode (3 tokens each), then one fault is installed at
+    a step boundary:
+
+    - a transient ``buffer_loss`` (both pools zeroed), unified and
+      legacy, replayed a row at a time (the card's default) and batched;
+    - a sticky ``buffer_loss`` on one sequence, which fails exactly that
+      request;
+    - sampled rows (the device sampler);
+    - the target as its own draft (spec tokens 3), ``nth=2`` passing the
+      draft's proposal and landing on the verify;
+    - ``kv_quant="int8"`` with ``quantize="w8"``;
+    - a late sharer of a 32-token prefix admitted after the loss, which
+      still hits;
+    - an ``engine_wedge`` delay of 0.6 s under ``step_timeout_s=0.25``,
+      in a wave after a fault-free one on the same engine, so that no
+      first call's graph capture runs in the watched wave;
+    - ``snapshot`` mid-stream, a JSON round trip, ``stop``, ``restore`` on
+      a fresh engine.
+
+    Each case's streams must equal a fault-free run on the card, which
+    must equal the CPU's; each recovery is counted (one rebuild, no
+    quarantine but the sticky row's), and each engine drains with both
+    pools whole."""
+    from paddle_tpu_torch.distributed.watchdog import CommTaskManager
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.testing import faults
+    cpu, gpu = _small_models()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (9, 40, 130, 17)]
+    system = rng.integers(0, 512, 32).astype(np.int32)
+    sharers = [np.concatenate([system, rng.integers(0, 512, 7)])
+               .astype(np.int32) for _ in range(4)]
+    sampled = [dict(do_sample=True, temperature=0.8, seed=5 + i)
+               for i in range(4)]
+    new = 24
+    mgr = CommTaskManager.instance()
+    mgr._scan_interval = 0.05
+
+    def engine(model, dev, **kw):
+        return ContinuousBatchingEngine(model, total_pages=64, page_size=16,
+                                        max_batch=4, device=dev, **kw)
+
+    def at_boundary(eng, plan):
+        with eng._cond:
+            eng._snap_waiters += 1
+            try:
+                while eng._stepping:
+                    eng._cond.wait(0.1)
+                faults.install(faults.FaultPlan(plan))
+            finally:
+                eng._snap_waiters -= 1
+                eng._cond.notify_all()
+
+    def ripen(eng, ps, kws):
+        faults.install(faults.FaultPlan(
+            [{"site": "decode_step", "kind": "delay", "delay_s": 0.005}]))
+        reqs = [eng.submit(p, max_new_tokens=new, **kw)
+                for p, kw in zip(ps, kws)]
+        end = time.monotonic() + 120
+        while not all(len(r.generated) >= 3 for r in reqs):
+            if time.monotonic() > end or any(r.done.is_set()
+                                             for r in reqs):
+                raise AssertionError("small recovery: the rows never "
+                                     "reached mid-decode together")
+            time.sleep(0.001)
+        return reqs
+
+    def outcome(reqs):
+        out = []
+        for r in reqs:
+            try:
+                out.append(r.result(timeout=300).tolist())
+            except faults.FaultError:
+                out.append(None)
+        return out
+
+    def close(eng, label):
+        faults.clear()
+        state = dict(rebuilds=eng.rebuilds, replays=eng.survivor_replays,
+                     replay_dispatches=eng.replay_dispatches,
+                     quarantined=eng.quarantined,
+                     drained=eng.drain(timeout=60),
+                     free=eng.cache.free_pages,
+                     reserved=eng._reserved_pages, pad=eng._pad_pages,
+                     draft_free=(eng.draft_cache.free_pages
+                                 if eng.draft_cache is not None else 64),
+                     captures=eng.captures, replays_graph=eng.replays)
+        if not state["drained"] or state["free"] != 64 \
+                or state["draft_free"] != 64 \
+                or state["reserved"] != state["pad"]:
+            raise AssertionError(f"small recovery {label}: the pools did "
+                                 f"not come back whole: {state}")
+        return state
+
+    def clean(model, dev, ps, kws, **kw):
+        with engine(model, dev, **kw) as eng:
+            reqs = [eng.submit(p, max_new_tokens=new, **k)
+                    for p, k in zip(ps, kws)]
+            return [r.result(timeout=300).tolist() for r in reqs]
+
+    def loss(model, dev, ps, kws, plan, **kw):
+        with engine(model, dev, **kw) as eng:
+            reqs = ripen(eng, ps, kws)
+            at_boundary(eng, plan)
+            outs = outcome(reqs)
+            return outs, close(eng, "loss")
+
+    greedy = [{}] * 4
+    refs = {}
+    for name, ps, kws, kw in (("greedy", prompts, greedy, {}),
+                              ("sampled", prompts, sampled, {}),
+                              ("int8", prompts, greedy,
+                               dict(quantize="w8", kv_quant="int8")),
+                              ("prefix", sharers[:1], greedy[:1], {})):
+        card = clean(gpu, "cuda", ps, kws, **kw)
+        host = clean(cpu, "cpu", ps, kws, **kw)
+        if card != host:
+            raise AssertionError(f"small recovery: the fault-free {name} "
+                                 f"streams differ, card {card}, CPU {host}")
+        refs[name] = card
+    # (label, workload, fault plan, engine arguments, victims, quarantined)
+    transient = [{"site": "buffer_loss", "nth": 1}]
+    cases = [(f"transient {'unified' if u else 'legacy'} "
+              f"{'batched' if b else 'per-row'}", "greedy", transient,
+              dict(unified_step=u, replay_batch=b), set())
+             for u in (True, False) for b in (False, True)]
+    cases += [
+        ("sticky seq 2", "greedy", [{"site": "buffer_loss", "seq_id": 2}],
+         {}, {2}),
+        ("sampled", "sampled", transient, {}, set()),
+        ("draft on the verify", "greedy", [{"site": "buffer_loss",
+                                            "nth": 2}],
+         dict(draft_model=gpu, spec_tokens=3), set()),
+        ("w8 int8 KV", "int8", transient,
+         dict(quantize="w8", kv_quant="int8"), set())]
+    for label, work, plan, kw, victims in cases:
+        kws = sampled if work == "sampled" else greedy
+        ref = refs[work]
+        host_kw = dict(kw, draft_model=cpu) if "draft_model" in kw else kw
+        got, st = loss(gpu, "cuda", prompts, kws, plan, **kw)
+        host, hst = loss(cpu, "cpu", prompts, kws, plan, **host_kw)
+        want = [None if i in victims else o for i, o in enumerate(ref)]
+        # every row is still mid-stream at the fault: all are replayed
+        replayed_all = bool(victims) or st["replays"] == len(prompts)
+        if got != want or host != want or st["rebuilds"] < 1 \
+                or st["quarantined"] != len(victims) or not replayed_all:
+            raise AssertionError(
+                f"small recovery {label}: card {got}, CPU {host}, want "
+                f"{want}; card {st}, CPU {hst}")
+        log(f"  small f32 model recovery {label}: streams card = CPU = "
+            f"fault-free" + (f", requests {sorted(victims)} failed" if
+                             victims else "")
+            + f"; rebuilds {st['rebuilds']}, replays {st['replays']}, "
+            f"replay dispatches {st['replay_dispatches']}, graphs "
+            f"{st['captures']} captured / {st['replays_graph']} replays, "
+            "pools whole")
+    # a late sharer after the loss: the replay registered the prefix again
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        with engine(model, dev) as eng:
+            first = eng.submit(sharers[0], max_new_tokens=new)
+            first.result(timeout=300)
+            reqs = ripen(eng, sharers[1:3], greedy[:2])
+            at_boundary(eng, transient)
+            outs = outcome(reqs)
+            faults.clear()
+            late = eng.submit(sharers[3], max_new_tokens=new)
+            outs.append(late.result(timeout=300).tolist())
+            st = close(eng, "late sharer")
+        want = [clean(model, dev, [p], greedy[:1])[0] for p in sharers[1:]]
+        if outs != want or late.prefix_tokens != 32 or st["rebuilds"] != 1:
+            raise AssertionError(f"small recovery late sharer on {dev}: "
+                                 f"{outs} (want {want}), hit "
+                                 f"{late.prefix_tokens}, {st}")
+    log("  small f32 model recovery: a sharer admitted after the loss hit "
+        "the 32-token prefix the replay registered again, card and CPU")
+    # the watchdog: a wedged step is flagged, rebuilt, replayed, retried.
+    # A bucket's first call captures its graph inside the watched window
+    # and may itself outlast 0.25 s (then rightly flagged), so a
+    # fault-free wave captures every bucket first; both waves run the
+    # legacy composition, which an engine_wedge plan diverts to anyway
+    wedge = [{"site": "engine_wedge", "kind": "delay", "delay_s": 0.6,
+              "nth": 3}]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with engine(gpu, "cuda", step_timeout_s=0.25,
+                    unified_step=False) as eng:
+            warm = outcome([eng.submit(p, max_new_tokens=new)
+                            for p in prompts])
+            before = dict(rebuilds=eng.rebuilds, captures=eng.captures,
+                          quarantined=eng.quarantined)
+            timeouts = mgr.timeouts
+            with faults.installed(faults.FaultPlan(wedge)):
+                reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+                outs = outcome(reqs)
+            st = close(eng, "wedge")
+    mgr.stop()
+    flagged = mgr.timeouts - timeouts
+    rebuilds = st["rebuilds"] - before["rebuilds"]
+    if warm != refs["greedy"] or outs != refs["greedy"] or rebuilds != 1 \
+            or flagged < 1 or st["quarantined"] != before["quarantined"] \
+            or "engine/decode_step" in mgr.heartbeat_names():
+        raise AssertionError(f"small recovery wedge: warm-up {warm}, "
+                             f"wedged {outs}, {st}, before the wedged "
+                             f"wave {before}, timeouts {flagged}")
+    log(f"  small f32 model recovery wedge (0.6 s under a 0.25 s "
+        f"timeout, after a fault-free wave that captured "
+        f"{before['captures']} graphs and rebuilt {before['rebuilds']} "
+        f"times): {flagged} watchdog timeout(s), rebuilds {rebuilds}, "
+        f"graphs {st['captures'] - before['captures']} captured in the "
+        f"wedged wave, streams equal the fault-free ones")
+    # snapshot and restore on a fresh engine
+    kws = greedy[:2] + sampled[2:]
+    want = refs["greedy"][:2] + refs["sampled"][2:]
+    eng_a = engine(gpu, "cuda")
+    ripen(eng_a, prompts, kws)
+    snap = json.loads(json.dumps(eng_a.snapshot()))
+    eng_a.stop()
+    faults.clear()
+    with engine(gpu, "cuda") as eng_b:
+        restored = eng_b.restore(snap)
+        outs = [r.result(timeout=300).tolist() for r in restored]
+        close(eng_b, "restore")
+    by_prompt = {tuple(p.tolist()): w for p, w in zip(prompts, want)}
+    if len(restored) != 4 or outs != [by_prompt[tuple(r.prompt.tolist())]
+                                      for r in restored]:
+        raise AssertionError(f"small recovery snapshot/restore: {outs}")
+    log(f"  small f32 model snapshot/restore: {len(snap['requests'])} "
+        f"entries ({sum(len(e['generated']) for e in snap['requests'])} "
+        "generated tokens) restored on a fresh engine, streams equal the "
+        "fault-free ones")
 
 
 def _counts(kernels):
@@ -4596,6 +5256,8 @@ def main():
     lap("check_small_generate")
     check_small_speculative()
     lap("check_small_speculative")
+    check_small_recovery()
+    lap("check_small_recovery")
     check_small_train()
     lap("check_small_train")
     check_small_moe()
@@ -4756,8 +5418,13 @@ def main():
         model, prompts, sharer, warmup, kernels,
         (passes["unchunked"], unchunked_reqs), args.seed, smi[0])
     launches.update(spec_launches)
-    del unchunked_reqs
     lap("speculative")
+    # crash recovery over the same traffic, against the unchunked pass
+    recovery_rec, recovery_div = recovery_phase(
+        model, prompts, sharer, warmup, kernels,
+        (passes["unchunked"], unchunked_reqs), smi[0])
+    del unchunked_reqs
+    lap("recovery")
 
     # 5. where a decode step's time goes (after the serve passes, so no
     # launch of it is counted there; before the f32 check below, which
@@ -4810,6 +5477,10 @@ def main():
     log("speculative: bf16 divergences from the draft-free streams, top-2 "
         "logit gap of a plain f32 forward there: "
         + json.dumps(spec_rec["bf16_divergence_gaps"]))
+    recovery_rec["bf16_divergence_gaps"] = top2_gaps(model, recovery_div)
+    log("recovery: bf16 divergences from the fault-free streams, top-2 "
+        "logit gap of a plain f32 forward there: "
+        + json.dumps(recovery_rec["bf16_divergence_gaps"]))
     got32, ref32, _ = prefill_logits(model, ids)
     gen_rec["batch_context_prefill_f32"] = check_batch_context_prefill(
         model, args.seed, gen_rec["batch_context_prefill"])
@@ -4933,6 +5604,11 @@ def main():
                               "greedy_equal_draft_free", "drained")}
                               if p in {c[0] for c in SPEC_PASSES} else r)
                           for p, r in spec_rec.items()},
+                      "recovery": {p: {k: v for k, v in r.items()
+                                       if k not in ("launches",
+                                                    "wave_launches")}
+                                   if isinstance(r, dict) else r
+                                   for p, r in recovery_rec.items()},
                       "classes": {p: {k: r[k] for k in (
                           "ttft_p50_s", "tpot_p50_s", "wall_s", "counts",
                           "captures_warmup", "captures", "replays",

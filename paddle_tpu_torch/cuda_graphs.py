@@ -1,7 +1,36 @@
 """CUDA-graph capture shared by the port's graphed steps: the serving
 steps (``inference.paged.GraphedPagedDecoder``) and the training step
 (``jit.TrainStep``)."""
+import contextlib
+import gc
+import threading
+
 import torch
+
+# captures in flight (any thread) and whether the collector was on
+# before the first of them: the last one to end turns it back on
+_collector_lock = threading.Lock()
+_captures_in_flight = 0
+_collector_was_on = False
+
+
+@contextlib.contextmanager
+def _collector_off():
+    """Python's cyclic collector off for the block, in every thread,
+    for as long as any capture is in flight."""
+    global _captures_in_flight, _collector_was_on
+    with _collector_lock:
+        if not _captures_in_flight:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _captures_in_flight += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _captures_in_flight -= 1
+            if not _captures_in_flight and _collector_was_on:
+                gc.enable()
 
 
 def counted_wrappers():
@@ -26,14 +55,21 @@ def capture(graph, pool, stream, body):
 
     A capture that fails raises, with the device's default random
     generator put back as it was: PyTorch would leave it marked as
-    capturing, and every later random draw on the device would raise."""
+    capturing, and every later random draw on the device would raise.
+
+    Python's cyclic collector is off while the body is captured
+    (``torch.cuda.graph`` collects once just before): a collection that
+    the body's own allocations set off could free an unreachable graph
+    of an earlier step or engine, and destroying a graph is a call the
+    capturing thread may not make, so the capture would be invalidated."""
     wrappers = counted_wrappers()
     counts = [fn.launches for fn in wrappers]
     generator = torch.cuda.default_generators[stream.device.index]
     rng = generator.clone_state()
     try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
+        with _collector_off(), torch.cuda.graph(
+                graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"):
             out = body()
     except BaseException:
         generator.graphsafe_set_state(rng)

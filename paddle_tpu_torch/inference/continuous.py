@@ -71,26 +71,59 @@ quarantined with its error and the queue is served on.  A quarantined
 request's waiter gets the error, its pages are reclaimed, and everyone
 else is served on.  Only a fault outside any step (admission, planning)
 reaches ``_fail_all``.  The fault-injection sites (``testing.faults``)
-``prefill``, ``prefill_chunk`` and ``decode_step`` fire here; an
-iteration under a plan that targets an engine site diverts to the
-legacy composition, whose dispatch granularity defines the blast
-radius.  The JAX engine's crash recovery (``_after_step_failure``,
-``_split_replay_dead``: pools rebuilt and survivors' KV replayed after a
-donated buffer is lost or a step wedges) is not ported: here a failed
-step has already rolled its lengths back and no pool is donated, so it
-comes with the watchdog and survivor replay.
+``prefill``, ``prefill_chunk``, ``decode_step`` and ``engine_wedge``
+fire here, ``buffer_loss`` in every decoder step; an iteration under a
+plan that targets an engine site diverts to the legacy composition,
+whose dispatch granularity defines the blast radius.
+
+Crash recovery, as in the JAX engine:
+
+  * one replay primitive (``_replay_kv``): a sequence's KV is rebuilt by
+    re-ingesting ``prompt + generated`` up to its cached length through
+    the prompt-ingest steps, into the pages it already maps; draws are
+    keyed by (seed, absolute position) and the pending ``next_token`` is
+    host state, so a stream continues token for token;
+  * after a lost pool (the ``buffer_loss`` site zeroes both pools in
+    place: ``PagedKVCache.generation`` bumps) every failed step or chunk
+    is followed by ``_after_step_failure``: every survivor (decoding,
+    mid-prefill, paused; the draft pool to its own length) is replayed,
+    batched (``replay_batch``: rounds of up to ``max_batch`` rows through
+    ``batch_context_prefill``) or a row at a time, prefix entries are
+    re-registered, and only then is the step retried or bisected; a row
+    whose own replay fails is quarantined alone;
+  * the step watchdog (``step_timeout_s``): every dispatch brackets a
+    heartbeat the watchdog (``distributed.watchdog``) scans; a step past
+    the timeout is flagged as wedged, and when it returns the engine
+    rolls it back, zeroes the pools, replays the survivors and retries.
+    A step that never returns cannot be interrupted from the host: the
+    flag is read only once the call comes back.  On a card a bucket's
+    first call captures its CUDA graph inside the window, so a capture
+    that outlasts the timeout is flagged like any slow step;
+  * ``snapshot`` quiesces at a step boundary and serializes every live
+    request (the JAX engine's entry format, ``"version": 1``), and
+    ``restore`` resubmits each entry, whose prefill then ingests
+    ``prompt + generated`` (``_Request.prefill_target``) and keeps the
+    journaled next token.
+
+A real CUDA fault (an illegal address, a device-side assert) leaves the
+process's CUDA context unusable, so the in-process recovery is reached
+by injected faults only; a process that crashes resumes its streams
+through ``snapshot``/``restore`` in a new process.
 """
 from __future__ import annotations
 
 import threading
 import time
-from collections import namedtuple
+import uuid
+import warnings
+from collections import deque, namedtuple
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..distributed.watchdog import CommTaskManager
 from ..ops.paged_attention import PagedKVCache
 from ..testing import faults as _faults
 from .paged import GraphedPagedDecoder, PagedDecoder, next_pow2, sample_token
@@ -98,12 +131,14 @@ from .scheduler import DEFAULT_CLASS, QueueFull, WorkloadScheduler
 
 _PAD_SEQ = "__pad__"
 
+# recovery times the engine keeps (``recovery_s``), newest last
+_RECOVERY_HISTORY = 256
+
 # fault-injection sites whose quarantine semantics are defined against
 # the legacy per-mode dispatch granularity (one poisoned chunk fails one
-# request, a decode fault bisects the batch): an iteration running under
-# a plan that targets any of them diverts to the legacy composition.
-# The port fires no ``engine_wedge`` or ``buffer_loss``; they stay so a
-# plan written for the JAX engine diverts as it does there
+# request, a decode fault bisects the batch, a lost pool or a wedge is
+# recovered step by step): an iteration running under a plan that
+# targets any of them diverts to the legacy composition
 _ENGINE_FAULT_SITES = frozenset((
     "prefill", "prefill_chunk", "decode_step", "engine_wedge",
     "buffer_loss", "page_alloc"))
@@ -119,12 +154,12 @@ _PACING_FAULT_SITES = frozenset(("prefill", "prefill_chunk",
 _SpecRow = namedtuple("_SpecRow", ("out", "accept", "drafts"))
 
 
-def _null_sampling():
-    """Sampling arguments for one row that draws nothing: the argmax-only
-    tail for a dispatch whose token is discarded (the draft's prompt
-    ingestion)."""
-    return (np.zeros(1, np.uint32), np.zeros(1, np.int32),
-            np.ones(1, np.float32), np.zeros(1, bool))
+def _null_sampling(n: int = 1):
+    """Sampling arguments for ``n`` rows that draw nothing: the
+    argmax-only tail for a dispatch whose token is discarded (the
+    draft's prompt ingestion, KV replay)."""
+    return (np.zeros(n, np.uint32), np.zeros(n, np.int32),
+            np.ones(n, np.float32), np.zeros(n, bool))
 
 
 class EngineSaturated(RuntimeError):
@@ -148,12 +183,24 @@ class RequestCancelled(RuntimeError):
     """The request was cooperatively cancelled via ``cancel()``."""
 
 
+class _EngineWedged(RuntimeError):
+    """The watchdog flagged the step in flight as wedged (its heartbeat
+    aged past ``step_timeout_s``).  The step's results are suspect: the
+    engine rolls it back, zeroes the pools, replays the survivors and
+    retries, and the retry and bisection ladder bounds a wedge that
+    persists."""
+
+
 class _Request:
     """One sequence's life in the engine."""
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, do_sample,
                  temperature, seed, ttl_s=None, queue_timeout_s=None,
-                 priority=None, tenant="default"):
+                 priority=None, tenant="default", request_id=None):
+        # a stable id, the caller's or assigned here, carried verbatim
+        # across snapshot and restore
+        self.request_id = (str(request_id) if request_id
+                           else f"req-{uuid.uuid4().hex[:16]}")
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
@@ -170,6 +217,9 @@ class _Request:
         self.prefill_pos = 0
         self.admitted_at: Optional[float] = None
         self._admit_plan = None      # (need, shared_tok) fit-check stash
+        # a restored request's prefill ingests prompt + generated (see
+        # ``prefill_target``)
+        self.replay_tokens: Optional[np.ndarray] = None
         # preempted_at / paused_total bound a paused request's page
         # reservation (paused_total accumulates across preempt/resume
         # cycles, so re-preemption cannot reset the aging clock)
@@ -202,6 +252,15 @@ class _Request:
     def output_ids(self) -> np.ndarray:
         return np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int32)])
+
+    @property
+    def prefill_target(self) -> np.ndarray:
+        """The tokens that must be in the cache before this request
+        decodes: its prompt, or for a restored request prompt + the
+        tokens generated before the snapshot, ingested by the same
+        prompt-ingest steps."""
+        return (self.prompt if self.replay_tokens is None
+                else self.replay_tokens)
 
     def cancel(self) -> bool:
         """Cooperative cancel: honored before admission and between
@@ -294,6 +353,14 @@ class ContinuousBatchingEngine:
     ``draft_total_pages`` (default ``total_pages``), and stays at full
     precision whatever ``quantize`` and ``kv_quant`` say.
 
+    Crash recovery: ``step_timeout_s`` registers the step heartbeat with
+    the process's watchdog (``distributed.watchdog.CommTaskManager``);
+    ``replay_batch`` replays the survivors after a lost pool in batched
+    rounds (None: on the CPU, not on a card, where a batched round's
+    first chunk runs the dense prefix attention where the original
+    prefill ran the flash kernel); ``snapshot`` / ``restore`` carry live
+    streams across a restart.
+
     Counters, the engine's counterparts of the JAX monitor's:
     ``dispatches`` by mode (``ragged``, ``prefill``, ``chunk``,
     ``decode``, ``verify``, and ``draft`` for the draft model's prompt
@@ -309,7 +376,11 @@ class ContinuousBatchingEngine:
     ``spec_accept_lens`` (verify outcomes by accept length 0..k),
     ``spec_draft_failures`` (requests downgraded), ``last_spec`` (the
     last step's (proposed, accepted)) and ``draft_pages`` (pages the
-    draft pool pins); per class, ``scheduler_info()["counts"]``."""
+    draft pool pins); ``rebuilds`` (pool losses recovered),
+    ``survivor_replays`` (requests replayed), ``replay_dispatches``
+    (replay steps, not in ``dispatches``), ``recovery_s`` (the last
+    recoveries' seconds, newest last) and ``snapshot_requests``
+    (entries serialized); per class, ``scheduler_info()["counts"]``."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
@@ -327,6 +398,8 @@ class ContinuousBatchingEngine:
                  decode_preempt: bool = True,
                  draft_model=None, spec_tokens: int = 4,
                  draft_total_pages: Optional[int] = None,
+                 step_timeout_s: Optional[float] = None,
+                 replay_batch: Optional[bool] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -448,6 +521,36 @@ class ContinuousBatchingEngine:
         self._stop = False
         self._draining = False
         self._next_seq = 0
+        # crash recovery: batched survivor replay is off on a card, where
+        # a batched round's first chunk takes the dense prefix attention
+        # in place of the flash kernel the original prefill ran (as the
+        # JAX engine turns it off on a TPU)
+        self.replay_batch = (self.device.type != "cuda"
+                             if replay_batch is None else bool(replay_batch))
+        self.step_timeout_s = step_timeout_s
+        self.rebuilds = 0
+        self.survivor_replays = 0
+        self.replay_dispatches = 0
+        self.recovery_s = deque(maxlen=_RECOVERY_HISTORY)
+        self.snapshot_requests = 0
+        # the summed pool generation last reconciled: a bump after a
+        # failed step means a pool was lost and the survivors replay
+        self._pool_gen = self._generation()
+        # _wedged: set by the watchdog thread, read after each dispatch;
+        # _step_started_at: the dispatch in flight's start, the
+        # heartbeat's age; _stepping / _snap_waiters: the snapshot's
+        # step-boundary barrier
+        self._wedged = threading.Event()
+        self._step_started_at: Optional[float] = None
+        self._stepping = False
+        self._snap_waiters = 0
+        self._hb_id: Optional[int] = None
+        if step_timeout_s is not None:
+            mgr = CommTaskManager.instance()
+            self._hb_id = mgr.register_heartbeat(
+                "engine/decode_step", self._step_age,
+                float(step_timeout_s), on_timeout=self._wedged.set)
+            mgr.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -482,8 +585,18 @@ class ContinuousBatchingEngine:
                queue_timeout_s: Optional[float] = None,
                priority: Optional[str] = None,
                tenant: str = "default",
-               draft: Optional[bool] = None) -> _Request:
+               draft: Optional[bool] = None,
+               request_id: Optional[str] = None,
+               _restore: Optional[dict] = None) -> _Request:
         """Queue one request; returns its handle (``result()`` waits).
+
+        ``request_id`` is a stable id for the request, carried verbatim
+        across ``snapshot`` and ``restore`` (``req-<16 hex>`` when
+        omitted); a ValueError while a live request holds the same id.
+        ``_restore`` is a snapshot entry (``restore`` passes it): the
+        request starts with its generated tokens and pending next token,
+        its prefill ingests prompt + generated, and its deadlines are the
+        entry's, not this engine's defaults.
 
         ``draft`` is the request's speculative opt-in: None speculates
         whenever the engine has a draft model and the request is greedy,
@@ -505,7 +618,30 @@ class ContinuousBatchingEngine:
                        queue_timeout_s=(self.default_queue_timeout_s
                                         if queue_timeout_s is None
                                         else queue_timeout_s),
-                       priority=pclass.name, tenant=tenant)
+                       priority=pclass.name, tenant=tenant,
+                       request_id=request_id)
+        if _restore is not None:
+            # preloaded before the scheduler can see the request: its
+            # prefill ingests prompt + generated, and the journaled next
+            # token (kept even with nothing generated yet) continues the
+            # stream
+            gen = [int(t) for t in _restore.get("generated", ())]
+            if gen:
+                req.generated = gen
+                req.replay_tokens = np.concatenate(
+                    [req.prompt, np.asarray(gen, np.int32)])
+            nt = _restore.get("next_token")
+            req.next_token = None if nt is None else int(nt)
+            # the entry's deadlines verbatim: None means none remained,
+            # and this engine's defaults must not reap restored streams
+            ttl = _restore.get("ttl_remaining_s")
+            req.ttl_s = ttl
+            req.deadline = (None if ttl is None
+                            else req.submitted_at + float(ttl))
+            qt = _restore.get("queue_timeout_remaining_s")
+            req.queue_timeout_s = qt
+            req.queue_deadline = (None if qt is None
+                                  else req.submitted_at + float(qt))
         if len(req.prompt) < 1:
             raise ValueError("the prompt needs at least one token")
         total = len(req.prompt) + req.max_new_tokens
@@ -559,6 +695,14 @@ class ContinuousBatchingEngine:
                     "requests")
             if self._stop:
                 raise RuntimeError("engine stopped")
+            if request_id is not None:
+                # an id may be reused once its request has finished,
+                # never while it is live
+                live = (self._active + self._prefilling + self._preempted
+                        + self._sched.pending())
+                if any(r.request_id == req.request_id for r in live):
+                    raise ValueError(f"request_id {req.request_id!r} is "
+                                     "already live; pick a new id")
             try:
                 self._sched.push(req)
             except QueueFull as e:
@@ -620,6 +764,104 @@ class ContinuousBatchingEngine:
                 "decode_preempt": self.decode_preempt,
             }
 
+    # ------------------------------------------------ snapshot / restore
+    @staticmethod
+    def _entry_fields(r) -> dict:
+        """The request fields a snapshot entry carries beside its tokens
+        and deadlines (the JAX engine's ``_entry_fields``, which its
+        journal's admit record shares)."""
+        return {
+            "request_id": r.request_id,
+            "max_new_tokens": r.max_new_tokens,
+            "eos_token_id": (None if r.eos_token_id is None
+                             else int(r.eos_token_id)),
+            "do_sample": r.do_sample,
+            "temperature": r.temperature,
+            "seed": r.seed,
+            "priority": r.priority,
+            "tenant": r.tenant,
+            "draft": bool(r.use_draft),
+        }
+
+    def snapshot(self) -> dict:
+        """Every live request as a JSON-able dict, the JAX engine's format
+        (``{"version": 1, "requests": [...]}``, one entry a request:
+        prompt, generated ids, pending next token, remaining TTL, the
+        ``_entry_fields``).  Waits for the step in flight to finish, so
+        the cut lies between steps; in-flight streams come first, then
+        the queued requests (a restore that overflows its queues drops
+        queued work, not streams).  Safe on an idle engine (no entry)
+        and while draining."""
+        with self._cond:
+            self._snap_waiters += 1
+            try:
+                while self._stepping and not self._stop:
+                    self._cond.wait(0.1)
+                now = time.perf_counter()
+                cuts = [(r, r.prompt, list(r.generated), r.next_token)
+                        for r in (list(self._active)
+                                  + list(self._prefilling)
+                                  + list(self._preempted)
+                                  + self._sched.pending())
+                        if not r.done.is_set() and not r.cancelled]
+            finally:
+                self._snap_waiters -= 1
+                self._cond.notify_all()
+        entries = []
+        for r, prompt, generated, next_token in cuts:
+            entries.append({
+                **self._entry_fields(r),
+                "prompt": [int(t) for t in prompt],
+                "generated": [int(t) for t in generated],
+                "next_token": (None if next_token is None
+                               else int(next_token)),
+                "ttl_remaining_s": (None if r.deadline is None
+                                    else max(1e-3, r.deadline - now)),
+                # an admitted request met its queue-wait deadline: the
+                # restore must not impose it again
+                "queue_timeout_remaining_s": (
+                    None if r.queue_deadline is None
+                    or r.admitted_at is not None
+                    else max(1e-3, r.queue_deadline - now)),
+            })
+        self.snapshot_requests += len(entries)
+        return {"version": 1, "requests": entries}
+
+    def restore(self, snapshot: dict, strict: bool = True
+                ) -> List[_Request]:
+        """Submit every entry of a :meth:`snapshot` (of this engine or
+        the JAX engine) to this engine; returns the new handles.  An
+        entry with generated tokens prefills prompt + generated and
+        continues from its journaled next token, so its stream goes on
+        token for token (a sampled row draws by (seed, position) on the
+        device sampler; on the host sampler, ``sample_on_device=False``,
+        draws after the restore come from a freshly seeded generator).
+        ``strict=False`` warns and skips an entry this engine refuses
+        (unknown class, full queue, too long) instead of raising.  A
+        ``draft`` entry may speculate here if this engine can (None);
+        one without opts out (False)."""
+        out: List[_Request] = []
+        for e in snapshot.get("requests", ()):
+            try:
+                out.append(self.submit(
+                    np.asarray(e["prompt"], np.int32),
+                    max_new_tokens=int(e.get("max_new_tokens", 32)),
+                    eos_token_id=e.get("eos_token_id"),
+                    do_sample=bool(e.get("do_sample", False)),
+                    temperature=float(e.get("temperature", 1.0)),
+                    seed=int(e.get("seed", 0)),
+                    draft=None if e.get("draft") else False,
+                    priority=e.get("priority"),
+                    tenant=e.get("tenant", "default"),
+                    request_id=e.get("request_id"),
+                    _restore=e))
+            except Exception as exc:  # noqa: BLE001 — per entry
+                if strict:
+                    raise
+                warnings.warn(f"snapshot restore skipped one request: "
+                              f"{exc!r}")
+        return out
+
     def stop_admissions(self) -> None:
         """Flip the draining flag synchronously (``drain()`` sets it
         again, idempotently): every later ``submit`` raises
@@ -678,6 +920,10 @@ class ContinuousBatchingEngine:
             self._stop = True
             self._cond.notify_all()
         self._thread.join(timeout=60)
+        if self._hb_id is not None:
+            # a heartbeat outliving its engine would be flagged forever
+            CommTaskManager.instance().unregister_heartbeat(self._hb_id)
+            self._hb_id = None
 
     def __enter__(self):
         return self
@@ -687,6 +933,18 @@ class ContinuousBatchingEngine:
         return False
 
     # ---------------------------------------------------------- scheduler
+    def _step_age(self) -> Optional[float]:
+        """The watchdog's probe: seconds the dispatch in flight has run,
+        None while none is (never flagged)."""
+        t0 = self._step_started_at
+        return None if t0 is None else time.monotonic() - t0
+
+    def _generation(self) -> int:
+        """Both caches' pool generations summed: ``reset_pools`` bumps
+        one per lost pool."""
+        return self.cache.generation + (self.draft_cache.generation
+                                        if self._spec else 0)
+
     def _pages_for(self, req) -> int:
         total = len(req.prompt) + req.max_new_tokens
         if self._spec:
@@ -847,7 +1105,7 @@ class ContinuousBatchingEngine:
             pre.paused_total += time.perf_counter() - pre.preempted_at
             pre.preempted_at = None
         if pre.first_token_at is not None \
-                and pre.prefill_pos >= len(pre.prompt):
+                and pre.prefill_pos >= len(pre.prefill_target):
             self._active.append(pre)
         else:
             self._prefilling.append(pre)
@@ -919,7 +1177,7 @@ class ContinuousBatchingEngine:
         best_served_rank: Optional[int] = None
         for i in order:
             req = self._prefilling[i]
-            remaining = len(req.prompt) - req.prefill_pos
+            remaining = len(req.prefill_target) - req.prefill_pos
             if remaining <= 0:
                 continue
             if budget is None:
@@ -969,37 +1227,57 @@ class ContinuousBatchingEngine:
                                        .float().cpu()),
                             req.do_sample, req.temperature, req.rng)
 
-    def _ingest(self, req, k: int, n: int, sampling):
-        """One bucketed prompt-ingest dispatch of prompt[k:k+n]: fresh
-        prefill at k == 0, the context-prefill continuation otherwise."""
-        ids = req.prompt[None, k:k + n]
+    def _ingest(self, decoder, cache, sid, tokens, k: int, n: int,
+                sampling):
+        """One bucketed prompt-ingest dispatch of tokens[k:k+n] into
+        ``sid``'s pages: fresh prefill at k == 0, the context-prefill
+        continuation otherwise.  The serving prefill (``_prefill_chunk``)
+        and the replay (``_replay_kv``) both come here, so a replay takes
+        the steps of the path it replays."""
+        ids = tokens[None, k:k + n]
         if k:
-            return self._decoder.chunk_prefill(
-                self.cache, [req.seq_id], ids, context_tokens=k,
-                sampling=sampling)
-        return self._decoder.prefill(self.cache, [req.seq_id], ids,
-                                     sampling=sampling)
+            return decoder.chunk_prefill(cache, [sid], ids,
+                                         context_tokens=k,
+                                         sampling=sampling)
+        return decoder.prefill(cache, [sid], ids, sampling=sampling)
 
     def _prefill_chunk(self, req, n: int) -> bool:
-        """Ingest the next ``n`` prompt tokens of ``req`` in one step;
-        True once the prompt is resident (only then is the first token
+        """Ingest the next ``n`` tokens of ``req``'s prefill target (its
+        prompt, or a restored request's prompt + generated) in one step;
+        True once the target is resident (only then is the next token
         sampled, at its absolute position).  Fires ``prefill`` on the
-        request's first chunk and ``prefill_chunk`` on every one."""
+        request's first chunk and ``prefill_chunk`` on every one.  A
+        dispatch the watchdog flagged raises :class:`_EngineWedged` with
+        the cache rolled back to the chunk's start."""
+        target = req.prefill_target
         k = req.prefill_pos
-        total = len(req.prompt)
+        total = len(target)
         n = min(n, total - k)
         last = k + n == total
         if not self.sample_on_device:
             sampling = None
         else:
             sampling = self._sampling_for([req if last else None], [total])
-        if k == req.prefix_tokens:
-            # per-sequence site, once: chunking must not change existing
-            # fault plans' semantics
-            _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
-        _faults.maybe_fire("prefill_chunk", seq_ids=[req.seq_id])
-        self.dispatches["chunk" if k else "prefill"] += 1
-        out = self._ingest(req, k, n, sampling)
+        self._wedged.clear()      # only this dispatch may flag itself
+        t0 = self._step_started_at = time.monotonic()
+        try:
+            if k == req.prefix_tokens:
+                # per-sequence site, once: chunking must not change
+                # existing fault plans' semantics
+                _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
+            _faults.maybe_fire("prefill_chunk", seq_ids=[req.seq_id])
+            self.dispatches["chunk" if k else "prefill"] += 1
+            out = self._ingest(self._decoder, self.cache, req.seq_id,
+                               target, k, n, sampling)
+        finally:
+            self._step_started_at = None
+        try:
+            self._check_wedged(t0)
+        except _EngineWedged:
+            # the chunk's writes are suspect: back to its start, so the
+            # rebuild, replay and retry are exact
+            self.cache.truncate(req.seq_id, k)
+            raise
         req.prefill_pos = k + n
         self._sched.note_chunk(req)
         if last:
@@ -1007,13 +1285,14 @@ class ContinuousBatchingEngine:
         return last
 
     def _finish_prefill(self, req, out_row, sampled: bool) -> None:
-        """The prompt is resident: register its prefixes, ingest the
-        draft's copy, latch the first token and stamp the time to first
-        token."""
+        """The prefill target is resident: register the prompt's
+        prefixes, ingest the draft's copy, latch the first token (a
+        restored request keeps its journaled one) and stamp the time to
+        first token."""
         if self.prefix_cache:
             self.cache.register_prefix(req.seq_id, req.prompt)
         if req.use_draft:
-            # the draft ingests the whole prompt (its pool shares no
+            # the draft ingests the whole target (its pool shares no
             # prefix), so its cache sits at the target's length: the
             # lockstep every proposal and verify keeps.  Only at prefill
             # completion, so a request paused mid-prefill never touched
@@ -1021,12 +1300,15 @@ class ContinuousBatchingEngine:
             try:
                 self.dispatches["draft"] += 1
                 self._draft_decoder.prefill(self.draft_cache, [req.seq_id],
-                                            req.prompt[None],
+                                            req.prefill_target[None],
                                             sampling=_null_sampling())
             except Exception:  # noqa: BLE001 — downgrade, don't fail
                 self._downgrade_draft([req])
-        req.next_token = (int(out_row) if sampled
-                          else self._pick(req, out_row))
+        if req.next_token is None:
+            # a restored request's journaled token equals the replayed
+            # draw; on the host sampler a new pick would burn a draw
+            req.next_token = (int(out_row) if sampled
+                              else self._pick(req, out_row))
         req.first_token_at = time.perf_counter()
         self._sched.note_first_token(req,
                                      req.first_token_at - req.submitted_at)
@@ -1035,29 +1317,51 @@ class ContinuousBatchingEngine:
         """One dispatch a planned chunk (device work, called without the
         lock).  A failing chunk quarantines exactly its request: the
         decoder already rolled the failed dispatch back, retirement
-        reclaims the pages every earlier chunk wrote, and the other
-        requests are untouched."""
+        reclaims the pages every earlier chunk wrote, and if the failure
+        lost the pools the other requests are replayed before the next
+        dispatch.  A wedged chunk is retried once, after the rebuild."""
         completed, failed = [], []
         for req, n in plan:
             if req.cancelled or req.done.is_set():
-                # cancelled: the next reap retires it
+                # cancelled: the next reap retires it; done: its replay
+                # failed in an earlier chunk's recovery
                 continue
             try:
                 if self._prefill_chunk(req, n):
                     completed.append(req)
+            except _EngineWedged as e:
+                # pools zeroed, every survivor replayed (this request's
+                # earlier chunks too), then the same chunk once more
+                self._after_step_failure(e)
+                if req.done.is_set():
+                    # its own replay failed: already quarantined
+                    continue
+                try:
+                    if self._prefill_chunk(req, n):
+                        completed.append(req)
+                except Exception as e2:  # noqa: BLE001 — quarantine
+                    req.error = e2
+                    failed.append(req)
+                    self._after_step_failure(e2, exclude=(req,))
             except Exception as e:  # noqa: BLE001 — quarantine this one
                 req.error = e
                 failed.append(req)
+                # a lost pool zeroed every other sequence's KV too:
+                # replay them before the next dispatch (a no-op when no
+                # pool was lost)
+                self._after_step_failure(e, exclude=(req,))
         if not completed and not failed:
             return
         with self._cond:
             for r in failed:
-                self._prefilling.remove(r)
+                if r in self._prefilling:
+                    self._prefilling.remove(r)
                 self.quarantined += 1
                 self._retire_locked(r)
             for r in completed:
-                self._prefilling.remove(r)
-                self._active.append(r)
+                if r in self._prefilling:
+                    self._prefilling.remove(r)
+                    self._active.append(r)
             self._cond.notify_all()
         for r in failed:
             r.done.set()
@@ -1140,26 +1444,36 @@ class ContinuousBatchingEngine:
         k = self.spec_k
         b = self._bucket(len(reqs))
         npad = b - len(reqs)
-        _faults.maybe_fire("decode_step", seq_ids=[r.seq_id for r in reqs])
-        drafts = self._propose_drafts(reqs)
-        block = np.zeros((b, k + 1), np.int32)
-        pos = np.zeros(b, np.int32)
-        seq_ids = []
-        for i, r in enumerate(reqs):
-            block[i, 0] = r.generated[-1]
-            block[i, 1:] = drafts[i]
-            pos[i] = self.cache.length(r.seq_id)
-            seq_ids.append(r.seq_id)
-        if npad:
-            self.cache.truncate(_PAD_SEQ, 0)
-            seq_ids.extend([_PAD_SEQ] * npad)
-        # the draw's counter, pos + accept + 1, is computed on the
-        # device, so a sampled row draws where a plain step would
-        sampling = (self._row_sampling(reqs, b)
-                    if self.sample_on_device else None)
-        self.dispatches["verify"] += 1
-        out, accept = self._decoder.verify(self.cache, seq_ids, block, pos,
-                                           sampling=sampling)
+        # a flag raised against an earlier dispatch must not condemn
+        # this one; the heartbeat covers the proposal and the verify
+        self._wedged.clear()
+        t0 = self._step_started_at = time.monotonic()
+        try:
+            step_ids = [r.seq_id for r in reqs]
+            _faults.maybe_fire("decode_step", seq_ids=step_ids)
+            _faults.maybe_fire("engine_wedge", seq_ids=step_ids)
+            drafts = self._propose_drafts(reqs)
+            block = np.zeros((b, k + 1), np.int32)
+            pos = np.zeros(b, np.int32)
+            seq_ids = []
+            for i, r in enumerate(reqs):
+                block[i, 0] = r.generated[-1]
+                block[i, 1:] = drafts[i]
+                pos[i] = self.cache.length(r.seq_id)
+                seq_ids.append(r.seq_id)
+            if npad:
+                self.cache.truncate(_PAD_SEQ, 0)
+                seq_ids.extend([_PAD_SEQ] * npad)
+            # the draw's counter, pos + accept + 1, is computed on the
+            # device, so a sampled row draws where a plain step would
+            sampling = (self._row_sampling(reqs, b)
+                        if self.sample_on_device else None)
+            self.dispatches["verify"] += 1
+            out, accept = self._decoder.verify(self.cache, seq_ids, block,
+                                               pos, sampling=sampling)
+            self._check_wedged(t0)
+        finally:
+            self._step_started_at = None
         rows = []
         for i, r in enumerate(reqs):
             a = int(accept[i])
@@ -1209,12 +1523,19 @@ class ContinuousBatchingEngine:
             seq_ids.extend([_PAD_SEQ] * npad)
         sampling = (self._sampling_for(reqs, pos + 1)
                     if self.sample_on_device else None)
-        # the fault fires before the decoder runs, so never inside a
-        # CUDA graph's capture
-        _faults.maybe_fire("decode_step", seq_ids=seq_ids[:len(reqs)])
-        self.dispatches["decode"] += 1
-        out = self._decoder.step(self.cache, seq_ids, tokens, pos,
-                                 sampling=sampling)
+        self._wedged.clear()
+        t0 = self._step_started_at = time.monotonic()
+        try:
+            # the faults fire before the decoder runs, so never inside a
+            # CUDA graph's capture
+            _faults.maybe_fire("decode_step", seq_ids=seq_ids[:len(reqs)])
+            _faults.maybe_fire("engine_wedge", seq_ids=seq_ids[:len(reqs)])
+            self.dispatches["decode"] += 1
+            out = self._decoder.step(self.cache, seq_ids, tokens, pos,
+                                     sampling=sampling)
+            self._check_wedged(t0)
+        finally:
+            self._step_started_at = None
         return [out[i] for i in range(len(reqs))]
 
     def _lengths(self, reqs) -> dict:
@@ -1241,17 +1562,46 @@ class ContinuousBatchingEngine:
         """(survivors, rows, poisoned) for one logical decode step: try
         the whole batch; on failure retry once (transient faults), then
         bisect to isolate the poisoned sequence(s) instead of erroring
-        everyone."""
+        everyone.  After a failure that lost the pools (or a wedge) every
+        survivor's KV is replayed before the retry, so it never decodes
+        over zeroed pages; a row whose own replay failed leaves the retry
+        as poisoned."""
         try:
             return reqs, self._exec_step(reqs), []
-        except Exception:  # noqa: BLE001 — retried below
+        except Exception as e:  # noqa: BLE001 — retried below
             self._rollback_step(reqs, lens_before)
+            live, poisoned = self._split_replay_dead(
+                reqs, self._after_step_failure(e, in_step=True))
         self.decode_retries += 1
+        if not live:
+            return [], [], poisoned
         try:
-            return reqs, self._exec_step(reqs), []
-        except Exception as e:  # noqa: BLE001 — bisected below
-            self._rollback_step(reqs, lens_before)
-            return self._bisect_step(reqs, lens_before, e)
+            return live, self._exec_step(live), poisoned
+        except Exception as e2:  # noqa: BLE001 — bisected below
+            self._rollback_step(live, lens_before)
+            live, dead = self._split_replay_dead(
+                live, self._after_step_failure(e2, in_step=True))
+            poisoned += dead
+            if not live:
+                return [], [], poisoned
+            s, o, p = self._bisect_step(live, lens_before, e2)
+            return s, o, p + poisoned
+
+    def _split_replay_dead(self, reqs, dead):
+        """(live, quarantined): ``reqs`` split around ``dead``, the rows
+        whose replay failed (their error is already set); each dead row
+        counts as a quarantine."""
+        if not dead:
+            return list(reqs), []
+        dead_ids = {id(r) for r in dead}
+        live, out = [], []
+        for r in reqs:
+            if id(r) in dead_ids:
+                self.quarantined += 1
+                out.append(r)
+            else:
+                live.append(r)
+        return live, out
 
     def _bisect_step(self, reqs, lens_before, error):
         """Deterministic fault isolation: halve the failing batch and
@@ -1267,15 +1617,26 @@ class ContinuousBatchingEngine:
         mid = (len(reqs) + 1) // 2
         survivors, rows, poisoned = [], [], []
         for half in (reqs[:mid], reqs[mid:]):
+            # a row whose replay failed in a sibling's recovery carries
+            # its error: never step it again (_decode_step retires it)
+            half = [r for r in half if r.error is None]
+            if not half:
+                continue
             self.decode_retries += 1
             try:
                 half_rows = self._exec_step(half)
             except Exception as e:  # noqa: BLE001 — bisected further
                 self._rollback_step(half, lens_before)
-                s, o, p = self._bisect_step(half, lens_before, e)
-                survivors.extend(s)
-                rows.extend(o)
-                poisoned.extend(p)
+                # a lost pool zeroed the other half's KV too, advanced or
+                # not: replay everyone before probing on
+                live, dead = self._split_replay_dead(
+                    half, self._after_step_failure(e, in_step=True))
+                poisoned.extend(dead)
+                if live:
+                    s, o, p = self._bisect_step(live, lens_before, e)
+                    survivors.extend(s)
+                    rows.extend(o)
+                    poisoned.extend(p)
             else:
                 survivors.extend(half)
                 rows.extend(half_rows)
@@ -1290,14 +1651,38 @@ class ContinuousBatchingEngine:
         for r in active:
             r.generated.append(r.next_token)
         survivors, rows, poisoned = self._step_isolated(active, lens_before)
+        # a row whose replay failed outside the failing subset's scope
+        # (its half had stepped already, or had not yet) carries its
+        # error: retire it here, never leave it decoding over a half
+        # rebuilt cache.  A row whose token executed retires without the
+        # pop; one that never stepped joins the poisoned
+        dead_done = []
+        if any(r.error is not None for r in survivors):
+            pairs = list(zip(survivors, rows))
+            survivors, rows = [], []
+            for r, row in pairs:
+                if r.error is not None:
+                    self.quarantined += 1
+                    dead_done.append(r)
+                else:
+                    survivors.append(r)
+                    rows.append(row)
+        accounted = ({id(r) for r in survivors} | {id(r) for r in poisoned}
+                     | {id(r) for r in dead_done})
+        for r in active:
+            if id(r) not in accounted and not r.done.is_set() \
+                    and r.error is not None:
+                self.quarantined += 1
+                poisoned.append(r)
         still, retired = self._advance_rows(survivors, rows,
                                             self.sample_on_device)
         for r in poisoned:
             # the token recorded for this step never executed
             r.generated.pop()
+        ended = retired + poisoned + dead_done
         with self._cond:
             self.steps += 1
-            for r in retired + poisoned:
+            for r in ended:
                 self._retire_locked(r)
             self._active = still
             if not still:
@@ -1305,7 +1690,7 @@ class ContinuousBatchingEngine:
                 # waiters wake, so a drained engine reports whole pools
                 self._free_pads_locked()
             self._cond.notify_all()
-        for r in retired + poisoned:
+        for r in ended:
             r.done.set()
 
     def _advance_rows(self, reqs, rows, sampled: bool):
@@ -1345,8 +1730,9 @@ class ContinuousBatchingEngine:
         the legacy re-run replays the exact same step: appended decode
         tokens pop and every row's length returns to its pre-step value
         in both caches (the decoder rolled its own advance back; this
-        covers a fault fired before it ran and the draft's proposal)."""
-        for req, k, _n, _last in chunks:
+        covers a fault fired before it ran, a wedged step's advance and
+        the draft's proposal)."""
+        for req, _target, k, _n, _last in chunks:
             self.cache.truncate(req.seq_id, k)
         for r in active:
             r.generated.pop()
@@ -1359,8 +1745,9 @@ class ContinuousBatchingEngine:
         freshly proposed drafts (-1 for the rows that do not speculate).
         Chunk bookkeeping, prefill completion, the accept counts (both
         caches truncated to the verified length) and retirement
-        follow.  On an injected fault the
-        composition unwinds and the iteration re-runs through the legacy
+        follow.  On an injected fault, or a step the watchdog flagged as
+        wedged, the composition unwinds, a lost pool is rebuilt and the
+        survivors replayed, and the iteration re-runs through the legacy
         composition, whose retry and bisection own failure isolation; 3
         such failures in a row latch the unified path off.  Any other
         failure unwinds and fails the step's requests alone (see the
@@ -1369,9 +1756,10 @@ class ContinuousBatchingEngine:
         for req, n in plan:
             if req.cancelled or req.done.is_set():
                 continue
+            target = req.prefill_target
             k = req.prefill_pos
-            n = min(n, len(req.prompt) - k)
-            chunks.append((req, k, n, k + n == len(req.prompt)))
+            n = min(n, len(target) - k)
+            chunks.append((req, target, k, n, k + n == len(target)))
         active = list(self._active)
         if not chunks and not active:
             return
@@ -1380,9 +1768,9 @@ class ContinuousBatchingEngine:
         for r in active:
             r.generated.append(r.next_token)
         seq_ids, rows, ctxs = [], [], []
-        for req, k, n, _last in chunks:
+        for req, target, k, n, _last in chunks:
             seq_ids.append(req.seq_id)
-            rows.append(req.prompt[k:k + n])
+            rows.append(target[k:k + n])
             ctxs.append(k)
         for r in active:
             seq_ids.append(r.seq_id)
@@ -1392,52 +1780,66 @@ class ContinuousBatchingEngine:
             # intermediate chunk rows draw nothing; the counter of every
             # draw is computed in the step from the row's position
             sampling = self._row_sampling(
-                [req if last else None for req, _k, _n, last in chunks]
+                [req if last else None for req, *_, last in chunks]
                 + active)
         else:
             sampling = None
         try:
-            # only delay-kind pacing rules can be live here
-            # (_legacy_iteration diverts everything else): fire the
-            # legacy sites so throttling plans pace the unified step as
-            # they pace the composition it replaces
-            for req, k, _n, _last in chunks:
-                if not k:
-                    _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
-                _faults.maybe_fire("prefill_chunk", seq_ids=[req.seq_id])
-            if active:
-                _faults.maybe_fire("decode_step",
-                                   seq_ids=[r.seq_id for r in active])
             drafts = None
             if spec:
                 drafts = self._propose_drafts(active)
                 for i in range(len(active)):
                     rows[len(chunks) + i] = np.concatenate(
                         [rows[len(chunks) + i], drafts[i]])
-            self.dispatches["ragged"] += 1
-            out, accept = self._decoder.ragged_step(
-                self.cache, seq_ids, rows, ctxs,
-                n_drafts=([0] * len(chunks) + [self.spec_k] * len(active)
-                          if spec else None),
-                sampling=sampling)
-        except _faults.FaultError:  # the legacy re-run isolates
+            self._wedged.clear()
+            t0 = self._step_started_at = time.monotonic()
+            try:
+                # only delay-kind pacing rules can be live here
+                # (_legacy_iteration diverts everything else): fire the
+                # legacy sites so throttling plans pace the unified step
+                # as they pace the composition it replaces
+                for req, _target, k, _n, _last in chunks:
+                    if not k:
+                        _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
+                    _faults.maybe_fire("prefill_chunk",
+                                       seq_ids=[req.seq_id])
+                if active:
+                    _faults.maybe_fire("decode_step",
+                                       seq_ids=[r.seq_id for r in active])
+                self.dispatches["ragged"] += 1
+                out, accept = self._decoder.ragged_step(
+                    self.cache, seq_ids, rows, ctxs,
+                    n_drafts=([0] * len(chunks)
+                              + [self.spec_k] * len(active)
+                              if spec else None),
+                    sampling=sampling)
+                self._check_wedged(t0)
+            finally:
+                self._step_started_at = None
+        except (_faults.FaultError, _EngineWedged) as e:
+            # the legacy re-run isolates; a wedge (the engine's own
+            # watchdog) or a lost pool first rebuilds and replays the
+            # survivors, so the re-run never decodes over zeroed pages
             self._unified_rollback(chunks, active, lens_before)
             self.unified_fallbacks += 1
             self._unified_failures += 1
             if self._unified_failures >= 3:
                 self._unified_off = True
+            self._after_step_failure(e)
             self._run_chunks(plan)
             if self._active:
                 self._decode_step()
             return
         except Exception as e:  # noqa: BLE001 — fail the step's requests
             self._unified_rollback(chunks, active, lens_before)
+            failed = [req for req, *_ in chunks] + active
+            self._after_step_failure(e, exclude=failed)
             self._quarantine_step([req for req, *_ in chunks], active, e)
             return
         self._unified_failures = 0
         nchunks = len(chunks)
         completed = []
-        for i, (req, k, n, last) in enumerate(chunks):
+        for i, (req, _target, k, n, last) in enumerate(chunks):
             req.prefill_pos = k + n
             self._sched.note_chunk(req)
             if last:
@@ -1468,8 +1870,9 @@ class ContinuousBatchingEngine:
                 if not still:
                     self._free_pads_locked()
             for r in completed:
-                self._prefilling.remove(r)
-                self._active.append(r)
+                if r in self._prefilling:
+                    self._prefilling.remove(r)
+                    self._active.append(r)
             self._cond.notify_all()
         for r in retired:
             r.done.set()
@@ -1529,6 +1932,229 @@ class ContinuousBatchingEngine:
                 self.spec_draft_failures += 1
                 r.use_draft = False
                 self._release_draft_locked(r)
+
+    # ------------------------------------------------------ crash recovery
+    def _pools_rebuilt(self) -> bool:
+        """True once for each pool loss: the caches' summed generation
+        against the last value the engine reconciled.  Scheduler thread
+        only."""
+        g = self._generation()
+        if g == self._pool_gen:
+            return False
+        self._pool_gen = g
+        return True
+
+    def _replay_kv(self, req, upto=None, dlen=None) -> None:
+        """The replay primitive: rebuild one sequence's KV by re-ingesting
+        ``prompt + generated`` up to its cached length (``upto``) through
+        ``_ingest``, chunked at ``prefill_chunk_tokens`` (or whole), into
+        the pages it already maps (a shared prefix page is rewritten with
+        the same content); the draft pool to its own length ``dlen`` in
+        one prefill.  The outputs are discarded and the pending
+        ``next_token`` is kept; the prompt's prefix entries are
+        registered again once the replay covers the prompt.  ``upto`` and
+        ``dlen`` default to the cache lengths; the batched path records
+        them before it truncates anything, so its per-row fallback can
+        replay a row that a failed round left part-way."""
+        sid = req.seq_id
+        if upto is None:
+            upto = self.cache.length(sid)
+        if dlen is None:
+            dlen = (self.draft_cache.length(sid)
+                    if self._spec and req.use_draft else 0)
+        if upto <= 0 and dlen <= 0:
+            return                          # nothing resident yet
+        sampling = _null_sampling() if self.sample_on_device else None
+        tokens = req.output_ids
+        if upto > 0:
+            self.cache.truncate(sid, 0)
+            chunk = self.prefill_chunk_tokens or upto
+            k = 0
+            while k < upto:
+                n = min(chunk, upto - k)
+                # a replay that wedges on a sick device is as visible to
+                # the watchdog as the step that led to it
+                self._step_started_at = time.monotonic()
+                try:
+                    self.replay_dispatches += 1
+                    self._ingest(self._decoder, self.cache, sid, tokens,
+                                 k, n, sampling)
+                finally:
+                    self._step_started_at = None
+                k += n
+            if self.prefix_cache and upto >= len(req.prompt):
+                self.cache.register_prefix(sid, req.prompt)
+        if dlen > 0:
+            self.draft_cache.truncate(sid, 0)
+            self._step_started_at = time.monotonic()
+            try:
+                self.replay_dispatches += 1
+                self._draft_decoder.prefill(self.draft_cache, [sid],
+                                            tokens[None, :dlen],
+                                            sampling=sampling)
+            finally:
+                self._step_started_at = None
+        self.survivor_replays += 1
+
+    def _replay_kv_batch(self, rows, targets) -> None:
+        """Batched survivor replay: each pool's rows re-ingest in lockstep
+        rounds of up to ``max_batch`` rows a ``batch_context_prefill``
+        step, each row up to ``prefill_chunk_tokens`` a round (or the
+        rest of its target), dropping out at its target length; the
+        draft pool's rows after the target's.  ``targets`` maps
+        ``id(req)`` to the (target, draft) lengths recorded before any
+        truncation.  A failure propagates: the caller falls back to the
+        per-row replay, which names the row at fault."""
+        def collect(cache, which):
+            out = []
+            for r in rows:
+                upto = targets[id(r)][which]
+                if upto > 0:
+                    out.append((r, r.output_ids[:upto], upto))
+                    cache.truncate(r.seq_id, 0)
+            return out
+
+        def rounds(decoder, cache, work, chunk):
+            cursor = {id(r): 0 for r, _, _ in work}
+            pending = list(work)
+            while pending:
+                batch = pending[:self.max_batch]
+                sids = [r.seq_id for r, _, _ in batch]
+                ks = [cursor[id(r)] for r, _, _ in batch]
+                slices = [toks[k:k + min(chunk or upto, upto - k)]
+                          for (r, toks, upto), k in zip(batch, ks)]
+                self._step_started_at = time.monotonic()
+                try:
+                    self.replay_dispatches += 1
+                    decoder.batch_context_prefill(
+                        cache, sids, slices, ks,
+                        sampling=(_null_sampling(len(sids))
+                                  if self.sample_on_device else None))
+                finally:
+                    self._step_started_at = None
+                for (r, _toks, _upto), sl in zip(batch, slices):
+                    cursor[id(r)] += len(sl)
+                pending = [(r, toks, upto) for r, toks, upto in pending
+                           if cursor[id(r)] < upto]
+
+        chunk = self.prefill_chunk_tokens
+        work = collect(self.cache, 0)
+        rounds(self._decoder, self.cache, work, chunk)
+        for r, _toks, upto in work:
+            if self.prefix_cache and upto >= len(r.prompt):
+                self.cache.register_prefix(r.seq_id, r.prompt)
+        dwork = collect(self.draft_cache, 1) if self._spec else []
+        if dwork:
+            rounds(self._draft_decoder, self.draft_cache, dwork, chunk)
+        self.survivor_replays += len({id(r) for r, _, _ in work + dwork})
+
+    def _replay_survivors(self, exclude=()) -> List[_Request]:
+        """After a pool loss, replay every live sequence (decoding,
+        mid-prefill and paused) to its cached length; ``exclude`` names
+        requests about to be quarantined.  Batched with
+        ``replay_batch``; a failed batched step cannot name its row, so
+        the pass falls back to a row at a time.  A row whose own replay
+        fails is marked with the error and returned for quarantine; if
+        that failure lost the pools again, the pass restarts, so every
+        earlier row is replayed over the new pools (each restart drops a
+        row).  Scheduler thread only."""
+        skip = {id(r) for r in exclude}
+        failed: List[_Request] = []
+
+        def eligible():
+            # r.error: a row an earlier recovery of this step condemned
+            # (its done is set at the step's end)
+            return [r for r in (self._active + self._prefilling
+                                + self._preempted)
+                    if id(r) not in skip and r.seq_id is not None
+                    and not r.done.is_set() and r.error is None]
+
+        targets = {id(r): (self.cache.length(r.seq_id),
+                           (self.draft_cache.length(r.seq_id)
+                            if self._spec and r.use_draft else 0))
+                   for r in eligible()}
+        batched = self.replay_batch
+        while True:
+            restart = False
+            rows = eligible()
+            if batched and len(rows) > 1:
+                try:
+                    self._replay_kv_batch(rows, targets)
+                    break
+                except Exception:  # noqa: BLE001 — isolate a row at a time
+                    batched = False
+                    self._pools_rebuilt()   # reconcile a loss mid-batch
+                    continue
+            for r in rows:
+                try:
+                    self._replay_kv(r, *targets[id(r)])
+                except Exception as e:  # noqa: BLE001 — this row alone
+                    r.error = e
+                    skip.add(id(r))
+                    failed.append(r)
+                    if self._pools_rebuilt():
+                        restart = True
+                        break
+            if not restart:
+                break
+        return failed
+
+    def _after_step_failure(self, error=None, exclude=(),
+                            in_step: bool = False) -> List[_Request]:
+        """Run after any failed (or wedged) step or chunk, once it is
+        rolled back: a wedge zeroes the pools outright; then, if a pool
+        was lost (here or at the ``buffer_loss`` site), every survivor's
+        KV is replayed before the caller retries.  Requests whose own
+        replay failed are quarantined: with ``in_step`` the ones in the
+        active batch are returned (the caller drops them from its retry
+        and pops their unexecuted token), every other one is retired
+        here.  Costs one comparison when no pool was lost.  A recovery's
+        time (``recovery_s``) runs from here to the end of the replay."""
+        t0 = time.perf_counter()
+        if isinstance(error, _EngineWedged):
+            self.cache.reset_pools()
+            if self._spec:
+                self.draft_cache.reset_pools()
+        if not self._pools_rebuilt():
+            return []
+        self.rebuilds += 1
+        failed = self._replay_survivors(exclude=exclude)
+        self.recovery_s.append(time.perf_counter() - t0)
+        if not failed:
+            return []
+        caller_owned = ([r for r in failed if r in self._active]
+                        if in_step else [])
+        eject = [r for r in failed if r not in caller_owned]
+        if eject:
+            with self._cond:
+                for r in eject:
+                    for name in ("_active", "_prefilling", "_preempted"):
+                        lst = getattr(self, name)
+                        if r in lst:
+                            lst.remove(r)
+                    self.quarantined += 1
+                    self._retire_locked(r)
+                self._cond.notify_all()
+            for r in eject:
+                r.done.set()
+        return caller_owned
+
+    def _check_wedged(self, started_at: Optional[float] = None) -> None:
+        """Raise :class:`_EngineWedged` if the watchdog flagged the
+        dispatch that just returned.  ``started_at`` guards against a
+        stale fire: the watchdog reads the age and calls ``on_timeout``
+        as two actions, so a fire aimed at an earlier slow dispatch can
+        land after the next one started; a dispatch shorter than
+        ``step_timeout_s`` did not wedge."""
+        if not self._wedged.is_set():
+            return
+        self._wedged.clear()
+        if started_at is not None and self.step_timeout_s is not None \
+                and time.monotonic() - started_at \
+                <= float(self.step_timeout_s):
+            return
+        raise _EngineWedged("the step ran past the watchdog's heartbeat "
+                            "timeout; its results are suspect")
 
     def _reap_locked(self) -> List[_Request]:
         """Caller holds ``self._cond``.  Retire the requests that were
@@ -1627,6 +2253,12 @@ class ContinuousBatchingEngine:
                     reaped = self._reap_locked()
                     self._admit_locked()
                     plan = self._plan_chunks_locked()
+                    # the snapshot barrier: a waiting snapshot() takes its
+                    # cut before the next step starts (the wait releases
+                    # the lock; nothing it does changes the plan)
+                    while self._snap_waiters and not self._stop:
+                        self._cond.wait(0.1)
+                    self._stepping = bool(plan) or bool(self._active)
                 for r in reaped:
                     r.done.set()
                 if self._legacy_iteration():
@@ -1648,3 +2280,8 @@ class ContinuousBatchingEngine:
                 # a fault outside any step's isolation: every waiter
                 # gets the error; the thread keeps serving
                 self._fail_all(e)
+            finally:
+                if self._stepping:
+                    with self._cond:
+                        self._stepping = False
+                        self._cond.notify_all()

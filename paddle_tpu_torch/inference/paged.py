@@ -45,6 +45,7 @@ from ..ops.paged_attention import (PagedKVCache, PagesExhausted,
                                    paged_attention_ragged, quantize_kv)
 from ..quantization.serving import (SERVING_QUANT_MODES,
                                     quantize_linear_weights)
+from ..testing import faults as _faults
 from . import _threefry
 
 
@@ -55,6 +56,25 @@ def next_pow2(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _maybe_lose_buffers(cache: PagedKVCache, seq_ids) -> None:
+    """The ``buffer_loss`` device-fault site (JAX ``_maybe_lose_buffers``):
+    when a rule fires here, the cache's pools are zeroed in place
+    (``reset_pools``: ``generation`` bumps and the prefix index is
+    dropped) before the error propagates, which loses every sequence's KV
+    as a real device-side step fault would, so the engine must replay the
+    survivors.  The JAX decoder deletes its donated buffers and rebuilds
+    them; the port's pools are never donated, and zeroing them keeps
+    their addresses, so the CUDA graphs captured over them stay valid.
+    No plan installed: one ``is None`` check."""
+    if _faults.active() is None:
+        return
+    try:
+        _faults.maybe_fire("buffer_loss", seq_ids=list(seq_ids))
+    except BaseException:
+        cache.reset_pools()
+        raise
 
 
 _NUMPY = {torch.int64: np.int64, torch.float32: np.float32,
@@ -399,7 +419,10 @@ class PagedDecoder:
     its body — in planning, staging or the upload — has changed no page,
     and every step, wherever it fails, rolls its sequences' lengths back
     to where it found them; pages it allocated stay mapped, as in JAX,
-    and a retry rewrites their slots.
+    and a retry rewrites their slots.  The one exception is the injected
+    ``buffer_loss`` fault (``_maybe_lose_buffers``), fired once a step
+    just before its body: it zeroes every pool in place, and the engine
+    replays the survivors' KV.
 
     ``min_table_pages`` floors the page-table width of the ragged and
     prefix steps (``max(next_pow2(pages), min_table_pages)``, as in
@@ -482,14 +505,16 @@ class PagedDecoder:
             for _ in range(n):
                 body()
 
-    def _run(self, cache, key, fill, body, n: int = 1) -> dict:
-        """One step: ``fill(host views)`` plans it, the inputs go up in
-        one copy, ``body(dev inputs, dev outputs)`` runs (``n`` times in
-        a row for a multi-step run, with no host read between), the
-        outputs come back in one copy."""
+    def _run(self, cache, seq_ids, key, fill, body, n: int = 1) -> dict:
+        """One step of ``seq_ids``: ``fill(host views)`` plans it, the
+        inputs go up in one copy, the ``buffer_loss`` site fires, ``body(dev
+        inputs, dev outputs)`` runs (``n`` times in a row for a multi-step
+        run, with no host read between), the outputs come back in one
+        copy."""
         inp, out = self._stage(key)
         fill(inp.host)
         inp.upload()
+        _maybe_lose_buffers(cache, seq_ids)
         self._execute(cache, key, lambda: body(inp.dev, out.dev), n)
         return out.download()
 
@@ -677,8 +702,8 @@ class PagedDecoder:
                 self._fill_sampling(h, sampling, True)
 
         try:
-            return self._run(cache, ("prefill", kind, b, s_b), fill,
-                             self._prompt_body(cache, kind))["out"]
+            return self._run(cache, seq_ids, ("prefill", kind, b, s_b),
+                             fill, self._prompt_body(cache, kind))["out"]
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise
@@ -746,7 +771,8 @@ class PagedDecoder:
                 self._fill_sampling(h, sampling, True)
 
         try:
-            return self._run(cache, ("prefix", kind, b, s_b, width), fill,
+            return self._run(cache, seq_ids,
+                             ("prefix", kind, b, s_b, width), fill,
                              self._prompt_body(cache, kind))["out"]
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
@@ -822,7 +848,8 @@ class PagedDecoder:
                 self._fill_sampling(h, sampling, False)
 
         try:
-            got = self._run(cache, ("ragged", kind, b_b, s_b, width), fill,
+            got = self._run(cache, seq_ids,
+                            ("ragged", kind, b_b, s_b, width), fill,
                             self._ragged_body(cache, kind))
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
@@ -887,7 +914,8 @@ class PagedDecoder:
                 self._fill_sampling(h, sampling, True)
 
         try:
-            got = self._run(cache, ("prefix", kind, b_b, s_b, width), fill,
+            got = self._run(cache, seq_ids,
+                            ("prefix", kind, b_b, s_b, width), fill,
                             self._prompt_body(cache, kind))
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
@@ -961,7 +989,7 @@ class PagedDecoder:
                 self._fill_sampling(h, sampling, mode == "decode")
 
         try:
-            return self._run(cache, (mode, kind, b, s, width), fill,
+            return self._run(cache, seq_ids, (mode, kind, b, s, width), fill,
                              self._span_body(cache, mode, kind))
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
@@ -1007,7 +1035,8 @@ class PagedDecoder:
             _fill_tables(h, cache, seq_ids)
 
         try:
-            got = self._run(cache, ("multi", "greedy", b, next_pow2(n), width),
+            got = self._run(cache, seq_ids,
+                            ("multi", "greedy", b, next_pow2(n), width),
                             fill, self._multi_body(cache), n)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)

@@ -10,11 +10,12 @@ a plan installed, a matching rule either raises :class:`FaultError`
 (simulating a poisoned request / failed device step) or sleeps (pacing a
 step).
 
-The port fires four of the sites: ``prefill``, ``prefill_chunk`` and
-``decode_step`` (``inference.continuous``) and ``page_alloc``
-(``ops.paged_attention.PagedKVCache``).  The others are kept so that a
-plan written for the JAX package validates here; each waits for the
-port of the module that fires it (the HTTP server, crash recovery, the
+The port fires six of the sites: ``prefill``, ``prefill_chunk``,
+``decode_step`` and ``engine_wedge`` (``inference.continuous``),
+``buffer_loss`` (``inference.paged``, once every decoder step) and
+``page_alloc`` (``ops.paged_attention.PagedKVCache``).  The others are
+kept so that a plan written for the JAX package validates here; each
+waits for the port of the module that fires it (the HTTP server, the
 journal, the fleet router).
 
 Sites (the names the JAX runtime fires):
@@ -31,18 +32,23 @@ Sites (the names the JAX runtime fires):
                     keeps failing until the sequence is quarantined)
   ``page_alloc``    once per page taken from the pool free list
   ``http_handler``  once per POST /generate before engine submission
-  ``buffer_loss``   device-fault site: fired inside every
-                    compiled paged-decoder call; when it fires the
-                    decoder DELETES the donated page-pool buffers
-                    before the error propagates, so ``_recover_pools``
-                    rebuilds them zeroed exactly as a real device-side
-                    step failure would — the engine must then replay
-                    every survivor's KV
+  ``buffer_loss``   device-fault site: fired once in every paged
+                    decoder step, just before its body runs, with the
+                    step's ``seq_ids``; when it fires the cache's pools
+                    are ZEROED IN PLACE (``PagedKVCache.reset_pools``:
+                    the KV is lost, ``generation`` bumps, the prefix
+                    index is dropped) before the error propagates, as a
+                    real device-side step failure would lose them — the
+                    engine must then replay every survivor's KV.  The
+                    JAX decoder deletes its donated buffers instead and
+                    rebuilds them; the port's pools are never donated,
+                    and zeroing keeps their addresses, so captured CUDA
+                    graphs stay valid
   ``engine_wedge``  device-fault site: fired inside the
                     engine's decode-step window; a ``delay`` rule here
-                    emulates a wedged compiled call long enough for
-                    the watchdog heartbeat to fire and trigger the
-                    bounded rebuild + survivor-replay restart path
+                    emulates a wedged step long enough for the
+                    watchdog heartbeat to fire and trigger the bounded
+                    rebuild + survivor-replay restart path
   ``journal_write`` durability-fault site: fired on the
                     journal writer thread before each record frame is
                     written; an ``error`` rule TEARS the write — half

@@ -44,6 +44,8 @@ def test_scan_sees_the_whole_port():
                  "paddle_tpu_torch/inference/continuous.py",
                  "paddle_tpu_torch/inference/scheduler.py",
                  "paddle_tpu_torch/inference/speculative.py",
+                 "paddle_tpu_torch/distributed/__init__.py",
+                 "paddle_tpu_torch/distributed/watchdog.py",
                  "paddle_tpu_torch/testing/faults.py",
                  "paddle_tpu_torch/testing/__init__.py",
                  "paddle_tpu_torch/ops/moe_gating.py",

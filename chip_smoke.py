@@ -129,6 +129,12 @@ failure:
             engine: the streams on the card equal a fault-free run on the
             card, which equals the CPU's; exactly the sticky row fails;
             every engine drains with both pools whole.
+            small-overload: the small f32 model through the overload
+            controls: a batch row paused by the TPOT trigger (unified
+            and legacy) gives the stream of the CPU and of the card's
+            run without the budget; a scripted deadline shed and a
+            scripted brownout ladder (its rungs, its decisions at rung
+            2) decide on the card as on the CPU.
 4. serve   — llama_7b in bf16, weights drawn on the card from ``--seed``:
             8 requests through the continuous-batching engine, unchunked,
             with 256-token prefill chunks (through the unified ragged
@@ -209,6 +215,22 @@ failure:
             from ``restore`` to every row's next token, and (bf16,
             reported) each stream's agreement with the fault-free one
             and its first divergence, whose f32 top-2 gap comes later.
+   overload — the same model with the classes traffic, an engine a
+            sub-case: ``tpot`` (the interactive TPOT budget at 0.9x and
+            2x the classes pass's interactive TPOT p50, every ragged
+            bucket captured first: decode preemptions, rows parked, TPOT
+            p50 by class, decode tokens/s; 2x must pause nothing),
+            ``shed`` (the batch deadline at 2x the decode p50 the
+            controller reads, 4 interactive then 24 batch arrivals: sheds
+            batch only, Retry-After within [1, 30], every admitted
+            request complete), ``brownout`` (thresholds 0.25, 0.5, 0.75,
+            0.95 over ``max_queue=16``, 32 arrivals 10 ms apart: rungs,
+            transitions, sheds never interactive, seconds back to rung
+            0) and
+            ``trace`` (the wave with capture off and on: TPOT p50 of
+            both, a chrome trace both schema checks pass, dropped
+            events, the bytes of ``prometheus_text()``); the measured
+            waves of tpot and trace capture no graph.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, w8 with int8 KV at 512, and bf16 at 512 with the
             table pinned at 256 pages, each through the eager and the
@@ -275,8 +297,8 @@ the timed ``PagedGenerator`` call), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``moe``, ``flashmask``, ``classes``, ``speculative`` and
-``recovery`` hold each pass's
+``train``, ``moe``, ``flashmask``, ``classes``, ``speculative``,
+``recovery`` and ``overload`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -2199,6 +2221,29 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
     return reqs, wall, info
 
 
+def classes_wave(eng, batch, interactive, fifo=False):
+    """One wave of the classes traffic on ``eng``: the batch requests
+    queued together under the engine's lock, then, once the first has a
+    chunk in, the interactive ones together, from tenants a, b, a, b (in
+    the default class with ``fifo``); waits for every request and the
+    card.  Returns (batch, interactive) requests."""
+    with eng._cond:
+        breqs = [eng.submit(p, max_new_tokens=CLASSES_NEW,
+                            priority=None if fifo else "batch")
+                 for p in batch]
+    while not breqs[0].prefill_pos and not breqs[0].done.is_set():
+        time.sleep(0.001)
+    with eng._cond:
+        ireqs = [eng.submit(p, max_new_tokens=CLASSES_NEW,
+                            priority=None if fifo else "interactive",
+                            tenant=t)
+                 for p, t in zip(interactive, CLASSES_TENANTS)]
+    for r in breqs + ireqs:
+        r.result(timeout=600)
+    torch.cuda.synchronize()
+    return breqs, ireqs
+
+
 def serve_classes(model, waves, fifo, device, kernels):
     """One engine (llama_7b's serve settings: 1024 pages of 16, 8 slots,
     256-token chunks, the table pinned at ``SERVE_TABLE_PAGES``, the
@@ -2225,21 +2270,7 @@ def serve_classes(model, waves, fifo, device, kernels):
     from paddle_tpu_torch.inference.paged import next_pow2
 
     def wave(eng, batch, interactive):
-        with eng._cond:
-            breqs = [eng.submit(p, max_new_tokens=CLASSES_NEW,
-                                priority=None if fifo else "batch")
-                     for p in batch]
-        while not breqs[0].prefill_pos and not breqs[0].done.is_set():
-            time.sleep(0.001)
-        with eng._cond:
-            ireqs = [eng.submit(p, max_new_tokens=CLASSES_NEW,
-                                priority=None if fifo else "interactive",
-                                tenant=t)
-                     for p, t in zip(interactive, CLASSES_TENANTS)]
-        for r in breqs + ireqs:
-            r.result(timeout=600)
-        torch.cuda.synchronize()
-        return breqs, ireqs
+        return classes_wave(eng, batch, interactive, fifo)
 
     def delta(after, before):
         return {c: {k: n - before[c][k] for k, n in cs.items()}
@@ -2959,6 +2990,291 @@ def recovery_phase(model, prompts, sharer, warmup, kernels, plain, card):
     gc.collect()
     torch.cuda.empty_cache()
     return rec, divergences
+
+
+def warm_ragged_buckets(eng, rows=(1, 2, 4, 8), spans=(1, 128, 256)):
+    """Capture the ragged step's greedy graphs at every (rows, span)
+    bucket a classes wave can reach once pauses change its batch: rows
+    sit on scratch sequences at context 0, freed after."""
+    for b in rows:
+        for span in spans:
+            seqs = [f"__warm{i}" for i in range(b)]
+            eng._decoder.ragged_step(
+                eng.cache, seqs, [np.zeros(span, np.int32)] * b, [0] * b,
+                sampling=(np.zeros(b, np.uint32), np.ones(b, np.float32),
+                          np.zeros(b, bool)))
+            for sid in seqs:
+                eng.cache.free(sid)
+    torch.cuda.synchronize()
+
+
+def overload_phase(model, seed, classes_tpot_p50, kernels, card):
+    """The overload controls on llama_7b bf16 with the classes traffic
+    (``classes_wave``: 8 batch requests of 1024 tokens, then 4
+    interactive of 128, 32 new tokens, 256-token chunks, 8 slots, the
+    table pinned at ``SERVE_TABLE_PAGES``), each sub-case on an engine of
+    its own:
+
+    - ``tpot``: the interactive class's ``tpot_budget_s`` at 0.9x, then
+      2x, the interactive TPOT p50 of this run's ``classes`` pass, the
+      batch class preemptible, every ragged bucket a pause can reach
+      captured first: decode preemptions, the most rows parked at once
+      and the rows parked when the last interactive request finished,
+      TPOT p50 by class and decode tokens/s beside the ``classes``
+      pass's, decode preemptions (the trigger's and the slot
+      preemptions of decoding rows); the 2x budget must pause nothing;
+    - ``shed``: the batch class's ``deadline_s`` at 2x the decode-step
+      p50 the controller reads (the process's ``decode_step_seconds``),
+      a burst of 4 interactive then 24 batch arrivals: sheds by class
+      (batch only), each Retry-After within [1, 30],
+      ``retry_after_hint`` by class, every admitted request complete;
+    - ``brownout``: thresholds (0.25, 0.5, 0.75, 0.95) over
+      ``max_queue=16``, the buckets captured first, 32 arrivals 10 ms
+      apart (batch, standard, interactive, batch, ...) of 128 tokens:
+      the rungs passed through, the transitions, sheds by class (never
+      interactive), the seconds from the last completion to rung 0;
+    - ``trace``: the classes wave with capture off, then on
+      (``monitor.start_capture``): TPOT p50 of both, the chrome trace's
+      events (both schema checks return nothing), the delta of
+      ``trace_dropped_events_total``, the bytes of ``prometheus_text()``.
+
+    The launch counters are zeroed before each measured wave of tpot and
+    trace and read after it; their captures must be 0 and the paged,
+    RMSNorm and RoPE kernels must launch.  Returns the record and the
+    launches of the trace-off wave."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import continuous as cont
+    from paddle_tpu_torch.inference.scheduler import PriorityClass
+    rng = np.random.default_rng(seed + 3)
+    vocab = model.config.vocab_size
+    device = model.model.embed_tokens.weight.device
+    reg = monitor.get_registry()
+
+    def series(name, **labels):
+        m = reg.get(name)
+        return 0.0 if m is None else m.value(**labels)
+
+    def prompt(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    def draw():
+        return ([prompt(CLASSES_BATCH_PROMPT) for _ in range(CLASSES_BATCH)],
+                [prompt(CLASSES_PROMPT) for _ in CLASSES_TENANTS])
+
+    def classes(tpot=None, deadline=None):
+        return (PriorityClass("interactive", rank=0, weight=8,
+                              tpot_budget_s=tpot),
+                PriorityClass("standard", rank=1, weight=4),
+                PriorityClass("batch", rank=2, weight=1, preemptible=True,
+                              deadline_s=deadline))
+
+    def engine(**kw):
+        return cont.ContinuousBatchingEngine(
+            model, total_pages=1024, page_size=16, max_batch=8,
+            prefill_chunk_tokens=256, min_table_pages=SERVE_TABLE_PAGES,
+            device=device, **kw)
+
+    def complete(reqs, label):
+        for r in reqs:
+            r.result(timeout=600)       # raises the request's error
+            if not all(0 <= t < vocab for t in r.generated):
+                raise AssertionError(f"overload {label}: a token out of "
+                                     "the vocabulary")
+
+    def measured_wave(eng, wave, label):
+        """One classes wave, launch counters zeroed just before it; the
+        rows the TPOT trigger pauses are counted (slot preemptions of
+        decoding rows count in ``decode_preemptions_total`` too), and the
+        parked rows sampled at every ragged step."""
+        ragged, parked = eng._decoder.ragged_step, []
+        trigger, parks = eng._tpot_preempt_locked, [0]
+
+        def sampled(*a, **kw):
+            parked.append((time.perf_counter(),
+                           sum(r._tpot_parked for r in eng._preempted),
+                           eng._step_ewma or 0.0))
+            return ragged(*a, **kw)
+
+        def counted():
+            n = len(eng._preempted)
+            trigger()
+            parks[0] += len(eng._preempted) - n
+
+        eng._decoder.ragged_step = sampled
+        eng._tpot_preempt_locked = counted
+        captured, pre0 = eng.captures, series("decode_preemptions_total")
+        _zero(kernels)
+        t0 = time.perf_counter()
+        breqs, ireqs = classes_wave(eng, *wave)
+        wall = time.perf_counter() - t0
+        eng._decoder.ragged_step = ragged
+        eng._tpot_preempt_locked = trigger
+        complete(breqs + ireqs, label)
+        launches = _counts(kernels)
+        last_i = max(r.finished_at for r in ireqs)
+        by_class = {"batch": serve_stats(breqs, wall),
+                    "interactive": serve_stats(ireqs, wall)}
+        rec = dict(
+            tpot_p50_s={c: st["tpot_p50_s"] for c, st in by_class.items()},
+            ttft_p50_s={"interactive":
+                        by_class["interactive"]["ttft_p50_s"]},
+            decode_tok_s=serve_stats(breqs + ireqs, wall)["decode_tok_s"],
+            wall_s=wall, captures=eng.captures - captured,
+            decode_preemptions=series("decode_preemptions_total") - pre0,
+            tpot_parks=parks[0],
+            parked_max=max(n for _, n, _ in parked),
+            parked_at_last_interactive=[n for t, n, _ in parked
+                                        if t <= last_i][-1],
+            step_ewma_max_s=max(e for _, _, e in parked),
+            decode_p50_read_s=cont._decode_p50_seconds())
+        missing = [n for n in ("paged_attention", "rms_norm", "apply_rope")
+                   if not launches[n]]
+        if rec["captures"] or missing:
+            raise AssertionError(f"overload {label}: captures "
+                                 f"{rec['captures']} in the measured wave, "
+                                 f"kernels never launched {missing}")
+        return rec, launches
+
+    out, launches = {"classes_tpot_p50_s": classes_tpot_p50}, {}
+    # tpot: the trigger against 0.9x and 2x the classes pass's TPOT
+    for factor in (0.9, 2.0):
+        label = f"tpot_{factor}x"
+        budget = factor * classes_tpot_p50
+        with engine(scheduler_classes=classes(tpot=budget)) as eng:
+            warm_ragged_buckets(eng)
+            rec, _ = measured_wave(eng, draw(), label)
+            rec.update(budget_s=budget,
+                       counts=eng.scheduler_info()["counts"])
+        out[label] = rec
+        log(f"overload {label}: " + json.dumps(rec))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["tpot_2.0x"]["tpot_parks"]:
+        raise AssertionError("overload tpot: a budget of 2x the classes "
+                             "TPOT p50 paused rows: "
+                             f"{out['tpot_2.0x']['tpot_parks']}")
+
+    # shed: the batch deadline at 2x the decode p50 the controller reads
+    p50 = cont._decode_p50_seconds()
+    deadline = 2 * p50
+    with engine(scheduler_classes=classes(deadline=deadline)) as eng:
+        captured = eng.captures
+        sheds = {"interactive": [], "standard": [], "batch": []}
+        admitted = []
+        t0 = time.perf_counter()
+        for cls, n in (("interactive", 4), ("batch", 24)):
+            for _ in range(n):
+                try:
+                    admitted.append(eng.submit(
+                        prompt(CLASSES_PROMPT if cls == "interactive"
+                               else CLASSES_BATCH_PROMPT),
+                        max_new_tokens=CLASSES_NEW, priority=cls))
+                except cont.EngineSaturated as e:
+                    sheds[e.priority_class].append(e.retry_after_s)
+        burst_s = time.perf_counter() - t0
+        hints = {c: eng.retry_after_hint(c) for c in sheds}
+        complete(admitted, "shed")
+        rec = dict(decode_p50_read_s=p50, deadline_s=deadline,
+                   burst_s=burst_s, admitted=len(admitted),
+                   sheds={c: len(v) for c, v in sheds.items()},
+                   retry_after_s=sorted(set(sheds["batch"])),
+                   retry_after_hint=hints,
+                   counts=eng.scheduler_info()["counts"],
+                   captures=eng.captures - captured)
+    out["shed"] = rec
+    log("overload shed: " + json.dumps(rec))
+    if not sheds["batch"] or sheds["interactive"] or sheds["standard"] \
+            or not all(1 <= s <= 30 for s in sheds["batch"]) \
+            or not all(1 <= h <= 30 for h in hints.values()):
+        raise AssertionError(f"overload shed: {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # brownout: a 32-request burst against the ladder, which climbs a
+    # rung an iteration: the burst's buckets are captured first, so no
+    # iteration of it waits on a capture
+    with engine(brownout_thresholds=(0.25, 0.5, 0.75, 0.95),
+                max_queue=16) as eng:
+        warm_ragged_buckets(eng, spans=(1, CLASSES_PROMPT))
+        rungs = []
+        set_rung = eng._set_brownout_locked
+
+        def record(level, pressure):
+            if level != eng._brownout:
+                rungs.append(dict(t_s=time.perf_counter() - t0,
+                                  rung=level, pressure=pressure))
+            set_rung(level, pressure)
+
+        eng._set_brownout_locked = record
+        order = ("batch", "standard", "interactive", "batch")
+        sheds = {c: 0 for c in order}
+        full, admitted = 0, []
+        t0 = time.perf_counter()
+        for i in range(32):
+            try:
+                admitted.append(eng.submit(prompt(CLASSES_PROMPT),
+                                           max_new_tokens=CLASSES_NEW,
+                                           priority=order[i % 4]))
+            except cont.EngineSaturated as e:
+                if e.retry_after_s is None:
+                    full += 1          # the class's queue is full
+                else:
+                    sheds[e.priority_class] += 1
+            time.sleep(0.01)
+        complete(admitted, "brownout")
+        done = max(r.finished_at for r in admitted)
+        end = time.monotonic() + 10
+        while eng.scheduler_info()["brownout_level"] and \
+                time.monotonic() < end:
+            time.sleep(0.001)
+        back = time.perf_counter() - done
+        rec = dict(rungs_reached=sorted({r["rung"] for r in rungs}),
+                   transitions=rungs, sheds=sheds, queue_full=full,
+                   admitted=len(admitted),
+                   back_to_rung_0_s=back,
+                   level_after=eng.scheduler_info()["brownout_level"])
+    out["brownout"] = rec
+    log("overload brownout: " + json.dumps(rec))
+    if not rungs or sheds["interactive"] or rec["level_after"] != 0:
+        raise AssertionError(f"overload brownout: {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # trace: the same wave with capture off, then on
+    with engine(scheduler_classes=classes()) as eng:
+        warm_ragged_buckets(eng)
+        off, launches["overload"] = measured_wave(eng, draw(), "trace off")
+        dropped = series("trace_dropped_events_total")
+        monitor.start_capture()
+        try:
+            on, _ = measured_wave(eng, draw(), "trace on")
+        finally:
+            monitor.stop_capture()
+        payload = monitor.export_chrome_trace()
+        problems = monitor.validate_chrome_trace(payload)
+        rec = dict(tpot_p50_off_s=off["tpot_p50_s"],
+                   tpot_p50_on_s=on["tpot_p50_s"],
+                   decode_tok_s_off=off["decode_tok_s"],
+                   decode_tok_s_on=on["decode_tok_s"],
+                   trace_events=len(payload["traceEvents"]),
+                   trace_bytes=len(json.dumps(payload)),
+                   requests_traced=len(monitor.get_tracer().request_ids()),
+                   dropped_events=series("trace_dropped_events_total")
+                   - dropped,
+                   validate_chrome_trace=problems,
+                   prometheus_text_bytes=len(monitor.prometheus_text()),
+                   captures=off["captures"] + on["captures"])
+    out["trace"] = rec
+    log("overload trace: " + json.dumps(rec))
+    if problems or rec["requests_traced"] != CLASSES_BATCH \
+            + len(CLASSES_TENANTS):
+        raise AssertionError(f"overload trace: {rec}")
+    for label in ("tpot_0.9x", "tpot_2.0x"):
+        out[label]["card"] = card
+    out["card"] = card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def top2_gaps(model, divergences):
@@ -4038,6 +4354,179 @@ def check_small_recovery():
         f"entries ({sum(len(e['generated']) for e in snap['requests'])} "
         "generated tokens) restored on a fresh engine, streams equal the "
         "fault-free ones")
+
+
+def check_small_overload():
+    """The small f32 model of ``check_small`` through the overload
+    controls, on the card and on the CPU from the same weights:
+
+    - the TPOT trigger: a ``batch`` request decoding in an engine of two
+      slots, then an ``interactive`` one (TPOT budget 1e-4 s, far under
+      the paced 0.02 s step) takes the free slot, so only the trigger can
+      pause the batch row; its stream equals the CPU's and the card's
+      run without the budget (no pause), unified and legacy, and
+      ``decode_preemptions_total`` moves on both sides and not without
+      the budget;
+    - a scripted shed: a batch class with a 1e-9 s deadline, one slot
+      held, then arrivals of batch, batch, standard, interactive, batch:
+      admitted, shed, admitted, admitted, shed (Retry-After within
+      [1, 30]), on the card as on the CPU;
+    - a scripted ladder: thresholds (0.25, 0.5, 0.75, 0.95) over
+      ``max_queue=8``, a burst of 5 interactive requests into one slot,
+      at rung 2 arrivals of batch, standard and interactive: the rungs
+      the ladder passes through and the decisions equal the CPU's, and
+      the engine ends at rung 0.
+
+    The paged, RMSNorm and RoPE kernels must have launched on the card
+    over the check."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine, EngineSaturated)
+    from paddle_tpu_torch.inference.scheduler import PriorityClass
+    from paddle_tpu_torch.testing import faults
+    cpu, gpu = _small_models()
+    rng = np.random.default_rng(12)
+    long_p = rng.integers(0, 512, 130).astype(np.int32)
+    short_p = rng.integers(0, 512, 9).astype(np.int32)
+    kernels = counters()
+    _zero(kernels)
+    preemptions = monitor.get_registry().get("decode_preemptions_total")
+
+    def classes(tpot=None, deadline=None):
+        return (PriorityClass("interactive", rank=0, weight=8,
+                              tpot_budget_s=tpot),
+                PriorityClass("standard", rank=1, weight=4),
+                PriorityClass("batch", rank=2, weight=1, preemptible=True,
+                              deadline_s=deadline))
+
+    def engine(model, dev, **kw):
+        return ContinuousBatchingEngine(model, total_pages=64, page_size=16,
+                                        device=dev, **kw)
+
+    def pace(delay):
+        return faults.installed(faults.FaultPlan(
+            [{"site": "decode_step", "kind": "delay", "delay_s": delay}]))
+
+    def wait_for(cond, what, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > end:
+                raise AssertionError(f"small overload: timed out waiting "
+                                     f"for {what}")
+            time.sleep(0.001)
+
+    def tpot_run(model, dev, unified, budget):
+        before = preemptions.value()
+        with pace(0.02), engine(model, dev, max_batch=2,
+                                scheduler_classes=classes(tpot=budget),
+                                default_class="standard",
+                                tpot_preempt_cooldown_s=0.0,
+                                unified_step=unified) as eng:
+            rb = eng.submit(long_p, max_new_tokens=24, priority="batch")
+            wait_for(lambda: len(rb.generated) >= 2, "the batch row")
+            ri = eng.submit(short_p, max_new_tokens=8,
+                            priority="interactive")
+            ri.result(timeout=120)
+            return rb.result(timeout=120).tolist(), \
+                preemptions.value() - before
+
+    for unified in (True, False):
+        label = "unified" if unified else "legacy"
+        card, n_card = tpot_run(gpu, "cuda", unified, 1e-4)
+        host, n_host = tpot_run(cpu, "cpu", unified, 1e-4)
+        alone, n_alone = tpot_run(gpu, "cuda", unified, None)
+        if not card == host == alone or not n_card or not n_host \
+                or n_alone:
+            raise AssertionError(
+                f"small overload tpot {label}: card {card}, CPU {host}, "
+                f"card without the budget {alone}; decode preemptions "
+                f"{n_card} / {n_host} / {n_alone}")
+        log(f"  small f32 model overload tpot {label}: the parked batch "
+            f"row's stream equal card vs CPU vs card unparked; decode "
+            f"preemptions card {n_card:.0f}, CPU {n_host:.0f}, unparked 0")
+
+    def submit_all(eng, order, prompt, new):
+        decisions, reqs = [], []
+        for cls in order:
+            try:
+                reqs.append(eng.submit(prompt, max_new_tokens=new,
+                                       priority=cls))
+                decisions.append((cls, "admitted"))
+            except EngineSaturated as e:
+                if e.priority_class != cls \
+                        or not 1 <= e.retry_after_s <= 30:
+                    raise AssertionError(f"small overload: shed {cls} "
+                                         f"as {e.priority_class}, "
+                                         f"Retry-After {e.retry_after_s}")
+                decisions.append((cls, "shed"))
+        return decisions, reqs
+
+    def shed_script(model, dev):
+        with pace(0.02), engine(model, dev, max_batch=1,
+                                scheduler_classes=classes(deadline=1e-9),
+                                default_class="standard") as eng:
+            eng.submit(short_p, max_new_tokens=3).result(timeout=120)
+            r1 = eng.submit(long_p, max_new_tokens=12, priority="batch")
+            wait_for(lambda: len(r1.generated) >= 1, "the slot held")
+            decisions, reqs = submit_all(
+                eng, ("batch", "batch", "standard", "interactive", "batch"),
+                short_p, 2)
+            for r in reqs + [r1]:
+                r.result(timeout=120)
+            return decisions
+
+    card, host = shed_script(gpu, "cuda"), shed_script(cpu, "cpu")
+    want = [("batch", "admitted"), ("batch", "shed"),
+            ("standard", "admitted"), ("interactive", "admitted"),
+            ("batch", "shed")]
+    if not card == host == want:
+        raise AssertionError(f"small overload shed: card {card}, CPU "
+                             f"{host}, want {want}")
+    log(f"  small f32 model overload shed: decisions card = CPU = {want}")
+
+    def ladder_script(model, dev):
+        with pace(0.03), engine(model, dev, max_batch=1, max_queue=8,
+                                brownout_thresholds=(0.25, 0.5, 0.75, 0.95),
+                                brownout_patience=2) as eng:
+            rungs = []
+            set_rung = eng._set_brownout_locked
+
+            def record(level, pressure):
+                if level != eng._brownout:
+                    rungs.append(level)
+                set_rung(level, pressure)
+
+            eng._set_brownout_locked = record
+            with eng._cond:
+                reqs = [eng.submit(short_p, max_new_tokens=4,
+                                   priority="interactive")
+                        for _ in range(5)]
+            wait_for(lambda: eng.scheduler_info()["brownout_level"] == 2,
+                     "rung 2")
+            decisions, more = submit_all(
+                eng, ("batch", "standard", "interactive"), short_p, 4)
+            for r in reqs + more:
+                r.result(timeout=120)
+            wait_for(lambda: eng.scheduler_info()["brownout_level"] == 0,
+                     "rung 0")
+            return rungs, decisions
+
+    card, host = ladder_script(gpu, "cuda"), ladder_script(cpu, "cpu")
+    if card != host or max(card[0]) != 2 or card[0][-1] != 0 \
+            or card[1] != [("batch", "shed"), ("standard", "shed"),
+                           ("interactive", "admitted")]:
+        raise AssertionError(f"small overload ladder: card {card}, CPU "
+                             f"{host}")
+    log(f"  small f32 model overload ladder: rungs {card[0]}, decisions at "
+        f"rung 2 {card[1]}, card = CPU")
+    if faults.active() is not None:
+        raise AssertionError("a fault plan outlived its check")
+    got = {n: kernels[n].launches for n in ("paged_attention", "rms_norm",
+                                            "apply_rope")}
+    if not all(got.values()):
+        raise AssertionError(f"small overload: kernels not launched on "
+                             f"the card: {got}")
+    log(f"  small f32 model overload: launches on the card {got}")
 
 
 def _counts(kernels):
@@ -5258,6 +5747,8 @@ def main():
     lap("check_small_speculative")
     check_small_recovery()
     lap("check_small_recovery")
+    check_small_overload()
+    lap("check_small_overload")
     check_small_train()
     lap("check_small_train")
     check_small_moe()
@@ -5425,6 +5916,12 @@ def main():
         (passes["unchunked"], unchunked_reqs), smi[0])
     del unchunked_reqs
     lap("recovery")
+    # the overload controls over the classes traffic
+    overload_rec, overload_launches = overload_phase(
+        model, args.seed, classes_rec["classes"]["tpot_p50_s"]["interactive"],
+        kernels, smi[0])
+    launches.update(overload_launches)
+    lap("overload")
 
     # 5. where a decode step's time goes (after the serve passes, so no
     # launch of it is counted there; before the f32 check below, which
@@ -5614,6 +6111,7 @@ def main():
                           "captures_warmup", "captures", "replays",
                           "dispatches", "ragged_ms_by_bucket")}
                           for p, r in classes_rec.items()},
+                      "overload": overload_rec,
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

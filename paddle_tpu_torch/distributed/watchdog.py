@@ -14,9 +14,13 @@ replays the survivors when the step returns.
 
 The class keeps the JAX package's name and method names, so the
 comm-task half (``begin``, ``end``, ``comm_guard`` over eager
-collectives) can join it with the port of ``distributed/``.  The JAX
-counter ``comm_timeouts_total`` is the attribute ``timeouts`` here; the
-abort flag is not ported: a timeout warns and never ends the process.
+collectives) can join it with the port of ``distributed/``.  Each scan
+feeds the JAX package's four ``comm_*`` series in the monitor registry
+(no comm task is registered yet, so ``comm_tasks_in_flight`` and
+``comm_oldest_task_age_seconds`` read 0); the attribute ``timeouts``
+counts this manager's excursions beside the process-wide
+``comm_timeouts_total``.  The abort flag is not ported: a timeout warns
+and never ends the process.
 """
 from __future__ import annotations
 
@@ -24,6 +28,21 @@ import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional
+
+from .. import monitor
+
+# the watchdog's series: a scraper can tell a dead watchdog from a quiet
+# one (the heartbeat timestamp), see the tasks in flight and the oldest
+# one's age, and count the timeouts fired over the process's life
+_tasks_in_flight = monitor.gauge(
+    "comm_tasks_in_flight", "host collectives currently registered")
+_oldest_task_age = monitor.gauge(
+    "comm_oldest_task_age_seconds", "age of the oldest in-flight task")
+_heartbeat_ts = monitor.gauge(
+    "comm_watchdog_heartbeat_timestamp_seconds",
+    "unix time of the watchdog's last scan")
+_timeouts_total = monitor.counter(
+    "comm_timeouts_total", "collectives flagged as timed out")
 
 __all__ = ["CommTaskManager"]
 
@@ -112,6 +131,8 @@ class CommTaskManager:
         scan."""
         with self._lock:
             beats = list(self._heartbeats.items())
+        _tasks_in_flight.set(0)
+        _oldest_task_age.set(0.0)
         fired = []
         for hid, (name, age_fn, timeout, on_timeout) in beats:
             try:
@@ -134,12 +155,14 @@ class CommTaskManager:
             else:
                 with self._lock:
                     self._hb_flagged.discard(hid)
+        _heartbeat_ts.set(time.time())
         for name, timeout, age in fired:
             self._on_timeout(name, timeout, age)
 
     def _on_timeout(self, name: str, timeout: float, age: float) -> None:
         with self._lock:
             self.timeouts += 1
+        _timeouts_total.inc()
         warnings.warn(
             f"[comm-watchdog] '{name}' on thread "
             f"{threading.current_thread().name} exceeded {timeout:.3f}s "

@@ -36,10 +36,43 @@ waiters get :class:`DeadlineExceeded` or :class:`RequestCancelled`.
 reservation (an aging boost at half of it, reaped past it).  A full
 class queue raises :class:`EngineSaturated`; ``drain`` stops admissions
 (:class:`EngineDraining`), lets every submitted request finish (or fails
-the queued ones with ``reject_queued``) and stops the thread.  The JAX
-engine's overload controls (arrival shedding on a class's
-``deadline_s``, the TPOT trigger on ``tpot_budget_s``, the brownout
-ladder) are not ported: a class that sets either budget is refused.
+the queued ones with ``reject_queued``) and stops the thread.  A
+finished request's outcome stays in a bounded result cache
+(``result_for(request_id)``, ``result_cache_size`` entries).
+
+Overload controls, as in the JAX engine:
+
+  * SLO-aware admission: an arrival of a class with ``deadline_s`` sheds
+    on arrival (:class:`EngineSaturated` with ``retry_after_s``) when the
+    projected queue wait, the class's depth x the p50 of the
+    process-wide ``decode_step_seconds`` histogram, already exceeds the
+    budget; ``retry_after_hint(priority)`` gives a client the same
+    truthful wait;
+  * the brownout ladder (``brownout_thresholds``, four ascending
+    queue-pressure ratios; off by default): pressure is the larger of
+    the queue's fill and the most urgent budgeted class's attainment
+    deficit; rung L sheds the L least urgent rank bands on arrival (rung
+    3 and up everything but the top band, with its deadline halved);
+    rungs climb at once and come down after ``brownout_patience`` calm
+    iterations, and an idle engine drops to rung 0.  Rung 4 flips the
+    JAX engine's journal to ``fsync="os"``; the port has no journal, so
+    rung 4 sheds as rung 3 does;
+  * the TPOT trigger: at full occupancy, when the loop's measured
+    iteration time (an EWMA over iterations with active rows) exceeds an
+    active row's ``tpot_budget_s``, the least urgent preemptible
+    decoding row is paused (at most once a ``tpot_preempt_cooldown_s``)
+    and stays parked while the breach lasts.
+
+Telemetry, as in the JAX engine: the engine feeds the JAX package's
+process-wide series (``paddle_tpu_torch.monitor``: queue depth, batch
+occupancy, decode-step and prefill seconds, TTFT, generated tokens, the
+prefix cache, failure isolation, speculation, recovery, quantized
+serving, ``engine_dispatches_total{mode}``, decode preemptions and the
+brownout ladder) under their names, beside the plain counters it keeps
+an engine (``dispatches``, ``quarantined``, ...); inside a
+``monitor.start_capture()`` window every request's lifecycle and every
+step land on the tracer, and outside one each probe is an attribute
+read.
 
 Speculative decoding, as in the JAX engine: with ``draft_model`` the
 draft proposes ``spec_tokens`` greedy tokens a greedy active row in ONE
@@ -112,18 +145,21 @@ through ``snapshot``/``restore`` in a new process.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 import uuid
 import warnings
-from collections import deque, namedtuple
+from collections import OrderedDict, deque, namedtuple
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .. import monitor
 from .._device import resolve_device
 from ..distributed.watchdog import CommTaskManager
+from ..monitor.trace import get_tracer as _get_tracer
 from ..ops.paged_attention import PagedKVCache
 from ..testing import faults as _faults
 from .paged import GraphedPagedDecoder, PagedDecoder, next_pow2, sample_token
@@ -163,10 +199,13 @@ def _null_sampling(n: int = 1):
 
 
 class EngineSaturated(RuntimeError):
-    """The bounded admission queue of the request's class is full;
-    retryable later.  ``priority_class`` names the class."""
+    """The bounded admission queue of the request's class is full, or the
+    overload controls shed the arrival; retryable later.
+    ``priority_class`` names the class; ``retry_after_s`` is the shed's
+    truthful wait in seconds (None for a full queue)."""
 
     priority_class: Optional[str] = None
+    retry_after_s: Optional[int] = None
 
 
 class EngineDraining(RuntimeError):
@@ -189,6 +228,188 @@ class _EngineWedged(RuntimeError):
     engine rolls it back, zeroes the pools, replays the survivors and
     retries, and the retry and bisection ladder bounds a wedge that
     persists."""
+
+
+# engine telemetry: the JAX engine's series, names and help texts
+_queue_depth = monitor.gauge(
+    "inference_queue_depth", "sequences waiting for admission")
+_active_seqs = monitor.gauge(
+    "inference_active_sequences", "sequences in the running decode batch")
+_batch_occupancy = monitor.histogram(
+    "inference_batch_occupancy", "active/max_batch fraction per decode "
+    "step", buckets=tuple(i / 8 for i in range(1, 9)))
+_decode_step_s = monitor.histogram(
+    "decode_step_seconds", "one continuous-batching decode step")
+_prefill_s = monitor.histogram(
+    "prefill_seconds", "one sequence's prefill")
+_tokens_total = monitor.counter(
+    "generated_tokens_total", "tokens produced by the decode loop")
+_ttft_s = monitor.histogram(
+    "time_to_first_token_seconds", "submit -> first sampled token")
+_gen_latency_s = monitor.histogram(
+    "generate_latency_seconds", "submit -> sequence retirement")
+# prefix-cache effectiveness and the on-device-sampling flag
+_prefix_lookups = monitor.counter(
+    "prefix_cache_lookups_total", "admissions that consulted the prefix "
+    "cache")
+_prefix_hits = monitor.counter(
+    "prefix_cache_hits_total", "admissions whose prompt shared a cached "
+    "page-aligned prefix")
+_prefix_hit_tokens = monitor.counter(
+    "prefix_cache_hit_tokens_total", "prompt tokens served from cached "
+    "prefix pages instead of being re-prefilled")
+_sampling_on_device_g = monitor.gauge(
+    "sampling_on_device", "1 when the engine samples inside the compiled "
+    "step (host transfer is (batch,) ids), 0 on the host-logits path")
+# failure isolation, the lifecycle and the serving heartbeat
+_decode_retries = monitor.counter(
+    "decode_retries_total", "decode-step re-executions after a failure "
+    "(one whole-batch retry, then one per bisection probe)")
+_quarantined = monitor.counter(
+    "quarantined_requests_total", "requests ejected by failure "
+    "isolation: failed prefill, or poisoned sequence identified by "
+    "decode-step bisection")
+_expired_total = monitor.counter(
+    "requests_expired_total", "requests retired by deadline expiry "
+    "(queue-wait or total TTL)")
+_cancelled_total = monitor.counter(
+    "requests_cancelled_total", "requests retired by cooperative "
+    "cancel()")
+_saturated_total = monitor.counter(
+    "engine_saturated_total", "submissions rejected because the bounded "
+    "admission queue was full")
+_last_step_ts = monitor.gauge(
+    "engine_last_step_timestamp_seconds", "unix time the engine last "
+    "completed a prefill or decode step — the serving heartbeat")
+_draining_g = monitor.gauge(
+    "engine_draining", "1 while the engine is draining for graceful "
+    "shutdown, else 0")
+_drain_rejected = monitor.counter(
+    "drain_rejected_requests_total", "queued-but-unadmitted requests "
+    "failed fast by drain(reject_queued=True)")
+# speculative decoding: acceptance economics and the draft pool
+_spec_proposed = monitor.counter(
+    "spec_proposed_tokens_total", "draft tokens proposed to the "
+    "compiled verify step")
+_spec_accepted = monitor.counter(
+    "spec_accepted_tokens_total", "proposed draft tokens the target "
+    "verified and accepted")
+_spec_accept_len = monitor.histogram(
+    "spec_accept_len", "accepted draft tokens per sequence per verify "
+    "step", buckets=tuple(float(i) for i in range(9)) + (12.0, 16.0,
+                                                        24.0, 32.0))
+_spec_rollback = monitor.counter(
+    "spec_rollback_total", "per-sequence verify outcomes that rejected "
+    "a draft suffix (partial multi-token rollback on both caches)")
+_spec_draft_pages = monitor.gauge(
+    "spec_draft_pages", "pages pinned in the draft model's KV pool — "
+    "the speculative mode's capacity cost")
+_spec_draft_failures = monitor.counter(
+    "spec_draft_failures_total", "draft-side prefill/propose failures "
+    "that downgraded requests to plain decode")
+# crash recovery: replays, rebuilds and the MTTR histogram
+_survivor_replays = monitor.counter(
+    "survivor_replays_total", "sequences whose KV was reconstructed by "
+    "replay (re-prefill of prompt + generated-so-far) after a "
+    "donated-buffer loss or watchdog-driven rebuild")
+_rebuilds_total = monitor.counter(
+    "engine_rebuilds_total", "pool-rebuild recovery events the engine "
+    "absorbed: device-side donated-buffer losses plus watchdog-flagged "
+    "wedged steps")
+_recovery_s = monitor.histogram(
+    "engine_recovery_seconds", "one recovery event end to end: pool "
+    "rebuild + every survivor's KV replay (the serving MTTR)")
+_snapshot_reqs = monitor.counter(
+    "snapshot_requests_total", "in-flight requests serialized by "
+    "engine.snapshot()")
+# quantized serving
+_quant_enabled_g = monitor.gauge(
+    "quant_enabled", "1 when the engine's compiled programs run "
+    "quantized weights (w8/w8a8), else 0")
+_kv_quant_enabled_g = monitor.gauge(
+    "kv_quant_enabled", "1 when the PagedKVCache stores int8 pages "
+    "with per-slot scale pools, else 0")
+_kv_quant_pool_bytes_g = monitor.gauge(
+    "kv_quant_pool_bytes", "resident bytes of the KV data pages "
+    "(int8 mode stores a quarter of f32 / half of bf16)")
+_kv_quant_scale_bytes_g = monitor.gauge(
+    "kv_quant_scale_bytes", "resident bytes of the int8 mode's "
+    "per-slot scale pools (0 at full precision)")
+_replay_dispatches = monitor.counter(
+    "replay_dispatches_total", "compiled dispatches issued by survivor-"
+    "KV replay (batched replay amortizes many survivors per dispatch)")
+# dispatch economics: the unified step folds prefill, chunk, decode and
+# verify rows into one "ragged" dispatch
+_dispatches_total = monitor.counter(
+    "engine_dispatches_total", "compiled program dispatches issued by "
+    "the serving loop, per program mode — 'ragged' is the unified "
+    "single-dispatch step; 'prefill'/'chunk'/'decode'/'verify' are the "
+    "legacy composition; 'draft' is the draft model's own propose/"
+    "ingest dispatches (a second model: never foldable)", ("mode",))
+_unified_fallbacks = monitor.counter(
+    "engine_unified_fallbacks_total", "iterations where the unified "
+    "ragged dispatch failed and the engine re-ran the step through the "
+    "legacy multi-dispatch composition (whose retry/bisect isolation "
+    "then owns the failure)")
+# the overload controller's own series, materialized at import
+_decode_preempt_total = monitor.counter(
+    "decode_preemptions_total", "decoding rows paused mid-decode "
+    "(pages kept, next token still pending host-side) so an urgent "
+    "waiter could take the slot or an interactive row could get back "
+    "inside its TPOT budget; the row resumes bit-exactly through the "
+    "preempt/resume path")
+_brownout_level_g = monitor.gauge(
+    "engine_brownout_level", "degradation ladder rung: 0 normal, "
+    "1 shed least-urgent class, 2 shed two least-urgent classes, "
+    "3 interactive-only (tightened deadline checks), 4 journal "
+    "fsync flipped to 'os'")
+_brownout_transitions = monitor.counter(
+    "engine_brownout_transitions_total", "brownout ladder rung "
+    "changes (escalations are immediate, de-escalations are damped "
+    "by the hysteresis patience)")
+_decode_preempt_total.inc(0)
+_brownout_level_g.set(0)
+_brownout_transitions.inc(0)
+
+# the process-wide trace buffer: off outside a monitor.start_capture()
+# window, when every probe below is one attribute read
+_tracer = _get_tracer()
+
+
+def _note_quarantine(req) -> None:
+    """Count a quarantine in the process-wide series and stamp it on the
+    request's timeline: one helper, so the two cannot drift across the
+    ejection sites."""
+    _quarantined.inc()
+    _tracer.request_event(
+        getattr(req, "request_id", None), "quarantine",
+        error=(type(req.error).__name__ if req.error is not None
+               else None))
+
+
+def _decode_p50_seconds() -> Optional[float]:
+    """p50 of the process-wide ``decode_step_seconds`` histogram (the
+    upper bound of the bucket holding the median, as Prometheus reads
+    it), or None before anything decoded."""
+    counts = _decode_step_s.cumulative_counts()
+    total = counts[-1]
+    if total <= 0:
+        return None
+    rank = 0.5 * total
+    for bound, cum in zip(_decode_step_s.buckets, counts):
+        if cum >= rank:
+            return bound
+    return _decode_step_s.buckets[-1]
+
+
+def retry_after_seconds(queue_depth: int,
+                        decode_p50_s: Optional[float]) -> int:
+    """Retry-After for a saturated engine: the backlog's estimated
+    service time, queue depth x the measured decode-step p50, clamped to
+    [1, 30] seconds; 1 before any step was measured."""
+    if not queue_depth or not decode_p50_s or decode_p50_s <= 0:
+        return 1
+    return int(min(30.0, max(1.0, math.ceil(queue_depth * decode_p50_s))))
 
 
 class _Request:
@@ -215,6 +436,7 @@ class _Request:
         self.priority = priority     # normalized by the scheduler
         self.tenant = str(tenant)
         self.prefill_pos = 0
+        self.chunks_done = 0         # prefill dispatches (trace detail)
         self.admitted_at: Optional[float] = None
         self._admit_plan = None      # (need, shared_tok) fit-check stash
         # a restored request's prefill ingests prompt + generated (see
@@ -225,6 +447,8 @@ class _Request:
         # cycles, so re-preemption cannot reset the aging clock)
         self.preempted_at: Optional[float] = None
         self.paused_total = 0.0
+        # parked by the TPOT trigger: stays paused while the breach lasts
+        self._tpot_parked = False
         self.generated: List[int] = []
         self.next_token: Optional[int] = None   # sampled, not yet decoded
         # speculative decoding: whether this request speculates, and
@@ -344,7 +568,17 @@ class ContinuousBatchingEngine:
     class taxonomy (``submit(priority=..., tenant=...)``);
     ``preempt_resume_ttl_s`` bounds how long a paused request may hold
     its reservation; ``decode_preempt`` lets a slot preemption pause a
-    decoding row when no preemptible prefill is left.
+    decoding row when no preemptible prefill is left;
+    ``result_cache_size`` bounds the finished outcomes ``result_for``
+    keeps.
+
+    Overload controls (see the module docstring): a class's
+    ``deadline_s`` sheds doomed arrivals and its ``tpot_budget_s`` arms
+    the TPOT trigger (paced by ``tpot_preempt_cooldown_s``);
+    ``brownout_thresholds`` (None: off, else four ascending
+    queue-pressure ratios) and ``brownout_patience`` configure the
+    ladder; ``retry_after_hint`` and ``scheduler_info()``'s
+    ``brownout_level`` report it.
 
     Speculative decoding: ``draft_model`` (same vocabulary, on the same
     device) proposes ``spec_tokens`` tokens a step for every greedy
@@ -380,7 +614,9 @@ class ContinuousBatchingEngine:
     ``survivor_replays`` (requests replayed), ``replay_dispatches``
     (replay steps, not in ``dispatches``), ``recovery_s`` (the last
     recoveries' seconds, newest last) and ``snapshot_requests``
-    (entries serialized); per class, ``scheduler_info()["counts"]``."""
+    (entries serialized); per class, ``scheduler_info()["counts"]``.
+    The process-wide series of ``paddle_tpu_torch.monitor`` count the
+    same events over every engine of the process."""
 
     def __init__(self, model, total_pages: int = 512, page_size: int = 16,
                  max_batch: int = 8, sample_on_device: bool = True,
@@ -400,6 +636,10 @@ class ContinuousBatchingEngine:
                  draft_total_pages: Optional[int] = None,
                  step_timeout_s: Optional[float] = None,
                  replay_batch: Optional[bool] = None,
+                 result_cache_size: int = 256,
+                 brownout_thresholds=None,
+                 brownout_patience: int = 3,
+                 tpot_preempt_cooldown_s: float = 0.25,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -414,20 +654,41 @@ class ContinuousBatchingEngine:
         # fail paths must see: _prefilling (admitted, chunk cursor
         # advancing), _preempted (paused, pages kept, waiting for a slot)
         # and _active (decoding)
+        self.max_queue = int(max_queue)
         self._sched = WorkloadScheduler(
-            classes=scheduler_classes, max_queue=max_queue,
+            classes=scheduler_classes, max_queue=self.max_queue,
             default_class=default_class)
-        budgeted = [c.name for c in self._sched.classes
-                    if c.deadline_s is not None
-                    or c.tpot_budget_s is not None]
-        if budgeted:
-            raise ValueError(
-                f"classes {budgeted} set deadline_s or tpot_budget_s: the "
-                "overload controls are not ported yet")
+        # the overload controls: the ladder is off with None, else its
+        # rungs 1..4 trip at these queue-pressure ratios (depth /
+        # max_queue); it climbs at once and comes down after
+        # brownout_patience calm iterations, and an idle engine drops to
+        # rung 0.  The TPOT trigger pauses a preemptible decoding row at
+        # full occupancy when the measured step time breaches a running
+        # row's tpot_budget_s, at most once a cooldown
+        if brownout_thresholds is not None:
+            brownout_thresholds = tuple(
+                float(t) for t in brownout_thresholds)
+            if len(brownout_thresholds) != 4 \
+                    or list(brownout_thresholds) \
+                    != sorted(brownout_thresholds):
+                raise ValueError(
+                    "brownout_thresholds must be 4 ascending "
+                    f"queue-pressure ratios, got {brownout_thresholds!r}")
+        self.brownout_thresholds = brownout_thresholds
+        self.brownout_patience = max(1, int(brownout_patience))
+        self.tpot_preempt_cooldown_s = float(tpot_preempt_cooldown_s)
+        self._brownout = 0
+        self._brownout_calm = 0              # scheduler thread only
+        self._step_ewma: Optional[float] = None   # scheduler thread only
+        self._tpot_last_preempt = 0.0        # scheduler thread only
+        # finished outcomes by request id, bounded FIFO (result_for)
+        self.result_cache_size = max(0, int(result_cache_size))
+        self._results: "OrderedDict[str, dict]" = OrderedDict()
         self.model = model
         self.max_batch = int(max_batch)
         self.max_position = int(model.config.max_position_embeddings)
         self.sample_on_device = bool(sample_on_device)
+        _sampling_on_device_g.set(int(self.sample_on_device))
         self.prefix_cache = bool(prefix_cache)
         self.default_ttl_s = default_ttl_s
         self.default_queue_timeout_s = default_queue_timeout_s
@@ -469,6 +730,11 @@ class ContinuousBatchingEngine:
                    else PagedDecoder)
         self._decoder = decoder(model, quantize=quantize,
                                 min_table_pages=min_table_pages)
+        _quant_enabled_g.set(int(quantize is not None))
+        _kv_quant_enabled_g.set(int(kv_quant is not None))
+        _kv_quant_pool_bytes_g.set(self.cache.kv_pool_bytes)
+        _kv_quant_scale_bytes_g.set(self.cache.kv_scale_bytes)
+        _replay_dispatches.inc(0)       # materialize the series
         # speculative decoding: the draft gets its own decoder and page
         # pool, at full precision (its accuracy sets the acceptance rate)
         self.draft_model = draft_model
@@ -608,7 +874,8 @@ class ContinuousBatchingEngine:
         and not a capacity problem); ``tenant`` is a free-form tenant id
         fair-queued within the class.  Raises :class:`EngineDraining`
         once draining, :class:`EngineSaturated` when the class's queue
-        is full."""
+        is full or the overload controls shed the arrival (then with
+        ``retry_after_s``)."""
         # the class is resolved before any capacity check: an unknown
         # class is never reported as saturation or draining
         pclass = self._sched.resolve(priority)
@@ -703,13 +970,39 @@ class ContinuousBatchingEngine:
                 if any(r.request_id == req.request_id for r in live):
                     raise ValueError(f"request_id {req.request_id!r} is "
                                      "already live; pick a new id")
+            # SLO-aware admission: shed a doomed arrival before it enters
+            # the queue or holds a trace timeline slot, when its class's
+            # deadline budget is already blown by the projected queue
+            # wait or the brownout ladder sheds the class
+            shed_after = self._shed_decision_locked(pclass)
+            if shed_after is not None:
+                self._sched.note_shed(pclass.name)
+                self.saturated += 1
+                _saturated_total.inc()
+                _tracer.request_event(
+                    req.request_id, "shed", cls=pclass.name,
+                    retry_after_s=shed_after, brownout=self._brownout)
+                err = EngineSaturated(
+                    f"admission shed for class {pclass.name!r}: "
+                    "projected queue wait exceeds its SLO budget "
+                    f"(brownout level {self._brownout}); retry in "
+                    f"~{shed_after}s")
+                err.priority_class = pclass.name
+                err.retry_after_s = shed_after
+                raise err
             try:
                 self._sched.push(req)
             except QueueFull as e:
                 self.saturated += 1
+                _saturated_total.inc()
                 err = EngineSaturated(str(e))
                 err.priority_class = e.priority_class
                 raise err from None
+            _queue_depth.set(len(self._sched))
+            _tracer.request_event(
+                req.request_id, "enqueue", cls=req.priority,
+                tenant=req.tenant, prompt_tokens=len(req.prompt),
+                restored=bool(_restore is not None))
             self._cond.notify_all()
         return req
 
@@ -748,10 +1041,154 @@ class ContinuousBatchingEngine:
     def draining(self) -> bool:
         return self._draining
 
+    def retry_after_hint(self, priority: Optional[str] = None) -> int:
+        """Seconds a refused client should wait before retrying: the
+        backlog x the measured decode-step p50, clamped to [1, 30].  With
+        ``priority`` (a class of this engine) the backlog is that class's
+        queue, otherwise the whole queue.  A class with a deadline budget
+        gets the time for its backlog to drain back under the budget
+        (halved at rung 3 and up), the wait the shed decision projects."""
+        with self._cond:
+            cls = None
+            if priority is not None \
+                    and priority in {c.name for c in self._sched.classes}:
+                cls = self._sched.resolve(priority)
+                depth = self._sched.depth(priority)
+            else:
+                depth = len(self._sched)
+            level = self._brownout
+        p50 = _decode_p50_seconds()
+        hint = retry_after_seconds(depth, p50)
+        if cls is not None and cls.deadline_s is not None \
+                and p50 and p50 > 0:
+            budget = cls.deadline_s * (0.5 if level >= 3 else 1.0)
+            projected = depth * p50
+            if projected > budget:
+                hint = int(min(30.0, max(1.0,
+                                         math.ceil(projected - budget))))
+        return hint
+
+    # ------------------------------------------------- overload controls
+    def _shed_decision_locked(self, pclass) -> Optional[int]:
+        """Caller holds ``self._cond``.  Why this arrival must shed, as a
+        truthful Retry-After in seconds, or None to admit.  Two
+        controllers:
+
+        * the brownout ladder sheds whole classes: rung L sheds the L
+          least urgent rank bands (rung >= 3 sheds every rank below the
+          top one and halves the surviving class's deadline budget);
+        * a class's ``deadline_s`` sheds a request that is already
+          doomed: the projected queue wait (class depth x the measured
+          decode-step p50) past the budget means it would time out after
+          holding pages, so it is refused now."""
+        level = self._brownout
+        p50 = _decode_p50_seconds()
+        if level >= 1:
+            ranks = sorted({c.rank for c in self._sched.classes})
+            if pclass.rank > ranks[0]:
+                bands = ranks[1:]
+                shed = bands[len(bands) - min(level, len(bands)):]
+                if level >= 3 or pclass.rank in shed:
+                    depth = self._sched.depth(pclass.name)
+                    return retry_after_seconds(max(1, depth), p50)
+        budget = pclass.deadline_s
+        if budget is None or not p50 or p50 <= 0:
+            return None
+        if level >= 3:
+            budget *= 0.5
+        projected = self._sched.depth(pclass.name) * p50
+        if projected <= budget:
+            return None
+        return int(min(30.0, max(1.0, math.ceil(projected - budget))))
+
+    def _set_brownout_locked(self, level: int, pressure: float) -> None:
+        """Caller holds ``self._cond``.  Move the ladder to ``level``
+        (the JAX engine's rung 4 also flips its journal to
+        ``fsync="os"``; the port has no journal, so rung 4 changes
+        nothing more than rung 3)."""
+        if level == self._brownout:
+            return
+        prev, self._brownout = self._brownout, level
+        _brownout_level_g.set(level)
+        _brownout_transitions.inc()
+        _tracer.request_event(None, "brownout", level=level, prev=prev,
+                              pressure=round(pressure, 4))
+
+    def _update_brownout_locked(self) -> None:
+        """Caller holds ``self._cond``.  One control-loop evaluation an
+        iteration.  Pressure is the larger of the queue's fill (depth /
+        ``max_queue``) and the most urgent budgeted class's attainment
+        deficit; a rung climbs at once and comes down only after
+        ``brownout_patience`` calm iterations below half the rung's
+        threshold (hysteresis, so a load hovering at a threshold cannot
+        thrash the ladder)."""
+        th = self.brownout_thresholds
+        if th is None:
+            return
+        ratio = len(self._sched) / float(max(1, self.max_queue))
+        att = self._sched.urgent_attainment()
+        pressure = ratio if att is None else max(ratio, 1.0 - att)
+        level = self._brownout
+        if level < 4 and pressure >= th[level]:
+            self._brownout_calm = 0
+            self._set_brownout_locked(level + 1, pressure)
+            return
+        if level > 0 and pressure < 0.5 * th[level - 1]:
+            self._brownout_calm += 1
+            if self._brownout_calm >= self.brownout_patience:
+                self._brownout_calm = 0
+                self._set_brownout_locked(level - 1, pressure)
+        else:
+            self._brownout_calm = 0
+
+    def _count_dispatch(self, mode: str) -> None:
+        """One serving dispatch attempt of ``mode``: the engine's counter
+        and the process-wide series (a retry or bisection probe counts
+        again)."""
+        self.dispatches[mode] += 1
+        _dispatches_total.inc(mode=mode)
+
+    # ---------------------------------------------------- result cache
+    def _cache_result_locked(self, req) -> None:
+        """Caller holds ``self._cond``.  Keep a finished request's outcome
+        in the bounded result cache, so a detached client can read it by
+        id (``result_for``), after a restore too."""
+        if not self.result_cache_size:
+            return
+        if req.error is None:
+            entry = {"request_id": req.request_id, "status": "done",
+                     "output_ids": [int(t) for t in req.output_ids],
+                     "new_tokens": len(req.generated)}
+        else:
+            entry = {"request_id": req.request_id, "status": "error",
+                     "error": str(req.error),
+                     "error_type": type(req.error).__name__}
+        self._results[req.request_id] = entry
+        self._results.move_to_end(req.request_id)
+        while len(self._results) > self.result_cache_size:
+            self._results.popitem(last=False)
+
+    def result_for(self, request_id: str) -> Optional[dict]:
+        """The outcome for ``request_id``: ``status`` ``done`` (with
+        ``output_ids``) or ``error`` once finished, ``pending`` (with
+        ``generated_tokens``) while queued or in flight, None for an id
+        this engine never saw or one evicted from the bounded cache."""
+        with self._cond:
+            hit = self._results.get(request_id)
+            if hit is not None:
+                return dict(hit)
+            live = (self._active + self._prefilling + self._preempted
+                    + self._sched.pending())
+            for r in live:
+                if r.request_id == request_id:
+                    return {"request_id": request_id, "status": "pending",
+                            "generated_tokens": len(r.generated)}
+        return None
+
     def scheduler_info(self) -> dict:
         """JSON-able scheduling state: the policy knobs, per-class and
-        per-tenant queue depths, per-class counters and the lengths of
-        the in-flight lists."""
+        per-tenant queue depths, per-class counters, the lengths of the
+        in-flight lists and the brownout ladder's rung."""
         with self._cond:
             return {
                 "prefill_chunk_tokens": self.prefill_chunk_tokens,
@@ -761,6 +1198,8 @@ class ContinuousBatchingEngine:
                 "counts": self._sched.counts(),
                 "prefilling": len(self._prefilling),
                 "preempted": len(self._preempted),
+                "brownout_level": self._brownout,
+                "brownout_enabled": self.brownout_thresholds is not None,
                 "decode_preempt": self.decode_preempt,
             }
 
@@ -825,6 +1264,7 @@ class ContinuousBatchingEngine:
                     else max(1e-3, r.queue_deadline - now)),
             })
         self.snapshot_requests += len(entries)
+        _snapshot_reqs.inc(len(entries))
         return {"version": 1, "requests": entries}
 
     def restore(self, snapshot: dict, strict: bool = True
@@ -868,6 +1308,7 @@ class ContinuousBatchingEngine:
         :class:`EngineDraining`."""
         with self._cond:
             self._draining = True
+            _draining_g.set(1)
             self._cond.notify_all()
 
     def drain(self, timeout: Optional[float] = None,
@@ -887,13 +1328,17 @@ class ContinuousBatchingEngine:
         rejected: List[_Request] = []
         with self._cond:
             self._draining = True
+            _draining_g.set(1)
             if reject_queued and len(self._sched):
                 rejected = self._sched.pop_all()
                 for r in rejected:
                     r.error = EngineDraining(
                         "engine draining: request rejected before "
                         "admission (reject_queued)")
+                    self._cache_result_locked(r)
                 self.drain_rejected += len(rejected)
+                _queue_depth.set(0)
+                _drain_rejected.inc(len(rejected))
             self._cond.notify_all()
         for r in rejected:
             r.done.set()
@@ -911,6 +1356,7 @@ class ContinuousBatchingEngine:
                         return False
                 self._cond.wait(wait)
         self.stop()
+        _draining_g.set(0)
         return True
 
     def stop(self):
@@ -961,6 +1407,7 @@ class ContinuousBatchingEngine:
         self.cache.free(_PAD_SEQ)
         if self._spec:
             self.draft_cache.free(_PAD_SEQ)
+            _spec_draft_pages.set(self.draft_cache.pinned_pages)
 
     @staticmethod
     def _pause_age(r, now: Optional[float] = None) -> float:
@@ -972,6 +1419,12 @@ class ContinuousBatchingEngine:
             age += (time.perf_counter() if now is None else now) \
                 - r.preempted_at
         return age
+
+    def _quarantine(self, req) -> None:
+        """Count one request failed alone, in the engine's counter and
+        the process-wide series, with its timeline event."""
+        self.quarantined += 1
+        _note_quarantine(req)
 
     def _preempt_expired_error(self, r,
                                now: float) -> Optional[BaseException]:
@@ -1043,15 +1496,43 @@ class ContinuousBatchingEngine:
             req.prefix_tokens = got
         req.prefill_pos = req.prefix_tokens
         req.admitted_at = time.perf_counter()
-        self._sched.note_admitted(req)
+        self._sched.note_admitted(req, req.admitted_at)
+        _tracer.request_event(
+            req.request_id, "admitted", cls=req.priority,
+            seq_id=req.seq_id, prefix_tokens=req.prefix_tokens,
+            queue_wait_s=round(req.admitted_at - req.submitted_at, 6))
+
+    def _tpot_parked_locked(self, r) -> bool:
+        """Caller holds ``self._cond``.  True while a row the TPOT trigger
+        parked must stay parked: some active row's TPOT budget is still
+        breached by the measured step time.  The aging boost (half the
+        resume TTL) overrides, so parking never starves a row past the
+        reservation bound; once no active row breaches, the row resumes
+        through the ordinary path."""
+        if not r._tpot_parked:
+            return False
+        if self._preempt_rank_locked(r) < self._sched.class_of(r).rank:
+            return False                       # the aging boost won
+        ewma = self._step_ewma
+        if ewma is None:
+            return False
+        for a in self._active:
+            budget = self._sched.class_of(a).tpot_budget_s
+            if budget is not None and ewma > budget:
+                return True
+        return False
 
     def _best_preempted_locked(self) -> Optional[_Request]:
         """Caller holds ``self._cond``.  The paused request that should
         resume first: most urgent effective class (aging boost
-        included), then preemption order."""
-        if not self._preempted:
+        included), then preemption order.  Rows the TPOT trigger parked
+        stay out while the breach that parked them lasts: resuming one
+        into the still too slow batch would undo the pause."""
+        cands = [r for r in self._preempted
+                 if not self._tpot_parked_locked(r)]
+        if not cands:
             return None
-        return min(self._preempted,
+        return min(cands,
                    key=lambda r: (self._preempt_rank_locked(r),
                                   self._preempted.index(r)))
 
@@ -1081,18 +1562,23 @@ class ContinuousBatchingEngine:
                    key=lambda r: (self._sched.class_of(r).rank,
                                   -len(r.generated)))
 
-    def _pause_locked(self, victim) -> None:
+    def _pause_locked(self, victim, for_rank: int) -> None:
         """Caller holds ``self._cond``.  Move a preemption victim,
         mid-prefill or mid-decode, onto the paused list (seq id, pages
         and reservation all kept; a decoding row keeps its pending
-        ``next_token``)."""
+        ``next_token``) for a waiter of rank ``for_rank``."""
         if victim in self._prefilling:
             self._prefilling.remove(victim)
         else:
             self._active.remove(victim)
+            _decode_preempt_total.inc()
         victim.preempted_at = time.perf_counter()
         self._preempted.append(victim)
         self._sched.note_preempted(victim)
+        _tracer.request_event(
+            victim.request_id, "preempt", for_rank=for_rank,
+            prefill_pos=victim.prefill_pos,
+            decoded=len(victim.generated))
 
     def _resume_locked(self, pre) -> None:
         """Caller holds ``self._cond``.  Un-pause a request: its pause
@@ -1104,12 +1590,55 @@ class ContinuousBatchingEngine:
         if pre.preempted_at is not None:
             pre.paused_total += time.perf_counter() - pre.preempted_at
             pre.preempted_at = None
+        pre._tpot_parked = False
         if pre.first_token_at is not None \
                 and pre.prefill_pos >= len(pre.prefill_target):
             self._active.append(pre)
         else:
             self._prefilling.append(pre)
         self._sched.note_resumed(pre)
+        _tracer.request_event(pre.request_id, "resume",
+                              prefill_pos=pre.prefill_pos,
+                              decoded=len(pre.generated),
+                              paused_s=round(pre.paused_total, 6))
+
+    def _tpot_preempt_locked(self) -> None:
+        """Caller holds ``self._cond``.  The TPOT trigger: at full
+        occupancy, when the loop's measured iteration time (an EWMA over
+        iterations with active rows: for an active row one iteration is
+        one output token) breaches a running row's ``tpot_budget_s``,
+        pause the least urgent preemptible decoding row so the smaller
+        batch steps faster.  At most once a
+        ``tpot_preempt_cooldown_s``; the parked row stays out while the
+        breach lasts (``_tpot_parked_locked``) and its pause counts
+        toward the aging and reap clocks."""
+        if not self.decode_preempt or not self._active:
+            return
+        if len(self._active) + len(self._prefilling) < self.max_batch:
+            return
+        ewma = self._step_ewma
+        if ewma is None:
+            return
+        now = time.perf_counter()
+        if now - self._tpot_last_preempt < self.tpot_preempt_cooldown_s:
+            return
+        breached = [r for r in self._active
+                    if self._sched.class_of(r).tpot_budget_s is not None
+                    and ewma > self._sched.class_of(r).tpot_budget_s]
+        if not breached:
+            return
+        urgent = min(self._sched.class_of(r).rank for r in breached)
+        victims = [r for r in self._active
+                   if self._sched.class_of(r).preemptible
+                   and self._preempt_rank_locked(r) > urgent]
+        if not victims:
+            return
+        victim = max(victims,
+                     key=lambda r: (self._sched.class_of(r).rank,
+                                    -len(r.generated)))
+        self._pause_locked(victim, urgent)
+        victim._tpot_parked = True
+        self._tpot_last_preempt = now
 
     def _admit_locked(self) -> None:
         """Caller holds ``self._cond``.  Fill free slots from (a) paused
@@ -1133,7 +1662,7 @@ class ContinuousBatchingEngine:
                 if victim is None or head is None \
                         or self._admission_cost_locked(head) is None:
                     break
-                self._pause_locked(victim)
+                self._pause_locked(victim, qrank)
                 pending_rank = qrank
                 continue
             if pending_rank is None and pre is not None and (
@@ -1155,6 +1684,7 @@ class ContinuousBatchingEngine:
                 break
             self._finalize_admission_locked(req)
             self._prefilling.append(req)
+        _queue_depth.set(len(self._sched))
 
     def _plan_chunks_locked(self) -> List:
         """Caller holds ``self._cond``.  (request, n_tokens) prefill work
@@ -1260,17 +1790,20 @@ class ContinuousBatchingEngine:
             sampling = self._sampling_for([req if last else None], [total])
         self._wedged.clear()      # only this dispatch may flag itself
         t0 = self._step_started_at = time.monotonic()
+        t_tr = _tracer.now_ns() if _tracer.enabled else 0
         try:
             if k == req.prefix_tokens:
                 # per-sequence site, once: chunking must not change
                 # existing fault plans' semantics
                 _faults.maybe_fire("prefill", seq_ids=[req.seq_id])
             _faults.maybe_fire("prefill_chunk", seq_ids=[req.seq_id])
-            self.dispatches["chunk" if k else "prefill"] += 1
-            out = self._ingest(self._decoder, self.cache, req.seq_id,
-                               target, k, n, sampling)
+            self._count_dispatch("chunk" if k else "prefill")
+            with monitor.span("engine/prefill", histogram=_prefill_s):
+                out = self._ingest(self._decoder, self.cache, req.seq_id,
+                                   target, k, n, sampling)
         finally:
             self._step_started_at = None
+        _last_step_ts.set(time.time())
         try:
             self._check_wedged(t0)
         except _EngineWedged:
@@ -1279,7 +1812,16 @@ class ContinuousBatchingEngine:
             self.cache.truncate(req.seq_id, k)
             raise
         req.prefill_pos = k + n
+        req.chunks_done += 1
         self._sched.note_chunk(req)
+        if _tracer.enabled and t_tr:
+            # t_tr == 0: the window opened mid-dispatch, no slice
+            _tracer.step_record(
+                "prefill_chunk", self.steps, t_tr, _tracer.now_ns(),
+                request=req.request_id, tokens=n, pos=k,
+                cls=req.priority)
+            _tracer.request_event(req.request_id, "prefill_chunk",
+                                  tokens=n, pos=k, chunk=req.chunks_done)
         if last:
             self._finish_prefill(req, out[0], sampling is not None)
         return last
@@ -1290,6 +1832,10 @@ class ContinuousBatchingEngine:
         restored request keeps its journaled one) and stamp the time to
         first token."""
         if self.prefix_cache:
+            _prefix_lookups.inc()
+            if req.prefix_tokens:
+                _prefix_hits.inc()
+                _prefix_hit_tokens.inc(req.prefix_tokens)
             self.cache.register_prefix(req.seq_id, req.prompt)
         if req.use_draft:
             # the draft ingests the whole target (its pool shares no
@@ -1298,7 +1844,7 @@ class ContinuousBatchingEngine:
             # completion, so a request paused mid-prefill never touched
             # the draft pool.  The token it draws is discarded
             try:
-                self.dispatches["draft"] += 1
+                self._count_dispatch("draft")
                 self._draft_decoder.prefill(self.draft_cache, [req.seq_id],
                                             req.prefill_target[None],
                                             sampling=_null_sampling())
@@ -1310,8 +1856,11 @@ class ContinuousBatchingEngine:
             req.next_token = (int(out_row) if sampled
                               else self._pick(req, out_row))
         req.first_token_at = time.perf_counter()
-        self._sched.note_first_token(req,
-                                     req.first_token_at - req.submitted_at)
+        ttft = req.first_token_at - req.submitted_at
+        _ttft_s.observe(ttft)
+        self._sched.note_first_token(req, ttft)
+        _tracer.request_event(req.request_id, "first_token",
+                              ttft_s=round(ttft, 6))
 
     def _run_chunks(self, plan) -> None:
         """One dispatch a planned chunk (device work, called without the
@@ -1356,7 +1905,9 @@ class ContinuousBatchingEngine:
             for r in failed:
                 if r in self._prefilling:
                     self._prefilling.remove(r)
-                self.quarantined += 1
+                # quarantine before retire: the timeline's last event is
+                # the retirement at every ejection site
+                self._quarantine(r)
                 self._retire_locked(r)
             for r in completed:
                 if r in self._prefilling:
@@ -1411,7 +1962,7 @@ class ContinuousBatchingEngine:
             self.draft_cache.truncate(_PAD_SEQ, 0)
             d_seqs += [_PAD_SEQ] * npad
         try:
-            self.dispatches["draft"] += 1
+            self._count_dispatch("draft")
             prop = self._draft_decoder.multi_step(
                 self.draft_cache, d_seqs, d_tok, d_pos, k + 1)
         except Exception:  # noqa: BLE001 — downgrade, don't fail
@@ -1431,6 +1982,16 @@ class ContinuousBatchingEngine:
         for a in accepts:
             self.spec_accept_lens[a] += 1
             self.spec_rollbacks += a < k
+        if accepts:
+            _spec_proposed.inc(k * len(accepts))
+            _spec_accepted.inc(sum(accepts))
+            rejected = 0
+            for a in accepts:
+                _spec_accept_len.observe(a)
+                rejected += a < k
+            if rejected:
+                _spec_rollback.inc(rejected)
+        _spec_draft_pages.set(self.draft_cache.pinned_pages)
 
     def _exec_spec_step(self, reqs) -> List[_SpecRow]:
         """ONE speculative step for ``reqs`` (the legacy composition's):
@@ -1452,28 +2013,32 @@ class ContinuousBatchingEngine:
             step_ids = [r.seq_id for r in reqs]
             _faults.maybe_fire("decode_step", seq_ids=step_ids)
             _faults.maybe_fire("engine_wedge", seq_ids=step_ids)
-            drafts = self._propose_drafts(reqs)
-            block = np.zeros((b, k + 1), np.int32)
-            pos = np.zeros(b, np.int32)
-            seq_ids = []
-            for i, r in enumerate(reqs):
-                block[i, 0] = r.generated[-1]
-                block[i, 1:] = drafts[i]
-                pos[i] = self.cache.length(r.seq_id)
-                seq_ids.append(r.seq_id)
-            if npad:
-                self.cache.truncate(_PAD_SEQ, 0)
-                seq_ids.extend([_PAD_SEQ] * npad)
-            # the draw's counter, pos + accept + 1, is computed on the
-            # device, so a sampled row draws where a plain step would
-            sampling = (self._row_sampling(reqs, b)
-                        if self.sample_on_device else None)
-            self.dispatches["verify"] += 1
-            out, accept = self._decoder.verify(self.cache, seq_ids, block,
-                                               pos, sampling=sampling)
-            self._check_wedged(t0)
+            with monitor.span("engine/decode_step",
+                              histogram=_decode_step_s):
+                drafts = self._propose_drafts(reqs)
+                block = np.zeros((b, k + 1), np.int32)
+                pos = np.zeros(b, np.int32)
+                seq_ids = []
+                for i, r in enumerate(reqs):
+                    block[i, 0] = r.generated[-1]
+                    block[i, 1:] = drafts[i]
+                    pos[i] = self.cache.length(r.seq_id)
+                    seq_ids.append(r.seq_id)
+                if npad:
+                    self.cache.truncate(_PAD_SEQ, 0)
+                    seq_ids.extend([_PAD_SEQ] * npad)
+                # the draw's counter, pos + accept + 1, is computed on
+                # the device, so a sampled row draws where a plain step
+                # would
+                sampling = (self._row_sampling(reqs, b)
+                            if self.sample_on_device else None)
+                self._count_dispatch("verify")
+                out, accept = self._decoder.verify(
+                    self.cache, seq_ids, block, pos, sampling=sampling)
+                self._check_wedged(t0)
         finally:
             self._step_started_at = None
+        _last_step_ts.set(time.time())
         rows = []
         for i, r in enumerate(reqs):
             a = int(accept[i])
@@ -1530,12 +2095,15 @@ class ContinuousBatchingEngine:
             # CUDA graph's capture
             _faults.maybe_fire("decode_step", seq_ids=seq_ids[:len(reqs)])
             _faults.maybe_fire("engine_wedge", seq_ids=seq_ids[:len(reqs)])
-            self.dispatches["decode"] += 1
-            out = self._decoder.step(self.cache, seq_ids, tokens, pos,
-                                     sampling=sampling)
-            self._check_wedged(t0)
+            with monitor.span("engine/decode_step",
+                              histogram=_decode_step_s):
+                self._count_dispatch("decode")
+                out = self._decoder.step(self.cache, seq_ids, tokens, pos,
+                                         sampling=sampling)
+                self._check_wedged(t0)
         finally:
             self._step_started_at = None
+        _last_step_ts.set(time.time())
         return [out[i] for i in range(len(reqs))]
 
     def _lengths(self, reqs) -> dict:
@@ -1573,6 +2141,7 @@ class ContinuousBatchingEngine:
             live, poisoned = self._split_replay_dead(
                 reqs, self._after_step_failure(e, in_step=True))
         self.decode_retries += 1
+        _decode_retries.inc()
         if not live:
             return [], [], poisoned
         try:
@@ -1597,7 +2166,7 @@ class ContinuousBatchingEngine:
         live, out = [], []
         for r in reqs:
             if id(r) in dead_ids:
-                self.quarantined += 1
+                self._quarantine(r)
                 out.append(r)
             else:
                 live.append(r)
@@ -1612,7 +2181,7 @@ class ContinuousBatchingEngine:
         if len(reqs) == 1:
             r = reqs[0]
             r.error = error
-            self.quarantined += 1
+            self._quarantine(r)
             return [], [], [r]
         mid = (len(reqs) + 1) // 2
         survivors, rows, poisoned = [], [], []
@@ -1623,6 +2192,7 @@ class ContinuousBatchingEngine:
             if not half:
                 continue
             self.decode_retries += 1
+            _decode_retries.inc()
             try:
                 half_rows = self._exec_step(half)
             except Exception as e:  # noqa: BLE001 — bisected further
@@ -1650,6 +2220,8 @@ class ContinuousBatchingEngine:
         lens_before = self._lengths(active)
         for r in active:
             r.generated.append(r.next_token)
+        self._note_batch(active)
+        t_tr = _tracer.now_ns() if _tracer.enabled else 0
         survivors, rows, poisoned = self._step_isolated(active, lens_before)
         # a row whose replay failed outside the failing subset's scope
         # (its half had stepped already, or had not yet) carries its
@@ -1662,7 +2234,7 @@ class ContinuousBatchingEngine:
             survivors, rows = [], []
             for r, row in pairs:
                 if r.error is not None:
-                    self.quarantined += 1
+                    self._quarantine(r)
                     dead_done.append(r)
                 else:
                     survivors.append(r)
@@ -1672,8 +2244,14 @@ class ContinuousBatchingEngine:
         for r in active:
             if id(r) not in accounted and not r.done.is_set() \
                     and r.error is not None:
-                self.quarantined += 1
+                self._quarantine(r)
                 poisoned.append(r)
+        if _tracer.enabled and t_tr:
+            # the step's wall time includes its retries and bisection
+            # probes: that is this step's cost (t_tr == 0: the window
+            # opened mid-dispatch, no slice)
+            self._step_trace(active, t_tr, _tracer.now_ns(),
+                             len(poisoned))
         still, retired = self._advance_rows(survivors, rows,
                                             self.sample_on_device)
         for r in poisoned:
@@ -1690,8 +2268,31 @@ class ContinuousBatchingEngine:
                 # waiters wake, so a drained engine reports whole pools
                 self._free_pads_locked()
             self._cond.notify_all()
+        _active_seqs.set(len(still))
         for r in ended:
             r.done.set()
+
+    def _note_batch(self, active) -> None:
+        """A step with ``active`` rows begins: the batch gauges."""
+        _active_seqs.set(len(active))
+        _batch_occupancy.observe(len(active) / self.max_batch)
+        # the gauge is process-wide, so the engine that steps asserts its
+        # mode again every step
+        _sampling_on_device_g.set(int(self.sample_on_device))
+
+    def _step_trace(self, active, t_start: int, t_end: int,
+                    poisoned: int) -> None:
+        """One decode step on the tracer's step track: the batch's
+        composition by class, the speculative economics and the
+        requests."""
+        comp: dict = {}
+        for r in active:
+            comp[r.priority] = comp.get(r.priority, 0) + 1
+        prop, acc = self.last_spec
+        _tracer.step_record(
+            "decode", self.steps, t_start, t_end, batch=len(active),
+            classes=comp, spec_proposed=prop, spec_accepted=acc,
+            poisoned=poisoned, requests=[r.request_id for r in active])
 
     def _advance_rows(self, reqs, rows, sampled: bool):
         """(still, retired) after a decode or verify step: a request that
@@ -1701,7 +2302,17 @@ class ContinuousBatchingEngine:
         at a time, so its stream is target-only greedy's token for
         token."""
         still, retired = [], []
+        _tokens_total.inc(len(reqs))
+        accepted_emitted = 0
         for r, row in zip(reqs, rows):
+            if _tracer.enabled:
+                if isinstance(row, _SpecRow):
+                    _tracer.request_event(
+                        r.request_id, "verify_step", step=self.steps,
+                        accept=int(row.accept))
+                else:
+                    _tracer.request_event(r.request_id, "decode_step",
+                                          step=self.steps)
             eos_hit = (r.eos_token_id is not None
                        and r.generated[-1] == r.eos_token_id)
             if eos_hit or len(r.generated) >= r.max_new_tokens:
@@ -1711,6 +2322,7 @@ class ContinuousBatchingEngine:
                 done = False
                 for t in row.drafts[:row.accept]:
                     r.generated.append(int(t))
+                    accepted_emitted += 1
                     if (r.eos_token_id is not None
                             and int(t) == r.eos_token_id) \
                             or len(r.generated) >= r.max_new_tokens:
@@ -1722,6 +2334,8 @@ class ContinuousBatchingEngine:
                 row = row.out
             r.next_token = int(row) if sampled else self._pick(r, row)
             still.append(r)
+        if accepted_emitted:
+            _tokens_total.inc(accepted_emitted)
         return still, retired
 
     # ------------------------------------------------ unified ragged step
@@ -1767,6 +2381,9 @@ class ContinuousBatchingEngine:
         lens_before = self._lengths(active)
         for r in active:
             r.generated.append(r.next_token)
+        if active:
+            self._note_batch(active)
+        t_tr = _tracer.now_ns() if _tracer.enabled else 0
         seq_ids, rows, ctxs = [], [], []
         for req, target, k, n, _last in chunks:
             seq_ids.append(req.seq_id)
@@ -1806,22 +2423,26 @@ class ContinuousBatchingEngine:
                 if active:
                     _faults.maybe_fire("decode_step",
                                        seq_ids=[r.seq_id for r in active])
-                self.dispatches["ragged"] += 1
-                out, accept = self._decoder.ragged_step(
-                    self.cache, seq_ids, rows, ctxs,
-                    n_drafts=([0] * len(chunks)
-                              + [self.spec_k] * len(active)
-                              if spec else None),
-                    sampling=sampling)
-                self._check_wedged(t0)
+                hist = _decode_step_s if active else _prefill_s
+                with monitor.span("engine/ragged_step", histogram=hist):
+                    self._count_dispatch("ragged")
+                    out, accept = self._decoder.ragged_step(
+                        self.cache, seq_ids, rows, ctxs,
+                        n_drafts=([0] * len(chunks)
+                                  + [self.spec_k] * len(active)
+                                  if spec else None),
+                        sampling=sampling)
+                    self._check_wedged(t0)
             finally:
                 self._step_started_at = None
+            _last_step_ts.set(time.time())
         except (_faults.FaultError, _EngineWedged) as e:
             # the legacy re-run isolates; a wedge (the engine's own
             # watchdog) or a lost pool first rebuilds and replays the
             # survivors, so the re-run never decodes over zeroed pages
             self._unified_rollback(chunks, active, lens_before)
             self.unified_fallbacks += 1
+            _unified_fallbacks.inc()
             self._unified_failures += 1
             if self._unified_failures >= 3:
                 self._unified_off = True
@@ -1837,11 +2458,21 @@ class ContinuousBatchingEngine:
             self._quarantine_step([req for req, *_ in chunks], active, e)
             return
         self._unified_failures = 0
+        now_ns = _tracer.now_ns() if _tracer.enabled and t_tr else 0
         nchunks = len(chunks)
         completed = []
         for i, (req, _target, k, n, last) in enumerate(chunks):
             req.prefill_pos = k + n
+            req.chunks_done += 1
             self._sched.note_chunk(req)
+            if _tracer.enabled and t_tr:
+                _tracer.step_record(
+                    "prefill_chunk", self.steps, t_tr, now_ns,
+                    request=req.request_id, tokens=n, pos=k,
+                    cls=req.priority)
+                _tracer.request_event(req.request_id, "prefill_chunk",
+                                      tokens=n, pos=k,
+                                      chunk=req.chunks_done)
             if last:
                 completed.append(req)
                 self._finish_prefill(req, out[i], sampling is not None)
@@ -1859,6 +2490,8 @@ class ContinuousBatchingEngine:
                              for i, r in enumerate(active) if r.use_draft])
         elif active:
             self.last_spec = (0, 0)
+        if active and _tracer.enabled and t_tr:
+            self._step_trace(active, t_tr, now_ns, 0)
         still, retired = self._advance_rows(active, outs,
                                             sampling is not None)
         with self._cond:
@@ -1874,6 +2507,8 @@ class ContinuousBatchingEngine:
                     self._prefilling.remove(r)
                     self._active.append(r)
             self._cond.notify_all()
+        if active:
+            _active_seqs.set(len(still))
         for r in retired:
             r.done.set()
 
@@ -1889,8 +2524,8 @@ class ContinuousBatchingEngine:
                 self._free_pads_locked()
             for r in failed:
                 r.error = error
+                self._quarantine(r)
                 self._retire_locked(r)
-            self.quarantined += len(failed)
             self._cond.notify_all()
         for r in failed:
             r.done.set()
@@ -1907,7 +2542,14 @@ class ContinuousBatchingEngine:
         self._reserved_pages -= slack + released
         self._release_draft_locked(req)
         req.finished_at = time.perf_counter()
-        self._sched.note_retired(req)
+        if req.error is None:
+            _gen_latency_s.observe(req.finished_at - req.submitted_at)
+        self._sched.note_retired(req)   # the class's TPOT
+        self._cache_result_locked(req)
+        _tracer.request_event(
+            req.request_id, "retire", ok=req.error is None,
+            generated=len(req.generated),
+            latency_s=round(req.finished_at - req.submitted_at, 6))
 
     def _release_draft_locked(self, req) -> None:
         """Caller holds ``self._cond``.  Free the request's draft pages
@@ -1927,6 +2569,7 @@ class ContinuousBatchingEngine:
         path instead of failing, for the rest of their life (a draft
         cache out of lockstep cannot rejoin), and their draft pages go
         back at once."""
+        _spec_draft_failures.inc(len(list(reqs)))
         with self._cond:
             for r in reqs:
                 self.spec_draft_failures += 1
@@ -1977,6 +2620,7 @@ class ContinuousBatchingEngine:
                 self._step_started_at = time.monotonic()
                 try:
                     self.replay_dispatches += 1
+                    _replay_dispatches.inc()
                     self._ingest(self._decoder, self.cache, sid, tokens,
                                  k, n, sampling)
                 finally:
@@ -1989,12 +2633,16 @@ class ContinuousBatchingEngine:
             self._step_started_at = time.monotonic()
             try:
                 self.replay_dispatches += 1
+                _replay_dispatches.inc()
                 self._draft_decoder.prefill(self.draft_cache, [sid],
                                             tokens[None, :dlen],
                                             sampling=sampling)
             finally:
                 self._step_started_at = None
         self.survivor_replays += 1
+        _survivor_replays.inc()
+        _tracer.request_event(req.request_id, "replay",
+                              tokens=int(upto), draft_tokens=int(dlen))
 
     def _replay_kv_batch(self, rows, targets) -> None:
         """Batched survivor replay: each pool's rows re-ingest in lockstep
@@ -2026,6 +2674,7 @@ class ContinuousBatchingEngine:
                 self._step_started_at = time.monotonic()
                 try:
                     self.replay_dispatches += 1
+                    _replay_dispatches.inc()
                     decoder.batch_context_prefill(
                         cache, sids, slices, ks,
                         sampling=(_null_sampling(len(sids))
@@ -2046,7 +2695,17 @@ class ContinuousBatchingEngine:
         dwork = collect(self.draft_cache, 1) if self._spec else []
         if dwork:
             rounds(self._draft_decoder, self.draft_cache, dwork, chunk)
-        self.survivor_replays += len({id(r) for r, _, _ in work + dwork})
+        done = {}
+        for r, _, _ in work + dwork:
+            done.setdefault(id(r), r)
+        self.survivor_replays += len(done)
+        _survivor_replays.inc(len(done))
+        if _tracer.enabled:
+            for r in done.values():
+                _tracer.request_event(
+                    r.request_id, "replay", batched=True,
+                    tokens=int(targets[id(r)][0]),
+                    draft_tokens=int(targets[id(r)][1]))
 
     def _replay_survivors(self, exclude=()) -> List[_Request]:
         """After a pool loss, replay every live sequence (decoding,
@@ -2118,8 +2777,16 @@ class ContinuousBatchingEngine:
         if not self._pools_rebuilt():
             return []
         self.rebuilds += 1
-        failed = self._replay_survivors(exclude=exclude)
+        _rebuilds_total.inc()
+        t_tr = _tracer.now_ns() if _tracer.enabled else 0
+        with monitor.span("engine/recovery", histogram=_recovery_s):
+            failed = self._replay_survivors(exclude=exclude)
         self.recovery_s.append(time.perf_counter() - t0)
+        if _tracer.enabled and t_tr:
+            _tracer.step_record(
+                "recovery", self.steps, t_tr, _tracer.now_ns(),
+                wedged=isinstance(error, _EngineWedged),
+                replay_failed=len(failed))
         if not failed:
             return []
         caller_owned = ([r for r in failed if r in self._active]
@@ -2132,7 +2799,7 @@ class ContinuousBatchingEngine:
                         lst = getattr(self, name)
                         if r in lst:
                             lst.remove(r)
-                    self.quarantined += 1
+                    self._quarantine(r)
                     self._retire_locked(r)
                 self._cond.notify_all()
             for r in eject:
@@ -2170,7 +2837,11 @@ class ContinuousBatchingEngine:
         for r in self._sched.reap(now):
             r.error = r._lifecycle_error(now, queued=True)
             self._count_lifecycle(r)
+            self._cache_result_locked(r)
+            _tracer.request_event(r.request_id, "retire", ok=False)
             out.append(r)
+        if out:
+            _queue_depth.set(len(self._sched))
         for name in ("_prefilling", "_preempted", "_active"):
             keep: List[_Request] = []
             for r in getattr(self, name):
@@ -2195,8 +2866,12 @@ class ContinuousBatchingEngine:
     def _count_lifecycle(self, req) -> None:
         if isinstance(req.error, RequestCancelled):
             self.cancelled += 1
+            _cancelled_total.inc()
+            _tracer.request_event(req.request_id, "cancel")
         else:
             self.expired += 1
+            _expired_total.inc()
+            _tracer.request_event(req.request_id, "expire")
 
     def _fail_all(self, exc) -> None:
         """Last resort, for a fault outside any step (isolation failed
@@ -2213,6 +2888,7 @@ class ContinuousBatchingEngine:
                     continue
                 if r.finished_at is None:
                     r.error = exc
+                    self._cache_result_locked(r)
                 r.done.set()
             for r in holders:
                 if r.seq_id is not None:
@@ -2226,6 +2902,8 @@ class ContinuousBatchingEngine:
             self._active = []
             self._prefilling = []
             self._preempted = []
+            _active_seqs.set(0)
+            _queue_depth.set(0)
             self._cond.notify_all()
 
     def _loop(self):
@@ -2236,6 +2914,12 @@ class ContinuousBatchingEngine:
                 while not self._stop and not len(self._sched) \
                         and not self._active and not self._prefilling \
                         and not self._preempted:
+                    # brownout is a property of load: an engine with
+                    # nothing queued or running is not browned out, or a
+                    # drained engine would shed the next burst's first
+                    # arrivals
+                    if self._brownout:
+                        self._set_brownout_locked(0, 0.0)
                     self._cond.wait(timeout=0.5)
                 if self._stop:
                     self._free_pads_locked()
@@ -2246,11 +2930,23 @@ class ContinuousBatchingEngine:
                     self._active = []
                     for r in stopped:
                         r.error = RuntimeError("engine stopped")
+                        self._cache_result_locked(r)
                         r.done.set()
                     return
+            # for an active row one iteration is one output token, so the
+            # whole iteration's wall time, chunks included, is the
+            # per-token latency the TPOT trigger judges
+            had_active = False
+            t_iter = time.perf_counter()
             try:
                 with self._cond:
                     reaped = self._reap_locked()
+                    # the overload controls, once an iteration: the ladder
+                    # first (its rung gates this iteration's sheds), then
+                    # the TPOT trigger (its freed slot is visible to the
+                    # admission below)
+                    self._update_brownout_locked()
+                    self._tpot_preempt_locked()
                     self._admit_locked()
                     plan = self._plan_chunks_locked()
                     # the snapshot barrier: a waiting snapshot() takes its
@@ -2259,8 +2955,10 @@ class ContinuousBatchingEngine:
                     while self._snap_waiters and not self._stop:
                         self._cond.wait(0.1)
                     self._stepping = bool(plan) or bool(self._active)
+                    had_active = bool(self._active)
                 for r in reaped:
                     r.done.set()
+                t_iter = time.perf_counter()
                 if self._legacy_iteration():
                     # legacy composition: a dispatch a planned chunk
                     # (a failing one quarantines only its request), then
@@ -2281,6 +2979,11 @@ class ContinuousBatchingEngine:
                 # gets the error; the thread keeps serving
                 self._fail_all(e)
             finally:
+                if had_active:
+                    dt = time.perf_counter() - t_iter
+                    self._step_ewma = (dt if self._step_ewma is None
+                                       else 0.7 * self._step_ewma
+                                       + 0.3 * dt)
                 if self._stepping:
                     with self._cond:
                         self._stepping = False

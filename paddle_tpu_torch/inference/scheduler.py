@@ -27,17 +27,23 @@ or nothing while the head does not fit.
 Concurrency contract: a ``WorkloadScheduler`` owns no lock; every method
 is called with the engine's ``_cond`` held.
 
-Accounting: each class keeps plain counters (:meth:`counts`) where the
-JAX package feeds its process-wide monitor series; the port has no
-monitor registry yet, and the queue-wait, TTFT and TPOT histograms come
-with it.  The per-class SLO attainment window (``slo_recent``) is host
-state and is kept as in the JAX package.
+Accounting: per-class series in the process-wide monitor registry
+(``paddle_tpu_torch.monitor``, labelled ``cls=<class>``, under the JAX
+package's names: queue-wait, TTFT and TPOT histograms, queue depth,
+admission, rejection, preemption, resume, chunk, deferral, expiry and
+shed counters), and beside them each scheduler's own plain counters
+(:meth:`counts`), which a test reads without the deltas the
+process-wide series need.  The per-class SLO attainment window
+(``slo_recent``) feeds the engine's brownout ladder.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
+
+from .. import monitor
 
 __all__ = [
     "PriorityClass", "WorkloadScheduler", "QueueFull",
@@ -54,12 +60,15 @@ class PriorityClass:
     in-flight decode, the engine may pause for lower-rank traffic;
     ``max_queue`` overrides the scheduler-wide per-class queue bound.
 
-    SLO budgets (both optional, None disables them): ``deadline_s`` is
-    the class's queue-wait/TTFT budget, which the attainment window
-    counts against; ``tpot_budget_s`` the per-token decode budget.  The
-    overload controls that act on them (arrival shedding, the TPOT
-    trigger) are not ported yet, so the port's engine refuses a class
-    that sets either."""
+    SLO budgets (both optional, None disables the control loop for the
+    class): ``deadline_s`` is the class's queue-wait/TTFT budget:
+    admission sheds a request on arrival when the projected queue wait
+    (class depth x measured decode-step p50) already exceeds it, and
+    TTFT <= deadline_s is what the per-class attainment window counts;
+    ``tpot_budget_s`` is the per-token decode budget: when a running row
+    of this class sees the engine's measured step time exceed it at full
+    occupancy, the engine pauses the least urgent preemptible decoding
+    row to shrink the batch."""
 
     name: str
     rank: int
@@ -85,6 +94,50 @@ DEFAULT_CLASS = "standard"
 #: monopolize admission with stale credit)
 _DEFICIT_CAP_ROUNDS = 16
 
+# per-class SLO telemetry, the JAX package's series
+_queue_wait_s = monitor.histogram(
+    "sched_queue_wait_seconds", "submit -> admission, per class",
+    ("cls",))
+_ttft_s = monitor.histogram(
+    "sched_ttft_seconds", "submit -> first sampled token, per class",
+    ("cls",))
+_tpot_s = monitor.histogram(
+    "sched_tpot_seconds", "mean seconds per output token after the "
+    "first, observed at retirement, per class", ("cls",))
+_queue_depth_g = monitor.gauge(
+    "sched_queue_depth", "requests waiting for admission, per class",
+    ("cls",))
+_admitted_total = monitor.counter(
+    "sched_admitted_total", "requests admitted, per class", ("cls",))
+_rejected_total = monitor.counter(
+    "sched_rejected_total", "submissions rejected by the class's "
+    "bounded queue, per class", ("cls",))
+_preempted_total = monitor.counter(
+    "sched_preemptions_total", "preemptible prefills paused so a more "
+    "urgent class could take the slot, per (preempted) class", ("cls",))
+_resumed_total = monitor.counter(
+    "sched_resumed_total", "preempted prefills resumed (pages kept, "
+    "never re-prefilled), per class", ("cls",))
+_chunks_total = monitor.counter(
+    "sched_prefill_chunks_total", "prefill chunks executed, per class",
+    ("cls",))
+_deferrals_total = monitor.counter(
+    "sched_chunk_deferrals_total", "prefill chunks deferred because a "
+    "step's chunk budget went to more urgent classes, per class",
+    ("cls",))
+_preempt_expired_total = monitor.counter(
+    "sched_preempt_expired_total", "preempted prefills reaped because "
+    "they held their page reservation past the resume TTL without a "
+    "slot freeing up (the reservation bound), per class",
+    ("cls",))
+_shed_total = monitor.counter(
+    "sched_shed_on_arrival_total", "submissions shed at admission by "
+    "the overload controller: the class's deadline budget "
+    "was already blown by the projected queue wait, or the brownout "
+    "ladder sheds the class outright — rejected in microseconds with "
+    "a truthful Retry-After instead of timing out holding pages, per "
+    "class", ("cls",))
+
 #: recent per-class SLO attainment window (requests)
 _ATTAINMENT_WINDOW = 64
 
@@ -92,8 +145,7 @@ _ATTAINMENT_WINDOW = 64
 #: admissions, bounded-queue rejections, preemptions (prefill or
 #: decode), resumes, prefill chunks run, chunks deferred because the
 #: budget went to a more urgent class, paused requests reaped past the
-#: resume TTL, and arrivals shed by the overload controller (not ported
-#: yet: always 0)
+#: resume TTL, and arrivals shed by the overload controller
 COUNTERS = ("admitted", "rejected", "preempted", "resumed", "chunks",
             "deferrals", "preempt_expired", "shed")
 
@@ -162,6 +214,9 @@ class WorkloadScheduler:
             raise ValueError(
                 f"default_class {default_class!r} is not one of {names}")
         self.default_class = default_class
+        for name in self._classes:
+            _queue_depth_g.set(0, cls=name)
+            _shed_total.inc(0, cls=name)   # materialized for a scrape
 
     # ----------------------------------------------------------- lookup
     def resolve(self, name: Optional[str]) -> PriorityClass:
@@ -230,6 +285,14 @@ class WorkloadScheduler:
             return None
         return sum(cs.slo_recent) / len(cs.slo_recent)
 
+    def urgent_attainment(self) -> Optional[float]:
+        """Attainment of the most urgent class that carries a deadline
+        budget: the brownout ladder's SLO input."""
+        for cs in self._by_rank:
+            if cs.spec.deadline_s is not None:
+                return self.attainment(cs.spec.name)
+        return None
+
     # ------------------------------------------------------------ queues
     def push(self, req) -> None:
         """Enqueue onto the request's (class, tenant) queue.  Raises
@@ -240,16 +303,19 @@ class WorkloadScheduler:
                  else cs.spec.max_queue)
         if cs.depth >= bound:
             cs.counts["rejected"] += 1
+            _rejected_total.inc(cls=cs.spec.name)
             raise QueueFull(cs.spec.name, cs.depth, bound)
         tq = cs.tenants.get(req.tenant)
         if tq is None:
             tq = cs.tenants[req.tenant] = _TenantQueue()
         tq.queue.append(req)
         cs.depth += 1
+        _queue_depth_g.set(cs.depth, cls=cs.spec.name)
 
     @staticmethod
     def _set_depth(cs: _ClassState, delta: int) -> None:
         cs.depth += delta
+        _queue_depth_g.set(cs.depth, cls=cs.spec.name)
         if cs.depth == 0:
             # classic DRR: an emptied queue forfeits leftover credit, and
             # its tenant entries go too, so the per-tenant map can never
@@ -409,40 +475,55 @@ class WorkloadScheduler:
         return req
 
     # ------------------------------------------------------ accounting
-    def _count(self, req, name: str) -> None:
+    def _count(self, req, name: str, series) -> None:
         self._classes[req.priority].counts[name] += 1
+        series.inc(cls=req.priority)
 
-    def note_admitted(self, req) -> None:
-        """One admission (the queue-wait histogram comes with the
-        monitor)."""
-        self._count(req, "admitted")
+    def note_admitted(self, req, now: Optional[float] = None) -> None:
+        now = time.perf_counter() if now is None else now
+        self._count(req, "admitted", _admitted_total)
+        _queue_wait_s.observe(max(0.0, now - req.submitted_at),
+                              cls=req.priority)
 
     def note_first_token(self, req, ttft_s: float) -> None:
         cs = self._classes[req.priority]
+        _ttft_s.observe(ttft_s, cls=req.priority)
         if cs.spec.deadline_s is not None:
             cs.slo_recent.append(1 if ttft_s <= cs.spec.deadline_s
                                  else 0)
 
     def note_shed(self, priority: str) -> None:
-        """One arrival shed by the overload controller (not ported yet;
-        sheds do not enter the attainment window)."""
+        """One arrival shed by the overload controller.  Sheds do not
+        enter the attainment window: attainment is defined over admitted
+        work (a shed is an honest refusal, not a blown promise), and
+        counting them would let rung-3 shedding depress the very signal
+        whose recovery de-escalates the ladder."""
         self._classes[priority].counts["shed"] += 1
+        _shed_total.inc(cls=priority)
 
     def note_retired(self, req) -> None:
-        """A request retired.  The JAX package observes its TPOT here;
-        that histogram comes with the monitor, so nothing is counted."""
+        """Observe TPOT at retirement: mean seconds per output token after
+        the first (nothing for a failed request or a single token)."""
+        if req.error is not None or req.first_token_at is None \
+                or req.finished_at is None:
+            return
+        n = len(req.generated)
+        if n > 1:
+            _tpot_s.observe(
+                (req.finished_at - req.first_token_at) / (n - 1),
+                cls=req.priority)
 
     def note_preempted(self, req) -> None:
-        self._count(req, "preempted")
+        self._count(req, "preempted", _preempted_total)
 
     def note_resumed(self, req) -> None:
-        self._count(req, "resumed")
+        self._count(req, "resumed", _resumed_total)
 
     def note_chunk(self, req) -> None:
-        self._count(req, "chunks")
+        self._count(req, "chunks", _chunks_total)
 
     def note_chunk_deferred(self, req) -> None:
-        self._count(req, "deferrals")
+        self._count(req, "deferrals", _deferrals_total)
 
     def note_preempt_expired(self, req) -> None:
-        self._count(req, "preempt_expired")
+        self._count(req, "preempt_expired", _preempt_expired_total)

@@ -10,7 +10,8 @@ tiny model of those tests with the JAX weights carried over (CPU, f32).
   the stream of the unpreempted run, greedy and sampled.
 - TTL and queue-wait deadlines, a timed-out ``result`` (which cancels),
   bounded queues (``EngineSaturated``), ``drain`` (with and without
-  ``reject_queued``), the resume TTL, and the classes the port refuses.
+  ``reject_queued``) and the resume TTL (the overload controls a class's
+  budgets arm are in ``test_torch_overload.py``).
   Every case ends with the pool whole and only the pad headroom
   reserved.
 
@@ -26,9 +27,7 @@ from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLM
 from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                         DeadlineExceeded, EngineDraining,
-                                        EngineSaturated, PriorityClass,
-                                        RequestCancelled)
-from paddle_tpu_torch.inference.scheduler import DEFAULT_CLASSES
+                                        EngineSaturated, RequestCancelled)
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.testing import faults
@@ -419,16 +418,6 @@ def test_resume_ttl_reaps_a_paused_prefill(models):
         assert counts["preempt_expired"] == 1
         assert eng.expired == 1
         assert_whole(eng)
-
-
-@pytest.mark.parametrize("budget", ["deadline_s", "tpot_budget_s"])
-def test_a_class_budget_is_refused(models, budget):
-    """The overload controls that act on a class's budgets are not
-    ported, so a class carrying one is refused, never ignored."""
-    _jm, tm = models
-    classes = DEFAULT_CLASSES + (PriorityClass("slo", 0, **{budget: 1.0}),)
-    with pytest.raises(ValueError, match="not ported"):
-        make_engine(tm, scheduler_classes=classes)
 
 
 def test_scheduler_info_reports_policy_and_depths(models):

@@ -55,5 +55,11 @@ def test_scan_sees_the_whole_port():
                  "paddle_tpu_torch/models/llama_moe.py",
                  "paddle_tpu_torch/ops/flashmask_attention.py",
                  "paddle_tpu_torch/nn/functional/attention.py",
+                 "paddle_tpu_torch/monitor/__init__.py",
+                 "paddle_tpu_torch/monitor/registry.py",
+                 "paddle_tpu_torch/monitor/span.py",
+                 "paddle_tpu_torch/monitor/trace.py",
+                 "paddle_tpu_torch/profiler/__init__.py",
+                 "paddle_tpu_torch/profiler/record.py",
                  "chip_smoke.py", "chip_ab.py"):
         assert must in names

@@ -22,14 +22,20 @@ TENANTS = ("t0", "t1", "t2")
 
 
 class _Stub:
-    """What the scheduler reads of a request: its class, its tenant and
-    whether its lifecycle ended."""
+    """What the scheduler reads of a request: its class, its tenant,
+    whether its lifecycle ended, and the times and tokens its queue-wait
+    and TPOT histograms observe."""
 
     def __init__(self, ident, priority, tenant):
         self.ident = ident
         self.priority = priority
         self.tenant = tenant
         self.dead = False
+        self.submitted_at = 0.0
+        self.error = None
+        self.first_token_at = None
+        self.finished_at = None
+        self.generated = []
 
     def _lifecycle_error(self, now, queued):
         assert queued

@@ -215,6 +215,30 @@ failure:
             from ``restore`` to every row's next token, and (bf16,
             reported) each stream's agreement with the fault-free one
             and its first divergence, whose f32 top-2 gap comes later.
+   tp      — tensor parallelism (``tp=2``), two processes on the one
+            card over gloo, asked for explicitly (NCCL, the default on a
+            card, puts rank r on cuda:r; it runs (a) as well where two
+            cards are visible, and otherwise a line says it did not run);
+            the sharded steps run eagerly (``PagedDecoder``).  (a)
+            llama_7b's widths cut to 2 layers in f32 beside tp=1 on the
+            card: prefill logits within relative L2 1e-5 (argmax equal),
+            a rank's KV pool bytes half the whole pool's, 8 greedy
+            streams equal in the unified and the legacy compositions, and
+            with int8 collectives the card's prefill logits nearer the
+            same tp=2 decoder's on the CPU than a quarter of the
+            quantization's own distance (their distance from tp=1, the
+            streams left equal and the f32 top-2 gap at each divergence
+            printed).  (b) the bf16 llama_7b at full
+            depth with the unchunked pass's traffic (a warm-up wave, then
+            the measured one; counters zeroed just before it on both
+            ranks): TTFT and TPOT p50 and decode tokens/s beside the
+            tp=1 graphed pass, each rank's peak memory and launches, 2
+            block reductions a layer a forward on each rank, the streams
+            against tp=1 (bf16: reported, first divergences with their
+            f32 top-2 gap later); then a launch wave (the traffic's
+            lengths, other tokens, queued together, greedy) on the same
+            engine and on an eager tp=1 engine: each rank's paged, flash,
+            RMSNorm and RoPE launches must equal the eager tp=1 pass's.
    overload — the same model with the classes traffic, an engine a
             sub-case: ``tpot`` (the interactive TPOT budget at 0.9x and
             2x the classes pass's interactive TPOT p50, every ragged
@@ -298,7 +322,7 @@ serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
 ``train``, ``moe``, ``flashmask``, ``classes``, ``speculative``,
-``recovery`` and ``overload`` hold each pass's
+``recovery``, ``overload`` and ``tp`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -2111,7 +2135,8 @@ def counters():
 
 def serve(model, prompts, sharer, chunk, device, quantize=None,
           kv_quant=None, warmup=None, kernels=None, unified=True,
-          draft_model=None, warm=None, drain=False):
+          draft_model=None, warm=None, drain=False, before_wave=None,
+          after_wave=None, **engine_kw):
     """Serve ``prompts`` (the last two sampled) and then ``sharer``,
     which shares prompts[0]'s first 256 tokens, once prompts[0] has its
     first token (so its prefix is cached).  With ``warmup`` (prompts,
@@ -2133,7 +2158,9 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
     wave (its captures count as the warm-up's), the measured wave's
     speculative counters join the record, and with ``drain``
     the engine is closed with ``drain(timeout=300)`` and the pools'
-    state after it recorded."""
+    state after it recorded.  ``before_wave(eng)`` runs just after the
+    counters are zeroed, ``after_wave(eng)`` once the measured wave's
+    record is taken; ``engine_kw`` go to the engine (``tp``, ...)."""
     from paddle_tpu_torch.inference.continuous import \
         ContinuousBatchingEngine
 
@@ -2162,7 +2189,7 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
                                   unified_step=unified,
                                   draft_model=draft_model,
                                   spec_tokens=SPEC_K,
-                                  device=device) as eng:
+                                  device=device, **engine_kw) as eng:
         if warmup is not None:
             # cached blocks released on both sides, so the difference is
             # what the warm-up holds: the graphs' pool and the staging
@@ -2185,6 +2212,8 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
         lens0 = list(eng.spec_accept_lens)
         for fn in (kernels or {}).values():
             fn.launches = 0
+        if before_wave is not None:
+            before_wave(eng)
         t0 = time.perf_counter()
         reqs = wave(eng, prompts, sharer)
         wall = time.perf_counter() - t0
@@ -2205,6 +2234,8 @@ def serve(model, prompts, sharer, chunk, device, quantize=None,
             info["acceptance_rate"] = (info["spec_accepted"]
                                        / max(1, info["spec_proposed"]))
             info["draft_dispatches"] = info["dispatches"]["draft"]
+        if after_wave is not None:
+            after_wave(eng)
         if drain:
             info["drained"] = eng.drain(timeout=300)
             info["pools_after_drain"] = dict(
@@ -3275,6 +3306,351 @@ def overload_phase(model, seed, classes_tpot_p50, kernels, card):
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
+
+
+# ------------------------------------------------------ tensor parallel
+# the tp phase: tp=2 as two processes on the one card over gloo, asked
+# for explicitly (NCCL, the default on a card, puts rank r on cuda:r and
+# so needs two cards; it runs (a) too where there are).  (a) llama_7b's
+# widths cut to TP_F32_LAYERS layers in f32 beside tp=1 on the card:
+# prefill logits, TP_F32_PROMPTS greedy streams of TP_F32_NEW tokens,
+# unified and legacy, and the int8 collectives.  (b) the bf16 llama_7b
+# at full depth with the serve traffic beside the unchunked pass, then a
+# launch wave (the serve lengths, other tokens, queued together, greedy,
+# TP_LAUNCH_NEW tokens) on the tp=2 engine and on an eager tp=1 one
+TP, TP_BACKEND = 2, "gloo"
+TP_F32_LAYERS, TP_F32_PROMPTS, TP_F32_NEW = 2, 8, 16
+TP_LAUNCH_NEW = 16
+TP_QUANT_CPU_SHARE = 0.25
+TP_KERNELS = ("paged_attention", "flash_attention_forward", "rms_norm",
+              "apply_rope")
+
+
+def _worker_counts(group, kernels):
+    """Each worker's launch counts, under ``kernels``' names."""
+    return [{n: got[fn.__name__] for n, fn in kernels.items()}
+            for got in group.query("launches")]
+
+
+def _queued_wave(eng, prompts, new):
+    """Every prompt queued under the engine's lock (admitted together),
+    greedy; returns the requests once all are done, and the wave's
+    dispatches by mode."""
+    before = dict(eng.dispatches)
+    with eng._cond:
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    for r in reqs:
+        r.result(timeout=600)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return reqs, {m: n - before[m] for m, n in eng.dispatches.items()}
+
+
+def tp_f32_check(seed, dev, backend, cfg=None):
+    """(a): f32 at llama_7b's widths (``cfg``) cut to TP_F32_LAYERS: a
+    tp=2 decoder's prefill logits against a tp=1 one's (relative L2 <=
+    1e-5, argmax equal), the pool bytes, TP_F32_PROMPTS greedy streams of
+    tp=2 engines equal to tp=1 engines' (unified and legacy), and the
+    int8 collectives (the card's prefill logits nearer the same tp=2
+    decoder's on the CPU than TP_QUANT_CPU_SHARE of the quantization's
+    own distance; their distance from tp=1 and the streams they keep
+    equal reported)."""
+    from paddle_tpu_torch.distributed.tensor_parallel import \
+        TensorParallelGroup
+    from paddle_tpu_torch.inference.continuous import \
+        ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.paged import PagedDecoder
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
+    cfg = cfg or llama_7b()
+    cfg.num_hidden_layers = TP_F32_LAYERS
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             seed=seed + 31)
+    rng = np.random.default_rng(seed + 31)
+    ids = rng.integers(0, cfg.vocab_size, (1, 300)).astype(np.int32)
+    rec = dict(backend=backend, layers=TP_F32_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    with TensorParallelGroup(TP, dev, backend=backend) as g:
+        rec["group_start_s"] = time.perf_counter() - t0
+        one = PagedDecoder(model)
+        c1 = PagedKVCache.from_model(model, total_pages=64, page_size=16)
+        want = torch.from_numpy(one.prefill(c1, [0], ids))
+        for quant in (False, True):
+            dec = PagedDecoder(model, tp_group=g, tp_quant_collectives=quant)
+            cache = PagedKVCache.from_model(model, total_pages=64,
+                                            page_size=16, tp_group=g)
+            got = torch.from_numpy(dec.prefill(cache, [0], ids))
+            key = "quant_" if quant else ""
+            rec[key + "prefill_rel_l2"] = float((got - want).norm()
+                                                / want.norm())
+            rec[key + "prefill_max_abs_err"] = float(
+                (got - want).abs().max())
+            rec[key + "argmax_equal"] = int(got.argmax()) \
+                == int(want.argmax())
+        quant_logits = got
+        rec.update(kv_pool_bytes=cache.kv_pool_bytes,
+                   kv_pool_bytes_per_chip=cache.kv_pool_bytes_per_chip,
+                   kv_pool_bytes_tp1=c1.kv_pool_bytes)
+    if rec["prefill_rel_l2"] > 1e-5 or not rec["argmax_equal"] \
+            or not torch.isfinite(quant_logits).all():
+        raise AssertionError(f"tp f32 over {backend}: tp=2 prefill logits "
+                             f"stray from tp=1's: {rec}")
+    if rec["kv_pool_bytes_per_chip"] * TP != rec["kv_pool_bytes"] \
+            or rec["kv_pool_bytes"] != rec["kv_pool_bytes_tp1"]:
+        raise AssertionError(f"tp f32: pool bytes {rec}")
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(16, 257, TP_F32_PROMPTS)]
+
+    def streams(**kw):
+        with ContinuousBatchingEngine(model, total_pages=256, page_size=16,
+                                      max_batch=8, device=dev, **kw) as eng:
+            reqs, _ = _queued_wave(eng, prompts, TP_F32_NEW)
+            return ([list(r.generated) for r in reqs],
+                    type(eng._decoder).__name__)
+
+    for unified in (True, False):
+        label = "unified" if unified else "legacy"
+        base, rec[f"{label}_decoder_tp1"] = streams(unified_step=unified)
+        got, rec[f"{label}_decoder_tp2"] = streams(
+            unified_step=unified, tp=TP, tp_backend=backend)
+        rec[f"{label}_streams_equal"] = sum(a == b
+                                            for a, b in zip(base, got))
+        if got != base:
+            raise AssertionError(
+                f"tp f32 {label} over {backend}: tp=2 streams {got} differ "
+                f"from tp=1's {base}")
+        if label == "unified":
+            unified_base = base
+    # the int8 collectives round each block half's partial sum to one
+    # absmax int8 scale over the whole (tokens x 4096) tensor, which the
+    # largest rows set: the logits move from tp=1's by the scheme itself
+    # (JAX's, which the CPU tests hold the port to), and that distance is
+    # reported, with the streams they flip and the tp=1 f32 top-2 gap at
+    # each first divergence.  What is held is that the card computes the
+    # same quantized function as the CPU (the plain versions, gloo): the
+    # rounding is discontinuous, so the card's f32 differences flip a
+    # few codes, but the card's quantized logits must lie far closer to
+    # the CPU's than either to the unquantized ones (a wrong scale or
+    # gather would put them a whole quantization error apart)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=None)
+    cpu_model.load_state_dict(model.state_dict())
+    exact = torch.from_numpy(PagedDecoder(cpu_model).prefill(
+        PagedKVCache.from_model(cpu_model, total_pages=64, page_size=16),
+        [0], ids))
+    with TensorParallelGroup(TP, "cpu") as g:
+        dec = PagedDecoder(cpu_model, tp_group=g, tp_quant_collectives=True)
+        cache = PagedKVCache.from_model(cpu_model, total_pages=64,
+                                        page_size=16, tp_group=g)
+        host = torch.from_numpy(dec.prefill(cache, [0], ids))
+    del cpu_model, dec, cache
+    rec["quant_prefill_rel_l2_card_vs_cpu"] = float(
+        (quant_logits - host).norm() / host.norm())
+    rec["quant_prefill_rel_l2_cpu_vs_exact"] = float(
+        (host - exact).norm() / exact.norm())
+    if rec["quant_prefill_rel_l2_card_vs_cpu"] \
+            > TP_QUANT_CPU_SHARE * rec["quant_prefill_rel_l2_cpu_vs_exact"]:
+        raise AssertionError(
+            f"tp f32 int8 collectives over {backend}: the card's prefill "
+            f"logits are {rec['quant_prefill_rel_l2_card_vs_cpu']} "
+            f"(relative L2) from the CPU's, past {TP_QUANT_CPU_SHARE} of "
+            f"the quantization's own distance, "
+            f"{rec['quant_prefill_rel_l2_cpu_vs_exact']}")
+    got, _ = streams(tp=TP, tp_backend=backend, tp_quant_collectives=True)
+    divergences = []
+    for i, (a, b) in enumerate(zip(unified_base, got)):
+        at = first_divergence(b, a)
+        if at is not None:
+            divergences.append(dict(
+                label="tp2_int8_collectives", request=i, position=at,
+                ids=np.concatenate([prompts[i],
+                                    np.asarray(a[:at], np.int32)]),
+                tokens=(int(a[at]), int(b[at]))))
+    rec["quant_streams_equal"] = TP_F32_PROMPTS - len(divergences)
+    rec["quant_divergence_gaps"] = top2_gaps(model, divergences)
+    del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def tp_serve_check(model, prompts, sharer, warmup, kernels, plain, seed,
+                   card, dev, backend=TP_BACKEND):
+    """(b): the bf16 model at full depth served at tp=2 over ``backend``
+    (gloo: both ranks on the one card) with the serve traffic (a warm-up
+    wave, then the measured one), beside the unchunked tp=1 pass
+    ``plain`` = (its record, its
+    requests): TTFT, TPOT, decode tokens/s, each rank's peak memory and
+    launches, the block reductions a forward on each rank (2 a layer),
+    the streams against tp=1 (bf16: reported, with the first
+    divergences); then the launch wave on the same engine and on an
+    eager tp=1 engine: each rank's paged, flash, RMSNorm and RoPE
+    launches must equal the eager tp=1 pass's."""
+    from paddle_tpu_torch.inference import continuous
+    from paddle_tpu_torch.inference.paged import PagedDecoder
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    plain_rec, plain_reqs = plain
+    rng = np.random.default_rng(seed + 37)
+    launch_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                      for n in [len(p) for p in prompts] + [len(sharer)]]
+    state = {}
+
+    def before(eng):
+        g = eng.tp_group
+        g.query("zero_launches")
+        g.query("reset_peak")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        state["reduces"] = (g.collectives.reduces, g.query("reduces")[0])
+
+    def after(eng):
+        g = eng.tp_group
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        state["rank0"] = {n: fn.launches for n, fn in kernels.items()}
+        state["rank1"] = _worker_counts(g, kernels)[0]
+        state["peak"] = [torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None,
+                         *g.query("memory")]
+        r0, r1 = state["reduces"]
+        state["reduces"] = (g.collectives.reduces - r0,
+                            g.query("reduces")[0] - r1)
+        state["decoder"] = type(eng._decoder).__name__
+        for fn in kernels.values():
+            fn.launches = 0
+        g.query("zero_launches")
+        _, state["launch_dispatches"] = _queued_wave(eng, launch_prompts,
+                                                     TP_LAUNCH_NEW)
+        state["launch_rank0"] = {n: fn.launches for n, fn in kernels.items()}
+        state["launch_rank1"] = _worker_counts(g, kernels)[0]
+
+    t0 = time.perf_counter()
+    reqs, wall, info = serve(model, prompts, sharer, None, dev,
+                             warmup=warmup, kernels=kernels,
+                             before_wave=before, after_wave=after, tp=TP,
+                             tp_backend=backend)
+    pass_s = time.perf_counter() - t0
+    # the eager tp=1 engine of the launch wave: its steps run the eager
+    # decoder in place of the graphed one (the same device bodies)
+    graphed = continuous.GraphedPagedDecoder
+    continuous.GraphedPagedDecoder = PagedDecoder
+    try:
+        with continuous.ContinuousBatchingEngine(
+                model, total_pages=1024, page_size=16, max_batch=8,
+                min_table_pages=SERVE_TABLE_PAGES, device=dev) as eng:
+            eager_decoder = type(eng._decoder).__name__
+            for fn in kernels.values():
+                fn.launches = 0
+            _, eager_disp = _queued_wave(eng, launch_prompts, TP_LAUNCH_NEW)
+            eager = {n: fn.launches for n, fn in kernels.items()}
+    finally:
+        continuous.GraphedPagedDecoder = graphed
+
+    norms = 2 * layers + 1
+    forwards = state["rank0"]["rms_norm"] / norms
+    rec = dict(serve_stats(reqs, wall), backend=backend, tp=TP,
+               card=card, decoder=state["decoder"], pass_s=pass_s,
+               tp1_graphed=dict(ttft_p50_s=plain_rec["ttft_p50_s"],
+                                tpot_p50_s=plain_rec["tpot_p50_s"],
+                                decode_tok_s=plain_rec["decode_tok_s"]),
+               peak_memory_gb=[None if b is None else b / 2 ** 30
+                               for b in state["peak"]],
+               reduces=list(state["reduces"]), forwards=forwards,
+               reduces_per_forward=[r / max(forwards, 1)
+                                    for r in state["reduces"]],
+               launch_wave=dict(
+                   new_tokens=TP_LAUNCH_NEW,
+                   dispatches=state["launch_dispatches"],
+                   dispatches_eager_tp1=eager_disp,
+                   eager_tp1_decoder=eager_decoder,
+                   rank0={n: state["launch_rank0"][n] for n in TP_KERNELS},
+                   rank1={n: state["launch_rank1"][n] for n in TP_KERNELS},
+                   eager_tp1={n: eager[n] for n in TP_KERNELS}),
+               **{k: info[k] for k in ("captures", "dispatches", "steps",
+                                       "decode_retries", "quarantined",
+                                       "unified_fallbacks",
+                                       "kv_pool_bytes")})
+    agree, divergences = [], []
+    for i, (r, p) in enumerate(zip(reqs, plain_reqs)):
+        at = first_divergence(r.generated, p.generated)
+        agree.append(at)
+        if at is not None:
+            divergences.append(dict(
+                label=f"tp2_{backend}", request=i, position=at,
+                ids=np.concatenate([p.prompt, np.asarray(p.generated[:at],
+                                                         np.int32)]),
+                tokens=(int(p.generated[at]), int(r.generated[at]))))
+    rec.update(streams_equal_tp1=sum(a is None for a in agree),
+               requests=len(agree), first_divergence=agree,
+               sharer_prefix_tokens=reqs[-1].prefix_tokens)
+    log(f"tp bf16 {backend}: " + json.dumps(rec))
+    log("  launches rank 0: " + json.dumps(state["rank0"]))
+    log("  launches rank 1: " + json.dumps(state["rank1"]))
+    for i, r in enumerate(reqs):
+        if r.error is not None or len(r.generated) != 32:
+            raise AssertionError(f"tp bf16: request {i} did not complete "
+                                 f"({r.error})")
+    if state["decoder"] != "PagedDecoder" or info["captures"] \
+            or any(info[k] for k in ("decode_retries", "quarantined",
+                                     "unified_fallbacks")):
+        raise AssertionError(f"tp bf16: the sharded steps must run eagerly "
+                             f"and none may fail: {rec}")
+    for n in TP_KERNELS:
+        if state["rank0"][n] != state["rank1"][n]:
+            raise AssertionError(f"tp bf16: {n} launched {state['rank0'][n]}"
+                                 f" times on rank 0, {state['rank1'][n]} on"
+                                 " rank 1")
+    if list(state["reduces"]) != [2 * layers * forwards] * TP:
+        raise AssertionError(f"tp bf16: {state['reduces']} block reductions "
+                             f"in {forwards} forwards, expected "
+                             f"{2 * layers} each on every rank")
+    wave = rec["launch_wave"]
+    if wave["dispatches"] != eager_disp or not (
+            wave["rank0"] == wave["rank1"] == wave["eager_tp1"]):
+        raise AssertionError(f"tp bf16 launch wave: each rank must launch "
+                             f"what the eager tp=1 pass does: {wave}")
+    if dev.type == "cuda" and not all(wave["eager_tp1"].values()):
+        raise AssertionError(f"tp bf16 launch wave: a kernel never "
+                             f"launched: {wave}")
+    label = "tp2" if backend == TP_BACKEND else f"tp2_{backend}"
+    launches = {label: state["rank0"], f"{label}_rank1": state["rank1"]}
+    del reqs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, launches, divergences
+
+
+def tp_phase(model, prompts, sharer, warmup, kernels, plain, seed, card,
+             dev):
+    """The tp phase: (a) and (b) over gloo on the one card, and over NCCL
+    (a rank a card) where two cards are visible.  Returns the record, the
+    launches by pass, and the bf16 divergences by backend."""
+    rec = {"card": card, "device_count": torch.cuda.device_count()}
+    log(f"tp: tp={TP}, two processes on {card} over {TP_BACKEND} (asked "
+        "for: NCCL needs a card a rank); the sharded steps run eagerly "
+        "(PagedDecoder), tp=1 graphed beside them")
+    rec["f32"] = {TP_BACKEND: tp_f32_check(seed, dev, TP_BACKEND)}
+    log("tp f32: " + json.dumps(rec["f32"][TP_BACKEND]))
+    backends = [TP_BACKEND]
+    if torch.cuda.device_count() >= TP:
+        backends.append("nccl")
+        rec["f32"]["nccl"] = tp_f32_check(seed, dev, "nccl")
+        log("tp f32 nccl: " + json.dumps(rec["f32"]["nccl"]))
+    else:
+        rec["nccl"] = (f"not run: torch.cuda.device_count() is "
+                       f"{torch.cuda.device_count()}, NCCL puts a rank on "
+                       f"each of {TP} cards")
+        log("tp: NCCL " + rec["nccl"])
+    rec["bf16"], launches, divergences = {}, {}, {}
+    for backend in backends:
+        rec["bf16"][backend], got, divergences[backend] = tp_serve_check(
+            model, prompts, sharer, warmup, kernels, plain, seed, card, dev,
+            backend)
+        launches.update(got)
+    return rec, launches, divergences
 
 
 def top2_gaps(model, divergences):
@@ -5624,9 +6000,69 @@ def profile_decode(model, batch, context, steps, seed, quantize=None,
     return res
 
 
+def serve_model(seed, dev):
+    """llama_7b in bf16, weights drawn on the card from ``seed``, and the
+    serve traffic: 7 prompts of 64-1024 tokens, a sharer of the first's
+    256-token prefix, each pass's warm-up wave (the same lengths, other
+    tokens, so it makes no prefix hit the measured wave would not make)
+    and the 8 lengths."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    cfg = llama_7b()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             seed=seed)
+    torch.cuda.synchronize()
+    log(f"serve: llama_7b ({cfg.num_hidden_layers} layers) bf16, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(64, 1025, 8)
+    lengths[0] = max(lengths[0], 300)     # holds the shared 256 prefix
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lengths[:7]]
+    sharer = np.concatenate([prompts[0][:256], rng.integers(
+        0, cfg.vocab_size, int(lengths[7]) - 256 if lengths[7] > 256
+        else 64)]).astype(np.int32)
+    warm = [rng.integers(0, cfg.vocab_size, len(p)).astype(np.int32)
+            for p in prompts]
+    warmup = (warm, np.concatenate([warm[0][:256], rng.integers(
+        0, cfg.vocab_size, len(sharer) - 256)]).astype(np.int32))
+    return model, prompts, sharer, warmup, lengths
+
+
+def tp_gaps(model, rec, divergences):
+    """The tp phase's bf16 divergences from tp=1, with the top-2 logit gap
+    of a plain f32 forward there (``model`` in f32 by now)."""
+    for backend, divs in divergences.items():
+        rec["bf16"][backend]["bf16_divergence_gaps"] = top2_gaps(model, divs)
+        log(f"tp {backend}: bf16 divergences of tp=2 from the tp=1 streams, "
+            "top-2 logit gap of a plain f32 forward there: "
+            + json.dumps(rec["bf16"][backend]["bf16_divergence_gaps"]))
+
+
+def tp_only(seed, dev, card):
+    """``--only tp``: the unchunked serve pass (the tp phase's tp=1
+    baseline) and the tp phase alone, for a machine with two cards or
+    more, where both of its checks run over NCCL too."""
+    model, prompts, sharer, warmup, _ = serve_model(seed, dev)
+    kernels = counters()
+    reqs, wall, info = serve(model, prompts, sharer, None, dev,
+                             warmup=warmup, kernels=kernels)
+    plain = dict(serve_stats(reqs, wall), card=card, **info)
+    log("serve unchunked: " + json.dumps(plain))
+    rec, _, divergences = tp_phase(model, prompts, sharer, warmup, kernels,
+                                   (plain, reqs), seed, card, dev)
+    del reqs
+    gc.collect()
+    model.float()
+    tp_gaps(model, rec, divergences)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("tp",),
+                    help="after the build, run only the unchunked serve "
+                    "pass and the tp phase (over NCCL too on two cards)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5726,6 +6162,16 @@ def main():
     records["paged_attention"]["hmma"] = hmma
     gc.collect()
     torch.cuda.empty_cache()
+    if args.only == "tp":
+        tp_rec = tp_only(args.seed, dev, smi[0])
+        lap("tp")
+        phase_s["total"] = time.perf_counter() - T_START
+        print(json.dumps({"tp": tp_rec, "phase_s": {
+            k: round(v, 2) for k, v in phase_s.items()}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # FlashMask forward + backward at 8192 packed tokens (before the 7B
     # model takes the card's memory)
@@ -5755,27 +6201,8 @@ def main():
     lap("check_small_moe")
 
     # 4. llama_7b serving
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
-    cfg = llama_7b()
-    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
-                             seed=args.seed)
-    torch.cuda.synchronize()
-    log(f"serve: llama_7b ({cfg.num_hidden_layers} layers) bf16, "
-        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
-    rng = np.random.default_rng(args.seed)
-    lengths = rng.integers(64, 1025, 8)
-    lengths[0] = max(lengths[0], 300)     # holds the shared 256 prefix
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in lengths[:7]]
-    sharer = np.concatenate([prompts[0][:256], rng.integers(
-        0, cfg.vocab_size, int(lengths[7]) - 256 if lengths[7] > 256
-        else 64)]).astype(np.int32)
-    # each pass's warm-up wave: the same lengths, other tokens (so it
-    # makes no prefix hit that the measured wave would not make)
-    warm = [rng.integers(0, cfg.vocab_size, len(p)).astype(np.int32)
-            for p in prompts]
-    warmup = (warm, np.concatenate([warm[0][:256], rng.integers(
-        0, cfg.vocab_size, len(sharer) - 256)]).astype(np.int32))
+    model, prompts, sharer, warmup, lengths = serve_model(args.seed, dev)
+    cfg = model.config
     kernels = counters()
     passes = {}
     greedy = {}
@@ -5914,8 +6341,14 @@ def main():
     recovery_rec, recovery_div = recovery_phase(
         model, prompts, sharer, warmup, kernels,
         (passes["unchunked"], unchunked_reqs), smi[0])
-    del unchunked_reqs
     lap("recovery")
+    # tensor parallelism, tp=2 on the one card, against tp=1
+    tp_rec, tp_launches, tp_div = tp_phase(
+        model, prompts, sharer, warmup, kernels,
+        (passes["unchunked"], unchunked_reqs), args.seed, smi[0], dev)
+    launches.update(tp_launches)
+    del unchunked_reqs
+    lap("tp")
     # the overload controls over the classes traffic
     overload_rec, overload_launches = overload_phase(
         model, args.seed, classes_rec["classes"]["tpot_p50_s"]["interactive"],
@@ -5978,6 +6411,7 @@ def main():
     log("recovery: bf16 divergences from the fault-free streams, top-2 "
         "logit gap of a plain f32 forward there: "
         + json.dumps(recovery_rec["bf16_divergence_gaps"]))
+    tp_gaps(model, tp_rec, tp_div)
     got32, ref32, _ = prefill_logits(model, ids)
     gen_rec["batch_context_prefill_f32"] = check_batch_context_prefill(
         model, args.seed, gen_rec["batch_context_prefill"])
@@ -6112,6 +6546,7 @@ def main():
                           "dispatches", "ragged_ms_by_bucket")}
                           for p, r in classes_rec.items()},
                       "overload": overload_rec,
+                      "tp": tp_rec,
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

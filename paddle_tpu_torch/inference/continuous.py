@@ -158,11 +158,13 @@ import torch
 
 from .. import monitor
 from .._device import resolve_device
+from ..distributed.tensor_parallel import TensorParallelGroup
 from ..distributed.watchdog import CommTaskManager
 from ..monitor.trace import get_tracer as _get_tracer
 from ..ops.paged_attention import PagedKVCache
 from ..testing import faults as _faults
-from .paged import GraphedPagedDecoder, PagedDecoder, next_pow2, sample_token
+from .paged import (GraphedPagedDecoder, PagedDecoder, _tp_plan, next_pow2,
+                    sample_token)
 from .scheduler import DEFAULT_CLASS, QueueFull, WorkloadScheduler
 
 _PAD_SEQ = "__pad__"
@@ -587,6 +589,21 @@ class ContinuousBatchingEngine:
     ``draft_total_pages`` (default ``total_pages``), and stays at full
     precision whatever ``quantize`` and ``kv_quant`` say.
 
+    Tensor parallelism: ``tp > 1`` serves the model over ``tp`` ranks,
+    one process a rank (``distributed.tensor_parallel``): this process is
+    rank 0 and plans every step, ``tp - 1`` spawned workers execute them.
+    The weights are cut Megatron-style (``paged._tp_plan``) and every KV
+    pool on its kv-head axis, so one engine is one replica whose
+    scheduling surface is unchanged.  ``tp_quant_collectives`` closes
+    each block with the int8 all-gather in place of the sum all-reduce;
+    ``tp_backend`` is the device group's: None runs gloo on the CPU and
+    NCCL on a card (rank r on ``cuda:r``, so ``tp`` visible cards), and
+    ``"gloo"`` on a card puts every rank on ``device``.  The sharded steps
+    run eagerly (``PagedDecoder``) on every backend; a draft model stays
+    whole on rank 0.  ``quantize`` does not compose with ``tp > 1``, as in
+    JAX; ``kv_quant`` does.  ``stop`` (and leaving a ``with`` block) ends
+    every worker.
+
     Crash recovery: ``step_timeout_s`` registers the step heartbeat with
     the process's watchdog (``distributed.watchdog.CommTaskManager``);
     ``replay_batch`` replays the survivors after a lost pool in batched
@@ -640,6 +657,8 @@ class ContinuousBatchingEngine:
                  brownout_thresholds=None,
                  brownout_patience: int = 3,
                  tpot_preempt_cooldown_s: float = 0.25,
+                 tp: int = 1, tp_quant_collectives: bool = False,
+                 tp_backend: Optional[str] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -723,49 +742,76 @@ class ContinuousBatchingEngine:
         if kv_quant not in (None, "int8"):
             raise ValueError(
                 f"kv_quant must be None or 'int8', got {kv_quant!r}")
-        self.cache = PagedKVCache.from_model(model, total_pages=total_pages,
-                                             page_size=page_size,
-                                             kv_dtype=kv_quant)
-        decoder = (GraphedPagedDecoder if self.device.type == "cuda"
-                   else PagedDecoder)
-        self._decoder = decoder(model, quantize=quantize,
-                                min_table_pages=min_table_pages)
-        _quant_enabled_g.set(int(quantize is not None))
-        _kv_quant_enabled_g.set(int(kv_quant is not None))
-        _kv_quant_pool_bytes_g.set(self.cache.kv_pool_bytes)
-        _kv_quant_scale_bytes_g.set(self.cache.kv_scale_bytes)
-        _replay_dispatches.inc(0)       # materialize the series
-        # speculative decoding: the draft gets its own decoder and page
-        # pool, at full precision (its accuracy sets the acceptance rate)
-        self.draft_model = draft_model
-        self.spec_k = int(spec_tokens)
-        if draft_model is not None:
-            if self.spec_k < 1:
-                raise ValueError("spec_tokens must be >= 1")
-            if int(draft_model.config.vocab_size) \
-                    != int(model.config.vocab_size):
+        # tensor parallelism: the plan and the quantize refusal are
+        # checked before any worker starts; the workers end if the rest
+        # of the set-up fails
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp degree must be >= 1, got {self.tp}")
+        self.tp_quant_collectives = bool(tp_quant_collectives)
+        self.tp_group = None
+        if self.tp > 1:
+            if quantize is not None:
                 raise ValueError(
-                    "draft and target models must share a vocabulary "
-                    f"({draft_model.config.vocab_size} vs "
-                    f"{model.config.vocab_size})")
-            dweight = draft_model.model.embed_tokens.weight
-            if dweight.device != self.device:
-                raise ValueError(f"the draft model lives on "
-                                 f"{dweight.device}, the engine on "
-                                 f"{self.device}")
-            self._draft_decoder = decoder(draft_model,
-                                          min_table_pages=min_table_pages)
-            self.draft_cache = PagedKVCache.from_model(
-                draft_model,
-                total_pages=(total_pages if draft_total_pages is None
-                             else draft_total_pages),
-                page_size=page_size)
-            self._draft_max_position = int(
-                draft_model.config.max_position_embeddings)
-        else:
-            self._draft_decoder = None
-            self.draft_cache = None
-            self._draft_max_position = 0
+                    "quantize='w8'/'w8a8' does not compose with tensor "
+                    "parallelism (kv_quant='int8' does)")
+            _tp_plan(model, self.tp)
+            self.tp_group = TensorParallelGroup(self.tp, self.device,
+                                                backend=tp_backend)
+        try:
+            self.cache = PagedKVCache.from_model(
+                model, total_pages=total_pages, page_size=page_size,
+                kv_dtype=kv_quant, tp_group=self.tp_group)
+            decoder = (GraphedPagedDecoder if self.device.type == "cuda"
+                       else PagedDecoder)
+            if self.tp_group is not None:
+                self._decoder = PagedDecoder(
+                    model, min_table_pages=min_table_pages,
+                    tp_group=self.tp_group,
+                    tp_quant_collectives=self.tp_quant_collectives)
+            else:
+                self._decoder = decoder(model, quantize=quantize,
+                                        min_table_pages=min_table_pages)
+            _quant_enabled_g.set(int(quantize is not None))
+            _kv_quant_enabled_g.set(int(kv_quant is not None))
+            _kv_quant_pool_bytes_g.set(self.cache.kv_pool_bytes)
+            _kv_quant_scale_bytes_g.set(self.cache.kv_scale_bytes)
+            _replay_dispatches.inc(0)       # materialize the series
+            # speculative decoding: the draft gets its own decoder and page
+            # pool, at full precision (its accuracy sets the acceptance rate)
+            self.draft_model = draft_model
+            self.spec_k = int(spec_tokens)
+            if draft_model is not None:
+                if self.spec_k < 1:
+                    raise ValueError("spec_tokens must be >= 1")
+                if int(draft_model.config.vocab_size) \
+                        != int(model.config.vocab_size):
+                    raise ValueError(
+                        "draft and target models must share a vocabulary "
+                        f"({draft_model.config.vocab_size} vs "
+                        f"{model.config.vocab_size})")
+                dweight = draft_model.model.embed_tokens.weight
+                if dweight.device != self.device:
+                    raise ValueError(f"the draft model lives on "
+                                     f"{dweight.device}, the engine on "
+                                     f"{self.device}")
+                self._draft_decoder = decoder(draft_model,
+                                              min_table_pages=min_table_pages)
+                self.draft_cache = PagedKVCache.from_model(
+                    draft_model,
+                    total_pages=(total_pages if draft_total_pages is None
+                                 else draft_total_pages),
+                    page_size=page_size)
+                self._draft_max_position = int(
+                    draft_model.config.max_position_embeddings)
+            else:
+                self._draft_decoder = None
+                self.draft_cache = None
+                self._draft_max_position = 0
+        except BaseException:
+            if self.tp_group is not None:
+                self.tp_group.close()
+            raise
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_rollbacks = 0
@@ -1010,21 +1056,53 @@ class ContinuousBatchingEngine:
                  eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
                  seed: int = 0, ttl_s: Optional[float] = None,
+                 draft: Optional[bool] = None,
                  priority: Optional[str] = None,
-                 tenant: str = "default"):
+                 tenant: str = "default",
+                 request_id: Optional[str] = None):
         """Blocking batch API: one sequence per row (row i seeded
         ``seed + i``; rows may differ in length), outputs eos-padded to a
-        common length.  If any row fails to submit or errors, the rows
-        already submitted are cancelled and the error re-raised, so a
-        rejected batch never leaves orphan sequences decoding against the
-        pool."""
+        common length; ``draft`` and ``request_id`` as
+        :meth:`generate_with_requests` takes them.  If any row fails to
+        submit or errors, the rows already submitted are cancelled and
+        the error re-raised, so a rejected batch never leaves orphan
+        sequences decoding against the pool."""
+        out, _reqs = self.generate_with_requests(
+            input_ids, max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id, do_sample=do_sample,
+            temperature=temperature, seed=seed, ttl_s=ttl_s, draft=draft,
+            priority=priority, tenant=tenant, request_id=request_id)
+        return out
+
+    def generate_with_requests(self, input_ids, max_new_tokens: int = 32,
+                               eos_token_id: Optional[int] = None,
+                               do_sample: bool = False,
+                               temperature: float = 1.0, seed: int = 0,
+                               ttl_s: Optional[float] = None,
+                               draft: Optional[bool] = None,
+                               priority: Optional[str] = None,
+                               tenant: str = "default",
+                               request_id: Optional[str] = None):
+        """:meth:`generate` returning ``(output_ids, requests)``, so a
+        server can hand each row's ``request_id`` back to its client.
+        ``draft`` is every row's speculative opt-in (``submit``'s);
+        ``request_id`` is the id of a single row, and of a multi-row call
+        the stem of its rows' ids, ``<id>/<row>``."""
+        ids = [np.asarray(row) for row in input_ids]
+
+        def rid(i: int) -> Optional[str]:
+            if request_id is None:
+                return None
+            return request_id if len(ids) == 1 else f"{request_id}/{i}"
+
         reqs: List[_Request] = []
         try:
-            for i, row in enumerate(input_ids):
+            for i, row in enumerate(ids):
                 reqs.append(self.submit(row, max_new_tokens, eos_token_id,
                                         do_sample, temperature, seed + i,
-                                        ttl_s=ttl_s, priority=priority,
-                                        tenant=tenant))
+                                        ttl_s=ttl_s, draft=draft,
+                                        priority=priority, tenant=tenant,
+                                        request_id=rid(i)))
             rows = [r.result() for r in reqs]
         except BaseException:
             for r in reqs:
@@ -1035,7 +1113,7 @@ class ContinuousBatchingEngine:
                       0 if eos_token_id is None else eos_token_id, np.int32)
         for i, r in enumerate(rows):
             out[i, :len(r)] = r
-        return out
+        return out, reqs
 
     @property
     def draining(self) -> bool:
@@ -1370,6 +1448,8 @@ class ContinuousBatchingEngine:
             # a heartbeat outliving its engine would be flagged forever
             CommTaskManager.instance().unregister_heartbeat(self._hb_id)
             self._hb_id = None
+        if self.tp_group is not None:
+            self.tp_group.close()
 
     def __enter__(self):
         return self

@@ -58,23 +58,115 @@ def next_pow2(n: int) -> int:
     return b
 
 
-def _maybe_lose_buffers(cache: PagedKVCache, seq_ids) -> None:
-    """The ``buffer_loss`` device-fault site (JAX ``_maybe_lose_buffers``):
-    when a rule fires here, the cache's pools are zeroed in place
+def _buffer_loss(seq_ids) -> Optional[BaseException]:
+    """The ``buffer_loss`` device-fault site (JAX ``_maybe_lose_buffers``),
+    fired once a step just before its body: the error a rule raised
+    there, or None.  The step then zeroes the cache's pools in place
     (``reset_pools``: ``generation`` bumps and the prefix index is
-    dropped) before the error propagates, which loses every sequence's KV
-    as a real device-side step fault would, so the engine must replay the
+    dropped) and re-raises it, which loses every sequence's KV as a real
+    device-side step fault would, so the engine must replay the
     survivors.  The JAX decoder deletes its donated buffers and rebuilds
     them; the port's pools are never donated, and zeroing them keeps
     their addresses, so the CUDA graphs captured over them stay valid.
     No plan installed: one ``is None`` check."""
     if _faults.active() is None:
-        return
+        return None
     try:
         _faults.maybe_fire("buffer_loss", seq_ids=list(seq_ids))
-    except BaseException:
-        cache.reset_pools()
-        raise
+    except BaseException as exc:
+        return exc
+    return None
+
+
+def _row_parallel(model) -> list:
+    """The row-parallel Linears of a LLaMA (o and down of every layer)."""
+    return [lin for layer in model.model.layers
+            for lin in (layer.self_attn.o_proj, layer.mlp.down_proj)]
+
+
+def _tp_plan(model, tp: int):
+    """Megatron-style tensor-parallel plan for a LLaMA-shaped serving
+    model over ``tp`` ranks (JAX ``_tp_plan``,
+    ``paddle_tpu/inference/paged.py:71-126``).
+
+    Column-parallel (output features cut; dim 0 of the port's [out, in]
+    weights): q/k/v and the MLP's gate/up, so each rank computes its own
+    heads and its own slice of the intermediate activations with no
+    communication.  Row-parallel (input features cut, dim 1): o and down,
+    whose matmuls give partial sums that one sum over the ranks closes a
+    block half (``_make_tp_reduce``).  Everything else (norms, embedding,
+    head) stays whole on every rank, so the logits and the sampling tail
+    run replicated after the reduce.
+
+    Returns ``{parameter name: the dim its shard is cut along}`` for the
+    cut parameters (the others are whole).  Raises ValueError for a
+    model that is not LLaMA-shaped, heads, kv heads or an intermediate
+    size that ``tp`` does not divide, or a row-parallel projection with
+    a bias (each rank's bias would be summed ``tp`` times)."""
+    layers = getattr(getattr(model, "model", None), "layers", None)
+    if not layers or not all(hasattr(getattr(layer, "mlp", None),
+                                     "gate_proj") for layer in layers):
+        raise ValueError(
+            "tensor-parallel serving needs a LLaMA-shaped model "
+            "(model.model.layers with self_attn/mlp blocks)")
+    dims = {}
+    for i, layer in enumerate(layers):
+        attn, mlp = layer.self_attn, layer.mlp
+        if attn.num_heads % tp or attn.num_kv_heads % tp:
+            raise ValueError(
+                f"layer {i}: num_heads ({attn.num_heads}) and "
+                f"num_kv_heads ({attn.num_kv_heads}) must divide the "
+                f"tensor-parallel degree ({tp})")
+        if mlp.gate_proj.out_features % tp:
+            raise ValueError(
+                f"layer {i}: intermediate_size "
+                f"({mlp.gate_proj.out_features}) must divide the "
+                f"tensor-parallel degree ({tp})")
+        p = f"model.layers.{i}."
+        for name in ("self_attn.q_proj", "self_attn.k_proj",
+                     "self_attn.v_proj", "mlp.gate_proj", "mlp.up_proj"):
+            lin = layer.get_submodule(name)
+            dims[p + name + ".weight"] = 0
+            if lin.bias is not None:
+                dims[p + name + ".bias"] = 0
+        for name in ("self_attn.o_proj", "mlp.down_proj"):
+            if layer.get_submodule(name).bias is not None:
+                raise ValueError(
+                    "row-parallel projections must be bias-free under "
+                    "tensor parallelism")
+            dims[p + name + ".weight"] = 1
+    return dims
+
+
+def _make_tp_reduce(collectives, quant: bool):
+    """The collective closing each row-parallel block half (JAX
+    ``_make_tp_reduce``, ``paddle_tpu/inference/paged.py:552-586``): a sum
+    all-reduce in the partial sums' own type, or with ``quant`` the int8
+    variant: absmax-scale the local partial sum to int8 (``scale =
+    max(amax, 1e-8) / 127``, ``clip(round(x / scale), -127, 127)``),
+    all-gather the int8 codes and the f32 scales, then dequantize and
+    sum locally in ``x``'s type: a rank moves 8/tp times fewer bytes than
+    in an f32 ring all-reduce (4x at tp=2), at the cost of one absmax
+    rounding a block half.  ``collectives`` is the group's
+    (:class:`~paddle_tpu_torch.distributed.tensor_parallel.Collectives`);
+    every call counts in its ``reduces``."""
+    tp = collectives.tp
+
+    def reduce(x):
+        collectives.reduces += 1
+        return collectives.all_reduce(x)
+
+    def quant_reduce(x):
+        collectives.reduces += 1
+        scale = x.abs().amax().float().clamp_min(1e-8) / 127.0
+        q = torch.clamp(torch.round(x.float() / scale), -127.0,
+                        127.0).to(torch.int8)
+        qg = collectives.all_gather(q)                    # (tp, ...) int8
+        sg = collectives.all_gather(scale.reshape(1))     # (tp, 1) f32
+        return (qg.to(x.dtype)
+                * sg.to(x.dtype).reshape((tp,) + (1,) * x.ndim)).sum(dim=0)
+
+    return quant_reduce if quant else reduce
 
 
 _NUMPY = {torch.int64: np.int64, torch.float32: np.float32,
@@ -420,8 +512,8 @@ class PagedDecoder:
     and every step, wherever it fails, rolls its sequences' lengths back
     to where it found them; pages it allocated stay mapped, as in JAX,
     and a retry rewrites their slots.  The one exception is the injected
-    ``buffer_loss`` fault (``_maybe_lose_buffers``), fired once a step
-    just before its body: it zeroes every pool in place, and the engine
+    ``buffer_loss`` fault (``_buffer_loss``), fired once a step just
+    before its body: it zeroes every pool in place, and the engine
     replays the survivors' KV.
 
     ``min_table_pages`` floors the page-table width of the ragged and
@@ -438,7 +530,21 @@ class PagedDecoder:
     Linear, its f32 sums being split by N (``wo_splits``).  The arming
     writes onto the model's shared modules, so a quantized decoder owns
     its model while it steps: no other decoder on the same model may step
-    at the same time."""
+    at the same time.
+
+    ``tp_group`` (a ``distributed.tensor_parallel.TensorParallelGroup``)
+    serves the model tensor-parallel (``_tp_plan``): the decoder steps
+    its rank-0 shard (``models.convert.shard_model``; the caller's model
+    is left as it is), each worker its own, and the row-parallel Linears
+    are armed with the block-closing sum for the duration of each step
+    (``_make_tp_reduce``; ``tp_quant_collectives`` for the int8 one).  At
+    the ``_run`` seam rank 0 plans a step, broadcasts its header and
+    staged bytes, and every rank uploads and runs the same body over its
+    shard and its pool shard; after each block's reduce the hidden state
+    is the same on every rank, so the logits, the accept arithmetic and
+    the sampling tail are too, and only rank 0 downloads.  The steps run
+    eagerly on every backend (gloo collectives cannot be captured in a
+    CUDA graph).  ``quantize`` does not compose with it, as in JAX."""
 
     #: CUDA graphs captured and replayed (``GraphedPagedDecoder``); the
     #: eager decoder makes none
@@ -446,12 +552,37 @@ class PagedDecoder:
     replays = 0
 
     def __init__(self, model, quantize: Optional[str] = None,
-                 min_table_pages: int = 1):
+                 min_table_pages: int = 1, tp_group=None,
+                 tp_quant_collectives: bool = False):
         if quantize not in SERVING_QUANT_MODES:
             raise ValueError(
                 f"quantize must be one of {SERVING_QUANT_MODES}, got "
                 f"{quantize!r}")
+        self.tp_group = tp_group
+        self.tp = 1 if tp_group is None else tp_group.tp
+        self.tp_quant_collectives = bool(tp_quant_collectives
+                                         and tp_group is not None)
+        self._tp_row_layers, self._tp_reduce_fn = [], None
+        if tp_group is not None:
+            if quantize is not None:
+                raise ValueError(
+                    "quantize='w8'/'w8a8' does not compose with tensor "
+                    "parallelism: the int8 weight twins are calibrated per "
+                    "whole out-channel and the int8 matmul kernels serve "
+                    "one card (kv_quant='int8' does compose)")
+            _tp_plan(model, self.tp)
+            where = model.model.embed_tokens.weight.device
+            if where != tp_group.device:
+                raise ValueError(f"the model lives on {where}, rank 0 of "
+                                 f"the group on {tp_group.device}")
+            from ..models.convert import shard_model
+            self._tp_handle = tp_group.add_decoder(
+                model, min_table_pages, self.tp_quant_collectives)
+            model = shard_model(model, self.tp, 0)
         self.model = model
+        if tp_group is not None:
+            self._set_tp(_make_tp_reduce(tp_group.collectives,
+                                         self.tp_quant_collectives))
         self.max_position = int(model.config.max_position_embeddings)
         self.vocab = int(model.config.vocab_size)
         self.device = model.model.embed_tokens.weight.device
@@ -463,19 +594,30 @@ class PagedDecoder:
         # (mode, tail kind, bucket) -> (inputs, outputs) staging buffers
         self._staging = {}
 
+    def _set_tp(self, reduce_fn) -> None:
+        """Make this decoder's model (a rank's shard) close each
+        row-parallel block with ``reduce_fn`` while it steps."""
+        self._tp_row_layers = _row_parallel(self.model)
+        self._tp_reduce_fn = reduce_fn
+
     @contextlib.contextmanager
     def _armed(self):
         """Arm every quantized Linear with its twin for one step, and in
         w8a8 every module with its fused twin (q|k|v, gate|up: one
-        activation quantized once, one matmul); cleared on the way out,
-        on failure too."""
+        activation quantized once, one matmul); under tensor parallelism
+        arm every row-parallel Linear with the block-closing reduce;
+        cleared on the way out, on failure too."""
         for layer, w_q, scale in self._quant:
             layer._serving_quant = (self.quantize, w_q, scale)
+        for layer in self._tp_row_layers:
+            layer._tp_reduce = self._tp_reduce_fn
         try:
             yield
         finally:
             for layer, _w_q, _scale in self._quant:
                 layer._serving_quant = None
+            for layer in self._tp_row_layers:
+                layer._tp_reduce = None
 
     # ---------------------------------------------------------- helpers
     def _stage(self, key):
@@ -505,17 +647,44 @@ class PagedDecoder:
             for _ in range(n):
                 body()
 
-    def _run(self, cache, seq_ids, key, fill, body, n: int = 1) -> dict:
+    def _body(self, cache, key):
+        """The device body of a step's key (``_run``'s, and a
+        tensor-parallel worker's for the header it receives)."""
+        mode, kind = key[0], key[1]
+        if mode in ("prefill", "prefix"):
+            return self._prompt_body(cache, kind)
+        if mode == "ragged":
+            return self._ragged_body(cache, kind)
+        if mode == "multi":
+            return self._multi_body(cache)
+        return self._span_body(cache, mode, kind)
+
+    def _run(self, cache, seq_ids, key, fill, n: int = 1) -> dict:
         """One step of ``seq_ids``: ``fill(host views)`` plans it, the
-        inputs go up in one copy, the ``buffer_loss`` site fires, ``body(dev
-        inputs, dev outputs)`` runs (``n`` times in a row for a multi-step
-        run, with no host read between), the outputs come back in one
-        copy."""
+        ``buffer_loss`` site fires, the inputs go up in one copy, the
+        key's body (``_body``: dev inputs, dev outputs) runs (``n`` times
+        in a row for a multi-step run, with no host read between), the
+        outputs come back in one copy.  Under tensor parallelism the
+        header (key, ``n``, whether the site fired) and the staged bytes
+        go to every worker before the upload; a fired site zeroes every
+        rank's pools and no rank runs the body."""
+        g = self.tp_group
+        if cache.tp_group is not g:
+            raise ValueError("a decoder steps a cache sharded over its own "
+                             "tensor-parallel group (or neither sharded)")
         inp, out = self._stage(key)
         fill(inp.host)
+        lost = _buffer_loss(seq_ids)
+        if g is not None:
+            g.step(self._tp_handle, cache._tp_handle, key, n,
+                   lost is not None, inp._host)
         inp.upload()
-        _maybe_lose_buffers(cache, seq_ids)
-        self._execute(cache, key, lambda: body(inp.dev, out.dev), n)
+        if lost is not None:
+            cache._reset_local()
+            raise lost
+        body = self._body(cache, key)
+        with g.guard() if g is not None else contextlib.nullcontext():
+            self._execute(cache, key, lambda: body(inp.dev, out.dev), n)
         return out.download()
 
     @staticmethod
@@ -703,7 +872,7 @@ class PagedDecoder:
 
         try:
             return self._run(cache, seq_ids, ("prefill", kind, b, s_b),
-                             fill, self._prompt_body(cache, kind))["out"]
+                             fill)["out"]
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise
@@ -772,8 +941,7 @@ class PagedDecoder:
 
         try:
             return self._run(cache, seq_ids,
-                             ("prefix", kind, b, s_b, width), fill,
-                             self._prompt_body(cache, kind))["out"]
+                             ("prefix", kind, b, s_b, width), fill)["out"]
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise
@@ -849,8 +1017,7 @@ class PagedDecoder:
 
         try:
             got = self._run(cache, seq_ids,
-                            ("ragged", kind, b_b, s_b, width), fill,
-                            self._ragged_body(cache, kind))
+                            ("ragged", kind, b_b, s_b, width), fill)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise
@@ -915,8 +1082,7 @@ class PagedDecoder:
 
         try:
             got = self._run(cache, seq_ids,
-                            ("prefix", kind, b_b, s_b, width), fill,
-                            self._prompt_body(cache, kind))
+                            ("prefix", kind, b_b, s_b, width), fill)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise
@@ -989,8 +1155,8 @@ class PagedDecoder:
                 self._fill_sampling(h, sampling, mode == "decode")
 
         try:
-            return self._run(cache, seq_ids, (mode, kind, b, s, width), fill,
-                             self._span_body(cache, mode, kind))
+            return self._run(cache, seq_ids, (mode, kind, b, s, width),
+                             fill)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise
@@ -1037,7 +1203,7 @@ class PagedDecoder:
         try:
             got = self._run(cache, seq_ids,
                             ("multi", "greedy", b, next_pow2(n), width),
-                            fill, self._multi_body(cache), n)
+                            fill, n)
         except BaseException:
             self._rollback_lengths(cache, seq_ids, before)
             raise

@@ -1,7 +1,7 @@
 """Carry a JAX-package LLaMA's (dense or MoE) weights into the port."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -89,3 +89,54 @@ def moe_params_from_numpy(cfg: LlamaMoeConfig, arrays: Dict[str, np.ndarray],
 def moe_params_to_numpy(model: LlamaMoeForCausalLM) -> Dict[str, np.ndarray]:
     """The inverse of :func:`moe_params_from_numpy`."""
     return _to_numpy(model)
+
+
+def shard_params(params, tp: int, rank: int,
+                 config: Optional[LlamaConfig] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of a dense LLaMA's parameters for
+    tensor-parallel serving over ``tp`` ranks, cut by the plan of
+    ``inference.paged._tp_plan``: q/k/v and gate/up keep the rank's
+    ``1/tp`` of their output features (dim 0 of the port's [out, in]
+    weights), o and down of their input features (dim 1), every other
+    parameter whole.  ``params`` is a port model (the shards are views of
+    its tensors) or the ``paddle_tpu`` model's arrays by name, in the
+    JAX layout, with its ``config`` (the Linear weights are transposed
+    first, as :func:`params_from_numpy` does; the shards are CPU tensors).
+    The cuts are the ``addressable_shards[rank]`` of the JAX decoder's
+    committed parameters, transposed."""
+    from ..inference.paged import _tp_plan
+    if isinstance(params, torch.nn.Module):
+        plan = _tp_plan(params, tp)
+        state = params.state_dict()
+    else:
+        skeleton = LlamaForCausalLM(config, device="meta", seed=None)
+        plan = _tp_plan(skeleton, tp)
+        linear = _linear_weights(skeleton)
+        state = {}
+        for name, a in params.items():
+            a = np.array(a)                # a writable copy
+            if a.dtype.name == "bfloat16":
+                a = a.astype(np.float32)   # numpy's bf16 has no torch twin
+            state[name] = torch.from_numpy(a.T if name in linear else a)
+    out = {}
+    for name, t in state.items():
+        dim = plan.get(name)
+        if dim is not None:
+            size = t.shape[dim] // tp
+            t = t.narrow(dim, rank * size, size)
+        out[name] = t
+    return out
+
+
+def shard_model(model: LlamaForCausalLM, tp: int,
+                rank: int) -> LlamaForCausalLM:
+    """A new port model holding rank ``rank``'s shard of ``model``
+    (:func:`shard_params`), on its device and in its type, with each
+    attention module's head counts the rank's (``LlamaForCausalLM(...,
+    tp=tp)``).  ``model`` is left as it is."""
+    w = model.model.embed_tokens.weight
+    shard = LlamaForCausalLM(model.config, device=w.device, dtype=w.dtype,
+                             seed=None, tp=tp)
+    shard.load_state_dict(shard_params(model, tp, rank))
+    return shard.train(model.training)

@@ -112,11 +112,14 @@ class LlamaAttention(nn.Module):
     #: concatenated int8 twin on this module (``_serving_quant``)
     quant_fused = ("q_proj", "k_proj", "v_proj")
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 tp: int = 1):
         super().__init__()
         c = config
-        self.num_heads = c.num_attention_heads
-        self.num_kv_heads = c.num_key_value_heads
+        # a tensor-parallel shard (tp > 1) holds its rank's heads; the
+        # head width stays the model's
+        self.num_heads = c.num_attention_heads // tp
+        self.num_kv_heads = c.num_key_value_heads // tp
         self.head_dim = c.hidden_size // c.num_attention_heads
         kw = dict(device=device, dtype=dtype)
         self.q_proj = Linear(c.hidden_size, self.num_heads * self.head_dim,
@@ -161,13 +164,15 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     quant_fused = ("gate_proj", "up_proj")      # as LlamaAttention's
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 tp: int = 1):
         super().__init__()
         c = config
         kw = dict(device=device, dtype=dtype)
-        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+        inner = c.intermediate_size // tp      # a shard's slice
+        self.gate_proj = Linear(c.hidden_size, inner, **kw)
+        self.up_proj = Linear(c.hidden_size, inner, **kw)
+        self.down_proj = Linear(inner, c.hidden_size, **kw)
         self._serving_quant = None
 
     def forward(self, x):
@@ -179,15 +184,16 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 tp: int = 1):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        config.rms_norm_eps, **kw)
-        self.self_attn = LlamaAttention(config, **kw)
+        self.self_attn = LlamaAttention(config, tp=tp, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
-        self.mlp = LlamaMLP(config, **kw)
+        self.mlp = LlamaMLP(config, tp=tp, **kw)
 
     def forward(self, x, cos, sin, neg_sin, position_offset=0,
                 kv_cache=None, paged_ctx=None):
@@ -204,13 +210,14 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 tp: int = 1):
         super().__init__()
         self.config = config
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       **kw)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **kw)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, tp=tp, **kw)
                                      for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         cos, sin = _rope_tables(
@@ -270,15 +277,23 @@ class LlamaForCausalLM(nn.Module):
     N(0, 0.02) for every projection and the embedding (norm weights are
     ones), as the JAX model's ``Normal(std=0.02)`` initializers do;
     ``seed=None`` leaves them uninitialized for a caller that loads
-    them (``models.convert.params_from_numpy``)."""
+    them (``models.convert.params_from_numpy``).
+
+    ``tp > 1`` builds one rank's shard for tensor-parallel serving
+    (``inference.paged._tp_plan``): q/k/v and gate/up keep the rank's
+    ``1/tp`` of their output features, o and down of their input
+    features, the rest is whole.  Its forward gives the right hidden
+    states only inside a serving step that closes each block with an
+    all-reduce (``models.convert.shard_model`` builds one; the
+    ``config`` stays the whole model's)."""
 
     def __init__(self, config: LlamaConfig, device="cuda", dtype=None,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, tp: int = 1):
         super().__init__()
         device = resolve_device(device)
         dtype = dtype if dtype is not None else _DTYPES[config.dtype]
         self.config = config
-        self.model = LlamaModel(config, device=device, dtype=dtype)
+        self.model = LlamaModel(config, device=device, dtype=dtype, tp=tp)
         self.lm_head = (None if config.tie_word_embeddings else
                         Linear(config.hidden_size, config.vocab_size,
                                device=device, dtype=dtype))

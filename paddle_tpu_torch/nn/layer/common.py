@@ -21,7 +21,13 @@ class Linear(nn.Module):
     ``_serving_quant = (mode, w_q, scale)`` with the layer's int8 twin
     and the forward runs ``ops.quant_matmul.quant_linear_forward``; the
     decoder clears it when the step ends, so it is never armed outside
-    one."""
+    one.
+
+    Tensor-parallel serving: a row-parallel projection of a rank's shard
+    (o and down, bias-free) computes a partial sum, and the paged
+    decoder arms ``_tp_reduce`` with the collective that closes its
+    block (a sum over the ranks) for the duration of each step, as it
+    arms ``_serving_quant``."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = False, device=None, dtype=None):
@@ -34,12 +40,16 @@ class Linear(nn.Module):
                                               dtype=dtype))
                      if bias else None)
         self._serving_quant = None
+        self._tp_reduce = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q = self._serving_quant
         if q is not None:
-            return quant_linear_forward(self, x, q)
-        return F.linear(x, self.weight, self.bias)
+            out = quant_linear_forward(self, x, q)
+        else:
+            out = F.linear(x, self.weight, self.bias)
+        r = self._tp_reduce
+        return out if r is None else r(out)
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, " \

@@ -448,29 +448,47 @@ class PagedKVCache:
     Index-retained pages with no sequence ref are evictable: ``allocate``
     reclaims them in LRU order under pool pressure, so they count as
     available capacity (``free_pages``).
+
+    ``tp_group`` (a tensor-parallel group, see
+    ``distributed.tensor_parallel``) shards every pool, data and scales,
+    on its leading kv-head axis: this process (rank 0) holds
+    ``kv_heads / tp`` heads' pools, and each worker allocates its own.
+    The allocator, page tables, lengths and prefix index live here only:
+    rank 0 plans every step.  ``kv_pool_bytes`` stays the whole pool's,
+    ``kv_pool_bytes_per_chip`` is a rank's.
     """
 
     @classmethod
     def from_model(cls, model, total_pages: int = 256,
                    page_size: int = 16,
-                   kv_dtype: Optional[str] = None) -> "PagedKVCache":
+                   kv_dtype: Optional[str] = None,
+                   tp_group=None) -> "PagedKVCache":
         """Cache sized for a causal LM's config, on its device and in
-        its dtype; ``kv_dtype="int8"`` selects the quantized storage."""
+        its dtype; ``kv_dtype="int8"`` selects the quantized storage,
+        ``tp_group`` shards the pools over a tensor-parallel group."""
         c = model.config
         w = model.model.embed_tokens.weight
         return cls(num_layers=c.num_hidden_layers,
                    kv_heads=c.num_key_value_heads,
                    head_dim=c.hidden_size // c.num_attention_heads,
                    total_pages=total_pages, page_size=page_size,
-                   dtype=w.dtype, kv_dtype=kv_dtype, device=w.device)
+                   dtype=w.dtype, kv_dtype=kv_dtype, device=w.device,
+                   tp_group=tp_group)
 
     def __init__(self, num_layers: int, kv_heads: int, head_dim: int,
                  total_pages: int = 256, page_size: int = 16,
                  dtype=torch.float32, kv_dtype: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", tp_group=None):
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        self.tp_group = tp_group
+        self.tp = 1 if tp_group is None else tp_group.tp
+        if kv_heads % self.tp:
+            raise ValueError(
+                f"kv_heads ({kv_heads}) must divide evenly over the "
+                f"tensor-parallel group ({self.tp} ranks) to shard the "
+                f"page pools on the head axis")
         self.num_layers = num_layers
         self.kv_heads = kv_heads
         self.head_dim = head_dim
@@ -481,6 +499,9 @@ class PagedKVCache:
         self.dtype = dtype
         self.kv_quant = kv_dtype == "int8"
         self.device = resolve_device(device)
+        if tp_group is not None and self.device != tp_group.device:
+            raise ValueError(f"the cache lives on {self.device}, rank 0 of "
+                             f"the group on {tp_group.device}")
         self.k_pages: List[torch.Tensor] = []
         self.v_pages: List[torch.Tensor] = []
         self.k_scales: List[torch.Tensor] = []
@@ -499,10 +520,16 @@ class PagedKVCache:
         self.prefix_evictions = 0
         # bumped every time reset_pools rebuilds the pools zeroed
         self.generation = 0
+        if tp_group is not None:
+            self._tp_handle = tp_group.add_cache(
+                num_layers=num_layers, kv_heads=kv_heads // self.tp,
+                head_dim=head_dim, total_pages=total_pages,
+                page_size=page_size, dtype=dtype, kv_dtype=kv_dtype)
 
     def _alloc_pools(self) -> None:
         def pools(last, dtype):
-            shape = (self.kv_heads, self.total_pages, self.page_size, last)
+            shape = (self.kv_heads // self.tp, self.total_pages,
+                     self.page_size, last)
             return [torch.zeros(shape, dtype=dtype, device=self.device)
                     for _ in range(self.num_layers)]
 
@@ -515,16 +542,24 @@ class PagedKVCache:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Resident bytes of the KV data pages across all layers."""
-        return sum(t.numel() * t.element_size()
-                   for t in self.k_pages + self.v_pages)
+        """Resident bytes of the KV data pages across all layers (and
+        all ranks of a tensor-parallel group)."""
+        return self.tp * sum(t.numel() * t.element_size()
+                             for t in self.k_pages + self.v_pages)
+
+    @property
+    def kv_pool_bytes_per_chip(self) -> int:
+        """A rank's resident bytes of the KV data pages: the whole pool
+        over the tensor-parallel degree (``kv_pool_bytes`` on one
+        card)."""
+        return self.kv_pool_bytes // self.tp
 
     @property
     def kv_scale_bytes(self) -> int:
         """Resident bytes of the int8 mode's scale pools (0 when the
-        cache stores full-precision KV)."""
-        return sum(t.numel() * t.element_size()
-                   for t in self.k_scales + self.v_scales)
+        cache stores full-precision KV), all ranks'."""
+        return self.tp * sum(t.numel() * t.element_size()
+                             for t in self.k_scales + self.v_scales)
 
     # ------------------------------------------------------- bookkeeping
     def _decref_seq(self, page: int) -> bool:
@@ -619,14 +654,25 @@ class PagedKVCache:
 
     def reset_pools(self) -> None:
         """Zero the pools in place (the scale pools too, in the int8
-        mode): their addresses stay, so the CUDA graphs a
+        mode; every rank's shard under tensor parallelism): their
+        addresses and shapes stay, so the CUDA graphs a
         ``GraphedPagedDecoder`` captured over them stay valid.
         Bookkeeping survives, cached K/V does not, so the prefix index is
         dropped and ``generation`` bumps."""
-        self.generation += 1
+        self._reset_local()
+        if self.tp_group is not None:
+            self.tp_group.reset_pools(self._tp_handle)
+
+    def _zero_pools(self) -> None:
         for pool in self.k_pages + self.v_pages + self.k_scales \
                 + self.v_scales:
             pool.zero_()
+
+    def _reset_local(self) -> None:
+        """:meth:`reset_pools` on this rank only (a step whose
+        ``buffer_loss`` site fired tells the workers in its header)."""
+        self.generation += 1
+        self._zero_pools()
         while self._prefix_index:
             _, entry = self._prefix_index.popitem(last=False)
             for p in entry.pages:

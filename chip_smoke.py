@@ -297,6 +297,23 @@ failure:
             batch memorized), and every kernel of the path launched; the
             profiler window must show the tensor-core flash forward,
             dK/dV and dQ kernels and not their CUDA-core versions.
+   train_paths — the rest of training, each sub-case a graphed
+            ``TrainStep`` (3 warm-up steps, then timed steps that must
+            capture nothing) whose first 5 losses must equal an eager
+            twin's (``EagerTrainStep``, the same seeded weights) bit for
+            bit, losses falling: (a) ``fused_ce``, the train case's model
+            with ``fused_linear_cross_entropy`` (chunk 1024) over the
+            hidden states (bench.py's fused route), its first loss within
+            1e-2 of the unfused one, the four head products timed apart;
+            (b) ``amp_o1``, f32 parameters under ``amp_level="O1"``
+            (tensor-core flash kernels in a profiler window, RMSNorm in
+            f32); (c) ``amp_o2``, ``amp.decorate(level="O2")`` of an f32
+            model holding the train case's bf16 weights: the same
+            weights and first 5 losses; (d) ``moe``, Mixtral-8x7B's
+            widths cut to 1 layer (2 do not fit AdamW's state and
+            temporaries), bf16 with f32 naive gates, batch 4 x 512: the
+            gating kernel and the flash kernels once a layer a step.  ``--only train_paths`` runs the flash backward check,
+            ``train`` and this phase alone.
 7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
             of 32 layers, bf16 with f32 gates (so every MoE layer routes
             through the gating kernel), weights drawn on the card from
@@ -321,7 +338,7 @@ the timed ``PagedGenerator`` call), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``moe``, ``flashmask``, ``classes``, ``speculative``,
+``train``, ``train_paths``, ``moe``, ``flashmask``, ``classes``, ``speculative``,
 ``recovery``, ``overload`` and ``tp`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -480,6 +497,12 @@ GEN_QUANT_NEW = 8
 # batch 8, a 512-token prompt, 32 new tokens (33 forwards); the logits
 # check at 2 layers in f32
 MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_NEW, MOE_CHECK_LAYERS = 8, 8, 512, 32, 2
+# train_paths (d): Mixtral-8x7B's widths cut to 1 layer, batch 4 x 512.
+# Two layers (3.165 B parameters: 50.6 GB of bf16 weights, f32 masters and
+# moments and bf16 gradients) ran out of the card's 79.18 GiB in the first
+# step's AdamW update, which adds the f32 gradients and the denominator
+# (25.3 GB) at once (71.06 GiB allocated, 7.21 GiB reserved and free)
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 1, 4, 512
 # the flashmask phase: b 1 x 8192 packed tokens, head dim 128, bf16; its
 # documents (lengths 128-2048) drawn from a fixed seed, part of the cases
 FM_S, FM_D, FM_DOC_SEED = 8192, 128, 0
@@ -1379,13 +1402,17 @@ def causal_pairs(sq, sk, causal):
 
 def check_flash_bwd(records, dev):
     """The dK/dV and dQ kernels against ``_bwd_blockwise`` on the card;
-    at the training shape, their times beside the plain version's and
+    at the training shape, and at the MoE training shape (Mixtral's 32/8
+    heads of d128 at s512, batch 4: ``train_paths``' sub-case (d)),
+    their times beside the plain version's and
     ``scaled_dot_product_attention``'s backward (a yardstick that
     computes dq, dk and dv together; the port never calls it)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def case(label, dtype, b, h, kvh, sq, sk, d, causal, timed=False):
+    def case(label, dtype, b, h, kvh, sq, sk, d, causal, timed=None):
+        """``timed``: None, or the record it fills: "main" (the kernel's
+        own record, its ``f32`` block for f32) or a block's name."""
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=dev).to(dtype)
         q, k, v = rnd(b, h, sq, d), rnd(b, kvh, sk, d), rnd(b, kvh, sk, d)
@@ -1417,7 +1444,7 @@ def check_flash_bwd(records, dev):
             q, k, v, out, lse, do, causal, scale), reps=3)
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lout = torch.nn.functional.scaled_dot_product_attention(
-            lq, lk, lv, is_causal=causal)
+            lq, lk, lv, is_causal=causal, enable_gqa=kvh != h)
         lib_ms = profiled_ms(lambda: torch.autograd.grad(
             lout, (lq, lk, lv), do, retain_graph=True))
         el = q.element_size()
@@ -1440,7 +1467,9 @@ def check_flash_bwd(records, dev):
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=lib_ms,
                        case=label)
-            if bf:
+            if timed != "main":
+                records[name][timed] = rec
+            elif bf:
                 records[name] = rec
             else:   # after the bf16 case
                 records[name]["f32"] = rec
@@ -1448,9 +1477,12 @@ def check_flash_bwd(records, dev):
     bf16, f32 = torch.bfloat16, torch.float32
     b, h, s, d = TRAIN_B, TRAIN_H, TRAIN_S, TRAIN_D
     case(f"b{b} h{h} s{s} d{d} causal bf16", bf16, b, h, h, s, s, d, True,
-         timed=True)
+         timed="main")
     case(f"b{b} h{h} s{s} d{d} causal f32", f32, b, h, h, s, s, d, True,
-         timed=True)
+         timed="main")
+    b, s = MOE_TRAIN_B, MOE_TRAIN_S
+    case(f"MoE train b{b} 32/8 s{s} d128 causal bf16", bf16, b, 32, 8, s, s,
+         128, True, timed="moe_train_shape")
     case("gqa 32/8 s2048 d128 causal bf16", bf16, 1, 32, 8, 2048, 2048,
          128, True)
     case("gqa 32/8 s512 d128 causal f32", f32, 1, 32, 8, 512, 512, 128,
@@ -5615,6 +5647,8 @@ def _kernel_class(name):
         return "gemm"
     if "SoftMax" in name or "nll_loss" in name:
         return "cross_entropy"
+    if "topk_gating" in name:
+        return "moe_gating"
     return "other_torch_ops"
 
 
@@ -5741,6 +5775,9 @@ def train(seed, dev, card, steps=20, warmup=3):
             learning_rate=lr, parameters=model.parameters(),
             multi_precision=True))
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     step = trainer(TrainStep)
     n_params = sum(p.numel() for p in step.model.parameters())
     rng = np.random.default_rng(seed)
@@ -5822,6 +5859,7 @@ def train(seed, dev, card, steps=20, warmup=3):
         "model_flops_per_step": flops,
         "mfu": flops / (med / 1e3) / BF16_FLOP_S,
         "peak_memory_gb": peak / 1e9,
+        "peak_over_start_gb": (peak - base) / 1e9,
         "captures_warmup": captures_warmup, "captures": captures,
         "replays": replays, "graph_pool_bytes": pool_bytes,
         "launches_per_step": {n: c / steps for n, c in launches.items()},
@@ -5835,6 +5873,7 @@ def train(seed, dev, card, steps=20, warmup=3):
                         "device_ms_per_step": _device_us(e) / 1e3 / n_prof}
                        for e in top if _device_us(e) > 0],
         "loss_first": float(vals[0]), "loss_last": float(vals[-1]),
+        "losses_first_5": [float(x) for x in vals[:5]],
         "first_5_losses_equal_eager": equal,
         "eager": eager_rec,
         "attention_kernels_seen": list(seen)}
@@ -5863,6 +5902,343 @@ def train(seed, dev, card, steps=20, warmup=3):
                              f"differ: {apart}")
     rec["run_steps"] = {mode: train_run_steps(trainer, mode, cfg, rng, dev)
                         for mode in ("constant", "warmup_cosine")}
+    return rec, launches
+
+
+class HiddenLM(torch.nn.Module):
+    """``bench.py``'s ``_HiddenLM``: the decoder's hidden states, for a
+    loss that computes the LM head itself (the fused route)."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, input_ids):
+        return self.lm.model(input_ids)
+
+
+def moe_model_flops(cfg, batch, seq):
+    """``model_flops`` of an MoE LLaMA: each token through its top-k
+    experts' SwiGLU (3 products of hidden x intermediate); the expert
+    buffers' padding to the capacity is not counted."""
+    d = cfg.hidden_size // cfg.num_attention_heads
+    kv = cfg.num_key_value_heads * d
+    per_layer = cfg.hidden_size * (2 * cfg.hidden_size + 2 * kv) \
+        + cfg.moe_top_k * 3 * cfg.hidden_size * cfg.intermediate_size
+    linear = cfg.num_hidden_layers * per_layer \
+        + cfg.hidden_size * cfg.vocab_size
+    attn_fwd = 4 * batch * cfg.num_attention_heads * d \
+        * causal_pairs(seq, seq, True) * cfg.num_hidden_layers
+    return 3 * (2 * linear * batch * seq + attn_fwd)
+
+
+def graphed_path(label, make, ids, labels, kernels, flops, steps=20,
+                 warmup=3, n_prof=2, seen=None, refuse=()):
+    """One ``train_paths`` sub-case: the graphed ``TrainStep`` that
+    ``make(TrainStep)`` builds takes ``warmup`` steps (the first runs
+    eagerly and captures), then ``steps`` timed ones with the launch
+    counters zeroed just before, then ``n_prof`` in a profiler window
+    (one that sees every kernel named in ``seen`` and none in
+    ``refuse``, where given).  Then the graphed trainer and its graph
+    pool are freed and ``make(EagerTrainStep)`` (the same seeded weights)
+    takes 5 steps on the same batch.  The timed steps must capture
+    nothing and replay every step; the losses must be finite and fall;
+    the first 5 graphed losses must equal the eager ones bit for bit;
+    a replay's launches a step must equal an eager step's.  Returns the
+    record, the timed steps' launches and the graphed losses."""
+    from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step = make(TrainStep)
+    losses = [step(ids, labels) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    captures_warmup = step.captures
+    for fn in kernels.values():
+        fn.launches = 0
+    captured, replayed = step.captures, step.replays
+    times = _host_ms(lambda: losses.append(step(ids, labels)), steps)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    captures, replays = step.captures - captured, step.replays - replayed
+    peak = torch.cuda.max_memory_allocated()
+
+    if seen:
+        events = window_seeing(
+            lambda: losses.extend(step(ids, labels) for _ in range(n_prof)),
+            label, seen, refuse).key_averages()
+    else:
+        _ms, events, _busy = _window(
+            lambda: losses.append(step(ids, labels)), n_prof)
+    busy_ms = sum(_device_us(e) for e in events) / 1e3 / n_prof
+    by_class = {}
+    for e in events:
+        cls = _kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + _device_us(e) / 1e3 / n_prof
+    vals = torch.stack(losses).float().cpu().numpy()
+    del step, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = make(EagerTrainStep)
+    for fn in kernels.values():
+        fn.launches = 0
+    eager_vals = torch.stack([eager(ids, labels) for _ in range(5)]) \
+        .float().cpu().numpy()
+    eager_launches = {n: fn.launches / 5 for n, fn in kernels.items()}
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    rec = {"step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
+           "tokens_per_s": ids.numel() / (med / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": flops / (med / 1e3) / BF16_FLOP_S,
+           "peak_memory_gb": peak / 1e9,
+           "peak_over_start_gb": (peak - base) / 1e9,
+           "captures_warmup": captures_warmup, "captures": captures,
+           "replays": replays,
+           "launches_per_step": {n: c / steps for n, c in launches.items()
+                                 if c},
+           "device_busy_ms_per_step": busy_ms or "not measured",
+           "device_idle_share": (1 - busy_ms / med) if busy_ms
+           else "not measured",
+           "device_ms_per_step_by_class": by_class,
+           "losses": [float(x) for x in vals],
+           "eager_losses": [float(x) for x in eager_vals],
+           "first_5_losses_equal_eager": bool(
+               np.array_equal(vals[:5], eager_vals))}
+    log(f"  {label}: " + json.dumps(rec))
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{label}: non-finite loss {vals.tolist()}")
+    if not vals[-1] < vals[0]:
+        raise AssertionError(f"{label}: the last loss {vals[-1]} is not "
+                             f"below the first {vals[0]}")
+    if captures or replays != steps:
+        raise AssertionError(f"{label}: the timed steps captured "
+                             f"{captures} graphs and replayed {replays}")
+    if not rec["first_5_losses_equal_eager"]:
+        raise AssertionError(f"{label}: the graphed step's first 5 losses "
+                             f"{vals[:5].tolist()} differ from the eager "
+                             f"step's {eager_vals.tolist()}")
+    apart = {n: (launches[n] / steps, eager_launches[n]) for n in kernels
+             if launches[n] / steps != eager_launches[n]}
+    if apart:
+        raise AssertionError(f"{label}: launches a step, replayed vs eager, "
+                             f"differ: {apart}")
+    return rec, launches, vals
+
+
+def head_products(dev, hidden, vocab, rows, chunk=1024):
+    """Device ms a step of the fused loss's four head products over
+    ``rows`` rows in chunks of ``chunk``: the forward's logits (bf16
+    operands, ``torch.mm(..., out_dtype=torch.float32)``), the backward's
+    recomputed logits (the same product), dh = delta @ W and dW +=
+    delta^T @ h (f32 operands, TF32 off), each timed on one chunk and
+    multiplied by the chunks; with each one's bound (bf16 or f32 peak)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h = torch.randn(chunk, hidden, generator=gen, device=dev).bfloat16()
+    w = (0.02 * torch.randn(vocab, hidden, generator=gen,
+                            device=dev)).bfloat16()
+    delta = torch.randn(chunk, vocab, generator=gen, device=dev) / vocab
+    w32, h32 = w.float(), h.float()
+    dw = torch.zeros(vocab, hidden, device=dev)
+    n = -(-rows // chunk)
+    ops = 2 * chunk * hidden * vocab
+    out = {}
+    for name, fn, peak in (
+            ("logits_forward", lambda: torch.mm(
+                h, w.t(), out_dtype=torch.float32), BF16_FLOP_S),
+            ("logits_backward", lambda: torch.mm(
+                h, w.t(), out_dtype=torch.float32), BF16_FLOP_S),
+            ("dh", lambda: delta @ w32, F32_FLOP_S),
+            ("dw", lambda: dw.addmm_(delta.t(), h32), F32_FLOP_S)):
+        ms = cuda_ms(fn)
+        el = 2 if peak == BF16_FLOP_S else 4
+        bms, by = bound_ms((chunk * hidden + vocab * hidden) * el
+                           + chunk * vocab * 4, ops, peak)
+        out[name] = {"ms_per_step": ms * n, "bound_ms_per_step": bms * n,
+                     "bound_by": by}
+    return out
+
+
+def train_paths(seed, dev, card, train_rec):
+    """The rest of LLaMA training on the card, each sub-case a graphed
+    ``TrainStep`` held against its eager twin (``graphed_path``):
+    (a) ``fused_ce``: llama_small in bf16 + AdamW(multi_precision) whose
+    loss is ``fused_linear_cross_entropy`` over ``HiddenLM`` (bench.py's
+    fused route, chunk 1024), its first loss within 1e-2 relative of the
+    ``train`` phase's (the unfused route, same weights and batch), and
+    the head products timed apart; (b) ``amp_o1``: llama_small with f32
+    parameters, ``TrainStep(amp_level="O1")``: the bf16 wgmma flash
+    kernels in a profiler window, RMSNorm launched in f32; (c)
+    ``amp_o2``: an f32 llama_small holding the ``train`` trainer's bf16
+    weights upcast, ``amp.decorate(level="O2")``: its weights equal that
+    trainer's and its first 5 losses too, bit for bit; (d) ``moe``:
+    Mixtral-8x7B's widths cut to ``MOE_TRAIN_LAYERS`` layers, bf16 with
+    f32 naive gates (the routing takes the gating kernel) and
+    AdamW(multi_precision), batch ``MOE_TRAIN_B`` x ``MOE_TRAIN_S``: the
+    gating kernel twice a step, the flash kernels once a layer.  Returns
+    the phase's record and each sub-case's launches."""
+    import dataclasses
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_small
+    from paddle_tpu_torch.models.llama_moe import (LlamaMoeForCausalLM,
+                                                   mixtral_8x7b)
+    from paddle_tpu_torch.ops import fused_norm_rope as nr
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_small()
+    bf16 = torch.bfloat16
+    kernels = counters()
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    ids = torch.as_tensor(ids_np[:, :-1], device=dev)
+    labels = torch.as_tensor(ids_np[:, 1:], device=dev)
+    flops = model_flops(cfg, TRAIN_B, TRAIN_S)
+    seen = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+            "flash_bwd_dq_wgmma_kernel")
+    refuse = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+              "flash_bwd_dq_kernel")
+    rec, launches = {"card": card}, {}
+
+    def fused(cls):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=bf16, seed=seed)
+        head = model.lm_head.weight
+
+        def loss_fn(hidden, lab):
+            return fused_linear_cross_entropy(
+                hidden.reshape(-1, cfg.hidden_size), head, lab.reshape(-1),
+                chunk_rows=1024)
+        return cls(HiddenLM(model), loss_fn, AdamW(
+            learning_rate=1e-3, parameters=model.parameters(),
+            multi_precision=True))
+
+    log(f"train_paths (a) fused_ce: llama_small bf16 + AdamW("
+        f"multi_precision), batch {TRAIN_B} x {TRAIN_S}, "
+        "fused_linear_cross_entropy (chunk 1024) on HiddenLM")
+    a, launches["fused_ce"], vals = graphed_path(
+        "fused_ce", fused, ids, labels, kernels, flops, seen=seen,
+        refuse=refuse)
+    a["loss_first_unfused"] = train_rec["loss_first"]
+    a["loss_first_rel_unfused"] = abs(float(vals[0]) - a[
+        "loss_first_unfused"]) / abs(a["loss_first_unfused"])
+    a["peak_over_start_gb_unfused"] = train_rec["peak_over_start_gb"]
+    a["step_ms_p50_unfused"] = train_rec["step_ms_p50"]
+    a["head_products"] = head_products(dev, cfg.hidden_size,
+                                       cfg.vocab_size, TRAIN_B * TRAIN_S)
+    log("  fused_ce head products: " + json.dumps(a["head_products"]))
+    if a["loss_first_rel_unfused"] > 1e-2:
+        raise AssertionError(
+            f"fused_ce: first loss {float(vals[0])} is "
+            f"{a['loss_first_rel_unfused']:.3e} from the unfused route's "
+            f"{a['loss_first_unfused']} (limit 1e-2 relative)")
+    missing = [n for n in TRAIN_KERNELS if not launches["fused_ce"][n]]
+    if missing:
+        raise AssertionError(f"fused_ce: kernels never launched: {missing}")
+    rec["fused_ce"] = a
+
+    def o1(cls):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                                 seed=seed)
+        return cls(model, _lm_loss, AdamW(
+            learning_rate=1e-3, parameters=model.parameters()),
+            amp_level="O1", amp_dtype="bfloat16")
+
+    log("train_paths (b) amp_o1: llama_small f32 parameters, "
+        "TrainStep(amp_level='O1', amp_dtype='bfloat16') + AdamW")
+    norm_types = set()
+    real_rms = nr._rms_forward
+
+    def rms_spy(x, weight, epsilon):
+        norm_types.add(str(x.dtype))
+        return real_rms(x, weight, epsilon)
+
+    nr._rms_forward = rms_spy
+    try:
+        b, launches["amp_o1"], _vals = graphed_path(
+            "amp_o1", o1, ids, labels, kernels, flops, seen=seen,
+            refuse=refuse)
+    finally:
+        nr._rms_forward = real_rms
+    b["rms_norm_input_types"] = sorted(norm_types)
+    if norm_types != {"torch.float32"} or not launches["amp_o1"]["rms_norm"]:
+        raise AssertionError(f"amp_o1: RMSNorm ran on {norm_types}, "
+                             f"{launches['amp_o1']['rms_norm']} launches; "
+                             "O1 runs it in f32")
+    rec["amp_o1"] = b
+
+    log("train_paths (c) amp_o2: amp.decorate(level='O2') of an f32 "
+        "llama_small holding the train trainer's bf16 weights")
+    gc.collect()
+    torch.cuda.empty_cache()
+    low = LlamaForCausalLM(cfg, device=dev, dtype=bf16, seed=seed)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=None)
+    model.load_state_dict({k: v.float() for k, v in
+                           low.state_dict().items()})
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    same = all(x.dtype == bf16 and torch.equal(x, y) for x, y in
+               zip(model.parameters(), low.parameters()))
+    del low
+    step = TrainStep(model, _lm_loss, opt)
+    o2 = [float(step(ids, labels)) for _ in range(5)]
+    c = {"weights_equal_bf16_trainer": same, "losses": o2,
+         "train_losses_first_5": train_rec["losses_first_5"],
+         "losses_equal_train": o2 == train_rec["losses_first_5"],
+         "captures": step.captures, "replays": step.replays}
+    log("  amp_o2: " + json.dumps(c))
+    del step, model, opt
+    if not (same and c["losses_equal_train"]):
+        raise AssertionError(f"amp_o2: decorated weights equal the bf16 "
+                             f"trainer's: {same}; losses {o2} against the "
+                             f"train phase's {train_rec['losses_first_5']}")
+    rec["amp_o2"] = c
+
+    mcfg = dataclasses.replace(mixtral_8x7b(MOE_TRAIN_LAYERS),
+                               gate_type="naive")
+    mrng = np.random.default_rng(seed + 1)
+    m_np = mrng.integers(0, mcfg.vocab_size, (MOE_TRAIN_B, MOE_TRAIN_S + 1))
+    m_ids = torch.as_tensor(m_np[:, :-1], device=dev)
+    m_labels = torch.as_tensor(m_np[:, 1:], device=dev)
+
+    def moe_loss(outputs, lab):
+        logits, aux = outputs
+        return _lm_loss(logits, lab) + aux
+
+    def moe(cls):
+        model = LlamaMoeForCausalLM(mcfg, device=dev, dtype=bf16, seed=seed,
+                                    gate_dtype=torch.float32)
+        return cls(model, moe_loss, AdamW(
+            learning_rate=1e-3, parameters=model.parameters(),
+            multi_precision=True))
+
+    n_params = sum(p.numel() for p in LlamaMoeForCausalLM(
+        mcfg, device="meta", seed=None).parameters())
+    log(f"train_paths (d) moe: Mixtral-8x7B widths, {MOE_TRAIN_LAYERS} "
+        f"layer(s), {n_params / 1e9:.3f} B params, bf16 + f32 naive gates + "
+        f"AdamW(multi_precision), batch {MOE_TRAIN_B} x {MOE_TRAIN_S}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, launches["moe_train"], _vals = graphed_path(
+        "moe", moe, m_ids, m_labels, kernels,
+        moe_model_flops(mcfg, MOE_TRAIN_B, MOE_TRAIN_S), steps=10)
+    d["params_b"] = n_params / 1e9
+    d["layers"] = MOE_TRAIN_LAYERS
+    per_step = d["launches_per_step"]
+    want = {"topk_gating": MOE_TRAIN_LAYERS,
+            "flash_attention_forward": MOE_TRAIN_LAYERS,
+            "flash_attention_bwd_dkv": MOE_TRAIN_LAYERS,
+            "flash_attention_bwd_dq": MOE_TRAIN_LAYERS,
+            "rms_norm": 2 * MOE_TRAIN_LAYERS + 1,
+            "apply_rope": 2 * MOE_TRAIN_LAYERS}
+    apart = {n: (per_step.get(n, 0), k) for n, k in want.items()
+             if per_step.get(n, 0) != k}
+    if apart:
+        raise AssertionError(f"moe: launches a step (got, want): {apart}")
+    rec["moe"] = d
     return rec, launches
 
 
@@ -6060,9 +6436,11 @@ def tp_only(seed, dev, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tp",),
+    ap.add_argument("--only", choices=("tp", "train_paths"),
                     help="after the build, run only the unchunked serve "
-                    "pass and the tp phase (over NCCL too on two cards)")
+                    "pass and the tp phase (over NCCL too on two cards), "
+                    "or only the flash backward check and the train and "
+                    "train_paths phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6145,10 +6523,30 @@ def main():
     lap("build")
 
     # 2. kernels against their plain versions
-    for fn in (check_paged, check_quant, check_flash, check_flash_bwd,
-               time_train_shapes, check_moe_gating, check_flashmask):
+    checks = (check_paged, check_quant, check_flash, check_flash_bwd,
+              time_train_shapes, check_moe_gating, check_flashmask)
+    if args.only == "train_paths":
+        checks = (check_flash_bwd,)
+    for fn in checks:
         fn(records, dev)
         lap(fn.__name__)
+    if args.only == "train_paths":
+        train_rec, _launches = train(args.seed, dev, smi[0])
+        log("train: " + json.dumps(train_rec))
+        lap("train")
+        paths_rec, _launches = train_paths(args.seed, dev, smi[0],
+                                           train_rec)
+        lap("train_paths")
+        phase_s["total"] = time.perf_counter() - T_START
+        print(json.dumps({"train_paths": paths_rec, "flash_bwd": {
+            n: records[n] for n in ("flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dq")},
+            "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
+            flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     for name, prefix in (("flash_attention_forward", "flash_fwd"),
                          ("flash_attention_bwd_dkv", "flash_bwd_dkv"),
                          ("flash_attention_bwd_dq", "flash_bwd_dq"),
@@ -6463,6 +6861,11 @@ def main():
     train_rec, launches["train"] = train(args.seed, dev, smi[0])
     log("train: " + json.dumps(train_rec))
     lap("train")
+    # the rest of training: the fused loss, amp O1 and O2, MoE training
+    paths_rec, paths_launches = train_paths(args.seed, dev, smi[0],
+                                            train_rec)
+    launches.update(paths_launches)
+    lap("train_paths")
 
     # 8. the MoE model generating at Mixtral-8x7B widths (the 7B model
     # and the trainer are gone), then its full-width f32 logits
@@ -6492,7 +6895,8 @@ def main():
     train_line = {k: train_rec[k] for k in (
         "step_ms_p25", "step_ms_p50", "step_ms_p75",
         "device_busy_ms_per_step", "device_idle_share", "tokens_per_s",
-        "mfu", "peak_memory_gb", "captures_warmup", "captures", "replays",
+        "mfu", "peak_memory_gb", "peak_over_start_gb", "captures_warmup",
+        "captures", "replays",
         "graph_pool_bytes", "launches_per_step", "loss_first", "loss_last",
         "first_5_losses_equal_eager")}
     train_line["eager"] = {k: train_rec["eager"][k] for k in (
@@ -6501,6 +6905,17 @@ def main():
         m: {k: r[k] for k in ("tokens_per_s", "mfu", "step_ms",
                               "equal_to_single_calls")}
         for m, r in train_rec["run_steps"].items()}
+    paths_line = {"card": paths_rec["card"], "amp_o2": {
+        k: paths_rec["amp_o2"][k] for k in ("weights_equal_bf16_trainer",
+                                            "losses_equal_train")}}
+    for p in ("fused_ce", "amp_o1", "moe"):
+        paths_line[p] = {k: paths_rec[p][k] for k in (
+            "step_ms_p25", "step_ms_p50", "step_ms_p75", "tokens_per_s",
+            "mfu", "peak_memory_gb", "peak_over_start_gb",
+            "device_idle_share", "captures",
+            "replays", "launches_per_step", "first_5_losses_equal_eager")}
+    paths_line["fused_ce"]["head_products"] = \
+        paths_rec["fused_ce"]["head_products"]
     moe_line = {k: moe_rec[k] for k in (
         "layers", "prefill_s", "decode_ms_p50", "tokens_per_s",
         "peak_memory_gb", "device_idle_share", "launches", "logits_rel_l2")}
@@ -6521,7 +6936,8 @@ def main():
         "max_abs_err")}
     print(json.dumps({"kernels": out, "serve": serve_line,
                       "generate": gen_line,
-                      "train": train_line, "moe": moe_line,
+                      "train": train_line, "train_paths": paths_line,
+                      "moe": moe_line,
                       "flashmask": fm_line,
                       "speculative": {
                           p: ({k: r[k] for k in (

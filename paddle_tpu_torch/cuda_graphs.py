@@ -45,7 +45,7 @@ def counted_wrappers():
         if callable(fn) and hasattr(fn, "launches")))
 
 
-def capture(graph, pool, stream, body):
+def capture(graph, pool, stream, body, generators=()):
     """Capture ``body()`` into ``graph`` on ``stream`` (not the default
     stream: an autograd backward cannot be captured from it), drawing on
     ``pool``; ``thread_local`` capture errors, so the autograd engine's
@@ -53,9 +53,17 @@ def capture(graph, pool, stream, body):
     kernel wrapper, the launches a replay adds to its ``launches`` (the
     capture launched nothing, so its own counts are taken back).
 
+    ``generators``: CUDA ``torch.Generator``s other than the device's
+    default that ``body`` draws from (a MoE gate's random keep).  Each
+    is registered with the graph before the capture
+    (``register_generator_state``), so that every replay advances it and
+    draws fresh numbers, as the default generator does; a draw from an
+    unregistered one would be baked into the graph.
+
     A capture that fails raises, with the device's default random
-    generator put back as it was: PyTorch would leave it marked as
-    capturing, and every later random draw on the device would raise.
+    generator (and each of ``generators``) put back as it was: PyTorch
+    would leave it marked as capturing, and every later random draw on
+    the device would raise.
 
     Python's cyclic collector is off while the body is captured
     (``torch.cuda.graph`` collects once just before): a collection that
@@ -65,14 +73,19 @@ def capture(graph, pool, stream, body):
     wrappers = counted_wrappers()
     counts = [fn.launches for fn in wrappers]
     generator = torch.cuda.default_generators[stream.device.index]
-    rng = generator.clone_state()
+    gens = [generator] + [g for g in dict.fromkeys(generators)
+                          if g is not generator]
+    states = [g.clone_state() for g in gens]
+    for g in gens[1:]:
+        graph.register_generator_state(g)
     try:
         with _collector_off(), torch.cuda.graph(
                 graph, pool=pool, stream=stream,
                 capture_error_mode="thread_local"):
             out = body()
     except BaseException:
-        generator.graphsafe_set_state(rng)
+        for g, state in zip(gens, states):
+            g.graphsafe_set_state(state)
         raise
     finally:
         launches = {}

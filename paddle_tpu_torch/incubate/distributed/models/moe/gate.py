@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..... import amp
 from .....ops.moe_gating import topk_gating
 from .....ops.moe_gating import topk_routing_plain as _topk_routing
 
@@ -128,9 +129,11 @@ class NaiveGate(BaseGate):
 
     def gate_logits(self, x):
         # a bf16 x times an f32 weight gives f32 logits, as jnp.matmul's
-        # promotion does
-        dt = torch.promote_types(x.dtype, self.gate_weight.dtype)
-        return x.to(dt) @ self.gate_weight.to(dt)
+        # promotion does; amp O1 casts both to the amp dtype (``matmul``
+        # is on the white list), so the routing then takes the oracle
+        x, weight = amp._cast_args("matmul", x, self.gate_weight)
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        return x.to(dt) @ weight.to(dt)
 
     def _random_keep(self, num_tokens, device):
         return None
@@ -139,9 +142,10 @@ class NaiveGate(BaseGate):
         """x [T, d_model] -> (combine, dispatch) [T, E, C]."""
         logits = self.gate_logits(x)
         cap = self.capacity(x.shape[0], self.training)
+        logits, keep = amp._cast_args(
+            "moe_gating", logits, self._random_keep(x.shape[0], x.device))
         combine, dispatch, l_aux = _moe_gating(
-            logits, self.top_k, cap, self.normalize,
-            self._random_keep(x.shape[0], x.device))
+            logits, self.top_k, cap, self.normalize, keep)
         self.set_loss(l_aux if self.use_balance_loss else None)
         return combine, dispatch
 
@@ -150,9 +154,11 @@ class NaiveGate(BaseGate):
         weight) each [top_k, T], plus the capacity; O(T) memory."""
         logits = self.gate_logits(x)
         cap = self.capacity(x.shape[0], self.training)
-        eidx, pos, keep, w, l_aux = _moe_topk_routing(
-            logits, self.top_k, cap, self.normalize,
+        logits, rkeep = amp._cast_args(
+            "moe_topk_routing", logits,
             self._random_keep(x.shape[0], x.device))
+        eidx, pos, keep, w, l_aux = _moe_topk_routing(
+            logits, self.top_k, cap, self.normalize, rkeep)
         self.set_loss(l_aux if self.use_balance_loss else None)
         return eidx, pos, keep, w, cap
 

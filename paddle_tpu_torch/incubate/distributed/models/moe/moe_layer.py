@@ -24,6 +24,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..... import amp
 from .gate import BaseGate, GShardGate, NaiveGate, SwitchGate
 
 
@@ -131,8 +132,9 @@ class ExpertFFN(nn.Module):
         self.b2.zero_()
 
     def forward(self, expert_in):
-        return _expert_ffn(expert_in, self.w1, self.b1, self.w2, self.b2,
-                           self.activation)
+        x, w1, b1, w2, b2 = amp._cast_args(
+            "expert_ffn", expert_in, self.w1, self.b1, self.w2, self.b2)
+        return _expert_ffn(x, w1, b1, w2, b2, self.activation)
 
 
 class MoELayer(nn.Module):
@@ -192,7 +194,8 @@ class MoELayer(nn.Module):
         def run(module, x):
             if use_recompute:
                 return torch.utils.checkpoint.checkpoint(
-                    module, x, use_reentrant=False)
+                    module, x, use_reentrant=False,
+                    context_fn=amp.recompute_contexts)
             return module(x)
 
         if isinstance(self.experts, ExpertFFN):
@@ -215,9 +218,12 @@ class MoELayer(nn.Module):
             # ragged path: O(T) routing metadata + scatter/gather; a gate
             # that overrides forward() keeps its dense contract below
             eidx, pos, keep, w, cap = self.gate.route(tokens)
-            expert_in = _ragged_dispatch(tokens, eidx, pos, keep,
+            (routed,) = amp._cast_args("moe_ragged_dispatch", tokens)
+            expert_in = _ragged_dispatch(routed, eidx, pos, keep,
                                          self.num_expert, cap)
             expert_out = self._run_experts(expert_in, use_recompute)
+            expert_out, w = amp._cast_args("moe_ragged_combine",
+                                           expert_out, w)
             y = _ragged_combine(expert_out, eidx, pos, keep, w)
         else:
             combine, dispatch = self.gate(tokens)

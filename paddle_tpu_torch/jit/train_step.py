@@ -24,11 +24,13 @@ Usage::
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
 import torch
 
+from .. import amp
 from ..cuda_graphs import capture
 from ..optimizer.lr import LRScheduler
 
@@ -84,13 +86,20 @@ class EagerTrainStep:
     times ``_lr_factor``), read once per call.  Both reach the body as
     0-d tensors of one device buffer (lr f32, step int32), written by one
     copy a call.  Parameters with ``requires_grad=False`` are left
-    alone."""
+    alone.
+
+    ``amp_level`` other than "O0" runs ``model(*inputs)`` — the forward
+    only; ``loss_fn`` runs outside it, as in the JAX package — under
+    ``amp.auto_cast(level=amp_level, dtype=amp_dtype)``."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
+                 amp_level: str = "O0", amp_dtype: str = "bfloat16",
                  accumulate_steps: int = 1, accumulate_avg: bool = True):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.amp_level = amp_level
+        self.amp_dtype = amp_dtype
         self.accumulate_steps = int(accumulate_steps)
         self.accumulate_avg = bool(accumulate_avg)
         if self.accumulate_steps < 1:
@@ -136,13 +145,20 @@ class EagerTrainStep:
             return grads
         return [g for _, g in clip(list(zip(self._train_params, grads)))]
 
+    def _cast_ctx(self):
+        """The amp context the forward runs in."""
+        if self.amp_level and self.amp_level != "O0":
+            return amp.auto_cast(level=self.amp_level, dtype=self.amp_dtype)
+        return contextlib.nullcontext()
+
     def _body(self, inputs, labels, apply_now: bool):
         """One micro step on the device: the f32 loss, gradients summed
         or applied at the rate and step in ``_scalars``."""
         k = self.accumulate_steps
         for p in self._train_params:
             p.grad = None
-        outputs = self.model(*inputs)
+        with self._cast_ctx():
+            outputs = self.model(*inputs)
         loss = self.loss_fn(outputs, *labels).float()
         loss.backward()
         grads = self._grads()
@@ -323,7 +339,10 @@ class TrainStep(EagerTrainStep):
     the port's counterpart of the JAX ``TrainStep``'s compiled program.
 
     It keeps one ``torch.cuda.CUDAGraph`` per key — the shapes and dtypes
-    of the input and label tensors, and whether the call applies the
+    of the input and label tensors, the amp state the forward runs under
+    (``amp_level`` and ``amp_dtype``, or the caller's ``auto_cast`` at
+    O0: a graph captured at one level is never replayed at another),
+    and whether the call applies the
     update (with ``accumulate_steps`` k > 1, accumulating and applying are
     two graphs: JAX's ``lax.cond`` as two captures) — and one for
     ``run_steps``' rate and step computation per schedule.  All draw on
@@ -347,9 +366,10 @@ class TrainStep(EagerTrainStep):
     ``EagerTrainStep``."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
+                 amp_level: str = "O0", amp_dtype: str = "bfloat16",
                  accumulate_steps: int = 1, accumulate_avg: bool = True):
-        super().__init__(model, loss_fn, optimizer, accumulate_steps,
-                         accumulate_avg)
+        super().__init__(model, loss_fn, optimizer, amp_level, amp_dtype,
+                         accumulate_steps, accumulate_avg)
         self.captures = 0
         self.replays = 0
         self._graphed = self._device.type == "cuda"
@@ -382,10 +402,19 @@ class TrainStep(EagerTrainStep):
         if isinstance(result, torch.Tensor):
             result.record_stream(here)
         graph = torch.cuda.CUDAGraph()
-        out, launches = capture(graph, self._pool, self._stream, body)
+        out, launches = capture(graph, self._pool, self._stream, body,
+                                self._generators())
         self._graphs[key] = (graph, launches, out)
         self.captures += 1
         return result
+
+    def _generators(self):
+        """The CUDA generators the model's modules draw from (a module's
+        ``generator`` attribute, as the MoE gates' random keep and jitter
+        have): a capture registers them, so each replay draws anew."""
+        return [g for g in dict.fromkeys(
+            getattr(m, "generator", None) for m in self.model.modules())
+            if isinstance(g, torch.Generator) and g.device.type == "cuda"]
 
     def _execute(self, inputs, labels, apply_now: bool):
         if not self._graphed:
@@ -404,8 +433,12 @@ class TrainStep(EagerTrainStep):
         for dst, src in zip(static, tensors):
             dst.copy_(src, non_blocking=True)
         n = len(inputs)
-        return self._graph(("step", sig, apply_now), lambda: self._body(
-            tuple(static[:n]), tuple(static[n:]), apply_now))
+        with self._cast_ctx():
+            amp_key = amp._state_key()
+        return self._graph(
+            ("step", sig, amp_key, apply_now),
+            lambda: self._body(tuple(static[:n]), tuple(static[n:]),
+                               apply_now))
 
     def _run_schedule(self, fn):
         if not self._graphed:

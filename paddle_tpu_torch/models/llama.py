@@ -21,6 +21,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import amp
 from .._device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn.functional import cross_entropy
@@ -83,7 +84,14 @@ def apply_rope(q, k, cos, sin, position_offset, neg_sin):
     length).  A shared offset past the table raises; per-row offsets are
     device values the caller bounds (the engine does at submit), and an
     index past the table clamps, as JAX's gather does.  ``neg_sin`` is
-    -sin for the backward's rotation (see ``fused_norm_rope``)."""
+    -sin for the backward's rotation (see ``fused_norm_rope``).  Under
+    amp O2 the JAX op casts the f32 tables to the amp dtype, so the
+    rotation uses the tables rounded to it (the kernel computes in f32
+    either way)."""
+    q, k, cos_c, sin_c = amp._cast_args("fused_rope", q, k, cos, sin)
+    if cos_c is not cos:
+        cos, sin = cos_c.float(), sin_c.float()
+        neg_sin = -sin
     b, s = q.shape[0], q.shape[1]
     if isinstance(position_offset, torch.Tensor):
         positions = position_offset
@@ -154,6 +162,7 @@ class LlamaAttention(nn.Module):
             if kv_cache is not None:
                 k = torch.cat([kv_cache[0], k], dim=1)
                 v = torch.cat([kv_cache[1], v], dim=1)
+            q, k, v = amp._cast_args("flash_attention", q, k, v)
             out = flash_attention_bshd(q, k, v, causal=True)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         if kv_cache is not None:
@@ -250,7 +259,8 @@ class LlamaModel(nn.Module):
             elif recompute:
                 x = torch.utils.checkpoint.checkpoint(
                     layer, x, self.rope_cos, self.rope_sin, self.rope_sin_neg,
-                    position_offset, use_reentrant=False)
+                    position_offset, use_reentrant=False,
+                    context_fn=amp.recompute_contexts)
             else:
                 x = layer(x, self.rope_cos, self.rope_sin, self.rope_sin_neg,
                           position_offset, paged_ctx=paged_ctx)
@@ -325,7 +335,9 @@ class LlamaForCausalLM(nn.Module):
     def _logits_of(self, hidden):
         if self.lm_head is not None:
             return self.lm_head(hidden)
-        return hidden @ self.model.embed_tokens.weight.T
+        hidden, weight = amp._cast_args("tied_lm_head", hidden,
+                                        self.model.embed_tokens.weight)
+        return hidden @ weight.T
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,

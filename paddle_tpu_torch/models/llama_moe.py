@@ -24,6 +24,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import amp
 from .._device import resolve_device
 from ..incubate.distributed.models.moe import ExpertFFN, MoELayer, NaiveGate
 from ..nn import Embedding, Linear, RMSNorm
@@ -92,7 +93,7 @@ class LlamaMoeDecoderLayer(nn.Module):
                 and torch.is_grad_enabled():
             attn_out = torch.utils.checkpoint.checkpoint(
                 self.self_attn, attn_in, cos, sin, neg_sin, position_offset,
-                use_reentrant=False)
+                use_reentrant=False, context_fn=amp.recompute_contexts)
         else:
             attn_out = self.self_attn(attn_in, cos, sin, neg_sin,
                                       position_offset)
@@ -203,6 +204,7 @@ class LlamaMoeForCausalLM(nn.Module):
         aux = self.model.aux_loss()
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        (aux,) = amp._cast_args("multiply", aux)
         return logits, aux * self.config.aux_loss_weight
 
     def _logits_of(self, hidden):

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ... import amp
 from .attention import flash_attention, flashmask_attention
 
 
@@ -15,6 +16,7 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     Labels equal to ``ignore_index`` contribute 0, and ``"mean"`` divides
     by the number of the others (at least 1), as the JAX package does.
     A label shaped like ``input`` with a last axis of 1 is squeezed."""
+    (input,) = amp._cast_args("cross_entropy_f", input)
     if label.dim() == input.dim() and label.shape[-1] == 1:
         label = label.squeeze(-1)
     logits = input.reshape(-1, input.shape[-1])

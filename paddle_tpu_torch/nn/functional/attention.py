@@ -3,6 +3,7 @@ paddle_tpu/nn/functional/attention.py): ``flash_attention`` and
 ``flashmask_attention``, layout (batch, seq, heads, head_dim)."""
 from __future__ import annotations
 
+from ... import amp
 from ...ops.flash_attention import flash_attention_bshd
 from ...ops.flashmask_attention import flashmask_attention_bshd
 
@@ -12,6 +13,7 @@ def flash_attention(query, key, value, causal=False):
     head_dim), returns ``(out, None)``.  It always runs the port's flash
     kernels on the card (differentiable under autograd) and their plain
     versions on the CPU; the port has no autotune between the two."""
+    query, key, value = amp._cast_args("flash_attention", query, key, value)
     return flash_attention_bshd(query, key, value, causal=causal), None
 
 

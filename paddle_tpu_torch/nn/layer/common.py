@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import amp
 from ...ops.quant_matmul import quant_linear_forward
 
 
@@ -47,7 +48,8 @@ class Linear(nn.Module):
         if q is not None:
             out = quant_linear_forward(self, x, q)
         else:
-            out = F.linear(x, self.weight, self.bias)
+            x, w, b = amp._cast_args("linear", x, self.weight, self.bias)
+            out = F.linear(x, w, b)
         r = self._tp_reduce
         return out if r is None else r(out)
 
@@ -68,7 +70,8 @@ class Embedding(nn.Module):
             num_embeddings, embedding_dim, device=device, dtype=dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        (weight,) = amp._cast_args("embedding_", self.weight)
+        return F.embedding(ids, weight)
 
     def extra_repr(self) -> str:
         return f"{self.num_embeddings}, {self.embedding_dim}"

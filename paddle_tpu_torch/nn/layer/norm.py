@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ... import amp
 from ...ops.fused_norm_rope import rms_norm
 
 
@@ -20,4 +21,5 @@ class RMSNorm(nn.Module):
                                               dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.epsilon)
+        x, weight = amp._cast_args("rms_norm_f", x, self.weight)
+        return rms_norm(x, weight, self.epsilon)

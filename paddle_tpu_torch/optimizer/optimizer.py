@@ -1,5 +1,5 @@
 """Optimizers (port of paddle_tpu/optimizer/optimizer.py: the base and
-every optimizer but LBFGS).
+every optimizer).
 
 Each optimizer updates every parameter with ``torch._foreach_*`` ops: one
 pass over the parameter list, in place, with no host sync.  The learning
@@ -19,9 +19,14 @@ and f32 state; the rule runs on the master, and the parameter is then
 the master cast to its dtype.  Gradients are cast to the working dtype
 first.  These are not Pallas kernels in the JAX package (XLA fuses them
 there), so torch ops are the port's form of them.
+
+``LBFGS`` is host-driven, as in the JAX package: its ``step(closure)``
+re-evaluates the loss and gradients and reads numbers back between
+them, so it runs outside the graphed train step.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List
 
 import numpy as np
@@ -639,6 +644,148 @@ class RAdam(Optimizer):
         torch._foreach_sub_(works, adapted)
 
 
+class LBFGS(Optimizer):
+    """Limited-memory BFGS with an optional strong-Wolfe line search
+    (the JAX package's ``LBFGS``).  ``step(closure)`` calls ``closure``
+    (which clears the gradients, computes the loss and calls
+    ``backward``) as often as the iteration needs, up to ``max_eval``
+    (default ``max_iter * 5 // 4``) evaluations.
+
+    The curvature math runs on flat f32 vectors of the trainable
+    parameters (``_flat``); ``_gather`` applies the optimizer's
+    ``grad_clip`` and its coupled L1/L2 decay to the gradients first,
+    since this optimizer bypasses the fused update that applies them
+    elsewhere.  The two-loop recursion floors y.s and y.y at 1e-10; the
+    history of (s, y) pairs is a ``deque(maxlen=history_size)``.  The
+    line search tries at most 10 step sizes, halving on too little
+    decrease and doubling on too steep a slope.  As in the JAX package,
+    when all 10 tries fail the step size has been halved or doubled once
+    more after the last evaluation: the parameters stay at the last point
+    evaluated (its loss and gradient are the iteration's), but the
+    stored step ``s`` and the next iteration's start are ``x0 + t * d``
+    with the changed size."""
+
+    def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
+                 tolerance_grad=1e-7, tolerance_change=1e-9,
+                 history_size=100, line_search_fn=None, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         False)
+        self.max_iter = max_iter
+        self.max_eval = max_eval if max_eval is not None \
+            else max_iter * 5 // 4
+        self.tol_grad = tolerance_grad
+        self.tol_change = tolerance_change
+        self.history_size = history_size
+        self.line_search_fn = line_search_fn
+        self._s = deque(maxlen=history_size)
+        self._y = deque(maxlen=history_size)
+
+    @staticmethod
+    def _flat(tensors):
+        return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+    @staticmethod
+    @torch.no_grad()
+    def _unflatten_to_params(flat, params):
+        off = 0
+        for p in params:
+            n = p.numel()
+            p.copy_(flat[off:off + n].view_as(p).to(p.dtype))
+            off += n
+
+    def _gather(self, params):
+        """The flat parameters and gradients, the gradients clipped and
+        with the coupled decay added."""
+        grads = [p.grad for p in params]
+        if self._grad_clip is not None:
+            pg = [(p, g) for p, g in zip(params, grads) if g is not None]
+            clipped = {id(p): g for p, g in self._grad_clip(pg)}
+            grads = [clipped.get(id(p), g) for p, g in zip(params, grads)]
+        x = self._flat(params)
+        g = self._flat([g if g is not None else torch.zeros_like(p)
+                        for p, g in zip(params, grads)])
+        reg = self.regularization
+        if isinstance(reg, L1Decay):
+            g = g + reg.coeff * torch.sign(x)
+        elif isinstance(reg, L2Decay):
+            g = g + reg.coeff * x
+        return x, g
+
+    def _direction(self, g):
+        """The two-loop recursion over the stored (s, y) pairs."""
+        q = g
+        alphas = []
+        for s, y in reversed(list(zip(self._s, self._y))):
+            rho = 1.0 / torch.clamp_min(torch.dot(y, s), 1e-10)
+            a = rho * torch.dot(s, q)
+            alphas.append((a, rho, s, y))
+            q = q - a * y
+        if self._s:
+            s, y = self._s[-1], self._y[-1]
+            q = q * (torch.dot(s, y)
+                     / torch.clamp_min(torch.dot(y, y), 1e-10))
+        for a, rho, s, y in reversed(alphas):
+            b = rho * torch.dot(y, q)
+            q = q + (a - b) * s
+        return -q
+
+    def step(self, closure=None):
+        if closure is None:
+            raise ValueError("LBFGS.step requires a closure that recomputes "
+                             "the loss and gradients")
+        params = [p for p in self._parameter_list if p.requires_grad]
+        loss = closure()
+        x0, g = self._gather(params)
+        if float(g.abs().max()) <= self.tol_grad:
+            return loss
+        n_evals = 1
+        for _ in range(self.max_iter):
+            d = self._direction(g)
+            lr = float(self.get_lr())
+            t = lr
+            f0 = float(loss.detach())
+            gtd = float(torch.dot(g, d))
+            if self.line_search_fn == "strong_wolfe":
+                c1, c2 = 1e-4, 0.9
+                for _ls in range(10):
+                    self._unflatten_to_params(x0 + t * d, params)
+                    self.clear_grad()
+                    loss_t = closure()
+                    n_evals += 1
+                    _, g_t = self._gather(params)
+                    if float(loss_t.detach()) > f0 + c1 * t * gtd:
+                        t *= 0.5
+                        continue
+                    if abs(float(torch.dot(g_t, d))) > c2 * abs(gtd):
+                        t *= 2.0
+                        continue
+                    break
+                loss, g_new = loss_t, g_t
+                x_new = x0 + t * d
+            else:
+                x_new = x0 + t * d
+                self._unflatten_to_params(x_new, params)
+                self.clear_grad()
+                loss = closure()
+                n_evals += 1
+                _, g_new = self._gather(params)
+            s = x_new - x0
+            ygrad = g_new - g
+            if float(torch.dot(s, ygrad)) > 1e-10:
+                self._s.append(s)
+                self._y.append(ygrad)
+            if float(g_new.abs().max()) <= self.tol_grad:
+                break
+            if float(s.abs().max()) <= self.tol_change:
+                break
+            if n_evals >= self.max_eval:
+                break
+            x0, g = x_new, g_new
+        return loss
+
+
 __all__ = ["ASGD", "Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
-           "L1Decay", "L2Decay", "Lamb", "Momentum", "NAdam", "Optimizer",
-           "RAdam", "RMSProp", "Rprop", "SGD", "WeightDecayRegularizer"]
+           "L1Decay", "L2Decay", "LBFGS", "Lamb", "Momentum", "NAdam",
+           "Optimizer", "RAdam", "RMSProp", "Rprop", "SGD",
+           "WeightDecayRegularizer"]

@@ -61,5 +61,32 @@ def test_scan_sees_the_whole_port():
                  "paddle_tpu_torch/monitor/trace.py",
                  "paddle_tpu_torch/profiler/__init__.py",
                  "paddle_tpu_torch/profiler/record.py",
+                 "paddle_tpu_torch/amp/__init__.py",
+                 "paddle_tpu_torch/nn/functional/fused_loss.py",
+                 "paddle_tpu_torch/incubate/nn/__init__.py",
+                 "paddle_tpu_torch/incubate/nn/functional/__init__.py",
+                 "paddle_tpu_torch/optimizer/optimizer.py",
+                 "paddle_tpu_torch/jit/train_step.py",
                  "chip_smoke.py", "chip_ab.py"):
         assert must in names
+
+
+def _calls_autocast(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [node.lineno for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute)
+            and node.attr in ("autocast", "GradScaler")
+            and isinstance(node.value, (ast.Name, ast.Attribute))
+            and getattr(node.value, "id", getattr(node.value, "attr", ""))
+            in ("torch", "amp", "cuda")]
+
+
+@pytest.mark.parametrize("path", [p for p in FILES
+                                  if "paddle_tpu_torch" in p.parts],
+                         ids=[str(p.relative_to(ROOT)) for p in FILES
+                              if "paddle_tpu_torch" in p.parts])
+def test_no_torch_autocast(path):
+    """The port's amp casts at its own op sites by the JAX package's op
+    lists; no module reaches ``torch.autocast`` or torch's GradScaler."""
+    assert not _calls_autocast(path), \
+        f"{path.relative_to(ROOT)} uses torch's autocast"

@@ -314,6 +314,31 @@ failure:
             temporaries), bf16 with f32 naive gates, batch 4 x 512: the
             gating kernel and the flash kernels once a layer a step.  ``--only train_paths`` runs the flash backward check,
             ``train`` and this phase alone.
+   fit     — the hapi fit path and ZeRO offload: (a) ``loader``, the train
+            case's graphed ``TrainStep`` fed by
+            ``DataLoader(device_prefetch=True)`` (single calls, then
+            ``run_steps`` of 4 twice): staged batches equal ``.to(device)``
+            of the host batches, losses equal a host-fed twin's; step ms
+            p50 with and without the device stage, ``input_wait_seconds``
+            p50; (b) ``bert_fit``, BERT-base in f32 through
+            ``Model.fit`` (AdamW 2e-5, ``CrossEntropyLoss``, ``Accuracy``),
+            batch 32 x 128, under sync-debug warnings (none from
+            ``hapi``, ``io`` or the optimizer; the rest printed by call
+            site), the first 5 losses equal an explicit eager loop's, then
+            ``evaluate``; (c) ``bert_o1``, the graphed
+            ``TrainStep(amp_level="O1")`` (bench.py config 2): dropout 0
+            through ``graphed_path``, dropout 0.1 losses falling; (d)
+            ``offload``, the train case after
+            ``group_sharded_parallel(..., "os_g", offload=True)``: losses
+            and weights equal the trainer without offload, state pinned
+            on the host, step ms and device peak of both; (e)
+            ``offload_moe``, Mixtral-8x7B's widths at 2 layers offloaded
+            (the depth train_paths (d) cannot fit): graphed = eager, the
+            host's MemAvailable, pinned bytes, device peak, step ms.
+            Before it (after the kernel checks), the flash kernels are
+            checked and timed at BERT-base's shapes (b32 h12 s128 d64,
+            no mask, bf16 and f32: records ``bert_bf16``, ``bert_f32``).
+            ``--only fit`` runs the build, those checks and this phase.
 7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
             of 32 layers, bf16 with f32 gates (so every MoE layer routes
             through the gating kernel), weights drawn on the card from
@@ -338,7 +363,8 @@ the timed ``PagedGenerator`` call), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``train_paths``, ``moe``, ``flashmask``, ``classes``, ``speculative``,
+``train``, ``train_paths``, ``fit``, ``moe``, ``flashmask``, ``classes``,
+``speculative``,
 ``recovery``, ``overload`` and ``tp`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -503,6 +529,16 @@ MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_NEW, MOE_CHECK_LAYERS = 8, 8, 512, 32, 2
 # step's AdamW update, which adds the f32 gradients and the denominator
 # (25.3 GB) at once (71.06 GiB allocated, 7.21 GiB reserved and free)
 MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 1, 4, 512
+# the fit phase: BERT-base (the JAX example's and bench.py config 2's
+# widths) at batch 32 x 128, FIT_STEPS fit steps; the loader case on the
+# train cell's model: single calls (the first LOADER_WARMUP untimed),
+# then run_steps of LOADER_K twice; the offload cases' steps, and the
+# MoE offload case at Mixtral's widths cut to 2 layers (the depth that
+# does not fit the card without offload)
+FIT_B, FIT_S, FIT_STEPS = 32, 128, 20
+LOADER_SINGLE, LOADER_WARMUP, LOADER_K = 10, 3, 4
+OFFLOAD_STEPS = 8
+OFFLOAD_MOE_LAYERS, OFFLOAD_MOE_STEPS = 2, 3
 # the flashmask phase: b 1 x 8192 packed tokens, head dim 128, bf16; its
 # documents (lengths 128-2048) drawn from a fixed seed, part of the cases
 FM_S, FM_D, FM_DOC_SEED = 8192, 128, 0
@@ -6242,6 +6278,669 @@ def train_paths(seed, dev, card, train_rec):
     return rec, launches
 
 
+def bert_flops(cfg, batch, seq):
+    """Model FLOPs of one BERT classification training step, from the
+    shapes: forward plus a backward of twice the forward, for the
+    encoder's Linears (2 per weight per token each way), the pooler and
+    classifier on the first token, and the attention products (QK^T and
+    PV over every pair: no mask)."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    d = h // cfg.num_attention_heads
+    tokens = batch * seq
+    linear = cfg.num_hidden_layers * (4 * h * h + 2 * h * f) * tokens \
+        + (h * h + h * cfg.num_labels) * batch
+    attn = 4 * batch * cfg.num_attention_heads * d * seq * seq \
+        * cfg.num_hidden_layers
+    return 3 * (2 * linear + attn)
+
+
+def time_bert_shapes(records, dev):
+    """The flash forward, dK/dV and dQ kernels at BERT-base's attention
+    shape (batch ``FIT_B`` x ``FIT_S``, 12 heads of d64, no mask), bf16
+    (the O1 step) and f32 (the eager fit): each held against its plain
+    version, then timed beside the plain version and
+    ``scaled_dot_product_attention`` (its backward from a profiler
+    window).  Adds each kernel's ``bert_bf16`` and ``bert_f32``
+    records."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, s, d = FIT_B, 12, FIT_S, 64
+    for dtype, tag in ((torch.bfloat16, "bert_bf16"),
+                       (torch.float32, "bert_f32")):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        q, k, v, do = (rnd(b, h, s, d) for _ in range(4))
+        label = f"BERT b{b} h{h} s{s} d{d} full {tag[5:]}"
+        bf = dtype == torch.bfloat16
+        peak = BF16_FLOP_S if bf else F32_FLOP_S
+        el = q.element_size()
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=False)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = check("flash_attention_forward", label, out, ref,
+                    2e-2 if bf else 1e-4)
+        check("flash_attention_forward", label + " lse", lse, ref_lse, 1e-4)
+        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=False))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, False),
+                           reps=3)
+        lib_ms = cuda_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(q, k, v))
+        pairs = b * h * s * s
+        bms, by = bound_ms(4 * q.numel() * el + b * h * s * 4,
+                           4 * pairs * d, peak)
+        log(f"  flash_attention_forward {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        records.setdefault("flash_attention_forward", {})[tag] = dict(
+            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        scale = d ** -0.5
+        got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do, False,
+                                               scale)
+        want = fa._bwd_blockwise(q, k, v, out, lse, do, False, scale)
+        torch.cuda.synchronize()
+        errs = {n: check("flash_attention_bwd", f"{label} {n}", g, r,
+                         1e-2 if bf else 1e-4)
+                for n, g, r in zip(("dq", "dk", "dv"), got, want)}
+        delta = (out.float() * do.float()).sum(-1).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        args = (q, k, v, do, lse, delta, dq, dk, dv, False, scale)
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args))
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args))
+        plain_ms = cuda_ms(lambda: fa._bwd_blockwise(
+            q, k, v, out, lse, do, False, scale), reps=3)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lout = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+        lib_ms = profiled_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), do, retain_graph=True))
+        rows = b * h * s * 4 * 2                     # lse and delta, f32
+        for name, ms, n_ops, n_bytes, e in (
+                ("flash_attention_bwd_dkv", dkv_ms, 4 * 2 * pairs * d,
+                 (2 * q.numel() + 4 * k.numel()) * el + rows,
+                 max(errs["dk"], errs["dv"])),
+                ("flash_attention_bwd_dq", dq_ms, 3 * 2 * pairs * d,
+                 (3 * q.numel() + 2 * k.numel()) * el + rows, errs["dq"])):
+            bms, by = bound_ms(n_bytes, n_ops, peak)
+            log(f"  {name} {label}: {ms:.4f} ms, plain (dq+dk+dv) "
+                f"{plain_ms:.4f} ms, sdpa backward (dq+dk+dv, profiler) "
+                f"{lib_ms} ms, bound {bms:.4f} ms ({by})")
+            records.setdefault(name, {})[tag] = dict(
+                case=label, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+class SeqPairs:
+    """Seeded token sequences as (input ids, next-token labels), int64:
+    the loader case's dataset."""
+
+    def __init__(self, n, seq, vocab, seed):
+        self.ids = np.random.default_rng(seed).integers(0, vocab,
+                                                        (n, seq + 1))
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return self.ids[i, :-1], self.ids[i, 1:]
+
+
+class SyntheticSST2:
+    """The JAX example's SST-2-shaped pairs (``examples/finetune_bert.py``):
+    token ids (n, seq) and the label "token 7 appears", int64."""
+
+    def __init__(self, n, seq, vocab, seed):
+        rng = np.random.default_rng(seed)
+        self.x = rng.integers(0, vocab, (n, seq))
+        self.y = (self.x == 7).any(axis=1).astype(np.int64)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def hist_p50(hist, before):
+    """The upper bound of the bucket holding the median of the
+    observations ``hist`` gained since its ``cumulative_counts()`` were
+    ``before``, and their count."""
+    now = hist.cumulative_counts()
+    got = [a - b for a, b in zip(now, before)]
+    n = got[-1]
+    for bound, c in zip(list(hist.buckets) + [float("inf")], got):
+        if n and c >= n / 2:
+            return bound, n
+    return None, n
+
+
+def fit_loader(seed, dev):
+    """(a) ``loader``: the llama_small graphed ``TrainStep`` (bf16 +
+    AdamW(multi_precision), batch ``TRAIN_B`` x ``TRAIN_S``) fed by
+    ``DataLoader(device_prefetch=True)`` over seeded token sequences:
+    ``LOADER_SINGLE`` single calls, then ``run_steps`` of ``LOADER_K``
+    twice.  Each staged batch must equal ``.to(dev)`` of the host batch,
+    and the losses must equal a second trainer's, same weights, fed the
+    host tensors of the same batches.  Step ms p50 (host clock, each
+    step ended by a synchronize, after ``LOADER_WARMUP`` calls) for both,
+    and the p50 of ``input_wait_seconds`` over each run's batches."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_small
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_small()
+    n = TRAIN_B * (LOADER_SINGLE + 2 * LOADER_K)
+    ds = SeqPairs(n, TRAIN_S, cfg.vocab_size, seed)
+    host = list(DataLoader(ds, batch_size=TRAIN_B))
+    staged = list(DataLoader(ds, batch_size=TRAIN_B, device_prefetch=True,
+                             device=dev))
+    batches_equal = len(staged) == len(host) and all(
+        sx.device == dev and torch.equal(sx, hx.to(dev))
+        and torch.equal(sy, hy.to(dev))
+        for (sx, sy), (hx, hy) in zip(staged, host))
+    del staged
+    wait_h = monitor.get_registry().get("input_wait_seconds")
+
+    def run(prefetch):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=seed)
+        step = TrainStep(model, _lm_loss, AdamW(
+            learning_rate=1e-3, parameters=model.parameters(),
+            multi_precision=True))
+        before = wait_h.cumulative_counts()
+        it = iter(DataLoader(ds, batch_size=TRAIN_B, device_prefetch=prefetch,
+                             device=dev if prefetch else None))
+        losses, times = [], []
+        for i in range(LOADER_SINGLE):
+            t0 = time.perf_counter()
+            x, y = next(it)
+            losses.append(step(x, y))
+            torch.cuda.synchronize()
+            if i >= LOADER_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(2):
+            losses.extend(step.run_steps(
+                [next(it) for _ in range(LOADER_K)]).unbind())
+        torch.cuda.synchronize()
+        it.close()
+        p50, count = hist_p50(wait_h, before)
+        out = {"losses": torch.stack(losses).float().cpu(),
+               "step_ms_p50": float(np.percentile(times, 50)),
+               "input_wait_s_p50_bucket": p50, "input_waits": count,
+               "captures": step.captures, "replays": step.replays}
+        del step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    fed = run(True)
+    plain = run(False)
+    equal = torch.equal(fed["losses"], plain["losses"])
+    rec = {"batch": TRAIN_B, "seq": TRAIN_S, "single_calls": LOADER_SINGLE,
+           "run_steps_k": LOADER_K,
+           "staged_batches_equal_to_device": batches_equal,
+           "losses_equal_host_fed": equal,
+           "losses": [float(v) for v in fed["losses"]],
+           "step_ms_p50_prefetch": fed["step_ms_p50"],
+           "step_ms_p50_host": plain["step_ms_p50"],
+           "input_wait_s_p50_bucket_prefetch":
+               fed["input_wait_s_p50_bucket"],
+           "input_wait_s_p50_bucket_host": plain["input_wait_s_p50_bucket"],
+           "input_waits": fed["input_waits"],
+           "captures": fed["captures"], "replays": fed["replays"]}
+    log("  loader: " + json.dumps(rec))
+    if not batches_equal:
+        raise AssertionError("fit loader: a staged batch differs from "
+                             ".to(device) of its host batch")
+    if not equal or not torch.isfinite(fed["losses"]).all():
+        raise AssertionError(f"fit loader: losses fed by the device stage "
+                             f"{fed['losses'].tolist()} differ from the "
+                             f"host-fed ones {plain['losses'].tolist()}")
+    return rec
+
+
+class _SyncProbe:
+    """Collects the synchronizing CUDA calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, each with the
+    innermost frame of this repository on its stack (its call site)."""
+
+    def __init__(self, root):
+        self.root = root
+        self.sites = []
+
+    def showwarning(self, message, category, filename, lineno, file=None,
+                    line=None):
+        import traceback
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        site = f"{filename}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if fr.filename.startswith(self.root) and \
+                    os.path.basename(fr.filename) != "chip_smoke.py":
+                site = f"{os.path.relpath(fr.filename, self.root)}:" \
+                    f"{fr.lineno}"
+                break
+        self.sites.append(site)
+
+
+def _fit_callback(n_steps, probe, stamps):
+    """A fit callback that turns sync-debug warnings on at the first
+    step's start and off at the last step's end (the epoch's loss read
+    comes after), stamping each step's end on the host clock."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class SyncWindow(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 0:
+                torch.cuda.set_sync_debug_mode("warn")
+
+        def on_train_batch_end(self, step, logs=None):
+            stamps.append(time.perf_counter())
+            if step == n_steps - 1:
+                torch.cuda.set_sync_debug_mode("default")
+
+    return SyncWindow()
+
+
+def fit_bert(seed, dev, kernels):
+    """(b) ``bert_fit``: the JAX example's path at BERT-base width (12
+    layers, 768, vocab 30522, dropout 0.1), f32, batch ``FIT_B`` x
+    ``FIT_S``: ``Model(BertForSequenceClassification).prepare(AdamW(2e-5),
+    CrossEntropyLoss(), Accuracy()).fit`` over ``FIT_STEPS`` batches of a
+    shuffled SyntheticSST2 (one numpy seed), then ``evaluate``.  The
+    steps run under sync-debug warnings: none may come from ``hapi``,
+    ``io`` or the optimizer; the others are printed by call site.  The
+    first 5 losses must equal an explicit eager loop's (forward,
+    ``backward``, ``step``, ``clear_grad``) over the same batches and
+    seeded weights bit for bit.  Step ms p50 (host clock between step
+    ends after the first 5: the loop runs ahead of the card until its
+    queue fills, then at the card's pace), tokens/s, the device's idle
+    share over 3 ``train_batch`` calls and a profiler window that must
+    show the CUDA-core (f32) flash forward and backward kernels.
+    Returns the record and the fit's launches."""
+    import warnings
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              bert_base)
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert_base()
+    train = SyntheticSST2(FIT_B * FIT_STEPS, FIT_S, cfg.vocab_size, seed)
+    held = SyntheticSST2(FIT_B * 4, FIT_S, cfg.vocab_size, seed + 1)
+
+    def build():
+        net = BertForSequenceClassification(cfg, device=dev, seed=seed)
+        return net, AdamW(learning_rate=2e-5, parameters=net.parameters())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, opt = build()
+    model = Model(net).prepare(opt, CrossEntropyLoss(), Accuracy())
+    probe = _SyncProbe(os.path.dirname(os.path.abspath(__file__)))
+    stamps = []
+    for fn in kernels.values():
+        fn.launches = 0
+    np.random.seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = probe.showwarning
+        try:
+            hist = model.fit(train, batch_size=FIT_B, epochs=1, verbose=0,
+                             callbacks=[_fit_callback(FIT_STEPS, probe,
+                                                      stamps)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    gaps = np.diff(stamps[4:]) * 1e3
+    med = float(np.percentile(gaps, 50))
+    ev = model.evaluate(held, batch_size=FIT_B, verbose=0)
+
+    x = torch.as_tensor(train.x[:FIT_B], device=dev)
+    y = torch.as_tensor(train.y[:FIT_B], device=dev)
+    seen = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    window_seeing(lambda: model.train_batch(x, y), "bert_fit", seen,
+                  ("wgmma",))
+    win_ms, _events, busy = _window(lambda: model.train_batch(x, y), 3)
+    del model, net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the explicit eager loop over the same batches and seeded weights
+    net, opt = build()
+    loss_fn = CrossEntropyLoss()
+    np.random.seed(seed)
+    want = []
+    for i, (bx, by) in enumerate(DataLoader(train, batch_size=FIT_B,
+                                            shuffle=True)):
+        if i == 5:
+            break
+        loss = loss_fn(net(bx.to(dev)), by.to(dev))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        want.append(float(loss.detach()))
+    del net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ours = [s for s in probe.sites
+            if s.startswith(("paddle_tpu_torch/hapi", "paddle_tpu_torch/io",
+                             "paddle_tpu_torch/optimizer"))]
+    by_site = {}
+    for s in probe.sites:
+        by_site[s] = by_site.get(s, 0) + 1
+    per_step = {n: c / FIT_STEPS for n, c in launches.items() if c}
+    rec = {"config": "bert_base f32, dropout 0.1, AdamW(2e-5)",
+           "batch": FIT_B, "seq": FIT_S, "steps": FIT_STEPS,
+           "step_ms_p50": med, "wall_s": wall,
+           "tokens_per_s": FIT_B * FIT_S / (med / 1e3),
+           "mfu_f32_peak": bert_flops(cfg, FIT_B, FIT_S) / (med / 1e3)
+           / F32_FLOP_S,
+           "device_busy_ms_per_step": busy or "not measured",
+           "device_idle_share": (1 - busy / win_ms) if busy
+           else "not measured",
+           "syncs_by_site": by_site, "syncs_in_hapi_io_optimizer": len(ours),
+           "launches_per_step": per_step,
+           "losses_first_5": hist["loss"][:5], "eager_losses_first_5": want,
+           "first_5_losses_equal_eager": hist["loss"][:5] == want,
+           "loss_first": hist["loss"][0], "loss_last": hist["loss"][-1],
+           "eval": ev, "flash_kernels_seen": list(seen)}
+    log("  bert_fit: " + json.dumps(rec))
+    if ours:
+        raise AssertionError(f"bert_fit: synchronizing calls from hapi, io "
+                             f"or the optimizer in the fit's steps: {ours}")
+    if not rec["first_5_losses_equal_eager"]:
+        raise AssertionError(f"bert_fit: the fit's first 5 losses "
+                             f"{hist['loss'][:5]} differ from the eager "
+                             f"loop's {want}")
+    if not np.isfinite(hist["loss"]).all():
+        raise AssertionError("bert_fit: non-finite loss")
+    for name in ("flash_attention_forward", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        if per_step.get(name) != cfg.num_hidden_layers:
+            raise AssertionError(f"bert_fit: {name} ran {per_step.get(name)}"
+                                 f" times a step, not once a layer")
+    return rec, launches
+
+
+def fit_bert_o1(seed, dev, kernels):
+    """(c) ``bert_o1``: ``bench.py``'s config-2 path, BERT-base with f32
+    parameters through the graphed ``TrainStep(amp_level="O1")``, batch
+    ``FIT_B`` x ``FIT_S``, AdamW(1e-4): with both dropout probabilities at
+    0, ``graphed_path`` (the first 5 losses equal ``EagerTrainStep``'s bit
+    for bit, the tensor-core flash kernels in a window, timed steps
+    capturing nothing); at the config's 0.1, 10 graphed steps whose last
+    3 losses average below their first 3.  Returns the record and the
+    timed steps' launches."""
+    import dataclasses
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              bert_base)
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert_base()
+    quiet = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                                attention_probs_dropout_prob=0.0)
+    data = SyntheticSST2(FIT_B, FIT_S, cfg.vocab_size, seed + 2)
+    x = torch.as_tensor(data.x, device=dev)
+    y = torch.as_tensor(data.y, device=dev)
+    loss_fn = CrossEntropyLoss()
+
+    def maker(c):
+        def make(cls):
+            net = BertForSequenceClassification(c, device=dev, seed=seed)
+            return cls(net, loss_fn, AdamW(
+                learning_rate=1e-4, parameters=net.parameters()),
+                amp_level="O1", amp_dtype="bfloat16")
+        return make
+
+    seen = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+            "flash_bwd_dq_wgmma_kernel")
+    refuse = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+              "flash_bwd_dq_kernel")
+    rec, launches, _vals = graphed_path(
+        "bert_o1", maker(quiet), x, y, kernels,
+        bert_flops(cfg, FIT_B, FIT_S), seen=seen, refuse=refuse)
+    rec["dropout"] = 0.0
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = maker(cfg)(TrainStep)
+    vals = torch.stack([step(x, y) for _ in range(10)]).float().cpu()
+    drop = {"dropout": cfg.hidden_dropout_prob,
+            "losses": [float(v) for v in vals],
+            "captures": step.captures, "replays": step.replays}
+    rec["dropout_0.1"] = drop
+    log("  bert_o1 dropout 0.1: " + json.dumps(drop))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not torch.isfinite(vals).all() or \
+            not vals[-3:].mean() < vals[:3].mean():
+        raise AssertionError(f"bert_o1: at dropout 0.1 the losses "
+                             f"{vals.tolist()} do not fall")
+    return rec, launches
+
+
+def _offload_states(opt):
+    return [t for acc in opt._accumulators.values() for t in acc.values()] \
+        + list(opt._master_weights.values())
+
+
+def fit_offload(seed, dev):
+    """(d) ``offload``: the llama_small graphed ``TrainStep`` (bf16 +
+    AdamW(multi_precision), batch ``TRAIN_B`` x ``TRAIN_S``) after
+    ``group_sharded_parallel(..., "os_g", offload=True)`` against the
+    same trainer without offload: ``OFFLOAD_STEPS`` steps each from the
+    same seeded weights; the losses and the final weights must be equal
+    bit for bit, and every state tensor and master a pinned CPU tensor
+    between steps.  Step ms p50 (steps after the third, each ended by a
+    synchronize) and the device peak over the trainer's start for
+    both."""
+    from paddle_tpu_torch.distributed import group_sharded_parallel
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_small
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_small()
+    rng = np.random.default_rng(seed + 3)
+    ids_np = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    ids = torch.as_tensor(ids_np[:, :-1], device=dev)
+    labels = torch.as_tensor(ids_np[:, 1:], device=dev)
+
+    def run(offload):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=seed)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    multi_precision=True)
+        model, opt, _ = group_sharded_parallel(model, opt, "os_g",
+                                               offload=offload)
+        step = TrainStep(model, _lm_loss, opt)
+        losses, times = [], []
+        for i in range(OFFLOAD_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(ids, labels))
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        states = _offload_states(opt)
+        out = {"losses": torch.stack(losses).float().cpu(),
+               "weights": [p.detach().clone() for p in model.parameters()],
+               "step_ms_p50": float(np.percentile(times, 50)),
+               "peak_over_start_gb":
+                   (torch.cuda.max_memory_allocated() - base) / 1e9,
+               "state_gb": sum(t.numel() * t.element_size()
+                               for t in states) / 1e9,
+               "state_pinned": all(t.device.type == "cpu" and t.is_pinned()
+                                   for t in states),
+               "state_on_card": all(t.device == dev for t in states),
+               "captures": step.captures, "replays": step.replays}
+        del step, model, opt, states
+        return out
+
+    plain = run(False)
+    off = run(True)
+    equal = torch.equal(off["losses"], plain["losses"]) and all(
+        torch.equal(a, b) for a, b in zip(off["weights"], plain["weights"]))
+    rec = {"steps": OFFLOAD_STEPS, "losses": [float(v) for v in
+                                              off["losses"]],
+           "losses_and_weights_equal_no_offload": equal,
+           "state_pinned_on_host": off["state_pinned"],
+           "state_gb": off["state_gb"],
+           "step_ms_p50": off["step_ms_p50"],
+           "step_ms_p50_no_offload": plain["step_ms_p50"],
+           "peak_over_start_gb": off["peak_over_start_gb"],
+           "peak_over_start_gb_no_offload": plain["peak_over_start_gb"],
+           "peak_drop_gb": plain["peak_over_start_gb"]
+           - off["peak_over_start_gb"],
+           "captures": off["captures"], "replays": off["replays"]}
+    del plain, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  offload: " + json.dumps(rec))
+    if not (equal and rec["state_pinned_on_host"]):
+        raise AssertionError(f"offload: equal to the trainer without "
+                             f"offload: {equal}; state pinned on the host: "
+                             f"{rec['state_pinned_on_host']}")
+    return rec
+
+
+def mem_available_gb():
+    """The host's MemAvailable (``/proc/meminfo``), GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return None
+
+
+def fit_offload_moe(seed, dev):
+    """(e) ``offload_moe``: the MoE training case that did not fit the card
+    without offload (``train_paths`` (d) runs 1 layer): Mixtral-8x7B's
+    widths cut to ``OFFLOAD_MOE_LAYERS`` layers, bf16 with f32 naive
+    gates + AdamW(multi_precision), batch ``MOE_TRAIN_B`` x
+    ``MOE_TRAIN_S``, offloaded: ``OFFLOAD_MOE_STEPS`` graphed steps, then
+    as many eager (``EagerTrainStep``) ones from the same seeded weights,
+    losses equal bit for bit.  The host's MemAvailable first, the pinned
+    state's bytes, the device peak and the step ms of each step (host
+    clock, each ended by a synchronize)."""
+    import dataclasses
+    from paddle_tpu_torch.distributed import group_sharded_parallel
+    from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
+    from paddle_tpu_torch.models.llama_moe import (LlamaMoeForCausalLM,
+                                                   mixtral_8x7b)
+    from paddle_tpu_torch.optimizer import AdamW
+    avail = mem_available_gb()
+    log(f"  offload_moe: host MemAvailable {avail:.1f} GB")
+    mcfg = dataclasses.replace(mixtral_8x7b(OFFLOAD_MOE_LAYERS),
+                               gate_type="naive")
+    rng = np.random.default_rng(seed + 4)
+    m_np = rng.integers(0, mcfg.vocab_size, (MOE_TRAIN_B, MOE_TRAIN_S + 1))
+    ids = torch.as_tensor(m_np[:, :-1], device=dev)
+    labels = torch.as_tensor(m_np[:, 1:], device=dev)
+
+    def moe_loss(outputs, lab):
+        logits, aux = outputs
+        return _lm_loss(logits, lab) + aux
+
+    def run(cls):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = LlamaMoeForCausalLM(mcfg, device=dev, dtype=torch.bfloat16,
+                                    seed=seed, gate_dtype=torch.float32)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    multi_precision=True)
+        model, opt, _ = group_sharded_parallel(model, opt, "os_g",
+                                               offload=True)
+        step = cls(model, moe_loss, opt)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        losses, times = [], []
+        for _ in range(OFFLOAD_MOE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(ids, labels))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        states = _offload_states(opt)
+        out = {"losses": torch.stack(losses).float().cpu(), "step_ms": times,
+               "setup_s": setup,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "pinned_gb": sum(t.numel() * t.element_size()
+                                for t in states) / 1e9,
+               "state_pinned": all(t.is_pinned() for t in states),
+               "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+               "captures": getattr(step, "captures", None),
+               "replays": getattr(step, "replays", None)}
+        del step, model, opt, states
+        return out
+
+    graphed = run(TrainStep)
+    eager = run(EagerTrainStep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the ~38 GB of pinned blocks go back to the host for later phases
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    equal = torch.equal(graphed["losses"], eager["losses"])
+    rec = {"layers": OFFLOAD_MOE_LAYERS, "batch": MOE_TRAIN_B,
+           "seq": MOE_TRAIN_S, "params_b": graphed["params_b"],
+           "host_mem_available_gb": avail,
+           "pinned_state_gb": graphed["pinned_gb"],
+           "state_pinned": graphed["state_pinned"],
+           "peak_memory_gb": graphed["peak_memory_gb"],
+           "peak_memory_gb_eager": eager["peak_memory_gb"],
+           "step_ms": graphed["step_ms"],
+           "step_ms_eager": eager["step_ms"],
+           "setup_s": graphed["setup_s"],
+           "losses": [float(v) for v in graphed["losses"]],
+           "eager_losses": [float(v) for v in eager["losses"]],
+           "graphed_equal_eager": equal,
+           "captures": graphed["captures"], "replays": graphed["replays"]}
+    log("  offload_moe: " + json.dumps(rec))
+    if not (equal and rec["state_pinned"]) or \
+            not torch.isfinite(graphed["losses"]).all():
+        raise AssertionError(f"offload_moe: graphed {rec['losses']} vs "
+                             f"eager {rec['eager_losses']}; state pinned: "
+                             f"{rec['state_pinned']}")
+    return rec
+
+
+def fit_phase(seed, dev, card, kernels):
+    """The ``fit`` phase: (a) ``loader``, (b) ``bert_fit``, (c)
+    ``bert_o1``, (d) ``offload``, (e) ``offload_moe``.  Returns the record
+    and the launches of the bert_fit and bert_o1 timed steps."""
+    rec, launches = {"card": card}, {}
+    log("fit (a) loader: llama_small graphed TrainStep fed by "
+        f"DataLoader(device_prefetch=True), batch {TRAIN_B} x {TRAIN_S}")
+    rec["loader"] = fit_loader(seed, dev)
+    log(f"fit (b) bert_fit: BERT-base f32 Model.fit, batch {FIT_B} x "
+        f"{FIT_S}, {FIT_STEPS} steps")
+    rec["bert_fit"], launches["bert_fit"] = fit_bert(seed, dev, kernels)
+    log(f"fit (c) bert_o1: BERT-base TrainStep(amp_level='O1'), batch "
+        f"{FIT_B} x {FIT_S}")
+    rec["bert_o1"], launches["bert_o1"] = fit_bert_o1(seed, dev, kernels)
+    log("fit (d) offload: llama_small graphed TrainStep, os_g offload vs "
+        "none")
+    rec["offload"] = fit_offload(seed, dev)
+    log(f"fit (e) offload_moe: Mixtral-8x7B widths, {OFFLOAD_MOE_LAYERS} "
+        f"layers, batch {MOE_TRAIN_B} x {MOE_TRAIN_S}, offloaded")
+    rec["offload_moe"] = fit_offload_moe(seed, dev)
+    return rec, launches
+
+
 def _device_us(evt):
     """Device time of a profiler kernel entry (0 for host-side operator
     entries, whose device time would count their kernels twice)."""
@@ -6436,11 +7135,12 @@ def tp_only(seed, dev, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tp", "train_paths"),
+    ap.add_argument("--only", choices=("tp", "train_paths", "fit"),
                     help="after the build, run only the unchunked serve "
                     "pass and the tp phase (over NCCL too on two cards), "
                     "or only the flash backward check and the train and "
-                    "train_paths phases")
+                    "train_paths phases, or only the flash kernels at "
+                    "BERT's shapes and the fit phase")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6527,9 +7227,25 @@ def main():
               time_train_shapes, check_moe_gating, check_flashmask)
     if args.only == "train_paths":
         checks = (check_flash_bwd,)
-    for fn in checks:
+    if args.only == "fit":
+        checks = ()
+    for fn in checks + (time_bert_shapes,):
         fn(records, dev)
         lap(fn.__name__)
+    if args.only == "fit":
+        fit_rec, _launches = fit_phase(args.seed, dev, smi[0], counters())
+        lap("fit")
+        phase_s["total"] = time.perf_counter() - T_START
+        print(json.dumps({"fit": fit_rec, "bert_shapes": {
+            n: {t: records[n][t] for t in ("bert_bf16", "bert_f32")}
+            for n in ("flash_attention_forward", "flash_attention_bwd_dkv",
+                      "flash_attention_bwd_dq")},
+            "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
+            flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "train_paths":
         train_rec, _launches = train(args.seed, dev, smi[0])
         log("train: " + json.dumps(train_rec))
@@ -6866,6 +7582,11 @@ def main():
                                             train_rec)
     launches.update(paths_launches)
     lap("train_paths")
+    # the fit path: the DataLoader's device stage, BERT-base through
+    # Model.fit and the O1 TrainStep, ZeRO offload
+    fit_rec, fit_launches = fit_phase(args.seed, dev, smi[0], counters())
+    launches.update(fit_launches)
+    lap("fit")
 
     # 8. the MoE model generating at Mixtral-8x7B widths (the 7B model
     # and the trainer are gone), then its full-width f32 logits
@@ -6916,6 +7637,15 @@ def main():
             "replays", "launches_per_step", "first_5_losses_equal_eager")}
     paths_line["fused_ce"]["head_products"] = \
         paths_rec["fused_ce"]["head_products"]
+    fit_line = {"card": fit_rec["card"], "loader": fit_rec["loader"],
+                "offload": fit_rec["offload"],
+                "offload_moe": fit_rec["offload_moe"]}
+    fit_line["bert_fit"] = {k: v for k, v in fit_rec["bert_fit"].items()
+                            if k != "launches_per_step"}
+    fit_line["bert_o1"] = {k: fit_rec["bert_o1"][k] for k in (
+        "step_ms_p25", "step_ms_p50", "step_ms_p75", "tokens_per_s", "mfu",
+        "peak_memory_gb", "device_idle_share", "captures", "replays",
+        "launches_per_step", "first_5_losses_equal_eager", "dropout_0.1")}
     moe_line = {k: moe_rec[k] for k in (
         "layers", "prefill_s", "decode_ms_p50", "tokens_per_s",
         "peak_memory_gb", "device_idle_share", "launches", "logits_rel_l2")}
@@ -6937,6 +7667,7 @@ def main():
     print(json.dumps({"kernels": out, "serve": serve_line,
                       "generate": gen_line,
                       "train": train_line, "train_paths": paths_line,
+                      "fit": fit_line,
                       "moe": moe_line,
                       "flashmask": fm_line,
                       "speculative": {

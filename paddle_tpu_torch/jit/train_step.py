@@ -31,44 +31,13 @@ import numpy as np
 import torch
 
 from .. import amp
+from .._device import Upload as _Upload
 from ..cuda_graphs import capture
 from ..optimizer.lr import LRScheduler
 
 
 def _as_tuple(x):
     return tuple(x) if isinstance(x, (list, tuple)) else (x,)
-
-
-class _Upload:
-    """Small host-to-device writes through a ring of host slots, pinned
-    when the device is a card: a slot is filled again only after the copy
-    that last read it has run, so the host may queue steps ahead of the
-    card without rewriting a copy still pending."""
-
-    SLOTS = 8
-    BYTES = 64
-
-    def __init__(self, device):
-        card = device.type == "cuda"
-        self._host = torch.zeros((self.SLOTS, self.BYTES), dtype=torch.uint8,
-                                 pin_memory=card)
-        self._copied = [torch.cuda.Event() if card else None
-                        for _ in range(self.SLOTS)]
-        self._next = 0
-
-    def __call__(self, dst: torch.Tensor, values: np.ndarray) -> None:
-        """``values`` (numpy, ``dst``'s dtype and size) into ``dst``, a
-        contiguous device tensor, in one copy, not waited on."""
-        i = self._next
-        self._next = (i + 1) % self.SLOTS
-        if self._copied[i] is not None:
-            self._copied[i].synchronize()
-        raw = np.ascontiguousarray(values).view(np.uint8)
-        slot = self._host[i, :raw.size]
-        slot.numpy()[:] = raw
-        dst.view(torch.uint8).copy_(slot, non_blocking=True)
-        if self._copied[i] is not None:
-            self._copied[i].record(torch.cuda.current_stream(dst.device))
 
 
 class EagerTrainStep:
@@ -90,7 +59,14 @@ class EagerTrainStep:
 
     ``amp_level`` other than "O0" runs ``model(*inputs)`` — the forward
     only; ``loss_fn`` runs outside it, as in the JAX package — under
-    ``amp.auto_cast(level=amp_level, dtype=amp_dtype)``."""
+    ``amp.auto_cast(level=amp_level, dtype=amp_dtype)``.
+
+    An optimizer set to offload (``distributed.group_sharded_parallel(...,
+    offload=True)``) keeps its state and masters in pinned host memory;
+    the update moves them through the device a group at a time
+    (``Optimizer._apply_update``), and ``TrainStep``'s graphs capture
+    those copies.  The gradient sums of ``accumulate_steps`` stay on the
+    device."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  amp_level: str = "O0", amp_dtype: str = "bfloat16",
@@ -111,8 +87,10 @@ class EagerTrainStep:
         optimizer._ensure_state(self._train_params)
         masters = [optimizer._master_weights.get(id(p))
                    for p in self._train_params]
+        # on the parameters' device, where an offloaded master is not
         self._grad_accum = [
-            torch.zeros_like(m if m is not None else p.detach())
+            torch.zeros(p.shape, device=p.device,
+                        dtype=p.dtype if m is None else m.dtype)
             for p, m in zip(self._train_params, masters)] \
             if self.accumulate_steps > 1 else []
         self._micro_step = 0

@@ -1,4 +1,5 @@
-"""Carry a JAX-package LLaMA's (dense or MoE) weights into the port."""
+"""Carry a JAX-package LLaMA's (dense or MoE) or BERT's weights into the
+port."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -7,6 +8,8 @@ import numpy as np
 import torch
 
 from ..nn import Linear
+from .bert import (BertConfig, BertForMaskedLM,
+                   BertForSequenceClassification)
 from .llama import LlamaConfig, LlamaForCausalLM
 from .llama_moe import LlamaMoeConfig, LlamaMoeForCausalLM
 
@@ -88,6 +91,23 @@ def moe_params_from_numpy(cfg: LlamaMoeConfig, arrays: Dict[str, np.ndarray],
 
 def moe_params_to_numpy(model: LlamaMoeForCausalLM) -> Dict[str, np.ndarray]:
     """The inverse of :func:`moe_params_from_numpy`."""
+    return _to_numpy(model)
+
+
+def bert_params_from_numpy(cfg: BertConfig, arrays: Dict[str, np.ndarray],
+                          device="cuda", dtype=None):
+    """:func:`params_from_numpy` for a ``paddle_tpu`` BERT: a
+    ``BertForSequenceClassification`` (the arrays hold
+    ``classifier.weight``) or a ``BertForMaskedLM`` (``decoder.weight``),
+    every Linear weight transposed.  Missing or unexpected names
+    raise."""
+    cls = BertForMaskedLM if "decoder.weight" in arrays \
+        else BertForSequenceClassification
+    return _load(cls(cfg, device=device, dtype=dtype, seed=None), arrays)
+
+
+def bert_params_to_numpy(model) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`bert_params_from_numpy`."""
     return _to_numpy(model)
 
 

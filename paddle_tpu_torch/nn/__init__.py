@@ -1,8 +1,14 @@
 """Layers of the port: thin ``torch.nn.Module``s."""
 from . import functional
 from .clip import ClipGradByGlobalNorm
-from .layer.common import Embedding, Linear
-from .layer.norm import RMSNorm
+from .layer.activation import GELU, Tanh
+from .layer.common import Dropout, Embedding, Linear
+from .layer.loss import CrossEntropyLoss
+from .layer.norm import LayerNorm, RMSNorm
+from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
+                                TransformerEncoderLayer)
 
-__all__ = ["ClipGradByGlobalNorm", "Embedding", "Linear", "RMSNorm",
+__all__ = ["ClipGradByGlobalNorm", "CrossEntropyLoss", "Dropout",
+           "Embedding", "GELU", "LayerNorm", "Linear", "MultiHeadAttention",
+           "RMSNorm", "Tanh", "TransformerEncoder", "TransformerEncoderLayer",
            "functional"]

@@ -1,13 +1,28 @@
 """Functional ops of the port (port of paddle_tpu/nn/functional): the
-loss the training path calls and the attention entries of
-``attention.py``."""
+loss the training path calls, the activations, dropout and layer norm
+BERT calls, and the attention entries of ``attention.py``.  Each casts
+its inputs under amp by the JAX op's name."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ... import amp
-from .attention import flash_attention, flashmask_attention
+from ..layer.common import dropout
+from ..layer.norm import layer_norm
+from .attention import (flash_attention, flashmask_attention,
+                        scaled_dot_product_attention)
+
+
+def gelu(x, approximate=False):
+    """GELU: exact (erf), or the tanh form with ``approximate``."""
+    (x,) = amp._cast_args("gelu", x)
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    (x,) = amp._cast_args("tanh", x)
+    return torch.tanh(x)
 
 
 def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
@@ -35,4 +50,6 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     return total / count.clamp_min(1.0)
 
 
-__all__ = ["cross_entropy", "flash_attention", "flashmask_attention"]
+__all__ = ["cross_entropy", "dropout", "flash_attention",
+           "flashmask_attention", "gelu", "layer_norm",
+           "scaled_dot_product_attention", "tanh"]

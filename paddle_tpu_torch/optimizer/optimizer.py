@@ -32,9 +32,72 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .._device import Upload
 from .lr import LRScheduler
 
 _LOW = (torch.bfloat16, torch.float16)
+
+
+def _to_device(t: torch.Tensor, dev) -> torch.Tensor:
+    """A copy of ``t`` on ``dev``, not waited on (``t`` pinned)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(
+        t, non_blocking=True)
+
+
+class HostOffload:
+    """Where an offloaded optimizer keeps its state: in host memory,
+    pinned when the parameters live on a card, carved out of pinned
+    arenas of ``ARENA_BYTES`` (a tensor larger than that gets an arena of
+    its own), since PyTorch's pinned allocator rounds every allocation up
+    to a power of two.  ``groups`` cuts a parameter list into runs of at
+    most ``group_numel`` elements (a larger parameter is a group alone):
+    the device holds one group's state at a time."""
+
+    ARENA_BYTES = 1 << 30
+    ALIGN = 256
+
+    def __init__(self, group_numel: int = 1 << 26):
+        self.group_numel = int(group_numel)
+        self._arena = None
+        self._used = 0
+
+    def _pinned(self, nbytes: int) -> torch.Tensor:
+        if nbytes > self.ARENA_BYTES:
+            return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        if self._arena is None or self._used + nbytes > self.ARENA_BYTES:
+            self._arena = torch.empty(self.ARENA_BYTES, dtype=torch.uint8,
+                                      pin_memory=True)
+            self._used = 0
+        out = self._arena[self._used:self._used + nbytes]
+        self._used += -(-nbytes // self.ALIGN) * self.ALIGN
+        return out
+
+    def home(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` (pinned when ``t`` is on a card)."""
+        if t.device.type != "cuda":
+            return t.detach().to("cpu", copy=True)
+        nbytes = t.numel() * t.element_size()
+        out = self._pinned(nbytes).view(t.dtype).view(t.shape)
+        out.copy_(t)
+        return out
+
+    def groups(self, params):
+        """(lo, hi) runs of ``params`` of at most ``group_numel``
+        elements each, in order."""
+        lo, n = 0, 0
+        for i, p in enumerate(params):
+            if i > lo and n + p.numel() > self.group_numel:
+                yield lo, i
+                lo, n = i, 0
+            n += p.numel()
+        if lo < len(params):
+            yield lo, len(params)
+
+    def settle(self):
+        """Wait for the copies back to host memory queued on the current
+        stream (before the host reads the state)."""
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.current_stream().synchronize()
 
 
 class WeightDecayRegularizer:
@@ -85,6 +148,13 @@ class Optimizer:
         # a factor on top of the schedule (a plateau rule scales it, so a
         # reduction works whatever the schedule's shape)
         self._lr_factor = 1.0
+        # ZeRO offload (``distributed.sharding.group_sharded_parallel(...,
+        # offload=True)``): a HostOffload holding the state in host memory
+        self._offload = None
+        # step(): the rate (f32 bits) and step number as one device
+        # buffer, written through a ring of pinned slots
+        self._upload = None
+        self._scalars = None
 
     # --------------------------------------------------------------- lr
     def get_lr(self) -> float:
@@ -120,15 +190,17 @@ class Optimizer:
         return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
     def _ensure_state(self, params):
+        home = self._offload.home if self._offload is not None \
+            else (lambda t: t)
         for slot in self._state_slots:
             acc = self._accumulators.setdefault(slot, {})
             for p in params:
                 if id(p) not in acc:
-                    acc[id(p)] = self._init_slot(slot, p)
+                    acc[id(p)] = home(self._init_slot(slot, p))
         if self._multi_precision:
             for p in params:
                 if id(p) not in self._master_weights and p.dtype in _LOW:
-                    self._master_weights[id(p)] = p.detach().float()
+                    self._master_weights[id(p)] = home(p.detach().float())
 
     # ----------------------------------------------------------- update
     def _rule(self, works, grads, states, lr, step, params):
@@ -153,25 +225,71 @@ class Optimizer:
         """The fused update of ``params`` from ``grads`` (one each, in the
         param's dtype or the master's) at learning rate ``lr`` and step
         number ``step``, 0-d tensors on the parameters' device — shared
-        by ``step()`` and ``jit.TrainStep``."""
+        by ``step()`` and ``jit.TrainStep``.
+
+        With offload the state and masters live in host memory: the
+        update runs a bounded group of parameters at a time, each group's
+        state and masters copied to the device, updated by the same rule
+        and copied back, all without waiting on the host, so a CUDA graph
+        captures the copies.  Every rule here is elementwise or per
+        parameter, so the groups give the numbers one pass gives."""
         if not params:
             return
         self._ensure_state(params)
+        if self._offload is None:
+            self._update(params, grads, lr, step)
+            return
+        for lo, hi in self._offload.groups(params):
+            self._update(params[lo:hi], grads[lo:hi], lr, step, staged=True)
+
+    def _update(self, params, grads, lr, step, staged=False):
+        """One pass of the rule over ``params``; ``staged``: the state
+        and masters are host copies, moved to the parameters' device for
+        the rule and back after it."""
         masters = [self._master_weights.get(id(p)) for p in params]
+        states = {s: [self._accumulators[s][id(p)] for p in params]
+                  for s in self._state_slots}
+        if staged:
+            homes = [m for m in masters if m is not None] \
+                + [t for s in self._state_slots for t in states[s]]
+            dev = params[0].device
+            masters = [None if m is None else _to_device(m, dev)
+                       for m in masters]
+            states = {s: [_to_device(t, dev) for t in ts]
+                      for s, ts in states.items()}
         works = [m if m is not None else p.data
                  for p, m in zip(params, masters)]
         grads = [g if g.dtype == w.dtype else g.to(w.dtype)
                  for g, w in zip(grads, works)]
         grads = self._decay_grads(grads, works)
-        states = {s: [self._accumulators[s][id(p)] for p in params]
-                  for s in self._state_slots}
         self._rule(works, grads, states, lr, step, params)
         low = [(p.data, m) for p, m in zip(params, masters) if m is not None]
         if low:
             torch._foreach_copy_([p for p, _ in low], [m for _, m in low])
+        if staged:
+            staged_list = [m for m in masters if m is not None] \
+                + [t for s in self._state_slots for t in states[s]]
+            for home, t in zip(homes, staged_list):
+                home.copy_(t, non_blocking=True)
+
+    def _device_scalars(self, lr: float, step: int, dev):
+        """``lr`` (f32) and ``step`` (int32) as 0-d views of one device
+        buffer, written by one copy from a pinned slot that nothing
+        waits on (``torch.tensor(..., device=...)`` would copy from
+        pageable memory and block until the card caught up)."""
+        if self._scalars is None or self._scalars.device != dev:
+            self._upload = Upload(dev)
+            self._scalars = torch.zeros(2, dtype=torch.int32, device=dev)
+        values = np.zeros(2, np.int32)
+        values.view(np.float32)[0] = lr
+        values[1] = step
+        self._upload(self._scalars, values)
+        return self._scalars[0:1].view(torch.float32)[0], self._scalars[1]
 
     def step(self):
-        """Eager update of every trainable parameter that has a grad."""
+        """Eager update of every trainable parameter that has a grad.  The
+        rate and step number reach the update as device scalars written
+        without a blocking copy, so the host never waits for the card."""
         params = [p for p in self._parameter_list
                   if p.requires_grad and p.grad is not None]
         if not params:
@@ -180,11 +298,9 @@ class Optimizer:
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
         self._global_step += 1
-        dev = params[0].device
-        self._apply_update(
-            params, [g for _, g in pairs],
-            torch.tensor(self.get_lr(), dtype=torch.float32, device=dev),
-            torch.tensor(self._global_step, dtype=torch.int32, device=dev))
+        lr, step = self._device_scalars(self.get_lr(), self._global_step,
+                                        params[0].device)
+        self._apply_update(params, [g for _, g in pairs], lr, step)
 
     def clear_grad(self):
         for p in self._parameter_list:
@@ -196,6 +312,12 @@ class Optimizer:
                 for i, p in enumerate(self._parameter_list)}
 
     def state_dict(self):
+        """The state by ``<param name>.<slot>``, the masters, the step
+        counter and the schedule.  The tensors are the optimizer's own
+        (with offload: the host copies, after the copies pending on the
+        current stream have landed)."""
+        if self._offload is not None:
+            self._offload.settle()
         sd = {}
         name_of = self._names()
         for slot, acc in self._accumulators.items():
@@ -216,6 +338,8 @@ class Optimizer:
         """Load a ``state_dict()``.  State tensors that exist already are
         written in place (a captured CUDA graph holds their addresses);
         missing ones are created."""
+        if self._offload is not None:
+            self._offload.settle()
         name_of = self._names()
         by_name = {name_of[id(p)]: p for p in self._parameter_list}
         self._global_step = int(state_dict.get("global_step", 0))
@@ -235,6 +359,8 @@ class Optimizer:
             value = torch.as_tensor(value)
             if id(p) in home:
                 home[id(p)].copy_(value)
+            elif self._offload is not None:
+                home[id(p)] = self._offload.home(value)
             else:
                 home[id(p)] = value.to(p.device).clone()
 

@@ -339,6 +339,30 @@ failure:
             checked and timed at BERT-base's shapes (b32 h12 s128 d64,
             no mask, bf16 and f32: records ``bert_bf16``, ``bert_f32``).
             ``--only fit`` runs the build, those checks and this phase.
+   vision  — the vision and OCR training paths through the graphed
+            ``TrainStep``, each sub-case's losses, parameters and
+            batch-norm buffers equal to an eager twin's
+            (``EagerTrainStep``, the same seeded weights) bit for bit
+            after its first steps, then 20 timed steps capturing nothing
+            (step ms p25/p50/p75, images/s, device busy ms and idle share
+            from a profiler window, device ms of cuDNN's convolutions
+            beside the rest, launches a step, mfu, peak memory): (a)
+            ``resnet50_cifar``, bench.py's config 1 (``resnet50
+            (num_classes=10)``, b256 x 3 x 32 x 32, Momentum(0.1, 0.9,
+            weight_decay=5e-4), ``CrossEntropyLoss``, O1; 3 steps equal);
+            (b) ``resnet50_imagenet``, config 4's one-card lane
+            (``resnet50()``, 1000 classes, b128 x 3 x 224 x 224, O1; 2
+            steps equal); both also timed with cuDNN free to take its
+            nondeterministic algorithms (the port's convolutions run
+            under its deterministic flags); (c) ``crnn_ctc``, config 3
+            (``CRNN(96, img_height=32)``, b64 x 1 x 32 x 320, 40-token
+            labels of 1..95, input lengths 80, Adam(1e-3), the mean CTC
+            loss, f32; 3 steps equal, and two graphed runs from one start
+            equal); (d) ``small_f32``: resnet18 and crnn_tiny in f32
+            (TF32 off), the card against the CPU on the same weights:
+            logits, one step's loss, parameters and buffers within
+            relative L2 1e-4.  ``--only vision`` runs the build and this
+            phase.
 7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
             of 32 layers, bf16 with f32 gates (so every MoE layer routes
             through the gating kernel), weights drawn on the card from
@@ -6941,6 +6965,321 @@ def fit_phase(seed, dev, card, kernels):
     return rec, launches
 
 
+# ------------------------------------------------------------------ vision
+# bench.py's configs 1 (ResNet-50, CIFAR-10 shapes, b256, O1), 4 (its
+# one-card lane: ResNet-50 at ImageNet's 224 x 224, b128, O1) and 3 (CRNN
+# + CTC, b64 x 1 x 32 x 320, f32)
+VISION_CIFAR_B, VISION_IMAGENET_B = 256, 128
+CRNN_B, CRNN_H, CRNN_W, CRNN_CLASSES = 64, 32, 320, 96
+VISION_STEPS = 20
+
+
+def vision_flops(build, shape):
+    """Forward FLOPs (2 a multiply-add) of the convolutions, Linears and
+    LSTM products of ``build(device)`` on an input of ``shape``, counted
+    by hooks over a forward on the meta device."""
+    from paddle_tpu_torch.nn import LSTM, Conv2D, Linear
+    model = build(torch.device("meta"))
+    total = [0]
+
+    def count(m, inp, out):
+        if isinstance(m, Conv2D):
+            total[0] += 2 * out.numel() * (m.in_channels // m.groups) \
+                * int(np.prod(m.kernel_size))
+        elif isinstance(m, Linear):
+            total[0] += 2 * out.numel() * m.in_features
+        else:
+            rows = inp[0].shape[0] * inp[0].shape[1]
+            g = 4 * m.hidden_size
+            for layer in range(m.num_layers):
+                width = m.input_size if layer == 0 \
+                    else m.hidden_size * m.bidirect
+                total[0] += 2 * rows * g * (width + m.hidden_size) \
+                    * m.bidirect
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (Conv2D, Linear, LSTM))]
+    with torch.no_grad():
+        model(torch.empty(shape, device="meta"))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def _state(model):
+    """Parameters and buffers (a batch norm's running statistics), cloned."""
+    return {n: t.detach().clone() for n, t in model.state_dict().items()}
+
+
+def _same_state(a, b):
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def vision_path(label, make, x, y, flops, peak_flop_s, equal_steps,
+                steps=VISION_STEPS, twice=False, cudnn_cost=False):
+    """One ``vision`` sub-case.  ``make(cls)`` builds the model from the
+    seed and its ``cls`` train step (``TrainStep`` or ``EagerTrainStep``).
+    The graphed step takes ``equal_steps`` steps from the start (the
+    first runs eagerly and captures); its losses, parameters and
+    batch-norm buffers must then equal an eager twin's after as many
+    steps, bit for bit (and, with ``twice``, a second graphed run's from
+    the same start).  Then ``steps`` timed steps, which must capture
+    nothing, and 2 in a profiler window: step ms p25/p50/p75, images/s,
+    device busy ms and idle share, device ms by kernel class, launches a
+    step, mfu against ``peak_flop_s``, peak memory.  With
+    ``cudnn_cost``, a graphed trainer whose convolutions may take
+    cuDNN's nondeterministic algorithms is timed too (its graph is
+    captured without the port's deterministic flags), beside the step."""
+    from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step = make(TrainStep)
+    losses = [step(x, y) for _ in range(equal_steps)]
+    graphed_state = _state(step.model)
+    captures_warmup = step.captures
+    captured, replayed = step.captures, step.replays
+    times = _host_ms(lambda: losses.append(step(x, y)), steps)
+    captures, replays = step.captures - captured, step.replays - replayed
+    peak = torch.cuda.max_memory_allocated()
+    _ms, events, busy_ms = _window(lambda: losses.append(step(x, y)), 2)
+    by_class, launches, top = {}, 0, []
+    for e in events:
+        us = _device_us(e)
+        if us:
+            cls = _vision_class(e.key)
+            by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / 2
+            launches += e.count
+            top.append((us / 1e3 / 2, e.count // 2, e.key[:80]))
+    top.sort(reverse=True)
+    vals = torch.stack(losses).float().cpu().numpy()
+    del step, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {}
+    if cudnn_cost:
+        from unittest import mock
+        from paddle_tpu_torch.nn import functional as PF
+        with mock.patch.object(PF, "_deterministic_cudnn",
+                               contextlib.nullcontext):
+            free = make(TrainStep)
+            for _ in range(3):
+                free(x, y)
+            rec["nondeterministic_cudnn_step_ms_p50"] = float(np.median(
+                _host_ms(lambda: free(x, y), 10)))
+        del free
+        gc.collect()
+        torch.cuda.empty_cache()
+    eager = make(EagerTrainStep)
+    eager_vals = torch.stack([eager(x, y) for _ in range(equal_steps)]) \
+        .float().cpu().numpy()
+    apart = _same_state(graphed_state, _state(eager.model))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = []
+    if twice:
+        second = make(TrainStep)
+        for _ in range(equal_steps):
+            second(x, y)
+        again = _same_state(graphed_state, _state(second.model))
+        del second
+        gc.collect()
+        torch.cuda.empty_cache()
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    rec.update({
+        "step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
+        "images_per_s": x.shape[0] / (med / 1e3),
+        "model_flops_per_step": flops,
+        "mfu": flops / (med / 1e3) / peak_flop_s,
+        "peak_flop_s": peak_flop_s,
+        "device_busy_ms_per_step": busy_ms or "not measured",
+        "device_idle_share": (1 - busy_ms / med) if busy_ms
+        else "not measured",
+        "device_ms_per_step_by_class": by_class,
+        "top_kernels_ms_calls_per_step": top[:10],
+        "launches_per_step": launches / 2,
+        "peak_memory_gb": peak / 1e9,
+        "peak_over_start_gb": (peak - base) / 1e9,
+        "captures_warmup": captures_warmup, "captures": captures,
+        "replays": replays,
+        "losses_first": [float(v) for v in vals[:equal_steps]],
+        "loss_last": float(vals[-1]),
+        "graphed_equals_eager_steps": equal_steps,
+        "graphed_equals_eager": bool(
+            np.array_equal(vals[:equal_steps], eager_vals)) and not apart,
+        "state_tensors_apart": apart})
+    if twice:
+        rec["two_runs_equal"] = not again
+    log(f"  {label}: " + json.dumps(rec))
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{label}: non-finite loss {vals.tolist()}")
+    if captures or replays != steps:
+        raise AssertionError(f"{label}: the timed steps captured "
+                             f"{captures} graphs and replayed {replays}")
+    if not rec["graphed_equals_eager"]:
+        raise AssertionError(
+            f"{label}: after {equal_steps} steps the graphed trainer's "
+            f"losses {vals[:equal_steps].tolist()} / eager "
+            f"{eager_vals.tolist()}, tensors apart: {apart[:8]}")
+    if again:
+        raise AssertionError(f"{label}: two graphed runs from one start "
+                             f"differ in {again[:8]}")
+    return rec
+
+
+def _vision_class(name):
+    """A device kernel's share of a vision step: cuDNN's convolutions
+    (kernels named for a convolution, its data or weight gradient, an FFT
+    or a layout transpose), GEMMs (cuBLAS, and any convolution cuDNN runs
+    as a plain GEMM), and the torch ops (batch norm, casts, pooling, the
+    LSTM's gates, the CTC recursion, the optimizer)."""
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "wgrad", "dgrad", "fprop",
+                              "fft", "nchwtonhwc", "nhwctonchw")):
+        return "cudnn_conv"
+    if "nvjet" in low or "gemm" in low or "cutlass" in low:
+        return "gemm"
+    return "other_torch_ops"
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def vision_small_f32(seed, dev):
+    """(d) ``small_f32``: resnet18(num_classes=10) at b16 x 3 x 32 x 32 and
+    crnn_tiny(8, img_height=16) at b4 x 1 x 16 x 32, f32, TF32 off, the
+    same weights (drawn on the CPU, copied to the card): train-mode
+    logits, then one step (Momentum 0.01, 0.9; the graphed ``TrainStep``
+    on the card, ``EagerTrainStep`` on the CPU): the loss and every
+    parameter and buffer within relative L2 1e-4.  resnet18 takes 16
+    images: its last stage's maps are 1 x 1, and a batch norm over 4
+    values a channel turns rounding into gradients 1e-2 apart (at b4 a
+    convolution's weight came out 1.6e-4 from the CPU's after one step,
+    with logits 1.9e-5 apart)."""
+    from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
+    from paddle_tpu_torch.models import crnn_tiny
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    gen = torch.Generator().manual_seed(seed + 9)
+    cases = {
+        "resnet18": (lambda d: resnet18(num_classes=10, device=d, seed=seed),
+                     torch.randn(16, 3, 32, 32, generator=gen),
+                     torch.randint(0, 10, (16,), generator=gen),
+                     lambda ilen, llen: CrossEntropyLoss()),
+        "crnn_tiny": (lambda d: crnn_tiny(8, img_height=16, device=d,
+                                          seed=seed),
+                      torch.randn(4, 1, 16, 32, generator=gen),
+                      torch.randint(1, 8, (4, 4), generator=gen),
+                      lambda ilen, llen: lambda o, y: PF.ctc_loss(
+                          o, y, ilen, llen))}
+    rec = {}
+    for name, (build, x, y, loss) in cases.items():
+        cpu = build("cpu")
+        card = build(dev)
+        card.load_state_dict(cpu.state_dict())
+        logits = {}
+        # no autograd graph may outlive the forward: a step captured while
+        # one holds the parameters' AccumulateGrad nodes fails
+        with torch.no_grad():
+            for side, model, d in (("cpu", cpu, "cpu"),
+                                   ("card", card, dev)):
+                logits[side] = model(x.to(d))
+        ilen, llen = torch.full((4,), 8), torch.full((4,), 4)
+        steps = {}
+        for side, model, d, cls in (("cpu", cpu, "cpu", EagerTrainStep),
+                                    ("card", card, dev, TrainStep)):
+            fn = loss(ilen.to(d), llen.to(d))
+            steps[side] = cls(model, fn, Momentum(
+                learning_rate=0.01, momentum=0.9,
+                parameters=model.parameters()))(x.to(d), y.to(d))
+        want, got = cpu.state_dict(), card.state_dict()
+        rels = {n: _rel_l2(got[n], want[n]) for n in want
+                if want[n].abs().sum() > 0}
+        worst = max(rels, key=rels.get)
+        r = {"logits_rel_l2": _rel_l2(logits["card"], logits["cpu"]),
+             "loss_card": float(steps["card"]),
+             "loss_cpu": float(steps["cpu"]),
+             "tensor_rel_l2_worst": rels[worst], "tensor_worst": worst}
+        rec[name] = r
+        log(f"  small_f32 {name}: " + json.dumps(r))
+        if not (r["logits_rel_l2"] <= 1e-4 and rels[worst] <= 1e-4 and
+                abs(r["loss_card"] - r["loss_cpu"])
+                <= 1e-4 * abs(r["loss_cpu"])):
+            raise AssertionError(f"small_f32 {name}: the card is further "
+                                 f"from the CPU than 1e-4: {r}")
+    return rec
+
+
+def vision_phase(seed, dev, card):
+    """The ``vision`` phase: (a) ``resnet50_cifar``, (b)
+    ``resnet50_imagenet``, (c) ``crnn_ctc``, (d) ``small_f32``.  Returns
+    the record."""
+    from paddle_tpu_torch.models import CRNN
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.optimizer import Adam, Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    rec = {"card": card}
+    ce = CrossEntropyLoss()
+    rng = np.random.default_rng(seed + 7)
+
+    def resnet_maker(classes):
+        def make(cls):
+            net = resnet50(num_classes=classes, device=dev, seed=seed)
+            return cls(net, ce, Momentum(
+                learning_rate=0.1, momentum=0.9, weight_decay=5e-4,
+                parameters=net.parameters()), amp_level="O1")
+        return make
+
+    for label, classes, batch, size, equal in (
+            ("resnet50_cifar", 10, VISION_CIFAR_B, 32, 3),
+            ("resnet50_imagenet", 1000, VISION_IMAGENET_B, 224, 2)):
+        log(f"vision ({'a' if classes == 10 else 'b'}) {label}: "
+            f"resnet50(num_classes={classes}), b{batch} x 3 x {size} x "
+            f"{size}, Momentum(0.1, 0.9, weight_decay=5e-4), graphed "
+            "TrainStep at O1")
+        x = torch.as_tensor(rng.standard_normal(
+            (batch, 3, size, size)).astype(np.float32), device=dev)
+        y = torch.as_tensor(rng.integers(0, classes, batch), device=dev)
+        flops = 3 * vision_flops(
+            lambda d, c=classes: resnet50(num_classes=c, device=d,
+                                          seed=None), tuple(x.shape))
+        rec[label] = vision_path(label, resnet_maker(classes), x, y, flops,
+                                 BF16_FLOP_S, equal, cudnn_cost=True)
+        del x, y
+    log(f"vision (c) crnn_ctc: CRNN({CRNN_CLASSES}, img_height={CRNN_H}), "
+        f"b{CRNN_B} x 1 x {CRNN_H} x {CRNN_W}, labels {CRNN_W // 8} tokens, "
+        f"input lengths {CRNN_W // 4}, Adam(1e-3), f32, graphed TrainStep")
+    x = torch.as_tensor(rng.standard_normal(
+        (CRNN_B, 1, CRNN_H, CRNN_W)).astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.integers(1, CRNN_CLASSES,
+                                     (CRNN_B, CRNN_W // 8)), device=dev)
+    ilen = torch.full((CRNN_B,), CRNN_W // 4, dtype=torch.int64, device=dev)
+    llen = torch.full((CRNN_B,), CRNN_W // 8, dtype=torch.int64, device=dev)
+
+    def crnn_make(cls):
+        net = CRNN(CRNN_CLASSES, img_height=CRNN_H, device=dev, seed=seed)
+        return cls(net, lambda o, lab: PF.ctc_loss(o, lab, ilen, llen),
+                   Adam(learning_rate=1e-3, parameters=net.parameters()))
+
+    flops = 3 * vision_flops(
+        lambda d: CRNN(CRNN_CLASSES, img_height=CRNN_H, device=d,
+                       seed=None), tuple(x.shape))
+    rec["crnn_ctc"] = vision_path("crnn_ctc", crnn_make, x, y, flops,
+                                  F32_FLOP_S, 3, twice=True)
+    del x, y
+    log("vision (d) small_f32: resnet18 and crnn_tiny, card vs CPU")
+    rec["small_f32"] = vision_small_f32(seed, dev)
+    return rec
+
+
 def _device_us(evt):
     """Device time of a profiler kernel entry (0 for host-side operator
     entries, whose device time would count their kernels twice)."""
@@ -7135,12 +7474,14 @@ def tp_only(seed, dev, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tp", "train_paths", "fit"),
+    ap.add_argument("--only", choices=("tp", "train_paths", "fit",
+                                       "vision"),
                     help="after the build, run only the unchunked serve "
                     "pass and the tp phase (over NCCL too on two cards), "
                     "or only the flash backward check and the train and "
                     "train_paths phases, or only the flash kernels at "
-                    "BERT's shapes and the fit phase")
+                    "BERT's shapes and the fit phase, or only the vision "
+                    "phase")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -7229,6 +7570,16 @@ def main():
         checks = (check_flash_bwd,)
     if args.only == "fit":
         checks = ()
+    if args.only == "vision":
+        vision_rec = vision_phase(args.seed, dev, smi[0])
+        lap("vision")
+        phase_s["total"] = time.perf_counter() - T_START
+        print(json.dumps({"vision": vision_rec, "phase_s": {
+            k: round(v, 2) for k, v in phase_s.items()}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     for fn in checks + (time_bert_shapes,):
         fn(records, dev)
         lap(fn.__name__)
@@ -7587,6 +7938,10 @@ def main():
     fit_rec, fit_launches = fit_phase(args.seed, dev, smi[0], counters())
     launches.update(fit_launches)
     lap("fit")
+    # the vision and OCR training paths: bench.py's configs 1, 4 (one
+    # card) and 3 through the graphed TrainStep, then card vs CPU
+    vision_rec = vision_phase(args.seed, dev, smi[0])
+    lap("vision")
 
     # 8. the MoE model generating at Mixtral-8x7B widths (the 7B model
     # and the trainer are gone), then its full-width f32 logits
@@ -7668,6 +8023,7 @@ def main():
                       "generate": gen_line,
                       "train": train_line, "train_paths": paths_line,
                       "fit": fit_line,
+                      "vision": vision_rec,
                       "moe": moe_line,
                       "flashmask": fm_line,
                       "speculative": {

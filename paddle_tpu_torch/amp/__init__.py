@@ -14,8 +14,15 @@ name calls :func:`_cast_args` with that name on its tensor inputs:
 ``cross_entropy_f`` (``nn.functional.cross_entropy``), ``matmul`` (the
 MoE gate's logits), ``moe_topk_routing`` / ``moe_gating`` (the gate's
 routing), ``moe_ragged_dispatch``, ``expert_ffn`` and
-``moe_ragged_combine`` (the MoE layer), and ``multiply`` (the MoE
-model's weighted balance loss).  Every other op keeps its input types
+``moe_ragged_combine`` (the MoE layer), ``multiply`` (the MoE
+model's weighted balance loss); and on the vision and OCR paths
+``conv1d`` / ``conv2d``, ``max_pool2d``, ``avg_pool2d``,
+``adaptive_avg_pool2d_``, ``relu``, ``add`` (a residual), ``flatten_``,
+the batch norm's ``mean``, ``var``, ``multiply`` (the running
+variance's factor) and ``batch_norm_f``, ``rnn_LSTM`` / ``rnn_GRU`` /
+``rnn_RNN`` and the cells' ``lstm_cell`` / ``gru_cell`` / ``rnn_cell``,
+CRNN's ``transpose`` and ``reshape``, and the CTC loss's ``ctc_loss_``,
+``clip``, ``divide``, ``mean`` and ``sum``.  Every other op keeps its input types
 and promotes as ``jnp`` does where the two agree (an f32 and a bf16
 tensor give f32 in both).  ``torch.autocast`` is not used: its op lists
 are not the JAX package's, differ between the CPU and the card, and

@@ -55,7 +55,10 @@ class EagerTrainStep:
     times ``_lr_factor``), read once per call.  Both reach the body as
     0-d tensors of one device buffer (lr f32, step int32), written by one
     copy a call.  Parameters with ``requires_grad=False`` are left
-    alone.
+    alone.  The model's buffers are the forward's: a batch norm in
+    training updates its running ``_mean`` / ``_variance`` in place on
+    every call (the JAX package's compiled step skips that update; its
+    eager forward makes it, and so does the port here and in the graphs).
 
     ``amp_level`` other than "O0" runs ``model(*inputs)`` — the forward
     only; ``loss_fn`` runs outside it, as in the JAX package — under
@@ -331,10 +334,14 @@ class TrainStep(EagerTrainStep):
     buffers and replay.  A replay returns a copy of the graph's loss, so
     a loss returned earlier is not overwritten.
 
-    A graph holds the addresses of the parameters, the optimizer's state
-    and master weights (``set_state_dict`` writes them in place) and the
-    static buffers, and bakes in the optimizer's constants and the
-    model's structure.  ``captures`` and ``replays`` count graphs; a
+    A graph holds the addresses of the parameters, the model's buffers
+    (a batch norm's running statistics, which every replay updates in
+    place as the eager step does), the optimizer's state and master
+    weights (``set_state_dict`` writes them in place) and the static
+    buffers, and bakes in the optimizer's constants and the model's
+    structure: nothing may rebind one of them after a capture
+    (``load_state_dict`` copies into them; ``model.to(...)`` or assigning
+    a new tensor to a buffer does not).  ``captures`` and ``replays`` count graphs; a
     replay adds its capture's launches to every kernel wrapper's
     ``launches`` (the capture's own count is taken back: it launched
     nothing).  Graphs sharing the pool may run in any order because no

@@ -1,1 +1,4 @@
 """Models of the port."""
+from .crnn import CRNN, crnn_tiny
+
+__all__ = ["CRNN", "crnn_tiny"]

@@ -1,5 +1,5 @@
-"""Carry a JAX-package LLaMA's (dense or MoE) or BERT's weights into the
-port."""
+"""Carry a JAX-package LLaMA's (dense or MoE), BERT's, ResNet's or
+CRNN's weights into the port."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -24,6 +24,8 @@ def _linear_weights(model):
 
 
 def _load(model, arrays):
+    """Every entry of ``model.state_dict()`` (parameters, and buffers such
+    as a batch norm's ``_mean`` / ``_variance``) from ``arrays``."""
     linear = _linear_weights(model)
     state = {}
     for name, param in model.state_dict().items():
@@ -47,11 +49,14 @@ def _load(model, arrays):
     return model
 
 
-def _to_numpy(model):
+def _to_numpy(model, buffers=False):
     linear = _linear_weights(model)
     out = {}
-    for name, param in model.named_parameters():
-        a = param.detach().float().cpu().numpy()
+    tensors = list(model.named_parameters())
+    if buffers:
+        tensors += list(model.named_buffers())
+    for name, t in tensors:
+        a = t.detach().float().cpu().numpy()
         out[name] = a.T if name in linear else a
     return out
 
@@ -109,6 +114,47 @@ def bert_params_from_numpy(cfg: BertConfig, arrays: Dict[str, np.ndarray],
 def bert_params_to_numpy(model) -> Dict[str, np.ndarray]:
     """The inverse of :func:`bert_params_from_numpy`."""
     return _to_numpy(model)
+
+
+def resnet_params_from_numpy(arrays: Dict[str, np.ndarray],
+                             arch: str = "resnet50", device="cuda",
+                             dtype=None, **kwargs):
+    """A port ``vision.models`` ResNet (``arch``: "resnet18", ...,
+    "wide_resnet50_2", "resnext50_32x4d", ...; ``kwargs`` such as
+    ``num_classes`` go to the builder) computing the same function as a
+    ``paddle_tpu`` one whose parameters and batch-norm buffers
+    (``_mean``, ``_variance``) are ``arrays``, keyed by their
+    ``paddle_tpu`` names.  The convolutions' weights are carried as they
+    are (both packages hold [out, in / groups, kh, kw]); the ``fc``
+    Linear's is transposed.  Missing or unexpected names raise."""
+    from ..vision import models as vision_models
+    build = getattr(vision_models, arch)
+    return _load(build(device=device, dtype=dtype, seed=None, **kwargs),
+                 arrays)
+
+
+def resnet_params_to_numpy(model) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`resnet_params_from_numpy`: parameters and
+    buffers under their ``paddle_tpu`` names and layouts."""
+    return _to_numpy(model, buffers=True)
+
+
+def crnn_params_from_numpy(arrays: Dict[str, np.ndarray], num_classes: int,
+                           device="cuda", dtype=None, **kwargs):
+    """A port ``CRNN(num_classes, **kwargs)`` (``in_channels``,
+    ``img_height``, ``hidden_size``, ``channels``) holding a ``paddle_tpu``
+    CRNN's parameters and batch-norm buffers ``arrays``: the convolutions
+    and the LSTM's ``weight_ih_l{k}`` ... (the same layout in both
+    packages) as they are, the head Linear transposed.  Missing or
+    unexpected names raise."""
+    from .crnn import CRNN
+    return _load(CRNN(num_classes, device=device, dtype=dtype, seed=None,
+                      **kwargs), arrays)
+
+
+def crnn_params_to_numpy(model) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`crnn_params_from_numpy`."""
+    return _to_numpy(model, buffers=True)
 
 
 def shard_params(params, tp: int, rank: int,

@@ -1,5 +1,5 @@
-"""Activation layers of the port (port of the ``Tanh`` and ``GELU`` of
-paddle_tpu/nn/layer/activation.py)."""
+"""Activation layers of the port (port of the ``Tanh``, ``GELU`` and
+``ReLU`` of paddle_tpu/nn/layer/activation.py)."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +11,11 @@ from .. import functional as F
 class Tanh(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.tanh(x)
+
+
+class ReLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(x)
 
 
 class GELU(nn.Module):

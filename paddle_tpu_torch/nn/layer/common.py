@@ -1,4 +1,5 @@
-"""Linear, Embedding and Dropout (port of paddle_tpu/nn/layer/common.py).
+"""Linear, Embedding, Dropout and Flatten (port of
+paddle_tpu/nn/layer/common.py).
 
 The JAX package stores a Linear weight as [in_features, out_features];
 these modules use PyTorch's [out_features, in_features], so weights
@@ -175,3 +176,22 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+class Flatten(nn.Module):
+    """Dims ``start_axis`` .. ``stop_axis`` merged into one."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    """The reference's ``flatten`` (the JAX op ``flatten_``, in
+    paddle_tpu/tensor/manipulation.py)."""
+    (x,) = amp._cast_args("flatten_", x)
+    return torch.flatten(x, start_axis, stop_axis)

@@ -1,4 +1,5 @@
-"""RMSNorm and LayerNorm (port of paddle_tpu/nn/layer/norm.py
+"""Batch norms, RMSNorm and LayerNorm (port of
+paddle_tpu/nn/layer/norm.py ``BatchNorm``, ``BatchNorm1D/2D/3D``,
 ``RMSNorm`` and ``LayerNorm``)."""
 from __future__ import annotations
 
@@ -8,6 +9,75 @@ from torch import nn
 
 from ... import amp
 from ...ops.fused_norm_rope import rms_norm
+from .. import functional
+
+
+class _BatchNormBase(nn.Module):
+    """Batch norm over the channel axis of ``data_format``: weight 1 and
+    bias 0 (parameters), the running ``_mean`` 0 and ``_variance`` 1
+    (buffers, under the JAX package's names).  In training the batch
+    statistics normalize and the running ones are updated in place,
+    ``momentum`` weighting the old value (the reference's 0.9 is torch's
+    0.1); in eval the running ones normalize.  See
+    ``functional.batch_norm``."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 data_format="NCHW", use_global_stats=None, device=None,
+                 dtype=None):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.data_format = data_format
+        self.use_global_stats = use_global_stats
+        kw = dict(device=device, dtype=dtype)
+        self.weight = nn.Parameter(torch.ones(num_features, **kw))
+        self.bias = nn.Parameter(torch.zeros(num_features, **kw))
+        self.register_buffer("_mean", torch.zeros(num_features, **kw))
+        self.register_buffer("_variance", torch.ones(num_features, **kw))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self._mean.zero_()
+        self._variance.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return functional.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self.momentum,
+            epsilon=self.epsilon, data_format=self.data_format,
+            use_global_stats=self.use_global_stats)
+
+    def extra_repr(self) -> str:
+        return f"num_features={self.num_features}, momentum={self.momentum}"
+
+
+class BatchNorm(_BatchNormBase):
+    pass
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm1D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 data_format="NCL", use_global_stats=None, device=None,
+                 dtype=None):
+        super().__init__(num_features, momentum, epsilon,
+                         "NCHW" if data_format == "NCL" else "NHWC",
+                         use_global_stats, device, dtype)
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 data_format="NCDHW", use_global_stats=None, device=None,
+                 dtype=None):
+        super().__init__(num_features, momentum, epsilon,
+                         "NCHW" if data_format == "NCDHW" else "NHWC",
+                         use_global_stats, device, dtype)
 
 
 class RMSNorm(nn.Module):

@@ -14,17 +14,10 @@ import math
 import torch
 from torch import nn
 
-from ... import amp
 from .. import functional as F
+from ..functional import add
 from .common import Dropout, Linear
 from .norm import LayerNorm
-
-
-def add(a, b):
-    """``a + b`` as the JAX op ``add`` (under amp O2 its f32 inputs are
-    cast to the amp type)."""
-    a, b = amp._cast_args("add", a, b)
-    return a + b
 
 
 @torch.no_grad()
@@ -102,10 +95,7 @@ class TransformerEncoderLayer(nn.Module):
         self.activation = activation
 
     def _act(self, x):
-        if self.activation == "gelu":
-            return F.gelu(x)
-        (x,) = amp._cast_args("relu", x)
-        return torch.relu(x)
+        return F.gelu(x) if self.activation == "gelu" else F.relu(x)
 
     def forward(self, src, src_mask=None):
         residual = src

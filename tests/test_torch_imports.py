@@ -67,6 +67,14 @@ def test_scan_sees_the_whole_port():
                  "paddle_tpu_torch/incubate/nn/functional/__init__.py",
                  "paddle_tpu_torch/optimizer/optimizer.py",
                  "paddle_tpu_torch/jit/train_step.py",
+                 "paddle_tpu_torch/nn/layer/conv_pool.py",
+                 "paddle_tpu_torch/nn/layer/layers.py",
+                 "paddle_tpu_torch/nn/layer/rnn.py",
+                 "paddle_tpu_torch/nn/functional/ctc.py",
+                 "paddle_tpu_torch/models/crnn.py",
+                 "paddle_tpu_torch/vision/__init__.py",
+                 "paddle_tpu_torch/vision/models/__init__.py",
+                 "paddle_tpu_torch/vision/models/resnet.py",
                  "chip_smoke.py", "chip_ab.py"):
         assert must in names
 

@@ -255,6 +255,26 @@ failure:
             both, a chrome trace both schema checks pass, dropped
             events, the bytes of ``prometheus_text()``); the measured
             waves of tpot and trace capture no graph.
+   server  — the HTTP front door (``GenerationServer``) on the same
+            model, after the tp phase: (a) in this process, a journal in
+            a temporary directory, every ragged decode bucket captured,
+            then the unchunked pass's warm-up and measured waves as
+            concurrent one-row POSTs (launch counters zeroed just before
+            the measured one, which must capture nothing and launch the
+            paged, flash, RMSNorm and RoPE kernels): HTTP wall p50/p99,
+            tokens/s, TTFT and TPOT p50 beside the direct run's, streams
+            equal to the direct run's (bf16: reported, first divergences
+            with their f32 top-2 gap later), then a wave of fresh tokens
+            under each journal fsync policy (os, interval_ms, always:
+            TPOT p50, journal bytes, records and fsyncs), ``/health``;
+            (b) the small f32 model: HTTP streams equal
+            ``engine.generate``'s; (c) a child-process server on a journal
+            (fsync always) SIGKILLed mid-decode with a greedy and a
+            sampled row, restarted on the same journal: restored
+            requests, ``/result/<id>`` equal to an uninterrupted child's
+            streams bit for bit, seconds from the restart to listening
+            and to the first restored token.  ``--only server`` runs the
+            build, the unchunked pass and this phase.
 5. profile — where a decode step's time goes: batch 8 at contexts 512
             and 2048, w8 with int8 KV at 512, and bf16 at 512 with the
             table pinned at 256 pages, each through the eager and the
@@ -383,13 +403,14 @@ the engine's default, for the serving kernels; the train pass for the
 two backward kernels; the w8 or w8a8 pass for the quantized matmuls; the
 moe pass for the gating kernel; the flashmask phase for the FlashMask
 kernels), ``launches_by_path`` its count in every pass (``generate``:
-the timed ``PagedGenerator`` call), ``train_shape`` the times of a
+the timed ``PagedGenerator`` call; ``server``: the server's measured
+wave), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
 ``train``, ``train_paths``, ``fit``, ``moe``, ``flashmask``, ``classes``,
 ``speculative``,
-``recovery``, ``overload`` and ``tp`` hold each pass's
+``recovery``, ``overload``, ``tp`` and ``server`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -7442,6 +7463,470 @@ def serve_model(seed, dev):
     return model, prompts, sharer, warmup, lengths
 
 
+# ------------------------------------------------------------- server
+#: the journal fsync policies the server phase times a wave under
+SERVER_POLICIES = ("os", "interval_ms", "always")
+#: the crash check's traffic: a greedy and a sampled row (pinned seed)
+CRASH_BODIES = ({}, {"do_sample": True, "temperature": 0.8, "seed": 11})
+CRASH_NEW = 48
+
+
+def warm_serve_buckets(eng, rows=(1, 2, 4, 8)):
+    """Capture the ragged decode step's graphs (span 1) at every row
+    bucket a wave of HTTP requests can reach, with the greedy and the
+    drawing tail: arrival order decides the batches, so the warm-up wave
+    alone may miss some.  Rows sit on scratch sequences, freed after."""
+    for b in rows:
+        for draw in (False, True):
+            seqs = [f"__warm{i}" for i in range(b)]
+            flags = np.zeros(b, bool)
+            flags[0] = draw
+            eng._decoder.ragged_step(
+                eng.cache, seqs, [np.zeros(1, np.int32)] * b, [0] * b,
+                sampling=(np.zeros(b, np.uint32),
+                          np.full(b, 0.8, np.float32), flags))
+            for sid in seqs:
+                eng.cache.free(sid)
+    torch.cuda.synchronize()
+
+
+def _http(srv, method, path, body=None, timeout=600):
+    """(status, JSON reply) of one request to ``srv`` (a server object or
+    a port)."""
+    import urllib.error
+    import urllib.request
+    port = srv if isinstance(srv, int) else srv.port
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_wave(srv, prompts, sharer, tag):
+    """The serve pass's wave over HTTP: the prompts as concurrent one-row
+    POSTs (the last two sampled at 0.8 with seeds 100 + i, as ``serve``
+    submits them), then the sharer once the first request has a token
+    (its prefix is then cached).  Returns the engine's request handles in
+    order (caught at ``submit``), each POST's wall seconds, the replies'
+    output ids and the wave's wall seconds."""
+    eng = srv._engine
+    handles = {}
+    submit = eng.submit
+
+    def catching(*a, **kw):
+        r = submit(*a, **kw)
+        handles[r.request_id] = r
+        return r
+
+    bodies = [dict({"input_ids": [p.tolist()], "max_new_tokens": 32,
+                    "request_id": f"{tag}-{i}"},
+                   **({"do_sample": True, "temperature": 0.8,
+                       "seed": 100 + i} if i >= len(prompts) - 2 else {}))
+              for i, p in enumerate(prompts)]
+    bodies.append({"input_ids": [sharer.tolist()], "max_new_tokens": 32,
+                   "request_id": f"{tag}-sharer"})
+    walls = [None] * len(bodies)
+    outs = [None] * len(bodies)
+
+    def client(i):
+        t0 = time.perf_counter()
+        code, out = _http(srv, "POST", "/generate", bodies[i])
+        walls[i] = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"server {tag}: POST {i} got {code}: {out}")
+        outs[i] = out["output_ids"][0]
+
+    eng.submit = catching
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            futs = [pool.submit(client, i) for i in range(len(prompts))]
+            first = f"{tag}-0"
+            while first not in handles or (
+                    handles[first].first_token_at is None
+                    and not handles[first].done.is_set()):
+                time.sleep(0.002)
+            futs.append(pool.submit(client, len(prompts)))
+            for f in futs:
+                f.result()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng.submit
+    reqs = [handles[b["request_id"]] for b in bodies]
+    return reqs, walls, outs, wall
+
+
+def _journal_counts():
+    from paddle_tpu_torch import monitor
+    reg = monitor.get_registry()
+    return (reg.get("journal_bytes").value(),
+            reg.get("journal_records_total").value(),
+            reg.get("journal_fsync_seconds").sum_count()[1])
+
+
+def server_wave_record(srv, reqs, walls, outs, wall, before, captured,
+                       replayed):
+    stats = serve_stats(reqs, wall)
+    w = sorted(walls)
+    after = _journal_counts()
+    new = sum(len(o) for o in outs) - sum(len(r.prompt) for r in reqs)
+    return dict(stats, http_wall_p50_s=w[len(w) // 2],
+                http_wall_p99_s=w[min(len(w) - 1,
+                                      int(np.ceil(0.99 * len(w))) - 1)],
+                tokens_per_s=new / wall,
+                journal_bytes=after[0] - before[0],
+                journal_records=after[1] - before[1],
+                journal_fsyncs=after[2] - before[2],
+                captures=srv._engine.captures - captured,
+                replays=srv._engine.replays - replayed)
+
+
+def server_7b(model, prompts, sharer, warmup, kernels, plain, seed, card,
+              dev):
+    """(a) ``GenerationServer`` in this process on the serve phase's bf16
+    llama_7b, a journal in a temporary directory: the warm-up, the
+    measured wave (the unchunked pass's requests, launch counters zeroed
+    just before), then one wave of fresh tokens of the same lengths a
+    journal fsync policy."""
+    from paddle_tpu_torch.inference import GenerationServer
+    plain_rec, plain_reqs = plain
+    cfg = model.config
+    rng = np.random.default_rng(seed + 25)
+
+    def fresh():
+        ps = [rng.integers(0, cfg.vocab_size, len(p)).astype(np.int32)
+              for p in prompts]
+        return ps, np.concatenate([ps[0][:256], rng.integers(
+            0, cfg.vocab_size, len(sharer) - 256)]).astype(np.int32)
+
+    rec, divergences = {"card": card}, []
+    with tempfile.TemporaryDirectory() as jdir:
+        srv = GenerationServer(model, total_pages=1024, page_size=16,
+                               max_batch=8,
+                               min_table_pages=SERVE_TABLE_PAGES,
+                               journal_dir=jdir, device=dev).start()
+        try:
+            eng = srv._engine
+            warm_serve_buckets(eng)
+            http_wave(srv, *warmup, "warm")
+            rec["captures_warmup"] = eng.captures
+            for fn in kernels.values():
+                fn.launches = 0
+            captured, replayed = eng.captures, eng.replays
+            before = _journal_counts()
+            reqs, walls, outs, wall = http_wave(srv, prompts, sharer, "main")
+            torch.cuda.synchronize()
+            got = {n: fn.launches for n, fn in kernels.items()}
+            main = server_wave_record(srv, reqs, walls, outs, wall, before,
+                                      captured, replayed)
+            main.update(launches=got, direct_ttft_p50_s=plain_rec["ttft_p50_s"],
+                        direct_tpot_p50_s=plain_rec["tpot_p50_s"],
+                        direct_decode_tok_s=plain_rec["decode_tok_s"])
+            need = ("paged_attention", "flash_attention_forward", "rms_norm",
+                    "apply_rope")
+            missing = [n for n in need if not got[n]]
+            if main["captures"] or missing:
+                raise AssertionError(
+                    f"server: the measured wave captured {main['captures']} "
+                    f"graphs; kernels never launched: {missing}")
+            for i, (r, o) in enumerate(zip(reqs, outs)):
+                if r.error is not None or len(r.generated) != 32 \
+                        or o != r.output_ids.tolist():
+                    raise AssertionError(f"server: request {i} did not "
+                                         f"complete over HTTP ({r.error})")
+            if reqs[-1].prefix_tokens != 256:
+                raise AssertionError(f"server: the sharer hit "
+                                     f"{reqs[-1].prefix_tokens} cached "
+                                     "tokens, expected 256")
+            same = 0
+            for i, (r, w) in enumerate(zip(reqs, plain_reqs)):
+                at = first_divergence(r.generated, w.generated)
+                if at is None:
+                    same += 1
+                    continue
+                divergences.append(dict(
+                    label="server", request=i, position=at,
+                    ids=np.concatenate([w.prompt, np.asarray(
+                        w.generated[:at], np.int32)]),
+                    tokens=(int(w.generated[at]), int(r.generated[at]))))
+            main["streams_equal_direct"] = same
+            main["first_divergences"] = [
+                {k: d[k] for k in ("request", "position")}
+                for d in divergences]
+            rec["main"] = main
+            log("server main wave: " + json.dumps(main))
+            rec["tpot_p50_s_by_fsync"] = {}
+            for policy in SERVER_POLICIES:
+                srv._journal.set_policy(policy)
+                captured, replayed = eng.captures, eng.replays
+                before = _journal_counts()
+                w = server_wave_record(srv, *http_wave(srv, *fresh(), policy),
+                                       before, captured, replayed)
+                if w["captures"]:
+                    raise AssertionError(f"server fsync={policy}: the wave "
+                                         f"captured {w['captures']} graphs")
+                rec[f"fsync_{policy}"] = w
+                rec["tpot_p50_s_by_fsync"][policy] = w["tpot_p50_s"]
+                log(f"server fsync={policy}: " + json.dumps(w))
+            srv._journal.set_policy(srv._journal.fsync_policy)
+            code, health = _http(srv, "GET", "/health")
+            if code != 200 or health["journal"]["live_requests"] \
+                    or health["free_pages"] != health["total_pages"]:
+                raise AssertionError(f"server: /health {code} {health}")
+            rec["health"] = {k: health[k] for k in (
+                "status", "free_pages", "total_pages", "requests_total",
+                "kv_pool_bytes", "tp", "mesh_shape", "journal")}
+        finally:
+            srv.stop()
+    # the same wave on a server without a journal: what the journal costs
+    # beside what the HTTP front door and arrival order cost
+    del srv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = GenerationServer(model, total_pages=1024, page_size=16,
+                           max_batch=8, min_table_pages=SERVE_TABLE_PAGES,
+                           device=dev).start()
+    try:
+        eng = srv._engine
+        warm_serve_buckets(eng)
+        http_wave(srv, *warmup, "warm_plain")
+        captured, replayed = eng.captures, eng.replays
+        w = server_wave_record(srv, *http_wave(srv, *fresh(), "no_journal"),
+                               _journal_counts(), captured, replayed)
+        if w["captures"] or w["journal_records"]:
+            raise AssertionError(f"server without a journal: {w}")
+        rec["no_journal"] = w
+        log("server without a journal: " + json.dumps(w))
+    finally:
+        srv.stop()
+    return rec, got, divergences
+
+
+def server_small_f32(dev):
+    """(b) the small f32 model: HTTP streams equal ``engine.generate``'s
+    exactly, greedy rows of three lengths and a sampled row."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationServer)
+    _, gpu = _small_models()
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (9, 40, 130)]
+    new = 16
+    with ContinuousBatchingEngine(gpu, total_pages=64, page_size=16,
+                                  max_batch=4, device=dev) as eng:
+        greedy = eng.generate(prompts, max_new_tokens=new)
+        drawn = eng.generate([prompts[1]], max_new_tokens=new,
+                             do_sample=True, temperature=0.8, seed=5)
+    want = [greedy[i, :len(p) + new].tolist() for i, p in enumerate(prompts)]
+    want.append(drawn[0].tolist())
+    with GenerationServer(gpu, total_pages=64, page_size=16, max_batch=4,
+                          device=dev) as srv:
+        bodies = [{"input_ids": [p.tolist()], "max_new_tokens": new}
+                  for p in prompts]
+        bodies.append({"input_ids": [prompts[1].tolist()],
+                       "max_new_tokens": new, "do_sample": True,
+                       "temperature": 0.8, "seed": 5})
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            got = list(pool.map(
+                lambda b: _http(srv, "POST", "/generate", b), bodies))
+    got = [out["output_ids"][0] if code == 200 else (code, out)
+           for code, out in got]
+    if got != want:
+        raise AssertionError(f"server small f32: HTTP streams {got} differ "
+                             f"from engine.generate's {want}")
+    log(f"server small f32: {len(want)} HTTP streams (3 greedy, 1 sampled) "
+        "equal engine.generate's")
+    return len(want)
+
+
+def server_child(jdir, status, pace):
+    """``--server-child``: a ``GenerationServer`` over the small f32 model
+    on ``jdir`` (fsync ``always``), its decode steps paced by ``pace``
+    seconds; writes ``status`` (port, restored requests, times) once it
+    listens and ``status.first`` at the first token a restored request
+    gains, then serves until killed."""
+    t_start = time.time()
+    from paddle_tpu_torch.inference import GenerationServer
+    from paddle_tpu_torch.testing import faults
+    _, gpu = _small_models()
+    if pace:
+        faults.install(faults.FaultPlan(
+            [{"site": "decode_step", "kind": "delay", "delay_s": pace}]))
+    srv = GenerationServer(gpu, total_pages=64, page_size=16, max_batch=4,
+                           journal_dir=jdir, journal_fsync="always",
+                           device="cuda")
+    journaled = {e["request_id"]: len(e.get("generated") or ())
+                 for e in srv._journal_entries}
+    srv.start()
+
+    def put(path, payload):
+        with open(path + ".tmp", "w") as f:
+            json.dump(payload, f)
+        os.replace(path + ".tmp", path)
+
+    put(status, {"port": srv.port, "restored": srv._restored_requests,
+                 "journaled": journaled, "t_start": t_start,
+                 "t_ready": time.time()})
+    while journaled:
+        for rid, n in journaled.items():
+            res = srv._engine.result_for(rid) or {}
+            if res.get("status") == "done" \
+                    or res.get("generated_tokens", 0) > n:
+                put(status + ".first", {"t_first": time.time(), "id": rid})
+                journaled = {}
+                break
+        time.sleep(0.0005)
+    while True:
+        time.sleep(1)
+
+
+def _wait_file(path, proc, timeout=240):
+    end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            raise AssertionError(f"server child exited {proc.returncode} "
+                                 f"before writing {path}")
+        if time.monotonic() > end:
+            raise AssertionError(f"server child wrote no {path}")
+        time.sleep(0.01)
+    with open(path) as f:
+        return json.load(f)
+
+
+def server_crash_check(card):
+    """(c) SIGKILL a child-process server mid-decode and restart it on the
+    same journal: the restart restores both requests and ``/result/<id>``
+    gives an uninterrupted child's streams bit for bit."""
+    here = os.path.abspath(__file__)
+    procs = []
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        def spawn(name, jdir, pace=0.0):
+            status = os.path.join(tmp, name + ".json")
+            t0 = time.time()
+            p = subprocess.Popen(
+                [sys.executable, here, "--server-child", jdir, status,
+                 str(pace)], stdout=subprocess.DEVNULL)
+            procs.append(p)
+            return p, status, t0
+
+        try:
+            jkill, jref = os.path.join(tmp, "killed"), os.path.join(tmp, "ref")
+            a, a_status, _ = spawn("a", jkill, 0.03)
+            u, u_status, _ = spawn("u", jref)
+            pa = _wait_file(a_status, a)["port"]
+            pu = _wait_file(u_status, u)["port"]
+            rng = np.random.default_rng(26)
+            prompts = [rng.integers(0, 512, n).astype(np.int32)
+                       for n in (40, 130)]
+            ids = [f"crash-{i}" for i in range(len(prompts))]
+            bodies = [dict({"input_ids": [p.tolist()],
+                            "max_new_tokens": CRASH_NEW,
+                            "request_id": rid}, **kw)
+                      for p, rid, kw in zip(prompts, ids, CRASH_BODIES)]
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                ref = list(pool.map(lambda b: _http(pu, "POST", "/generate",
+                                                    b), bodies))
+            # a fresh process's first wave: its graphs are captured then
+            rec["uninterrupted_first_wave_s"] = time.perf_counter() - t0
+            if any(code != 200 for code, _ in ref):
+                raise AssertionError(f"server crash: the uninterrupted "
+                                     f"child answered {ref}")
+            ref = [out["output_ids"][0] for _, out in ref]
+            u.kill()
+            killed_clients = concurrent.futures.ThreadPoolExecutor(2)
+            for b in bodies:
+                killed_clients.submit(_http, pa, "POST", "/generate", b, 60)
+            seen = {}
+            end = time.monotonic() + 120
+            while not (len(seen) == 2 and min(seen.values()) >= 8):
+                if time.monotonic() > end:
+                    raise AssertionError(f"server crash: rows never reached "
+                                         f"mid-decode: {seen}")
+                for rid in ids:
+                    code, res = _http(pa, "GET", f"/result/{rid}")
+                    if code == 202:
+                        seen[rid] = res["generated_tokens"]
+                time.sleep(0.005)
+            a.kill()                    # SIGKILL mid-decode
+            a.wait()
+            killed_clients.shutdown(wait=True)
+            rec["generated_at_kill"] = [seen[r] for r in ids]
+            b_proc, b_status, t_spawn = spawn("b", jkill)
+            st = _wait_file(b_status, b_proc)
+            first = _wait_file(b_status + ".first", b_proc)
+            done = {}
+            end = time.monotonic() + 120
+            while len(done) < len(ids):
+                if time.monotonic() > end:
+                    raise AssertionError("server crash: the restarted child "
+                                         "did not finish the requests")
+                for rid in ids:
+                    code, res = _http(st["port"], "GET", f"/result/{rid}")
+                    if code == 200:
+                        done[rid] = res
+                time.sleep(0.01)
+            code, health = _http(st["port"], "GET", "/health")
+            got = [done[rid].get("output_ids") for rid in ids]
+            rec.update(
+                restored_requests=health["restored_requests"],
+                journaled_generated=[st["journaled"].get(r) for r in ids],
+                restart_to_listening_s=st["t_ready"] - t_spawn,
+                restart_to_first_restored_token_s=first["t_first"] - t_spawn,
+                restore_to_first_token_s=first["t_first"] - st["t_ready"],
+                streams_equal_uninterrupted=sum(
+                    g == r for g, r in zip(got, ref)),
+                journal=health["journal"])
+            log("server crash: " + json.dumps(rec))
+            if health["restored_requests"] != len(ids) or got != ref:
+                raise AssertionError(
+                    f"server crash: restored {health['restored_requests']} "
+                    f"of {len(ids)}; streams equal the uninterrupted "
+                    f"child's: {[g == r for g, r in zip(got, ref)]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    return rec
+
+
+def server_phase(model, prompts, sharer, warmup, kernels, plain, seed, card,
+                 dev):
+    """The HTTP front door: (a) the 7B server, (b) small f32 HTTP vs
+    ``engine.generate``, (c) SIGKILL and restart on the journal."""
+    rec, launches, divergences = server_7b(model, prompts, sharer, warmup,
+                                           kernels, plain, seed, card, dev)
+    rec["small_f32_streams_equal"] = server_small_f32(dev)
+    rec["crash"] = server_crash_check(card)
+    return rec, launches, divergences
+
+
+def server_only(seed, dev, card):
+    """``--only server``: the unchunked serve pass (the direct run the
+    server is held against) and the server phase."""
+    model, prompts, sharer, warmup, _ = serve_model(seed, dev)
+    kernels = counters()
+    reqs, wall, info = serve(model, prompts, sharer, None, dev,
+                             warmup=warmup, kernels=kernels)
+    plain = dict(serve_stats(reqs, wall), card=card, **info)
+    log("serve unchunked: " + json.dumps(plain))
+    rec, _, divergences = server_phase(model, prompts, sharer, warmup,
+                                       kernels, (plain, reqs), seed, card,
+                                       dev)
+    del reqs
+    gc.collect()
+    model.float()
+    rec["main"]["bf16_divergence_gaps"] = top2_gaps(model, divergences)
+    return rec
+
+
 def tp_gaps(model, rec, divergences):
     """The tp phase's bf16 divergences from tp=1, with the top-2 logit gap
     of a plain f32 forward there (``model`` in f32 by now)."""
@@ -7475,13 +7960,17 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("tp", "train_paths", "fit",
-                                       "vision"),
+                                       "vision", "server"),
                     help="after the build, run only the unchunked serve "
                     "pass and the tp phase (over NCCL too on two cards), "
                     "or only the flash backward check and the train and "
                     "train_paths phases, or only the flash kernels at "
                     "BERT's shapes and the fit phase, or only the vision "
-                    "phase")
+                    "phase, or only the unchunked serve pass and the "
+                    "server phase")
+    ap.add_argument("--server-child", nargs=3,
+                    metavar=("JOURNAL_DIR", "STATUS", "PACE_S"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -7494,6 +7983,14 @@ def main():
               "(paddle_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    if args.server_child:
+        # the server phase's child process (its crash check)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        jdir, status, pace = args.server_child
+        server_child(jdir, status, float(pace))
+        return 0
     # wall seconds of each phase, from the start of this process
     phase_s = {}
     clock = [T_START]
@@ -7570,6 +8067,16 @@ def main():
         checks = (check_flash_bwd,)
     if args.only == "fit":
         checks = ()
+    if args.only == "server":
+        server_rec = server_only(args.seed, dev, smi[0])
+        lap("server")
+        phase_s["total"] = time.perf_counter() - T_START
+        print(json.dumps({"server": server_rec, "phase_s": {
+            k: round(v, 2) for k, v in phase_s.items()}}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "vision":
         vision_rec = vision_phase(args.seed, dev, smi[0])
         lap("vision")
@@ -7812,8 +8319,14 @@ def main():
         model, prompts, sharer, warmup, kernels,
         (passes["unchunked"], unchunked_reqs), args.seed, smi[0], dev)
     launches.update(tp_launches)
-    del unchunked_reqs
     lap("tp")
+    # the HTTP front door on the same model and traffic, its journal, and
+    # a child-process server killed and restarted on its journal
+    server_rec, launches["server"], server_div = server_phase(
+        model, prompts, sharer, warmup, kernels,
+        (passes["unchunked"], unchunked_reqs), args.seed, smi[0], dev)
+    del unchunked_reqs
+    lap("server")
     # the overload controls over the classes traffic
     overload_rec, overload_launches = overload_phase(
         model, args.seed, classes_rec["classes"]["tpot_p50_s"]["interactive"],
@@ -7877,6 +8390,10 @@ def main():
         "logit gap of a plain f32 forward there: "
         + json.dumps(recovery_rec["bf16_divergence_gaps"]))
     tp_gaps(model, tp_rec, tp_div)
+    server_rec["main"]["bf16_divergence_gaps"] = top2_gaps(model, server_div)
+    log("server: bf16 divergences from the direct run's streams, top-2 "
+        "logit gap of a plain f32 forward there: "
+        + json.dumps(server_rec["main"]["bf16_divergence_gaps"]))
     got32, ref32, _ = prefill_logits(model, ids)
     gen_rec["batch_context_prefill_f32"] = check_batch_context_prefill(
         model, args.seed, gen_rec["batch_context_prefill"])
@@ -8050,6 +8567,7 @@ def main():
                           for p, r in classes_rec.items()},
                       "overload": overload_rec,
                       "tp": tp_rec,
+                      "server": server_rec,
                       "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,9 +54,9 @@ Overload controls, as in the JAX engine:
     deficit; rung L sheds the L least urgent rank bands on arrival (rung
     3 and up everything but the top band, with its deadline halved);
     rungs climb at once and come down after ``brownout_patience`` calm
-    iterations, and an idle engine drops to rung 0.  Rung 4 flips the
-    JAX engine's journal to ``fsync="os"``; the port has no journal, so
-    rung 4 sheds as rung 3 does;
+    iterations, and an idle engine drops to rung 0.  Rung 4 sheds as
+    rung 3 does and flips the journal's fsync policy to ``"os"``
+    (coming down restores the configured one);
   * the TPOT trigger: at full occupancy, when the loop's measured
     iteration time (an EWMA over iterations with active rows) exceeds an
     active row's ``tpot_budget_s``, the least urgent preemptible
@@ -163,6 +163,7 @@ from ..distributed.watchdog import CommTaskManager
 from ..monitor.trace import get_tracer as _get_tracer
 from ..ops.paged_attention import PagedKVCache
 from ..testing import faults as _faults
+from . import journal as _journal_mod
 from .paged import (GraphedPagedDecoder, PagedDecoder, _tp_plan, next_pow2,
                     sample_token)
 from .scheduler import DEFAULT_CLASS, QueueFull, WorkloadScheduler
@@ -612,6 +613,17 @@ class ContinuousBatchingEngine:
     prefill ran the flash kernel); ``snapshot`` / ``restore`` carry live
     streams across a restart.
 
+    Durability: ``journal`` (an ``inference.journal.RequestJournal``)
+    receives every admission, one coalesced record an iteration (the
+    ids that took a slot, each surviving row's new tokens and pending
+    token), the page provenance of cached prefixes and every retirement.
+    The engine only enqueues, under its lock; the journal's writer
+    thread does the I/O.  The records are host data (Python ints and
+    the prompt's numpy array), so journaling never reads the card.  A
+    hard ``stop()`` journals nothing: a relaunch resumes what was live,
+    as after a SIGKILL.  ``RequestJournal.recovered_requests()`` of a
+    predecessor's journal feeds ``restore``.
+
     Counters, the engine's counterparts of the JAX monitor's:
     ``dispatches`` by mode (``ragged``, ``prefill``, ``chunk``,
     ``decode``, ``verify``, and ``draft`` for the draft model's prompt
@@ -659,6 +671,7 @@ class ContinuousBatchingEngine:
                  tpot_preempt_cooldown_s: float = 0.25,
                  tp: int = 1, tp_quant_collectives: bool = False,
                  tp_backend: Optional[str] = None,
+                 journal=None,
                  device="cuda"):
         self.device = resolve_device(device)
         weight = model.model.embed_tokens.weight
@@ -725,6 +738,15 @@ class ContinuousBatchingEngine:
         # composition serves from then on
         self._unified_off = False
         self._unified_failures = 0
+        # the write-ahead journal: admit and retire records are appended
+        # at their sites, under the lock; _jadm / _jrows gather the
+        # iteration's step record, and _disp_n / _disp_ragged its
+        # dispatch count and mode (scheduler thread only)
+        self.journal = journal
+        self._jadm: List[str] = []
+        self._jrows: List[tuple] = []
+        self._disp_n = 0
+        self._disp_ragged = False
         self.dispatches = {"ragged": 0, "prefill": 0, "chunk": 0,
                            "decode": 0, "verify": 0, "draft": 0}
         self.steps = 0
@@ -742,6 +764,8 @@ class ContinuousBatchingEngine:
         if kv_quant not in (None, "int8"):
             raise ValueError(
                 f"kv_quant must be None or 'int8', got {kv_quant!r}")
+        self.quantize = quantize
+        self.kv_quant = kv_quant
         # tensor parallelism: the plan and the quantize refusal are
         # checked before any worker starts; the workers end if the rest
         # of the set-up fails
@@ -863,6 +887,10 @@ class ContinuousBatchingEngine:
                 "engine/decode_step", self._step_age,
                 float(step_timeout_s), on_timeout=self._wedged.set)
             mgr.start()
+        # every live engine counts toward the journals' co-location
+        # scaling (a journal-less one steps on the same GIL)
+        _journal_mod.engine_started()
+        self._coloc_registered = True
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -1044,6 +1072,10 @@ class ContinuousBatchingEngine:
                 err = EngineSaturated(str(e))
                 err.priority_class = e.priority_class
                 raise err from None
+            if self.journal is not None:
+                # before the scheduler thread can see the request, so no
+                # step or retire record of it precedes its admit record
+                self.journal.append_admit(self._journal_entry(req))
             _queue_depth.set(len(self._sched))
             _tracer.request_event(
                 req.request_id, "enqueue", cls=req.priority,
@@ -1180,10 +1212,10 @@ class ContinuousBatchingEngine:
         return int(min(30.0, max(1.0, math.ceil(projected - budget))))
 
     def _set_brownout_locked(self, level: int, pressure: float) -> None:
-        """Caller holds ``self._cond``.  Move the ladder to ``level``
-        (the JAX engine's rung 4 also flips its journal to
-        ``fsync="os"``; the port has no journal, so rung 4 changes
-        nothing more than rung 3)."""
+        """Caller holds ``self._cond``.  Move the ladder to ``level``;
+        rung 4 trades the journal's configured durability for throughput
+        (fsync ``"os"``, undone on the way down, unlike the watchdog's
+        ``degrade``)."""
         if level == self._brownout:
             return
         prev, self._brownout = self._brownout, level
@@ -1191,6 +1223,11 @@ class ContinuousBatchingEngine:
         _brownout_transitions.inc()
         _tracer.request_event(None, "brownout", level=level, prev=prev,
                               pressure=round(pressure, 4))
+        if self.journal is not None:
+            if level >= 4:
+                self.journal.set_policy("os")
+            elif prev >= 4:
+                self.journal.set_policy(self.journal.fsync_policy)
 
     def _update_brownout_locked(self) -> None:
         """Caller holds ``self._cond``.  One control-loop evaluation an
@@ -1220,11 +1257,14 @@ class ContinuousBatchingEngine:
             self._brownout_calm = 0
 
     def _count_dispatch(self, mode: str) -> None:
-        """One serving dispatch attempt of ``mode``: the engine's counter
-        and the process-wide series (a retry or bisection probe counts
-        again)."""
+        """One serving dispatch attempt of ``mode``: the engine's counter,
+        the process-wide series and the iteration's count for its journal
+        record (a retry or bisection probe counts again)."""
         self.dispatches[mode] += 1
         _dispatches_total.inc(mode=mode)
+        self._disp_n += 1
+        if mode == "ragged":
+            self._disp_ragged = True
 
     # ---------------------------------------------------- result cache
     def _cache_result_locked(self, req) -> None:
@@ -1284,9 +1324,9 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------ snapshot / restore
     @staticmethod
     def _entry_fields(r) -> dict:
-        """The request fields a snapshot entry carries beside its tokens
-        and deadlines (the JAX engine's ``_entry_fields``, which its
-        journal's admit record shares)."""
+        """The request fields a snapshot entry and a journal admit record
+        both carry beside their tokens and deadlines: one builder, so a
+        field cannot restore on one path and be dropped on the other."""
         return {
             "request_id": r.request_id,
             "max_new_tokens": r.max_new_tokens,
@@ -1299,6 +1339,65 @@ class ContinuousBatchingEngine:
             "tenant": r.tenant,
             "draft": bool(r.use_draft),
         }
+
+    # ----------------------------------------------- write-ahead journal
+    def _journal_entry(self, req) -> dict:
+        """The admit record's payload: the request's full state as a
+        snapshot entry (a restored request carries its generated tokens
+        and pending token, so replay is idempotent by id), with the
+        deadlines as wall-clock instants, which mean the same in the next
+        process."""
+        now_p = time.perf_counter()
+        now_w = time.time()
+
+        def wall(d):
+            return None if d is None else now_w + (d - now_p)
+
+        return {
+            **self._entry_fields(req),
+            "prompt": req.prompt,            # numpy; the writer encodes
+            "generated": [int(t) for t in req.generated],
+            "next_token": (None if req.next_token is None
+                           else int(req.next_token)),
+            "deadline_unix": wall(req.deadline),
+            "queue_deadline_unix": wall(req.queue_deadline),
+        }
+
+    def _journal_retire(self, req) -> None:
+        if self.journal is None:
+            return
+        why = ("done" if req.error is None
+               else type(req.error).__name__)
+        self.journal.append_retire(req.request_id, why=why)
+
+    def _journal_pages(self, req, event: str, n_tokens: int) -> None:
+        """Page provenance: the page-aligned prefix ``req`` shares with
+        the prefix cache, its local page indices and the content key that
+        names the same prefix on another replica."""
+        if self.journal is None:
+            return
+        ps = self.cache.page_size
+        n = (int(n_tokens) // ps) * ps
+        if n <= 0:
+            return
+        pages = self.cache._seq_pages.get(req.seq_id, [])[:n // ps]
+        self.journal.append_pages(
+            req.request_id, event, n, pages,
+            self.cache.prefix_key_hex(req.prompt, n))
+
+    def _journal_flush_step(self) -> None:
+        """Scheduler thread, end of an iteration: one step record with
+        the ids that took a slot and every surviving row's new tokens and
+        pending token, for the journal's writer thread."""
+        if self.journal is not None and (self._jadm or self._jrows):
+            self.journal.append_step(
+                self._jadm, self._jrows, dispatches=self._disp_n,
+                mode=(("ragged" if self._disp_ragged else "legacy")
+                      if self._disp_n else None))
+        self._jadm = []
+        self._jrows = []
+        self._disp_n = 0
+        self._disp_ragged = False
 
     def snapshot(self) -> dict:
         """Every live request as a JSON-able dict, the JAX engine's format
@@ -1414,6 +1513,7 @@ class ContinuousBatchingEngine:
                         "engine draining: request rejected before "
                         "admission (reject_queued)")
                     self._cache_result_locked(r)
+                    self._journal_retire(r)
                 self.drain_rejected += len(rejected)
                 _queue_depth.set(0)
                 _drain_rejected.inc(len(rejected))
@@ -1444,6 +1544,9 @@ class ContinuousBatchingEngine:
             self._stop = True
             self._cond.notify_all()
         self._thread.join(timeout=60)
+        if getattr(self, "_coloc_registered", False):
+            self._coloc_registered = False
+            _journal_mod.engine_stopped()
         if self._hb_id is not None:
             # a heartbeat outliving its engine would be flagged forever
             CommTaskManager.instance().unregister_heartbeat(self._hb_id)
@@ -1577,6 +1680,12 @@ class ContinuousBatchingEngine:
         req.prefill_pos = req.prefix_tokens
         req.admitted_at = time.perf_counter()
         self._sched.note_admitted(req, req.admitted_at)
+        if self.journal is not None:
+            # the admitted mark drops the met queue-wait deadline on
+            # recovery, as a snapshot does
+            self._jadm.append(req.request_id)
+            if req.prefix_tokens:
+                self._journal_pages(req, "acquired", req.prefix_tokens)
         _tracer.request_event(
             req.request_id, "admitted", cls=req.priority,
             seq_id=req.seq_id, prefix_tokens=req.prefix_tokens,
@@ -1917,6 +2026,7 @@ class ContinuousBatchingEngine:
                 _prefix_hits.inc()
                 _prefix_hit_tokens.inc(req.prefix_tokens)
             self.cache.register_prefix(req.seq_id, req.prompt)
+            self._journal_pages(req, "registered", len(req.prompt))
         if req.use_draft:
             # the draft ingests the whole target (its pool shares no
             # prefix), so its cache sits at the target's length: the
@@ -1941,6 +2051,10 @@ class ContinuousBatchingEngine:
         self._sched.note_first_token(req, ttft)
         _tracer.request_event(req.request_id, "first_token",
                               ttft_s=round(ttft, 6))
+        if self.journal is not None:
+            # no token appended yet, but the first pending token is host
+            # state a SIGKILL must not lose
+            self._jrows.append((req.request_id, (), req.next_token))
 
     def _run_chunks(self, plan) -> None:
         """One dispatch a planned chunk (device work, called without the
@@ -2385,6 +2499,9 @@ class ContinuousBatchingEngine:
         _tokens_total.inc(len(reqs))
         accepted_emitted = 0
         for r, row in zip(reqs, rows):
+            # this step appended one token before it ran; the journal
+            # row carries it and any accepted drafts
+            j0 = len(r.generated) - 1
             if _tracer.enabled:
                 if isinstance(row, _SpecRow):
                     _tracer.request_event(
@@ -2414,6 +2531,12 @@ class ContinuousBatchingEngine:
                 row = row.out
             r.next_token = int(row) if sampled else self._pick(r, row)
             still.append(r)
+            if self.journal is not None:
+                # a continuing row only: a retiring one's retire record
+                # drops it, and a crash before that replays its last
+                # step to the same tokens
+                self._jrows.append((r.request_id, r.generated[j0:],
+                                    r.next_token))
         if accepted_emitted:
             _tokens_total.inc(accepted_emitted)
         return still, retired
@@ -2626,6 +2749,7 @@ class ContinuousBatchingEngine:
             _gen_latency_s.observe(req.finished_at - req.submitted_at)
         self._sched.note_retired(req)   # the class's TPOT
         self._cache_result_locked(req)
+        self._journal_retire(req)
         _tracer.request_event(
             req.request_id, "retire", ok=req.error is None,
             generated=len(req.generated),
@@ -2918,6 +3042,7 @@ class ContinuousBatchingEngine:
             r.error = r._lifecycle_error(now, queued=True)
             self._count_lifecycle(r)
             self._cache_result_locked(r)
+            self._journal_retire(r)
             _tracer.request_event(r.request_id, "retire", ok=False)
             out.append(r)
         if out:
@@ -2969,6 +3094,9 @@ class ContinuousBatchingEngine:
                 if r.finished_at is None:
                     r.error = exc
                     self._cache_result_locked(r)
+                    # the error reaches its waiter: terminal, so a
+                    # restart must not resurrect it
+                    self._journal_retire(r)
                 r.done.set()
             for r in holders:
                 if r.seq_id is not None:
@@ -3064,6 +3192,10 @@ class ContinuousBatchingEngine:
                     self._step_ewma = (dt if self._step_ewma is None
                                        else 0.7 * self._step_ewma
                                        + 0.3 * dt)
+                # the iteration's one step record (rows of requests
+                # _fail_all retired are ignored at replay: their retire
+                # record comes first)
+                self._journal_flush_step()
                 if self._stepping:
                     with self._cond:
                         self._stepping = False

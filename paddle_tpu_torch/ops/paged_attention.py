@@ -755,6 +755,17 @@ class PagedKVCache:
             added += 1
         return added
 
+    def prefix_key_hex(self, tokens, n_tokens: int) -> Optional[str]:
+        """Content hash (hex) of the page-aligned prefix covering
+        ``n_tokens`` of ``tokens``, or None below one page: the key the
+        journal's page-provenance records carry, which names the same
+        prefix on every replica (page indices are local)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        n_pages = int(n_tokens) // self.page_size
+        if n_pages <= 0:
+            return None
+        return self._prefix_keys(tokens, n_pages)[-1].hex()
+
     @property
     def pinned_pages(self) -> int:
         """Pages currently mapped by at least one live sequence."""

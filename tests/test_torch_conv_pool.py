@@ -21,6 +21,7 @@ JAX package's on the CPU, f32, inputs from numpy seeds.
 """
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

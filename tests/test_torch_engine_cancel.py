@@ -7,6 +7,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 import paddle_tpu as paddle
 from paddle_tpu.models.llama import LlamaConfig as JaxConfig

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 import paddle_tpu as paddle
 from paddle_tpu.inference.continuous import \

@@ -4,6 +4,7 @@ the same numpy inputs.  On the CPU the port runs its plain version, the
 function its CUDA kernel computes on the card."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax.numpy as jnp

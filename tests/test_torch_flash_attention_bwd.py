@@ -5,6 +5,7 @@ the JAX package's Pallas backward kernels in interpret mode and its XLA
 on the card."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax

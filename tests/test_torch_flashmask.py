@@ -7,6 +7,7 @@ gradients against JAX's ``F.flashmask_attention`` and ``jax.grad`` on the
 CPU (the dense path), with GQA, sq != sk and a length off the tiles."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax

@@ -10,6 +10,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax.numpy as jnp

@@ -6,6 +6,7 @@ import ast
 import pathlib
 
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
@@ -44,6 +45,9 @@ def test_scan_sees_the_whole_port():
                  "paddle_tpu_torch/inference/continuous.py",
                  "paddle_tpu_torch/inference/scheduler.py",
                  "paddle_tpu_torch/inference/speculative.py",
+                 "paddle_tpu_torch/inference/journal.py",
+                 "paddle_tpu_torch/inference/server.py",
+                 "paddle_tpu_torch/distributed/fault_tolerance.py",
                  "paddle_tpu_torch/distributed/__init__.py",
                  "paddle_tpu_torch/distributed/watchdog.py",
                  "paddle_tpu_torch/testing/faults.py",

@@ -28,6 +28,7 @@ import weakref
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu.io as jio

@@ -9,6 +9,7 @@ move the parameters by the step size halved once more than the last one
 evaluated."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

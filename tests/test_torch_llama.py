@@ -3,6 +3,7 @@ weights into paddle_tpu_torch, and the port's logits equal the JAX
 model's on the same ids, in f32 on the CPU."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

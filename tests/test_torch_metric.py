@@ -6,6 +6,7 @@ labels) batch by batch and accumulated, ``Precision``, ``Recall``,
 (``Auc``: the same trapezoid over the same buckets, within 1e-12)."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

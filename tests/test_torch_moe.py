@@ -5,6 +5,7 @@ the JAX package on the same weights, in f32 on the CPU; plus the weight
 bridge and the gate-loss divergence of the cache path."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

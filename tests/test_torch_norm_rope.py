@@ -4,6 +4,7 @@ same numpy inputs.  On the CPU the port runs its plain versions, the
 arithmetic its Triton kernels repeat on the card."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax.numpy as jnp

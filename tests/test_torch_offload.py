@@ -24,6 +24,7 @@ Pinned host memory and the graph's captured copies need a card
 """
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax.numpy as jnp

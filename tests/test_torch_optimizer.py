@@ -12,6 +12,7 @@ relative L2 1e-4 of JAX's (the frameworks' gradients sum in different
 orders; see test_torch_train.py)."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

@@ -4,6 +4,7 @@ interpret mode, the ``_*_xla`` oracles, and ``PagedKVCache``'s
 bookkeeping driven through the same operation scripts."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax.numpy as jnp

@@ -5,6 +5,7 @@ paged decoder's failure contract; and no fallback to the CPU.  The same
 numpy weights in both packages; tokens must be equal."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

@@ -5,6 +5,7 @@ for token — unchunked, chunked and with a prefix-cache hit — in both
 weight modes, and one w8a8 prefill's logits must agree closely."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

@@ -7,6 +7,7 @@ the JAX package's calibration, the prefill logits close to the JAX
 quantized decoder's, and the calls counted per forward."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

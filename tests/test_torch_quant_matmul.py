@@ -4,6 +4,7 @@ interpret mode, the ``*_xla`` oracles, ``jax.grad`` of the custom_vjp,
 and the serving calibration on the same weights."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax

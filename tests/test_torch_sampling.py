@@ -3,6 +3,7 @@ on the same seeds and counters (CPU).  Keys, random bits and uniforms
 must be equal bit for bit; categorical tokens must be equal."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import jax

@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from paddle_tpu.inference import scheduler as jax_sched
 from paddle_tpu_torch.inference import scheduler as port_sched

@@ -11,6 +11,7 @@ shapes, so its runs share one prompt and a few tokens, and run once a
 module."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

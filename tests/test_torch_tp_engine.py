@@ -36,6 +36,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

@@ -13,6 +13,7 @@ that rounding, takes a step of order lr in either direction, so Adam's
 parameters are held as tensors, not entry by entry."""
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 import torch
 
 import paddle_tpu as paddle

@@ -5,6 +5,7 @@ thread's timing."""
 import warnings
 
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from paddle_tpu_torch.distributed import CommTaskManager
 from paddle_tpu_torch.inference import ContinuousBatchingEngine

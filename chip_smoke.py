@@ -381,7 +381,42 @@ failure:
             equal); (d) ``small_f32``: resnet18 and crnn_tiny in f32
             (TF32 off), the card against the CPU on the same weights:
             logits, one step's loss, parameters and buffers within
-            relative L2 1e-4.  ``--only vision`` runs the build and this
+            relative L2 1e-4; (e) ``mobilenet_v2`` (``mobilenet_v2()``,
+            b128 x 3 x 224 x 224, Momentum(0.1, 0.9, weight_decay=4e-5),
+            O1; 2 steps equal with the classifier's dropout at 0, then
+            the timed steps with the published Dropout(0.2) drawing from
+            the model's generator); (f) ``zoo``: one graphed O1 step of
+            lenet (b256 x 1 x 28 x 28, 10 classes), alexnet, vgg16,
+            squeezenet1_1, mobilenet_v1, mobilenet_v3_small / large,
+            shufflenet_v2_x1_0, densenet121, googlenet (with its aux
+            heads: ce(out) + 0.3 (ce(aux1) + ce(aux2))) at b32 x 3 x 224
+            x 224 and inception_v3 at 299 x 299, then 5 timed replays
+            capturing nothing (step ms p50, images/s, mfu); then
+            mobilenet_v3_small(scale=0.5) and shufflenet_v2_x0_25 in f32
+            eval, card vs CPU, logits within 1e-4.  ``--only vision``
+            runs the build and this phase.
+   seq2seq — Transformer-base (Vaswani et al. 2017: d_model 512, 8
+            heads, 6 + 6 layers, d_ff 2048, dropout 0.1) as a user of
+            ``nn.Transformer`` wraps it (``Seq2Seq``: token and position
+            embeddings, the output Linear over 37000 tokens): (a)
+            ``train``, b32 x 128 source and 128 target tokens, the
+            causal ``tgt_mask``, Adam(1e-4, beta2 0.98, eps 1e-9), the
+            graphed ``TrainStep`` at O1 through ``graphed_path`` at
+            dropout 0 (12 flash forward, dK/dV and dQ launches a step:
+            the encoder's self-attention and the cross-attention; the
+            masked self-attention is the plain softmax), then dropout
+            0.1 losses falling; (b) ``beam``, the model in bf16, eval,
+            ``BeamSearchDecoder(beam_size=4)`` + ``dynamic_decode
+            (max_step_num=64)`` over 8 sentences of 128 tokens (12 flash
+            forwards a step over the caches; encoder ms, step ms p50,
+            hypothesis tokens/s, idle share); (c) ``small_f32``, 2 + 2
+            layers at d_model 128 (2 heads of 64), card vs CPU: logits
+            within 1e-4, beam ids, parents and lengths equal.  Before it
+            (after the kernel checks), the flash kernels are checked and
+            timed at its shapes (records ``seq2seq_train``: forward,
+            dK/dV, dQ at b32 h8 s128 d64 bf16; ``seq2seq_beam_sk{128,
+            1, 17, 64}``: the forward at one query row).
+            ``--only seq2seq`` runs the build, those checks and this
             phase.
 7. moe     — ``LlamaMoeForCausalLM`` at Mixtral-8x7B-v0.1's widths cut to 8
             of 32 layers, bf16 with f32 gates (so every MoE layer routes
@@ -408,7 +443,8 @@ wave), ``train_shape`` the times of a
 serving kernel at the training shapes, ``decode`` and ``f32`` the flash
 forward's decode and f32 cases (and dK/dV's f32 case), ``hgmma`` the
 wgmma instructions of each instantiation; ``serve``, ``generate``,
-``train``, ``train_paths``, ``fit``, ``moe``, ``flashmask``, ``classes``,
+``train``, ``train_paths``, ``fit``, ``vision``, ``seq2seq``, ``moe``,
+``flashmask``, ``classes``,
 ``speculative``,
 ``recovery``, ``overload``, ``tp`` and ``server`` hold each pass's
 end-to-end numbers, ``phase_s`` each phase's wall seconds.  The last
@@ -6014,7 +6050,7 @@ def moe_model_flops(cfg, batch, seq):
 
 
 def graphed_path(label, make, ids, labels, kernels, flops, steps=20,
-                 warmup=3, n_prof=2, seen=None, refuse=()):
+                 warmup=3, n_prof=2, seen=None, refuse=(), tokens=None):
     """One ``train_paths`` sub-case: the graphed ``TrainStep`` that
     ``make(TrainStep)`` builds takes ``warmup`` steps (the first runs
     eagerly and captures), then ``steps`` timed ones with the launch
@@ -6025,8 +6061,10 @@ def graphed_path(label, make, ids, labels, kernels, flops, steps=20,
     takes 5 steps on the same batch.  The timed steps must capture
     nothing and replay every step; the losses must be finite and fall;
     the first 5 graphed losses must equal the eager ones bit for bit;
-    a replay's launches a step must equal an eager step's.  Returns the
-    record, the timed steps' launches and the graphed losses."""
+    a replay's launches a step must equal an eager step's.  ``tokens``:
+    the tokens a step counts for tokens/s (``ids.numel()`` by default;
+    ``ids`` may be a tuple of inputs).  Returns the record, the timed
+    steps' launches and the graphed losses."""
     from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
     gc.collect()
     torch.cuda.synchronize()
@@ -6072,7 +6110,7 @@ def graphed_path(label, make, ids, labels, kernels, flops, steps=20,
     torch.cuda.empty_cache()
     q1, med, q3 = np.percentile(times, [25, 50, 75])
     rec = {"step_ms_p25": q1, "step_ms_p50": med, "step_ms_p75": q3,
-           "tokens_per_s": ids.numel() / (med / 1e3),
+           "tokens_per_s": (tokens or ids.numel()) / (med / 1e3),
            "model_flops_per_step": flops,
            "mfu": flops / (med / 1e3) / BF16_FLOP_S,
            "peak_memory_gb": peak / 1e9,
@@ -6993,6 +7031,21 @@ def fit_phase(seed, dev, card, kernels):
 VISION_CIFAR_B, VISION_IMAGENET_B = 256, 128
 CRNN_B, CRNN_H, CRNN_W, CRNN_CLASSES = 64, 32, 320, 96
 VISION_STEPS = 20
+# the rest of the zoo: mobilenet_v2 as ImageNet training runs it (b128,
+# Momentum 0.1 / 0.9, weight decay 4e-5), then one graphed O1 step of each
+# factory at its published widths and input
+MBV2_B, MBV2_SIZE = 128, 224
+ZOO_B, ZOO_TIMED = 32, 5
+ZOO_CASES = (("lenet", 256, 1, 28, 10), ("alexnet", ZOO_B, 3, 224, 1000),
+             ("vgg16", ZOO_B, 3, 224, 1000),
+             ("squeezenet1_1", ZOO_B, 3, 224, 1000),
+             ("mobilenet_v1", ZOO_B, 3, 224, 1000),
+             ("mobilenet_v3_small", ZOO_B, 3, 224, 1000),
+             ("mobilenet_v3_large", ZOO_B, 3, 224, 1000),
+             ("shufflenet_v2_x1_0", ZOO_B, 3, 224, 1000),
+             ("densenet121", ZOO_B, 3, 224, 1000),
+             ("googlenet", ZOO_B, 3, 224, 1000),
+             ("inception_v3", ZOO_B, 3, 299, 1000))
 
 
 def vision_flops(build, shape):
@@ -7037,7 +7090,8 @@ def _same_state(a, b):
 
 
 def vision_path(label, make, x, y, flops, peak_flop_s, equal_steps,
-                steps=VISION_STEPS, twice=False, cudnn_cost=False):
+                steps=VISION_STEPS, twice=False, cudnn_cost=False,
+                quiet=None):
     """One ``vision`` sub-case.  ``make(cls)`` builds the model from the
     seed and its ``cls`` train step (``TrainStep`` or ``EagerTrainStep``).
     The graphed step takes ``equal_steps`` steps from the start (the
@@ -7050,16 +7104,26 @@ def vision_path(label, make, x, y, flops, peak_flop_s, equal_steps,
     step, mfu against ``peak_flop_s``, peak memory.  With
     ``cudnn_cost``, a graphed trainer whose convolutions may take
     cuDNN's nondeterministic algorithms is timed too (its graph is
-    captured without the port's deterministic flags), beside the step."""
+    captured without the port's deterministic flags), beside the step.
+    With ``quiet`` (a maker of the same model with its dropouts at 0),
+    the bit-for-bit check runs on ``quiet``'s graphed and eager trainers
+    and the timed steps on ``make``'s, dropout drawing."""
     from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    step = make(TrainStep)
+    equal = quiet or make
+    step = equal(TrainStep)
     losses = [step(x, y) for _ in range(equal_steps)]
     graphed_state = _state(step.model)
+    if quiet is not None:
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = make(TrainStep)
+        losses += [step(x, y) for _ in range(2)]
     captures_warmup = step.captures
     captured, replayed = step.captures, step.replays
     times = _host_ms(lambda: losses.append(step(x, y)), steps)
@@ -7093,7 +7157,7 @@ def vision_path(label, make, x, y, flops, peak_flop_s, equal_steps,
         del free
         gc.collect()
         torch.cuda.empty_cache()
-    eager = make(EagerTrainStep)
+    eager = equal(EagerTrainStep)
     eager_vals = torch.stack([eager(x, y) for _ in range(equal_steps)]) \
         .float().cpu().numpy()
     apart = _same_state(graphed_state, _state(eager.model))
@@ -7102,7 +7166,7 @@ def vision_path(label, make, x, y, flops, peak_flop_s, equal_steps,
     torch.cuda.empty_cache()
     again = []
     if twice:
-        second = make(TrainStep)
+        second = equal(TrainStep)
         for _ in range(equal_steps):
             second(x, y)
         again = _same_state(graphed_state, _state(second.model))
@@ -7152,12 +7216,16 @@ def vision_path(label, make, x, y, flops, peak_flop_s, equal_steps,
 
 
 def _vision_class(name):
-    """A device kernel's share of a vision step: cuDNN's convolutions
+    """A device kernel's share of a vision step: torch's own depthwise
+    convolution kernels (``conv_depthwise2d*``, which torch runs for
+    depthwise convolutions instead of cuDNN), cuDNN's convolutions
     (kernels named for a convolution, its data or weight gradient, an FFT
     or a layout transpose), GEMMs (cuBLAS, and any convolution cuDNN runs
     as a plain GEMM), and the torch ops (batch norm, casts, pooling, the
     LSTM's gates, the CTC recursion, the optimizer)."""
     low = name.lower()
+    if "conv_depthwise" in low:
+        return "torch_depthwise_conv"
     if any(k in low for k in ("conv", "cudnn", "wgrad", "dgrad", "fprop",
                               "fft", "nchwtonhwc", "nhwctonchw")):
         return "cudnn_conv"
@@ -7238,10 +7306,156 @@ def vision_small_f32(seed, dev):
     return rec
 
 
+def _zoo_build(name):
+    from paddle_tpu_torch.vision import models as zoo
+    return zoo.LeNet if name == "lenet" else getattr(zoo, name)
+
+
+def _no_dropout(model):
+    from paddle_tpu_torch.nn import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def vision_mobilenet_v2(seed, dev, rng):
+    """(e) ``mobilenet_v2``: ``mobilenet_v2()`` (scale 1.0, 1000 classes),
+    b128 x 3 x 224 x 224, Momentum(0.1, 0.9, weight_decay=4e-5), O1,
+    through ``vision_path``: graphed = eager bit for bit with the
+    classifier's dropout at 0 (2 steps), then the timed steps with the
+    published Dropout(0.2) drawing from the model's generator (which the
+    graphed step registers); also timed with the convolutions free of the
+    port's deterministic flags."""
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    ce = CrossEntropyLoss()
+
+    def maker(p):
+        def make(cls):
+            net = mobilenet_v2(device=dev, seed=seed)
+            if p == 0.0:
+                _no_dropout(net)
+            return cls(net, ce, Momentum(
+                learning_rate=0.1, momentum=0.9, weight_decay=4e-5,
+                parameters=net.parameters()), amp_level="O1")
+        return make
+
+    x = torch.as_tensor(rng.standard_normal(
+        (MBV2_B, 3, MBV2_SIZE, MBV2_SIZE)).astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.integers(0, 1000, MBV2_B), device=dev)
+    flops = 3 * vision_flops(lambda d: mobilenet_v2(device=d, seed=None),
+                             tuple(x.shape))
+    rec = vision_path("mobilenet_v2", maker(0.2), x, y, flops, BF16_FLOP_S,
+                      2, quiet=maker(0.0), cudnn_cost=True)
+    rec["dropout_in_timed_steps"] = 0.2
+    return rec
+
+
+def vision_zoo_steps(seed, dev, rng):
+    """(f) ``zoo``: each factory of ``ZOO_CASES`` at its published widths
+    through the graphed ``TrainStep`` at O1 (Momentum(0.01, 0.9,
+    weight_decay=4e-5: vgg16 and alexnet, without batch norm, are
+    trained at 0.01; ``CrossEntropyLoss``; googlenet with its aux heads,
+    ce(out) + 0.3 (ce(aux1) + ce(aux2))): one step that captures, then
+    ``ZOO_TIMED`` timed replays, which must capture nothing: step ms p50,
+    images/s, mfu, peak memory, captures."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    ce = CrossEntropyLoss()
+
+    def aux_loss(out, y):
+        return ce(out[0], y) + 0.3 * (ce(out[1], y) + ce(out[2], y))
+
+    rec = {}
+    for name, b, ch, size, classes in ZOO_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build = _zoo_build(name)
+        x = torch.as_tensor(rng.standard_normal(
+            (b, ch, size, size)).astype(np.float32), device=dev)
+        y = torch.as_tensor(rng.integers(0, classes, b), device=dev)
+        net = build(num_classes=classes, device=dev, seed=seed)
+        step = TrainStep(net, aux_loss if name == "googlenet" else ce,
+                         Momentum(learning_rate=0.01, momentum=0.9,
+                                  weight_decay=4e-5,
+                                  parameters=net.parameters()),
+                         amp_level="O1")
+        t0 = time.perf_counter()
+        first = step(x, y)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        captured = step.captures
+        losses = [first]
+        times = _host_ms(lambda: losses.append(step(x, y)), ZOO_TIMED)
+        flops = 3 * vision_flops(
+            lambda d: build(num_classes=classes, device=d, seed=None),
+            tuple(x.shape))
+        med = float(np.median(times))
+        vals = torch.stack(losses).float().cpu()
+        r = {"batch": b, "input": [ch, size, size], "step_ms_p50": med,
+             "images_per_s": b / (med / 1e3),
+             "model_flops_per_step": flops,
+             "mfu": flops / (med / 1e3) / BF16_FLOP_S,
+             "first_step_s": first_s,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "captures_warmup": captured,
+             "captures": step.captures - captured,
+             "replays": step.replays, "loss_first": float(vals[0]),
+             "loss_last": float(vals[-1])}
+        rec[name] = r
+        log(f"  zoo {name}: " + json.dumps(r))
+        del step, net, x, y, losses
+        if not torch.isfinite(vals).all():
+            raise AssertionError(f"zoo {name}: non-finite loss "
+                                 f"{vals.tolist()}")
+        if r["captures"] or r["replays"] != ZOO_TIMED:
+            raise AssertionError(f"zoo {name}: the timed steps captured "
+                                 f"{r['captures']} graphs, replayed "
+                                 f"{r['replays']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vision_zoo_small_f32(seed, dev):
+    """The zoo's card-vs-CPU check: ``mobilenet_v3_small(scale=0.5)`` and
+    ``shufflenet_v2_x0_25`` (10 classes) in f32 (TF32 off), eval, b4 x 3
+    x 64 x 64, the same weights (drawn on the CPU, copied to the card):
+    logits within relative L2 1e-4."""
+    from paddle_tpu_torch.vision.models import (mobilenet_v3_small,
+                                                shufflenet_v2_x0_25)
+    gen = torch.Generator().manual_seed(seed + 13)
+    x = torch.randn(4, 3, 64, 64, generator=gen)
+    rec = {}
+    for name, build in (("mobilenet_v3_small_x0_5",
+                         lambda d: mobilenet_v3_small(
+                             scale=0.5, num_classes=10, device=d,
+                             seed=seed)),
+                        ("shufflenet_v2_x0_25",
+                         lambda d: shufflenet_v2_x0_25(
+                             num_classes=10, device=d, seed=seed))):
+        cpu = build("cpu").eval()
+        card = build(dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            rel = _rel_l2(card(x.to(dev)), cpu(x))
+        rec[name] = {"logits_rel_l2": rel}
+        log(f"  zoo small_f32 {name}: logits rel L2 {rel:.3g}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"zoo small_f32 {name}: the card's "
+                                 f"logits are {rel} from the CPU's")
+    return rec
+
+
 def vision_phase(seed, dev, card):
     """The ``vision`` phase: (a) ``resnet50_cifar``, (b)
-    ``resnet50_imagenet``, (c) ``crnn_ctc``, (d) ``small_f32``.  Returns
-    the record."""
+    ``resnet50_imagenet``, (c) ``crnn_ctc``, (d) ``small_f32``, (e)
+    ``mobilenet_v2``, (f) ``zoo`` and the zoo's ``zoo_small_f32``.
+    Returns the record."""
     from paddle_tpu_torch.models import CRNN
     from paddle_tpu_torch.nn import CrossEntropyLoss
     from paddle_tpu_torch.nn import functional as PF
@@ -7298,7 +7512,447 @@ def vision_phase(seed, dev, card):
     del x, y
     log("vision (d) small_f32: resnet18 and crnn_tiny, card vs CPU")
     rec["small_f32"] = vision_small_f32(seed, dev)
+    log(f"vision (e) mobilenet_v2: mobilenet_v2(), b{MBV2_B} x 3 x 224 x "
+        "224, Momentum(0.1, 0.9, weight_decay=4e-5), graphed TrainStep at "
+        "O1, Dropout(0.2) in the timed steps")
+    rec["mobilenet_v2"] = vision_mobilenet_v2(seed, dev, rng)
+    log(f"vision (f) zoo: one graphed O1 step a factory, then {ZOO_TIMED} "
+        "timed replays")
+    rec["zoo"] = vision_zoo_steps(seed, dev, rng)
+    rec["zoo_small_f32"] = vision_zoo_small_f32(seed, dev)
     return rec
+
+
+# Transformer-base (Vaswani et al. 2017, "Attention Is All You Need",
+# Table 3, base: d_model 512, 8 heads, 6 + 6 layers, d_ff 2048, dropout
+# 0.1, WMT14 En-De's shared vocabulary of about 37000 tokens) trained at
+# b32 x 128 source and 128 target tokens, then beam search (beam 4, 64
+# steps) over 8 source sentences of 128 tokens
+S2S_D, S2S_HEADS, S2S_LAYERS, S2S_FF, S2S_VOCAB = 512, 8, 6, 2048, 37000
+S2S_B, S2S_SRC, S2S_TGT = 32, 128, 128
+S2S_LR = 1e-4
+BEAM_B, BEAM_K, BEAM_STEPS = 8, 4, 64
+BOS, EOS = 1, 2
+S2S_FLASH = {"flash_attention_forward": 12, "flash_attention_bwd_dkv": 12,
+             "flash_attention_bwd_dq": 12}
+
+
+class Seq2Seq(torch.nn.Module):
+    """Transformer-base as a user of ``paddle.nn.Transformer`` builds it
+    around the port's ``Transformer``: source and target token
+    embeddings scaled by sqrt(d_model) plus a learned position
+    embedding, the causal ``tgt_mask`` (a buffer), and the output Linear
+    over the vocabulary.  ``forward(src, tgt)`` gives the logits [b,
+    tgt, vocab].  The embeddings are drawn N(0, d_model^-0.5) and the
+    output Linear by the JAX package's Linear law, from ``seed``."""
+
+    def __init__(self, dev, seed, dropout=0.1, dtype=None, d_model=S2S_D,
+                 nhead=S2S_HEADS, layers=S2S_LAYERS, ff=S2S_FF,
+                 vocab=S2S_VOCAB, max_len=256, tgt_len=S2S_TGT):
+        from paddle_tpu_torch.nn import Embedding, Linear, Transformer
+        from paddle_tpu_torch.nn.layer.transformer import xavier_normal_
+        super().__init__()
+        self.scale = d_model ** 0.5
+        self.transformer = Transformer(d_model, nhead, layers, layers, ff,
+                                       dropout, device=dev, dtype=dtype,
+                                       seed=seed)
+        kw = dict(device=dev, dtype=dtype)
+        self.src_emb = Embedding(vocab, d_model, **kw)
+        self.tgt_emb = Embedding(vocab, d_model, **kw)
+        self.pos_emb = Embedding(max_len, d_model, **kw)
+        self.out = Linear(d_model, vocab, bias=True, **kw)
+        self.register_buffer(
+            "tgt_mask",
+            self.transformer.generate_square_subsequent_mask(tgt_len))
+        gen = torch.Generator(device=dev).manual_seed(seed + 2)
+        with torch.no_grad():
+            for emb in (self.src_emb, self.tgt_emb, self.pos_emb):
+                emb.weight.normal_(0.0, d_model ** -0.5, generator=gen)
+            xavier_normal_(self.out.weight, gen)
+            self.out.bias.zero_()
+
+    def embed(self, emb, ids, pos):
+        return emb(ids) * self.scale + self.pos_emb(pos)
+
+    def encode(self, src):
+        pos = torch.arange(src.shape[1], device=src.device)
+        return self.transformer.encoder(self.embed(self.src_emb, src, pos))
+
+    def forward(self, src, tgt):
+        t = tgt.shape[1]
+        pos = torch.arange(t, device=tgt.device)
+        h = self.transformer.decoder(self.embed(self.tgt_emb, tgt, pos),
+                                     self.encode(src),
+                                     self.tgt_mask[:t, :t])
+        return self.out(h)
+
+
+class BeamCell:
+    """The decoder of a ``Seq2Seq`` as a ``BeamSearchDecoder`` cell.  Its
+    states are (the position [n], each layer's (Cache, StaticCache) of
+    ``gen_cache(memory)`` as plain tuples: the decode loop rebuilds nested
+    states with their type, which a namedtuple does not allow).  A call
+    adds the position embedding to the tokens' embeddings, runs the
+    decoder over the caches (one query row a sequence: the flash forward
+    against the cached keys, then against the source's) and returns the
+    last hidden state."""
+
+    def __init__(self, model):
+        from paddle_tpu_torch.nn import MultiHeadAttention
+        self.model = model
+        self.mha = MultiHeadAttention
+
+    def init_states(self, memory):
+        caches = self.model.transformer.decoder.gen_cache(memory)
+        pos = torch.zeros(memory.shape[0], dtype=torch.int64,
+                          device=memory.device)
+        return pos, self.plain(caches)
+
+    @staticmethod
+    def plain(caches):
+        return tuple((tuple(incr), tuple(static))
+                     for incr, static in caches)
+
+    def embed(self, ids):
+        return self.model.tgt_emb(ids) * self.model.scale
+
+    def __call__(self, inputs, states):
+        pos, caches = states
+        x = (inputs + self.model.pos_emb(pos))[:, None]
+        named = [(self.mha.Cache(*incr), self.mha.StaticCache(*static))
+                 for incr, static in caches]
+        out, named = self.model.transformer.decoder(x, None, cache=named)
+        return out[:, 0], (pos + 1, self.plain(named))
+
+
+def seq2seq_flops(b, src, tgt, d=S2S_D, ff=S2S_FF, layers=S2S_LAYERS,
+                  vocab=S2S_VOCAB):
+    """Model FLOPs of one training step, from the shapes: forward plus a
+    backward of twice the forward.  Linears, 2 per weight per token: the
+    encoder's (4 d^2 + 2 d ff) over source tokens, the decoder's
+    self-attention, cross-attention query and output, and feed-forward
+    (6 d^2 + 2 d ff) over target tokens and its cross-attention keys and
+    values (2 d^2) over source tokens, the output Linear (d vocab) over
+    target tokens.  Attention products (QK^T and PV, 4 d a pair) a layer:
+    the encoder's src^2 pairs, the decoder's causal pairs and its tgt x
+    src cross pairs."""
+    linear = layers * ((4 * d * d + 2 * d * ff) * b * src
+                       + (6 * d * d + 2 * d * ff) * b * tgt
+                       + 2 * d * d * b * src) + d * vocab * b * tgt
+    pairs = layers * b * (src * src + causal_pairs(tgt, tgt, True)
+                          + tgt * src)
+    return 3 * (2 * linear + 4 * d * pairs)
+
+
+def time_seq2seq_shapes(records, dev):
+    """The flash kernels at the Transformer's shapes, bf16, d64, no mask,
+    each held against its plain version, then timed beside it and
+    ``scaled_dot_product_attention``: forward, dK/dV and dQ at the
+    training shape (b32 h8 s128: the encoder's self-attention and the
+    decoder's cross-attention), and the forward at beam search's shapes
+    (b32 = 8 sentences x beam 4, h8, one query row against the source's
+    128 keys or the target cache's 1, 17 and 64).  Adds each kernel's
+    ``seq2seq_train`` and the forward's ``seq2seq_beam_sk{n}``
+    records."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, h, d = S2S_B, S2S_HEADS, S2S_D // S2S_HEADS
+    el = 2
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    for sq, sk in ((S2S_SRC, S2S_SRC), (1, S2S_SRC), (1, 1), (1, 17),
+                   (1, 64)):
+        tag = "seq2seq_train" if sq > 1 else f"seq2seq_beam_sk{sk}"
+        label = f"seq2seq b{b} h{h} sq{sq} sk{sk} d{d} full bf16"
+        q, do = rnd(b, h, sq, d), rnd(b, h, sq, d)
+        k, v = rnd(b, h, sk, d), rnd(b, h, sk, d)
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=False)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = check("flash_attention_forward", label, out, ref, 2e-2)
+        check("flash_attention_forward", label + " lse", lse, ref_lse, 1e-4)
+        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=False))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, False),
+                           reps=3)
+        lib_ms = cuda_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(q, k, v))
+        pairs = b * h * sq * sk
+        bms, by = bound_ms((2 * q.numel() + 2 * k.numel()) * el
+                           + b * h * sq * 4, 4 * pairs * d, BF16_FLOP_S)
+        log(f"  flash_attention_forward {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        records.setdefault("flash_attention_forward", {})[tag] = dict(
+            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        if sq == 1:
+            continue
+        scale = d ** -0.5
+        got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do, False,
+                                               scale)
+        want = fa._bwd_blockwise(q, k, v, out, lse, do, False, scale)
+        torch.cuda.synchronize()
+        errs = {n: check("flash_attention_bwd", f"{label} {n}", g, r, 1e-2)
+                for n, g, r in zip(("dq", "dk", "dv"), got, want)}
+        delta = (out.float() * do.float()).sum(-1).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        args = (q, k, v, do, lse, delta, dq, dk, dv, False, scale)
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args))
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args))
+        plain_ms = cuda_ms(lambda: fa._bwd_blockwise(
+            q, k, v, out, lse, do, False, scale), reps=3)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lout = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+        lib_ms = profiled_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), do, retain_graph=True))
+        rows = b * h * sq * 4 * 2                    # lse and delta, f32
+        for name, ms, n_ops, n_bytes, e in (
+                ("flash_attention_bwd_dkv", dkv_ms, 4 * 2 * pairs * d,
+                 (2 * q.numel() + 4 * k.numel()) * el + rows,
+                 max(errs["dk"], errs["dv"])),
+                ("flash_attention_bwd_dq", dq_ms, 3 * 2 * pairs * d,
+                 (3 * q.numel() + 2 * k.numel()) * el + rows, errs["dq"])):
+            bms, by = bound_ms(n_bytes, n_ops, BF16_FLOP_S)
+            log(f"  {name} {label}: {ms:.4f} ms, plain (dq+dk+dv) "
+                f"{plain_ms:.4f} ms, sdpa backward (dq+dk+dv, profiler) "
+                f"{lib_ms} ms, bound {bms:.4f} ms ({by})")
+            records.setdefault(name, {})[tag] = dict(
+                case=label, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def s2s_data(seed, dev, b, src_len, tgt_len, vocab):
+    """Source ids and the target's input and label ids (the target drawn
+    one token longer and shifted), from ``np.random.default_rng(seed)``
+    as bench.py draws its data."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, vocab, (b, src_len))
+    tgt = rng.integers(0, vocab, (b, tgt_len + 1))
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in (src, tgt[:, :-1], tgt[:, 1:]))
+
+
+def seq2seq_train(seed, dev, kernels):
+    """(a) ``train``: ``Seq2Seq`` (f32 parameters) through the graphed
+    ``TrainStep(amp_level="O1")``, Adam(beta2 0.98, eps 1e-9: the
+    paper's; a constant 1e-4 for its 4000-step warm-up, which would leave
+    these steps below 5e-6), cross entropy over the logits, b32 x 128
+    source and 128 target tokens.  With dropout 0, ``graphed_path``: the
+    first 5 losses equal ``EagerTrainStep``'s bit for bit, 20 timed steps
+    capturing nothing, a profiler window that must show the tensor-core
+    flash kernels; each timed step launches the flash forward, dK/dV and
+    dQ 12 times (6 encoder self-attentions, 6 cross-attentions; the
+    decoder's masked self-attention is the plain softmax, as in JAX) and
+    no other kernel of the port.  At the published dropout 0.1, 10
+    graphed steps whose last 3 losses average below their first 3.
+    Returns the record and the timed steps' launches."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+    src, tgt_in, tgt_out = s2s_data(seed, dev, S2S_B, S2S_SRC, S2S_TGT,
+                                    S2S_VOCAB)
+    ce = CrossEntropyLoss()
+
+    def maker(dropout):
+        def make(cls):
+            net = Seq2Seq(dev, seed, dropout)
+            return cls(net, ce, Adam(
+                learning_rate=S2S_LR, beta2=0.98, epsilon=1e-9,
+                parameters=net.parameters()), amp_level="O1")
+        return make
+
+    seen = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+            "flash_bwd_dq_wgmma_kernel")
+    refuse = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+              "flash_bwd_dq_kernel")
+    rec, launches, _vals = graphed_path(
+        "seq2seq_train", maker(0.0), (src, tgt_in), tgt_out, kernels,
+        seq2seq_flops(S2S_B, S2S_SRC, S2S_TGT), seen=seen, refuse=refuse,
+        tokens=tgt_out.numel())
+    rec["dropout"] = 0.0
+    rec["model_flops_counted"] = (
+        "3 x forward: Linears 2 a weight a token, the output Linear over "
+        "target tokens, attention 4 d a visible pair (decoder causal)")
+    if rec["launches_per_step"] != S2S_FLASH:
+        raise AssertionError(f"seq2seq_train: launches a step "
+                             f"{rec['launches_per_step']}, not {S2S_FLASH}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = maker(0.1)(TrainStep)
+    vals = torch.stack([step((src, tgt_in), tgt_out)
+                        for _ in range(10)]).float().cpu()
+    drop = {"dropout": 0.1, "losses": [float(v) for v in vals],
+            "captures": step.captures, "replays": step.replays}
+    rec["dropout_0.1"] = drop
+    log("  seq2seq_train dropout 0.1: " + json.dumps(drop))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not torch.isfinite(vals).all() or \
+            not vals[-3:].mean() < vals[:3].mean():
+        raise AssertionError(f"seq2seq_train: at dropout 0.1 the losses "
+                             f"{vals.tolist()} do not fall")
+    return rec, launches
+
+
+def beam_decode(model, src, beam, steps):
+    """``dynamic_decode`` of a ``BeamSearchDecoder`` over ``model``'s
+    ``BeamCell`` (start ``BOS``, end ``EOS``): the encoder once, then the
+    loop.  Returns (ids, final states, lengths, the steps' outputs, the
+    host time of each step's start, the encoder's and the loop's wall
+    ms)."""
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+    t0 = time.perf_counter()
+    memory = model.encode(src)
+    cell = BeamCell(model)
+    inits = cell.init_states(memory)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decoder = BeamSearchDecoder(cell, BOS, EOS, beam,
+                                embedding_fn=cell.embed,
+                                output_fn=model.out)
+    stamps, outputs = [], []
+    step, finalize = decoder.step, decoder.finalize
+
+    def timed_step(*args, **kw):
+        stamps.append(time.perf_counter())
+        return step(*args, **kw)
+
+    def keep(outs, states, lengths):
+        outputs.extend(outs)
+        return finalize(outs, states, lengths)
+
+    decoder.step, decoder.finalize = timed_step, keep
+    ids, states, lengths = dynamic_decode(decoder, inits,
+                                          max_step_num=steps,
+                                          return_length=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stamps.append(t2)
+    return (ids, states, lengths, outputs, stamps, (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3)
+
+
+def seq2seq_beam(seed, dev, kernels):
+    """(b) ``beam``: the same model (``Seq2Seq`` from the seed) in bf16,
+    eval, ``BeamSearchDecoder(beam_size=4)`` + ``dynamic_decode
+    (max_step_num=64)`` over 8 source sentences of 128 tokens: a warm-up
+    decode, then one with the launch counters zeroed just before the
+    loop and read just after (12 flash forwards a step: each decoder
+    layer's cached self-attention and its cross-attention; no other
+    kernel of the port), then one in a profiler window for the device's
+    busy time.  Encoder ms, decode step ms p50 (host clock from one
+    step's start to the next, the loop's one ``finished.all()`` read a
+    step included), steps, hypothesis tokens/s (sentences x beam x steps
+    over the loop's wall time), the ids' shape [8, steps, 4]."""
+    model = Seq2Seq(dev, seed, dtype=torch.bfloat16).eval()
+    src = torch.as_tensor(np.random.default_rng(seed + 19).integers(
+        0, S2S_VOCAB, (BEAM_B, S2S_SRC)), device=dev)
+    with torch.no_grad():
+        beam_decode(model, src, BEAM_K, 4)
+        for fn in kernels.values():
+            fn.launches = 0
+        ids, states, lengths, outputs, stamps, enc_ms, loop_ms = \
+            beam_decode(model, src, BEAM_K, BEAM_STEPS)
+        launches = {n: fn.launches for n, fn in kernels.items()
+                    if fn.launches}
+        win_ms, _events, busy_ms = _window(
+            lambda: beam_decode(model, src, BEAM_K, BEAM_STEPS), 1)
+    steps = len(outputs)
+    step_ms = np.diff(stamps[:-1]) * 1e3 if steps > 2 else [loop_ms]
+    # a step: each decoder layer's self- and cross-attention; the
+    # encoder's self-attentions run once inside the counted call too
+    want = {"flash_attention_forward": 2 * S2S_LAYERS * steps + S2S_LAYERS}
+    rec = {"batch": BEAM_B, "beam": BEAM_K, "max_steps": BEAM_STEPS,
+           "steps": steps, "encoder_ms": enc_ms,
+           "decode_loop_ms": loop_ms,
+           "decode_step_ms_p50": float(np.median(step_ms)),
+           "hypothesis_tokens_per_s": BEAM_B * BEAM_K * steps
+           / (loop_ms / 1e3),
+           "flash_launches": launches.get("flash_attention_forward", 0),
+           "flash_launches_per_step": (launches.get(
+               "flash_attention_forward", 0) - S2S_LAYERS) / steps,
+           "launches": launches,
+           "window_ms": win_ms,
+           "device_busy_ms": busy_ms or "not measured",
+           "device_idle_share": (1 - busy_ms / win_ms) if busy_ms
+           else "not measured",
+           "ids_shape": list(ids.shape),
+           "lengths": lengths.cpu().tolist(),
+           "finished": int(states.finished.sum())}
+    log("  seq2seq_beam: " + json.dumps(rec))
+    if launches != want:
+        raise AssertionError(f"seq2seq_beam: launches {launches}, not "
+                             f"{want}")
+    if list(ids.shape) != [BEAM_B, steps, BEAM_K]:
+        raise AssertionError(f"seq2seq_beam: ids {list(ids.shape)}")
+    if not ((ids >= 0) & (ids < S2S_VOCAB)).all():
+        raise AssertionError("seq2seq_beam: ids out of the vocabulary")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def seq2seq_small_f32(seed, dev):
+    """(c) ``small_f32``: a ``Seq2Seq`` of 2 + 2 layers, d_model 128, 2
+    heads of 64 (the kernels' head width), d_ff 256, 1000 tokens, in f32
+    (TF32 off), dropout 0, the same weights on the card and the CPU (the
+    end token's output bias raised by 1.5, so that beams end at
+    different steps): logits of b4 x 24 source and 16 target tokens within
+    relative L2 1e-4 of the CPU's; a beam search (4 sentences, beam 3, up
+    to 12 steps) whose ids, parent ids and lengths equal the CPU's and
+    whose scores are within 1e-4."""
+    small = dict(dropout=0.0, d_model=128, nhead=2, layers=2, ff=256,
+                 vocab=1000, max_len=64, tgt_len=16)
+    cpu = Seq2Seq("cpu", seed, **small).eval()
+    with torch.no_grad():
+        cpu.out.bias[EOS] += 1.5
+    card = Seq2Seq(dev, seed, **small).eval()
+    card.load_state_dict(cpu.state_dict())
+    src, tgt_in, _ = s2s_data(seed + 23, "cpu", 4, 24, 16, 1000)
+    with torch.no_grad():
+        rel = _rel_l2(card(src.to(dev), tgt_in.to(dev)), cpu(src, tgt_in))
+        got = beam_decode(card, src.to(dev), 3, 12)
+        want = beam_decode(cpu, src, 3, 12)
+    same = {
+        "ids": torch.equal(got[0].cpu(), want[0]),
+        "parent_ids": len(got[3]) == len(want[3]) and all(
+            torch.equal(a.parent_ids.cpu(), b.parent_ids)
+            for a, b in zip(got[3], want[3])),
+        "lengths": torch.equal(got[2].cpu(), want[2])}
+    scores = max(float((a.scores.cpu() - b.scores).abs().max())
+                 for a, b in zip(got[3], want[3]))
+    rec = {"logits_rel_l2": rel, "beam_steps": len(want[3]),
+           "beam_lengths": want[2].tolist(), "beam_equal": same,
+           "beam_scores_max_abs_diff": scores}
+    log("  seq2seq small_f32: " + json.dumps(rec))
+    if not (rel <= 1e-4 and all(same.values()) and scores <= 1e-4):
+        raise AssertionError(f"seq2seq small_f32: the card differs from "
+                             f"the CPU: {rec}")
+    return rec
+
+
+def seq2seq_phase(seed, dev, card, kernels):
+    """The ``seq2seq`` phase: (a) ``train``, (b) ``beam``, (c)
+    ``small_f32`` ((d), the flash kernels at these shapes, ran with the
+    kernel checks: ``time_seq2seq_shapes``).  Returns the record and the
+    launches of the training step's timed steps."""
+    rec = {"card": card}
+    log(f"seq2seq (a) train: Transformer-base (d_model {S2S_D}, "
+        f"{S2S_HEADS} heads, {S2S_LAYERS} + {S2S_LAYERS} layers, d_ff "
+        f"{S2S_FF}, vocab {S2S_VOCAB}), b{S2S_B} x {S2S_SRC} + {S2S_TGT} "
+        "tokens, Adam(1e-4, beta2 0.98, eps 1e-9), graphed TrainStep at O1")
+    rec["train"], launches = seq2seq_train(seed, dev, kernels)
+    log(f"seq2seq (b) beam: bf16, {BEAM_B} sentences x {S2S_SRC} tokens, "
+        f"beam {BEAM_K}, up to {BEAM_STEPS} steps")
+    rec["beam"], _beam_launches = seq2seq_beam(seed, dev, kernels)
+    log("seq2seq (c) small_f32: 2 + 2 layers, d_model 128, card vs CPU")
+    rec["small_f32"] = seq2seq_small_f32(seed, dev)
+    return rec, launches
 
 
 def _device_us(evt):
@@ -7960,14 +8614,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("tp", "train_paths", "fit",
-                                       "vision", "server"),
+                                       "vision", "seq2seq", "server"),
                     help="after the build, run only the unchunked serve "
                     "pass and the tp phase (over NCCL too on two cards), "
                     "or only the flash backward check and the train and "
                     "train_paths phases, or only the flash kernels at "
                     "BERT's shapes and the fit phase, or only the vision "
-                    "phase, or only the unchunked serve pass and the "
-                    "server phase")
+                    "phase, or only the flash kernels at the "
+                    "Transformer's shapes and the seq2seq phase, or only "
+                    "the unchunked serve pass and the server phase")
     ap.add_argument("--server-child", nargs=3,
                     metavar=("JOURNAL_DIR", "STATUS", "PACE_S"),
                     help=argparse.SUPPRESS)
@@ -8087,9 +8742,30 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    for fn in checks + (time_bert_shapes,):
+    shapes = (time_bert_shapes, time_seq2seq_shapes)
+    if args.only in ("train_paths", "fit"):
+        shapes = (time_bert_shapes,)
+    if args.only == "seq2seq":
+        checks, shapes = (), (time_seq2seq_shapes,)
+    for fn in checks + shapes:
         fn(records, dev)
         lap(fn.__name__)
+    if args.only == "seq2seq":
+        s2s_rec, _launches = seq2seq_phase(args.seed, dev, smi[0],
+                                           counters())
+        lap("seq2seq")
+        phase_s["total"] = time.perf_counter() - T_START
+        print(json.dumps({"seq2seq": s2s_rec, "seq2seq_shapes": {
+            n: {t: r for t, r in records[n].items()
+                if t.startswith("seq2seq")}
+            for n in ("flash_attention_forward", "flash_attention_bwd_dkv",
+                      "flash_attention_bwd_dq")},
+            "phase_s": {k: round(v, 2) for k, v in phase_s.items()}}),
+            flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "fit":
         fit_rec, _launches = fit_phase(args.seed, dev, smi[0], counters())
         lap("fit")
@@ -8459,6 +9135,11 @@ def main():
     # card) and 3 through the graphed TrainStep, then card vs CPU
     vision_rec = vision_phase(args.seed, dev, smi[0])
     lap("vision")
+    # the Transformer encoder-decoder: Transformer-base training through
+    # the graphed TrainStep, beam search over its caches, card vs CPU
+    s2s_rec, launches["seq2seq"] = seq2seq_phase(args.seed, dev, smi[0],
+                                                 counters())
+    lap("seq2seq")
 
     # 8. the MoE model generating at Mixtral-8x7B widths (the 7B model
     # and the trainer are gone), then its full-width f32 logits
@@ -8541,6 +9222,7 @@ def main():
                       "train": train_line, "train_paths": paths_line,
                       "fit": fit_line,
                       "vision": vision_rec,
+                      "seq2seq": s2s_rec,
                       "moe": moe_line,
                       "flashmask": fm_line,
                       "speculative": {

@@ -19,7 +19,9 @@ model's weighted balance loss); and on the vision and OCR paths
 ``conv1d`` / ``conv2d``, ``max_pool2d``, ``avg_pool2d``,
 ``adaptive_avg_pool2d_``, ``relu``, ``add`` (a residual), ``flatten_``,
 the batch norm's ``mean``, ``var``, ``multiply`` (the running
-variance's factor) and ``batch_norm_f``, ``rnn_LSTM`` / ``rnn_GRU`` /
+variance's factor) and ``batch_norm_f``, the zoo's ``relu6``,
+``hardswish``, ``hardsigmoid``, ``swish``, ``multiply`` (squeeze and
+excite) and ``concat_``, ``rnn_LSTM`` / ``rnn_GRU`` /
 ``rnn_RNN`` and the cells' ``lstm_cell`` / ``gru_cell`` / ``rnn_cell``,
 CRNN's ``transpose`` and ``reshape``, and the CTC loss's ``ctc_loss_``,
 ``clip``, ``divide``, ``mean`` and ``sum``.  Every other op keeps its input types

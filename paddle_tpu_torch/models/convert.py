@@ -1,5 +1,5 @@
-"""Carry a JAX-package LLaMA's (dense or MoE), BERT's, ResNet's or
-CRNN's weights into the port."""
+"""Carry a JAX-package LLaMA's (dense or MoE), BERT's, vision model's
+(ResNet and the rest of the zoo) or CRNN's weights into the port."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -116,25 +116,24 @@ def bert_params_to_numpy(model) -> Dict[str, np.ndarray]:
     return _to_numpy(model)
 
 
-def resnet_params_from_numpy(arrays: Dict[str, np.ndarray],
-                             arch: str = "resnet50", device="cuda",
-                             dtype=None, **kwargs):
-    """A port ``vision.models`` ResNet (``arch``: "resnet18", ...,
-    "wide_resnet50_2", "resnext50_32x4d", ...; ``kwargs`` such as
-    ``num_classes`` go to the builder) computing the same function as a
-    ``paddle_tpu`` one whose parameters and batch-norm buffers
-    (``_mean``, ``_variance``) are ``arrays``, keyed by their
-    ``paddle_tpu`` names.  The convolutions' weights are carried as they
-    are (both packages hold [out, in / groups, kh, kw]); the ``fc``
-    Linear's is transposed.  Missing or unexpected names raise."""
+def vision_params_from_numpy(arrays: Dict[str, np.ndarray], arch: str,
+                            device="cuda", dtype=None, **kwargs):
+    """A port ``vision.models`` model (``arch``: any factory the package
+    exports, "resnet50", "mobilenet_v2", "densenet121", "inception_v3",
+    ...; ``kwargs`` such as ``num_classes`` or ``scale`` go to it)
+    computing the same function as a ``paddle_tpu`` one whose parameters
+    and batch-norm buffers (``_mean``, ``_variance``) are ``arrays``,
+    keyed by their ``paddle_tpu`` names.  The convolutions' weights are
+    carried as they are (both packages hold [out, in / groups, kh, kw]);
+    the Linears' are transposed.  Missing or unexpected names raise."""
     from ..vision import models as vision_models
     build = getattr(vision_models, arch)
     return _load(build(device=device, dtype=dtype, seed=None, **kwargs),
                  arrays)
 
 
-def resnet_params_to_numpy(model) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`resnet_params_from_numpy`: parameters and
+def vision_params_to_numpy(model) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`vision_params_from_numpy`: parameters and
     buffers under their ``paddle_tpu`` names and layouts."""
     return _to_numpy(model, buffers=True)
 

@@ -1,8 +1,9 @@
 """Functional ops of the port (port of paddle_tpu/nn/functional): the
 loss the training path calls, the activations, dropout and layer norm
 BERT calls, the convolutions, pools and batch norm of the vision and OCR
-models, the attention entries of ``attention.py`` and the CTC loss of
-``ctc.py``.  Each casts its inputs under amp by the JAX op's name.
+models, the attention entries of ``attention.py``, the CTC loss of
+``ctc.py`` and beam search's ``gather_tree``.  Each casts its inputs
+under amp by the JAX op's name.
 
 The convolutions, pools and batch norm are XLA ops in the JAX package
 (``lax.conv_general_dilated``, ``lax.reduce_window``), so the port's are
@@ -41,11 +42,50 @@ def relu(x):
     return torch.relu(x)
 
 
+def relu6(x):
+    """min(max(x, 0), 6), with the gradient 0 at 0 and at 6, as
+    ``jax.nn.relu6``."""
+    (x,) = amp._cast_args("relu6", x)
+    return F.relu6(x)
+
+
+def hardswish(x):
+    """``jax.nn.hard_swish``: x * relu6(x + 3) / 6, in that order."""
+    (x,) = amp._cast_args("hardswish", x)
+    return x * (F.relu6(x + 3.0) / 6.0)
+
+
+def hardsigmoid(x):
+    """The JAX package's ``clip(x / 6 + 0.5, 0, 1)`` (not a multiply by
+    1 / 6)."""
+    (x,) = amp._cast_args("hardsigmoid", x)
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+def swish(x):
+    """x * sigmoid(x) (``jax.nn.silu``)."""
+    (x,) = amp._cast_args("swish", x)
+    return F.silu(x)
+
+
 def add(a, b):
     """``a + b`` as the JAX op ``add`` (under amp O2 its f32 inputs are
     cast to the amp type)."""
     a, b = amp._cast_args("add", a, b)
     return a + b
+
+
+def multiply(a, b):
+    """``a * b`` as the JAX op ``multiply``."""
+    a, b = amp._cast_args("multiply", a, b)
+    return a * b
+
+
+def concat(xs, axis=0):
+    """The tensors of ``xs`` joined along ``axis`` (the JAX op
+    ``concat_``; mixed types promote, as ``jnp.concatenate`` does)."""
+    xs = amp._cast_args("concat_", *xs)
+    return torch.cat(xs, axis)
 
 
 # ------------------------------------------------------------------- convs
@@ -347,8 +387,23 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     return total / count.clamp_min(1.0)
 
 
+def gather_tree(ids, parents):
+    """Beam search's ancestry walk (the JAX op ``gather_tree``): ``ids``
+    and ``parents`` [max_time, batch, beam]; from the last step back,
+    each beam's token at step t is ``ids[t]`` at the beam it descends
+    from, which ``parents[t]`` then moves one step further back."""
+    out = torch.empty_like(ids)
+    beams = torch.arange(ids.shape[2], device=ids.device) \
+        .expand(ids.shape[1:])
+    for t in range(ids.shape[0] - 1, -1, -1):
+        out[t] = ids[t].gather(-1, beams)
+        beams = parents[t].long().gather(-1, beams)
+    return out
+
+
 __all__ = ["adaptive_avg_pool2d", "add", "avg_pool2d", "batch_norm",
-           "conv1d", "conv2d", "cross_entropy", "ctc_decode", "ctc_loss",
-           "dropout", "flash_attention", "flashmask_attention", "flatten",
-           "gelu", "layer_norm", "max_pool2d", "relu",
-           "scaled_dot_product_attention", "tanh"]
+           "concat", "conv1d", "conv2d", "cross_entropy", "ctc_decode",
+           "ctc_loss", "dropout", "flash_attention", "flashmask_attention",
+           "flatten", "gather_tree", "gelu", "hardsigmoid", "hardswish",
+           "layer_norm", "max_pool2d", "multiply", "relu", "relu6",
+           "scaled_dot_product_attention", "swish", "tanh"]

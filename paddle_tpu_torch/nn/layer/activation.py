@@ -1,5 +1,6 @@
-"""Activation layers of the port (port of the ``Tanh``, ``GELU`` and
-``ReLU`` of paddle_tpu/nn/layer/activation.py)."""
+"""Activation layers of the port (port of the ``Tanh``, ``GELU``,
+``ReLU``, ``ReLU6``, ``Hardswish``, ``Hardsigmoid`` and ``Swish`` of
+paddle_tpu/nn/layer/activation.py)."""
 from __future__ import annotations
 
 import torch
@@ -16,6 +17,26 @@ class Tanh(nn.Module):
 class ReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(x)
+
+
+class ReLU6(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu6(x)
+
+
+class Hardswish(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.hardswish(x)
+
+
+class Hardsigmoid(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.hardsigmoid(x)
+
+
+class Swish(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.swish(x)
 
 
 class GELU(nn.Module):

@@ -1,5 +1,6 @@
-"""``Sequential`` (port of paddle_tpu/nn/layer/layers.py ``Sequential``)
-and the seeded init the port's vision and OCR models share."""
+"""``Sequential`` and ``LayerList`` (port of paddle_tpu/nn/layer/layers.py
+``Sequential`` and ``LayerList``) and the seeded init the port's vision,
+OCR and seq2seq models share."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -31,6 +32,11 @@ class Sequential(nn.Sequential):
         return super().__getitem__(idx)
 
 
+class LayerList(nn.ModuleList):
+    """Layers held in a list, named "0", "1", ... (renumbered after an
+    insert or a delete); a slice is a new ``LayerList``."""
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> None:
     """Draw every weight of ``model`` with one generator on its device
@@ -50,3 +56,26 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 module.bias.zero_()
         elif hasattr(module, "reset_parameters"):
             module.reset_parameters(gen)
+
+
+def seed_model(model: nn.Module, dtype=None, seed=0) -> nn.Module:
+    """The last steps of a seeded model's constructor: the model cast to
+    ``dtype`` (when given); a dropout ``generator`` on its device, seeded
+    by ``seed + 1`` (by 0 when ``seed`` is None), set on the model and on
+    every ``Dropout`` in it, so that a graphed ``jit.TrainStep`` registers
+    it (none on the meta device); then every weight drawn from ``seed``
+    by ``init_weights``, unless ``seed`` is None (a caller that loads
+    weights)."""
+    from .common import Dropout
+    if dtype is not None:
+        model.to(dtype)
+    dev = next(model.parameters()).device
+    if dev.type != "meta":
+        model.generator = torch.Generator(device=dev)
+        model.generator.manual_seed(0 if seed is None else int(seed) + 1)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.generator = model.generator
+    if seed is not None:
+        init_weights(model, seed)
+    return model

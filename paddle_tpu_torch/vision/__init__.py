@@ -1,4 +1,5 @@
-"""Vision models of the port (port of paddle_tpu/vision): the ResNets."""
+"""Vision models of the port (port of paddle_tpu/vision): the model zoo
+of ``models``."""
 from . import models
 
 __all__ = ["models"]

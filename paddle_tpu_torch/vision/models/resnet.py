@@ -83,7 +83,7 @@ class ResNet(nn.Module):
     classifier (``num_classes`` > 0).  Weights are drawn on ``device``
     from ``seed`` by the JAX initializers' laws (``init_weights``);
     ``seed=None`` leaves the layers' own draws for a caller that loads
-    weights (``models.convert.resnet_params_from_numpy``)."""
+    weights (``models.convert.vision_params_from_numpy``)."""
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, device="cuda", dtype=None,

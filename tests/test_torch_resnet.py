@@ -1,5 +1,5 @@
 """Port parity of the ResNets (``paddle_tpu_torch/vision/models/
-resnet.py``, the bridge ``models.convert.resnet_params_*``) and of the
+resnet.py``, the bridge ``models.convert.vision_params_*``) and of the
 graphed step's batch-norm buffers against the JAX package on the CPU,
 f32, inputs from numpy seeds.
 
@@ -53,8 +53,8 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
-from paddle_tpu_torch.models.convert import (resnet_params_from_numpy,
-                                             resnet_params_to_numpy)
+from paddle_tpu_torch.models.convert import (vision_params_from_numpy,
+                                             vision_params_to_numpy)
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.vision import models as tmodels
 
@@ -88,7 +88,7 @@ def numpy_init(seed):
 def _pair(arch, seed=0, **kw):
     with numpy_init(seed):
         jm = getattr(jmodels, arch)(num_classes=10, **kw)
-    tm = resnet_params_from_numpy(_arrays(jm), arch, device="cpu",
+    tm = vision_params_from_numpy(_arrays(jm), arch, device="cpu",
                                   num_classes=10, **kw)
     return jm, tm
 
@@ -120,7 +120,7 @@ def test_train_forward_and_running_stats_match_jax_eager():
         want = np.asarray(jm(paddle.to_tensor(x))._data)
         got = tm(torch.from_numpy(x)).detach().numpy()
         assert _rel(got, want) <= 1e-5
-    jstate, tstate = _arrays(jm), resnet_params_to_numpy(tm)
+    jstate, tstate = _arrays(jm), vision_params_to_numpy(tm)
     stats = [n for n in jstate if n.endswith(("_mean", "_variance"))]
     assert len(stats) == 2 * 20
     for n in stats:
@@ -136,12 +136,12 @@ def test_train_forward_and_running_stats_match_jax_eager():
 def test_bridge_round_trip_and_names():
     jm, tm = _pair("resnet18")
     arrays = _arrays(jm)
-    back = resnet_params_to_numpy(tm)
+    back = vision_params_to_numpy(tm)
     assert back.keys() == arrays.keys()
     for n, a in arrays.items():
         np.testing.assert_array_equal(back[n], a, err_msg=n)
     with pytest.raises(KeyError):
-        resnet_params_from_numpy(dict(arrays, extra=np.zeros(1)),
+        vision_params_from_numpy(dict(arrays, extra=np.zeros(1)),
                                  "resnet18", device="cpu", num_classes=10)
 
 
@@ -168,10 +168,10 @@ def test_momentum_train_step_matches_jax_and_updates_stats():
         assert abs(tl - jl) <= 1e-5 * abs(jl)
         assert tl == el
     jstep.sync()
-    want, got = _arrays(jm), resnet_params_to_numpy(tm)
+    want, got = _arrays(jm), vision_params_to_numpy(tm)
     for n, _p in jm.named_parameters():
         assert _rel(got[n], want[n]) <= 1e-4, n
-    eager = resnet_params_to_numpy(twin)
+    eager = vision_params_to_numpy(twin)
     stats = [n for n in init if n.endswith(("_mean", "_variance"))]
     for n in stats:
         np.testing.assert_array_equal(want[n], init[n], err_msg=n)
@@ -301,9 +301,11 @@ def test_ceil_mode_is_ignored_as_in_jax():
 
 def test_builders_and_exports():
     from paddle_tpu.vision.models import resnet as jresnet
-    assert set(tmodels.__all__) == {
-        n for n in dir(jmodels) if not n.startswith("_")
-        and getattr(jmodels, n) is getattr(jresnet, n, None)}
+    # the ResNet names of the JAX package's exports (the rest of the zoo
+    # is held by tests/test_torch_vision_zoo.py)
+    assert {n for n in dir(jmodels) if not n.startswith("_")
+            and getattr(jmodels, n) is getattr(jresnet, n, None)} \
+        <= set(tmodels.__all__)
     m = tmodels.resnext50_32x4d(num_classes=0, with_pool=False,
                                 device="cpu", seed=3)
     assert m.layer1[0].conv2.groups == 32 and not hasattr(m, "fc")

@@ -1,4 +1,5 @@
-"""The vision and OCR training paths on the card: the graphed
+"""The vision and OCR training paths on the card (ResNet, CRNN, and a
+MobileNetV3 of depthwise convolutions): the graphed
 ``TrainStep`` against its eager twin, bit for bit (losses, parameters and
 batch-norm buffers), runs repeated from one start, and steps that make no
 blocking sync.  These need a CUDA device; elsewhere they skip.  Run them
@@ -11,10 +12,10 @@ import torch
 
 from paddle_tpu_torch.jit import EagerTrainStep, TrainStep
 from paddle_tpu_torch.models import crnn_tiny
-from paddle_tpu_torch.nn import CrossEntropyLoss
+from paddle_tpu_torch.nn import CrossEntropyLoss, Dropout
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import Adam, Momentum
-from paddle_tpu_torch.vision.models import resnet18
+from paddle_tpu_torch.vision.models import mobilenet_v3_small, resnet18
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +47,18 @@ def _case(name, dev):
         return make, x, y
     x = torch.randn(16, 3, 32, 32, generator=gen).to(dev)
     y = torch.randint(0, 10, (16,), generator=gen).to(dev)
+    if name == "mobilenet_v3_small_o1":
+        # depthwise convolutions under the deterministic cuDNN flags
+        def make(cls):
+            net = mobilenet_v3_small(scale=0.5, num_classes=10, device=dev,
+                                     seed=0)
+            for m in net.modules():
+                if isinstance(m, Dropout):
+                    m.p = 0.0
+            return cls(net, CrossEntropyLoss(), Momentum(
+                learning_rate=0.1, momentum=0.9, weight_decay=4e-5,
+                parameters=net.parameters()), amp_level="O1")
+        return make, x, y
     level = "O1" if name == "resnet18_o1" else "O0"
 
     def make(cls):
@@ -63,7 +76,7 @@ def _run(step, x, y, n):
     return losses, state
 
 
-CASES = ["resnet18_f32", "resnet18_o1", "crnn_tiny"]
+CASES = ["resnet18_f32", "resnet18_o1", "crnn_tiny", "mobilenet_v3_small_o1"]
 
 
 @pytest.mark.parametrize("name", CASES)
